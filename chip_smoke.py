@@ -3,13 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the PPoT dispatch kernels from ``src/repro_torch`` (into ``build/``),
-holds each against its plain PyTorch version on the card, drives the
-port's serving turn (``RosellaRouter`` + ``run_simulation``) at a
-thousand-replica cell in three modes, and times each kernel. Every phase
-is a hard failure: the script exits non-zero and prints no result line.
-The last line of standard output is the device record
-``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+Builds the CUDA kernels from ``src/repro_torch`` (into ``build/``, one nvcc
+per source, all at once) and holds each against its plain PyTorch version
+on the card. Then it drives the port's two paths:
+
+  * the scheduler: the serving turn (``RosellaRouter`` +
+    ``run_simulation``) at a thousand-replica cell in three modes, through
+    the PPoT dispatch kernels;
+  * model serving: a full-width smollm-360m (published config, bf16,
+    random weights from the seed) prefilled at B=4, S=4096 through
+    ``models.api.prefill`` (one flash-attention launch per layer), then
+    four such replicas as continuous-batching engines behind the router
+    (``launch.serve._run_engine_executor``);
+
+and times each kernel. Every phase is a hard failure: the script exits
+non-zero and prints no result line. The last line of standard output is
+the device record ``{"ok": true, "device": {...}}``; the line before it
+lists the kernels.
 
 It imports torch, numpy and the port, nothing of JAX or the JAX package,
 and refuses to run without a CUDA card.
@@ -29,7 +39,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 SOURCE = "src/repro_torch/kernels/ppot_dispatch/csrc/ppot_dispatch.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:105"
 REPLACES = {
     "ppot_dispatch_fused_alias": "src/repro/kernels/ppot_dispatch/kernel.py:211",
     "ppot_dispatch_fused": "src/repro/kernels/ppot_dispatch/kernel.py:242",
@@ -43,6 +56,30 @@ N_REPLICAS, BATCH, LOAD, SEED = 1024, 128, 0.7, 0
 TURNS = {"a": 2050, "b": 520, "c": 520}  # horizon, in expected turns
 MIN_TURNS = {"a": 2000, "b": 500, "c": 500}
 CHECK_EVERY = 10
+
+# model serving: smollm-360m at its published widths (15 heads, 5 kv heads,
+# d_head 64), prefilled at B=4, S=4096; four engine replicas of it at
+# slowdowns 1, 3, 5, 1 with 4 slots of 256 positions each
+PREFILL_B, PREFILL_S = 4, 4096
+# last-position logits (|logit| < 4) of the kernel path against the plain
+# chunked path, both bf16: they round attention's p and output to bf16 at
+# other points in each of the 32 layers; 0.125 is 8 bf16 ulps at 2..4
+PREFILL_TOL = 0.125
+# the same model in f32 (the kernel's FMA variant against the plain chunked
+# path), logits at every position: f32 rounding alone (1.5e-5 measured on
+# an H100), far below the mean |logit| of 0.49, so a wrong tile or mask on
+# any row shows
+PREFILL_F32_TOL = 1e-4
+SERVE_SLOWDOWNS = (1, 3, 5, 1)
+SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW = 64, 4, 8
+# flash-attention against its plain version: elementwise as in
+# tests/test_kernels.py, and each row's largest error over that row's
+# largest |value| (ref.row_relative_error), which holds the late rows of a
+# long causal sequence, whose values shrink below the elementwise atol.
+# Rounding alone gives a row 1 bf16 ulp (2^-7) or ~1e-6 in f32; a kv tile
+# dropped from the late rows gives ~0.2 (tests/test_torch_flash_attention.py)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 class SmokeFailure(Exception):
@@ -275,8 +312,6 @@ def phase_turn_cost(torch, tr, speeds, timed_turns: int = 300, prof_turns: int =
     unprofiled run split into the router's turn and the rest of the loop
     (the numpy replica pool, arrivals, the μ̂ trace), then CUDA launches
     and device busy time per turn from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     class TimedRouter(tr.RosellaRouter):
         turn_s = 0.0
 
@@ -304,35 +339,278 @@ def phase_turn_cost(torch, tr, speeds, timed_turns: int = 300, prof_turns: int =
           f"of which serve_turn {router.turn_s / turns * 1e3:.3f} ms "
           f"({router.turn_s / wall:.4f} of the wall clock)")
 
+    mus = []
+    prof = device_profile(torch, lambda: mus.append(tr.run_simulation(
+        router, tr.SimulatedPool(speeds), arrival_rate=rate,
+        horizon=prof_turns * BATCH / rate, seed=SEED + 2, arrival_batch=BATCH)[1]))
+    pturns = len(mus[0])
+    kernels, copies, idle = prof["launches"], prof["copies"], prof["idle"]
+    top = sorted(prof["count"].items(), key=lambda kv: -kv[1])[:8]
+    print(f"[profile] {pturns} turns of run (a): {kernels / pturns:.1f} kernel launches "
+          f"and {copies / pturns:.1f} copies per turn; device busy "
+          f"{prof['busy_us'] / 1e3:.3f} ms of {prof['wall'] * 1e3:.3f} ms wall (idle share {idle:.4f})")
+    print(f"[profile] most launched: {[(n[:90], c) for n, c in top]}")
+    return kernels / pturns, copies / pturns, idle
+
+
+# ---------------------------------------------------------------------------
+# model serving: flash attention, prefill, engines behind the router
+# ---------------------------------------------------------------------------
+
+
+def flash_plain_ops(FR, q, k, v, **kw):
+    """The plain version of ``ops.flash_attention`` ([B, S, H, D])."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    o = FR.attention_ref(q.transpose(1, 2).reshape(B * H, Sq, D),
+                         k.transpose(1, 2).reshape(B * Hkv, -1, D),
+                         v.transpose(1, 2).reshape(B * Hkv, -1, D), **kw)
+    return o.reshape(B, H, Sq, D).transpose(1, 2)
+
+
+def phase_flash(torch, FK, FO, FR, dev):
+    """K4 against its plain version on the card: the shapes of
+    tests/test_kernels.py in f32 and bf16, the decode offset, a window
+    whose late rows see no key, GQA through ``ops``, and the prefill's
+    shape. Returns the largest error."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape, dtype):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dtype)
+
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for BH, Sq, Sk, D, causal, window, off in (
+                (2, 128, 128, 64, True, 0, 0), (2, 256, 256, 64, True, 64, 0),
+                (1, 128, 384, 128, False, 0, 0), (3, 384, 384, 32, True, 0, 0),
+                (2, 128, 256, 64, True, 0, 128), (2, 128, 256, 64, True, 16, 200),
+                (2, 2048, 2048, 64, True, 0, 0)):
+            cases.append((f"BH={BH} Sq={Sq} Sk={Sk} D={D} causal={causal} "
+                          f"window={window} q_offset={off}", dt, "kernel",
+                          (rand(BH, Sq, D, dtype=dt), rand(BH, Sk, D, dtype=dt),
+                           rand(BH, Sk, D, dtype=dt)),
+                          dict(causal=causal, window=window, q_offset=off)))
+        cases.append((f"ops GQA B=2 S=300 H=6 Hkv=2 D=64", dt, "ops",
+                      (rand(2, 300, 6, 64, dtype=dt), rand(2, 300, 2, 64, dtype=dt),
+                       rand(2, 300, 2, 64, dtype=dt)), dict(causal=True, q_offset=0)))
+    B, S = PREFILL_B, PREFILL_S
+    cases.append((f"ops prefill shape B={B} S={S} H=15 Hkv=5 D=64", torch.bfloat16, "ops",
+                  (rand(B, S, 15, 64, dtype=torch.bfloat16),
+                   rand(B, S, 5, 64, dtype=torch.bfloat16),
+                   rand(B, S, 5, 64, dtype=torch.bfloat16)), dict(causal=True, q_offset=0)))
+    worst = worst_row = 0.0
+    for name, dt, route, (q, k, v), kw in cases:
+        if route == "kernel":
+            got = FK.flash_attention_fwd(q, k, v, **kw)
+            want = FR.attention_ref(q, k, v, **kw)
+        else:
+            got = FO.flash_attention(q, k, v, **kw)
+            want = flash_plain_ops(FR, q, k, v, **kw)
+        torch.cuda.synchronize()
+        need(got.shape == want.shape and got.dtype == want.dtype == dt,
+             f"[flash] {name}: {got.dtype}{list(got.shape)} vs {want.dtype}{list(want.shape)}")
+        tol = FLASH_TOL[str(dt).split(".")[-1]]
+        row_tol = FLASH_ROW_TOL[str(dt).split(".")[-1]]
+        err = (got.float() - want.float()).abs()
+        need(bool(torch.isfinite(got).all()), f"[flash] {name}: non-finite output")
+        need(bool((err <= tol + tol * want.float().abs()).all()),
+             f"[flash] {name} {dt}: max abs err {err.max().item()} above tol {tol}")
+        row = FR.row_relative_error(got, want)
+        need(bool((row <= row_tol).all()),
+             f"[flash] {name} {dt}: {int((row > row_tol).sum())} rows with an error above "
+             f"{row_tol} of the row's largest |value| (worst {row.max().item()})")
+        if kw.get("window"):
+            rows = kw["q_offset"] + torch.arange(q.shape[1], device=dev)
+            empty = rows >= k.shape[1] + kw["window"] - 1  # see no key at all
+            need(bool((got[:, empty] == 0).all()),
+                 f"[flash] {name}: rows with no valid key are not 0")
+        worst = max(worst, err.max().item())
+        worst_row = max(worst_row, row.max().item())
+        print(f"[flash] {name} {str(dt).split('.')[-1]}: max abs err {err.max().item():.3e} "
+              f"(tol {tol}), worst row error {row.max().item():.3e} of the row's "
+              f"largest |value| (tol {row_tol})")
+    print(f"[flash] all cases: max abs err {worst:.3e}, worst row error {worst_row:.3e}")
+    return worst
+
+
+def phase_prefill(torch, FK, dev):
+    """The full-width prefill through ``api.prefill``: exactly one K4
+    launch per layer; its last-position logits against the same model
+    through the plain chunked path on the card; and the same model in f32,
+    its logits at every position, against the plain chunked path."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+
+    cfg = configs.get_config("smollm-360m")
+    model = api.init_params(cfg, SEED, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.reset_launches()
+    logits = api.prefill(cfg, model, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = FK.launch_counts()["flash_attention_fwd"]
+    peak = torch.cuda.max_memory_allocated()
+    need(launches == cfg.n_layers, f"[prefill] {launches} flash-attention launches, "
+         f"expected one per layer ({cfg.n_layers})")
+    need(logits.shape == (PREFILL_B, 1, cfg.vocab) and logits.dtype == torch.bfloat16,
+         f"[prefill] logits {logits.dtype}{list(logits.shape)}")
+    need(bool(torch.isfinite(logits).all()), "[prefill] non-finite logits")
+    ms = host_median_ms(torch, lambda: api.prefill(cfg, model, {"tokens": toks}), reps=5)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = api.init_params(cfg32, SEED, dev)
+
+    @torch.no_grad()
+    def all_logits():
+        return LM.logits_head(cfg32, model32, LM.forward(cfg32, model32, toks))
+
+    FK.reset_launches()
+    got32 = all_logits()
+    torch.cuda.synchronize()
+    need(FK.launch_counts()["flash_attention_fwd"] == cfg.n_layers,
+         "[prefill] the f32 model did not go through the kernel in every layer")
+    saved = L.chunked_attention
+    L.chunked_attention = lambda cfg, q, k, v, **kw: L.flash_attention_plain(
+        q, k, v, chunk=cfg.attn_chunk, **kw)
+    try:
+        plain = api.prefill(cfg, model, {"tokens": toks})
+        want32 = all_logits()
+        torch.cuda.synchronize()
+    finally:
+        L.chunked_attention = saved
+    err = (logits.float() - plain.float()).abs().max().item()
+    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    need(err <= PREFILL_TOL, f"[prefill] logits differ from the plain chunked path by "
+         f"{err} (tol {PREFILL_TOL})")
+    need(bool(torch.isfinite(got32).all()), "[prefill] non-finite f32 logits")
+    err32 = (got32 - want32).abs().max().item()
+    mean32 = want32.abs().mean().item()
+    need(err32 <= PREFILL_F32_TOL, f"[prefill] f32 logits differ from the plain chunked "
+         f"path by {err32} (tol {PREFILL_F32_TOL})")
+    del got32, want32, model32
+    tok_s = PREFILL_B * PREFILL_S / (ms / 1e3)
+    print(f"[prefill] smollm-360m full width (L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads}/{cfg.n_kv_heads} V={cfg.vocab}, bf16) B={PREFILL_B} "
+          f"S={PREFILL_S}: flash launches {launches}, {ms:.3f} ms per prefill "
+          f"({tok_s:.1f} tokens/s), peak memory {peak / 2**30:.3f} GiB; last-position "
+          f"logits vs the plain chunked path: max abs err {err:.4f} (tol {PREFILL_TOL}, "
+          f"|logit| max {logits.float().abs().max().item():.3f}), argmax agreement {agree:.2f}; "
+          f"f32 model, logits at all {PREFILL_B}x{PREFILL_S} positions vs the plain chunked "
+          f"path: max abs err {err32:.3e} (tol {PREFILL_F32_TOL}, mean |logit| {mean32:.3f})")
+    return cfg, model, dict(launches=launches, ms=ms, tok_s=tok_s, peak=peak, err=err,
+                            agree=agree, err_f32=err32)
+
+
+def phase_serve(torch, cfg, model, dev):
+    """Four full-width engines behind the router, through the serving
+    entry point's own executor loop."""
+    import types
+
+    from repro_torch.launch import serve as S
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.router import RosellaRouter
+
+    engines = [ContinuousBatchingEngine(cfg, model, n_slots=4, max_len=256)
+               for _ in SERVE_SLOWDOWNS]
+    rates = S.engine_rates(engines, SERVE_SLOWDOWNS, SERVE_NEW)
+    router = RosellaRouter(len(engines), float(sum(rates)), seed=SEED, device=dev)
+    args = types.SimpleNamespace(requests=SERVE_REQUESTS, arrival_batch=SERVE_BATCH,
+                                 n_new=SERVE_NEW)
+    t0 = time.perf_counter()
+    lat = S._run_engine_executor(args, cfg, engines, list(SERVE_SLOWDOWNS), router,
+                                 np.random.RandomState(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    need(len(lat) == SERVE_REQUESTS, f"[serve] {len(lat)} of {SERVE_REQUESTS} completed")
+    need(not any(e.active.any() for e in engines), "[serve] a slot is still active")
+    mu = router.mu_hat
+    speeds = [1.0 / s for s in SERVE_SLOWDOWNS]
+    need(min(mu[0], mu[3]) > mu[2], f"[serve] μ̂ {mu} does not rank the 1x replicas "
+         f"above the 5x one")
+    tok_s = SERVE_REQUESTS * SERVE_NEW / wall
+    print(f"[serve] {len(engines)} smollm-360m engines (slowdowns {list(SERVE_SLOWDOWNS)}, "
+          f"4 slots, max_len 256) behind RosellaRouter (ppot_sq2): {len(lat)} requests "
+          f"in {wall:.3f} s, latency mean {lat.mean() * 1e3:.3f} ms p95 "
+          f"{np.percentile(lat, 95) * 1e3:.3f} ms, decode {tok_s:.1f} tokens/s; "
+          f"μ̂ {[round(float(x), 3) for x in mu]} vs true speeds "
+          f"{[round(x, 3) for x in speeds]}")
+    return dict(n=len(lat), mean_ms=lat.mean() * 1e3, p95_ms=np.percentile(lat, 95) * 1e3,
+                tok_s=tok_s, mu=mu.tolist())
+
+
+def device_profile(torch, fn) -> dict:
+    """Run ``fn`` under torch.profiler: its wall clock (s), device busy
+    time (us), kernel launches and copies, and per kernel name its launch
+    count and device time (us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, mu = tr.run_simulation(router, tr.SimulatedPool(speeds), arrival_rate=rate,
-                                  horizon=prof_turns * BATCH / rate, seed=SEED + 2,
-                                  arrival_batch=BATCH)
+        fn()
         torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    pturns = len(mu)
-    kernels = copies = 0
-    busy_us = 0.0
-    by_name: dict[str, int] = {}
+        wall = time.perf_counter() - t0
+    out = dict(wall=wall, busy_us=0.0, launches=0, copies=0, count={}, us={})
     for e in prof.events():
         if e.device_type.name != "CUDA":
             continue
+        us = e.time_range.elapsed_us()
+        out["busy_us"] += us
         nm = e.name.lower()
         if "memcpy" in nm or "memset" in nm:
-            copies += 1
-        else:
-            kernels += 1
-            by_name[e.name] = by_name.get(e.name, 0) + 1
-        busy_us += e.time_range.elapsed_us()
-    need(kernels > 0, "profiler saw no CUDA kernel")
-    idle = 1 - busy_us / 1e6 / pwall
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[profile] {pturns} turns of run (a): {kernels / pturns:.1f} kernel launches "
-          f"and {copies / pturns:.1f} copies per turn; device busy "
-          f"{busy_us / 1e3:.3f} ms of {pwall * 1e3:.3f} ms wall (idle share {idle:.4f})")
-    print(f"[profile] most launched: {[(n[:90], c) for n, c in top]}")
-    return kernels / pturns, copies / pturns, idle
+            out["copies"] += 1
+            continue
+        out["launches"] += 1
+        out["count"][e.name] = out["count"].get(e.name, 0) + 1
+        out["us"][e.name] = out["us"].get(e.name, 0.0) + us
+    need(out["launches"] > 0, "profiler saw no CUDA kernel")
+    out["idle"] = 1 - out["busy_us"] / 1e6 / wall
+    return out
+
+
+def phase_model_profile(torch, cfg, model, dev, steps: int = 10):
+    """Where model serving's time goes: one full-width prefill, and
+    ``steps`` engine ticks with all 4 slots decoding."""
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen, device=dev)
+    prof = device_profile(torch, lambda: api.prefill(cfg, model, {"tokens": toks}))
+    flash_us = sum(us for name, us in prof["us"].items() if "flash_fwd" in name)
+    top = sorted(prof["us"].items(), key=lambda kv: -kv[1])[:5]
+    print(f"[profile prefill] {prof['wall'] * 1e3:.3f} ms wall, device busy "
+          f"{prof['busy_us'] / 1e3:.3f} ms (idle share {prof['idle']:.4f}), {prof['launches']} "
+          f"kernel launches; flash attention {flash_us / 1e3:.3f} ms "
+          f"({flash_us / prof['busy_us']:.4f} of device time); top by device time: "
+          f"{[(nm[:60], round(us / 1e3, 3)) for nm, us in top]}")
+    prefill = dict(wall_ms=prof["wall"] * 1e3, busy_ms=prof["busy_us"] / 1e3, idle=prof["idle"],
+                   launches=prof["launches"], flash_share=flash_us / prof["busy_us"])
+
+    eng = ContinuousBatchingEngine(cfg, model, n_slots=4, max_len=256)
+    rng = np.random.RandomState(SEED)
+    eng.try_admit_batch([(i, rng.randint(1, cfg.vocab, size=4), 10 * steps)
+                         for i in range(4)])
+    eng.step()
+
+    def ticks():
+        for _ in range(steps):
+            eng.step()
+    prof = device_profile(torch, ticks)
+    top = sorted(prof["us"].items(), key=lambda kv: -kv[1])[:5]
+    print(f"[profile decode] {steps} engine ticks, 4 slots: {prof['wall'] / steps * 1e3:.3f} ms "
+          f"per tick, {prof['launches'] / steps:.1f} kernel launches per tick, device busy "
+          f"{prof['busy_us'] / steps / 1e3:.3f} ms per tick (idle share {prof['idle']:.4f}); "
+          f"top by device time: {[(nm[:60], round(us / 1e3, 3)) for nm, us in top]}")
+    decode = dict(tick_ms=prof["wall"] / steps * 1e3, launches=prof["launches"] / steps,
+                  busy_ms=prof["busy_us"] / steps / 1e3, idle=prof["idle"])
+    return prefill, decode
 
 
 # ---------------------------------------------------------------------------
@@ -432,6 +710,42 @@ def phase_times(torch, K, R, build, dev):
     return out, floor_ms
 
 
+def phase_flash_times(torch, FK, FR, dev):
+    """K4 alone at the prefill's shape and at a smaller one (B=1, S=2048),
+    with its plain version, its bound and the library's fused attention
+    (``scaled_dot_product_attention``, causal, GQA) on the same tensors."""
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, B, S in (("main", PREFILL_B, PREFILL_S), ("small", 1, 2048)):
+        H, Hkv, D = 15, 5, 64
+        q = torch.randn(B * H, S, D, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(B * Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        ms = event_median_ms(torch, lambda: FK.flash_attention_fwd(q, k, v, causal=True),
+                             reps=50)
+        plain_ms = event_median_ms(torch, lambda: FR.attention_ref(q, k, v, causal=True),
+                                   reps=10)
+        qq, kk, vv = q.view(B, H, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, D)
+        lib_ms = event_median_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True, enable_gqa=True), reps=50)
+        pairs = B * H * S * (S + 1) // 2  # the valid (query, key) pairs, causal
+        flops = 2 * 2 * D * pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        ops_ms = flops / BF16_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes", flops=flops,
+                   bytes=nbytes)
+        out[label] = rec
+        print(f"[times] flash_attention_fwd {label} (B={B} S={S} H={H}/{Hkv} D={D} bf16 causal): "
+              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']}: {flops} FLOPs at 989 TFLOP/s = {ops_ms:.6f} ms, "
+              f"{nbytes} B at 3.35 TB/s = {bytes_ms:.6f} ms), library "
+              f"(scaled_dot_product_attention) {lib_ms:.6f} ms, "
+              f"{rec['bound_ms'] / ms:.4f} of the bound")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -443,6 +757,11 @@ def main() -> int:
     try:
         from repro_torch.configs.rosella_sim import tpch_speed_set
         from repro_torch.core import metrics as met
+        from repro_torch.kernels import _nvcc
+        from repro_torch.kernels.flash_attention import build as flash_build
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.kernels.flash_attention import ops as FO
+        from repro_torch.kernels.flash_attention import ref as FR
         from repro_torch.kernels.ppot_dispatch import build
         from repro_torch.kernels.ppot_dispatch import kernel as K
         from repro_torch.kernels.ppot_dispatch import ref as R
@@ -458,18 +777,25 @@ def main() -> int:
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
     t0 = time.perf_counter()
-    build.build()
-    print(f"[build] {build.library_path().name} in {time.perf_counter() - t0:.2f} s")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"[build] {line.strip()}")
+    _nvcc.build_all(build.LIBRARY, flash_build.LIBRARY)
+    print(f"[build] {build.library_path().name} and {flash_build.library_path().name} "
+          f"in {time.perf_counter() - t0:.2f} s (one nvcc each, at once)")
+    for log in (build.LIBRARY.build_log, flash_build.LIBRARY.build_log):
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print(f"[build] {line.strip()}")
 
     chk = KernelChecks(torch, K, R)
     phase_kernels(torch, chk, dev)
+    flash_err = phase_flash(torch, FK, FO, FR, dev)
     speeds = tpch_speed_set(N_REPLICAS, SEED)
     main_runs = phase_main_path(torch, tr, K, met, chk, speeds, dev)
+    cfg, model, prefill = phase_prefill(torch, FK, dev)
+    serve = phase_serve(torch, cfg, model, dev)
+    prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
     per_turn, copies, idle = phase_turn_cost(torch, tr, speeds)
     times, floor_ms = phase_times(torch, K, R, build, dev)
+    flash_times = phase_flash_times(torch, FK, FR, dev)
 
     total = {name: sum(r["launches"][name] for r in main_runs.values())
              for name in REPLACES}
@@ -481,10 +807,20 @@ def main() -> int:
             launches=total[name], max_abs_err=chk.max_err[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None))
+    t = flash_times["main"]
+    kernels.append(dict(
+        name="flash_attention_fwd", route="cuda", source=FLASH_SOURCE,
+        replaces=FLASH_REPLACES, launches=prefill["launches"], max_abs_err=flash_err,
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"]))
     summary = {m: {k: r[k] for k in ("turns", "p50", "p99", "rho", "wall_s",
                                      "overflow_turns", "launches")}
                for m, r in main_runs.items()}
     print(f"[summary] {json.dumps(summary)}")
+    print(f"[summary] prefill {json.dumps(prefill)}")
+    print(f"[summary] serve {json.dumps(serve)}")
+    print(f"[summary] profile prefill {json.dumps(prof_prefill)} decode "
+          f"{json.dumps(prof_decode)}")
     print(f"[summary] launches/turn {per_turn:.1f}, copies/turn {copies:.1f}, "
           f"idle share {idle:.4f}, launch floor {floor_ms:.6f} ms")
     print(card)

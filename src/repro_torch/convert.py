@@ -1,4 +1,5 @@
-"""Carry a router's learned state across from the JAX package.
+"""Carry a router's learned state, and a model's parameters and decode
+cache, across from the JAX package.
 
 For a scheduler the learned state plays the part of weights: the queue
 view, the arrival estimator, the learner's rings and μ̂, the routing
@@ -26,6 +27,8 @@ import torch
 from repro_torch.core import dispatch as dsp
 from repro_torch.core import estimator as est
 from repro_torch.core import learner as lrn
+from repro_torch.models import api as model_api
+from repro_torch.models import layers as model_layers
 from repro_torch.utils.device import resolve_device
 
 _LEARNER = ("samples", "stamps", "widx", "count", "epoch_start", "mu_hat")
@@ -65,3 +68,75 @@ def load_router_state(router, d: dict) -> None:
     """Set an exported state onto a port ``RosellaRouter`` in place."""
     for name, value in router_state_from_numpy(d, router.device).items():
         setattr(router, name, value)
+
+
+# ---------------------------------------------------------------------------
+# Model parameters and decode caches
+# ---------------------------------------------------------------------------
+
+
+def _layer_leaf(tree: dict, name: str, i: int, n_layers: int) -> np.ndarray:
+    """Layer i's leaf ``name``: a stacked [L, ...] array under
+    ``layers.<name>`` (``scan_layers=True``) or ``layers.<i>.<name>``."""
+    if f"layers.{name}" in tree:
+        a = np.asarray(tree[f"layers.{name}"])
+        if a.shape[0] != n_layers:
+            raise ValueError(f"layers.{name}: {a.shape[0]} layers, expected {n_layers}")
+        return a[i]
+    return np.asarray(tree[f"layers.{i}.{name}"])
+
+
+def _layer_keys(tree: dict, n_layers: int) -> set:
+    """The names under which ``_layer_leaf`` finds layer leaves."""
+    keys = set()
+    for key in tree:
+        if key.startswith("layers."):
+            rest = key[len("layers."):]
+            head, _, tail = rest.partition(".")
+            keys.add(tail if head.isdigit() and int(head) < n_layers else rest)
+    return keys
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=None):
+    """The port's model (``models.lm.LM``) holding the JAX package's
+    parameters, given as numpy arrays under their dotted key paths
+    (``embed``, ``final_norm.scale``, ``layers.attn.wq``, ...). Raises on a
+    missing, unknown or misshapen leaf."""
+    model = model_api.init_params(cfg, 0, device)
+    used = set()
+    for name, p in model.named_parameters():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            a = _layer_leaf(tree, rest, int(i), cfg.n_layers)
+            used.add(f"layers.{rest}")
+        else:
+            a = np.asarray(tree[name])
+            used.add(name)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {a.shape}, expected {tuple(p.shape)}")
+        p.data.copy_(torch.from_numpy(np.array(a, np.float32)).to(p.dtype))
+    top = {k for k in tree if not k.startswith("layers.")}
+    layer = {f"layers.{k}" for k in _layer_keys(tree, cfg.n_layers)}
+    if (top | layer) - used:
+        raise ValueError(f"leaves the port has no place for: {sorted((top | layer) - used)}")
+    return model
+
+
+def lm_cache_from_numpy(cfg, tree: dict, device=None) -> list:
+    """The port's decode cache (one dict per layer) from the JAX package's
+    cache, as numpy arrays under ``layers.attn.k`` / ``.v`` / ``.len``
+    (stacked) or ``layers.<i>.attn.k`` / ...; each row's ``len`` is the
+    layer's ``len``."""
+    dev = resolve_device(device)
+    out = []
+    for i in range(cfg.n_layers):
+        k = _layer_leaf(tree, "attn.k", i, cfg.n_layers)
+        v = _layer_leaf(tree, "attn.v", i, cfg.n_layers)
+        n = int(_layer_leaf(tree, "attn.len", i, cfg.n_layers))
+        if k.shape != v.shape or k.shape[2:] != (cfg.n_kv_heads, cfg.d_head):
+            raise ValueError(f"layer {i}: k {k.shape}, v {v.shape}")
+        dt = model_layers.DTYPES[cfg.dtype]
+        out.append({"k": torch.from_numpy(np.array(k, np.float32)).to(dev, dt),
+                    "v": torch.from_numpy(np.array(v, np.float32)).to(dev, dt),
+                    "len": torch.full((k.shape[0],), n, dtype=torch.long, device=dev)})
+    return out

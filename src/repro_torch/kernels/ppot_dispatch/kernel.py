@@ -48,12 +48,6 @@ def _ptr(t: torch.Tensor):
     return t.data_ptr()
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        msg = build.load().ppot_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
-
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -87,7 +81,7 @@ def ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2):
         err = build.load().ppot_fused_alias(
             *map(_ptr, (prob, alias, q, u1, v1, u2, v2)), n, B,
             _ptr(workers), _ptr(q_after), _stream(q))
-    _raise_on(err, "ppot_dispatch_fused_alias")
+    build.LIBRARY.raise_on(err, "ppot_dispatch_fused_alias")
     launches["ppot_dispatch_fused_alias"] += 1
     return workers, q_after
 
@@ -108,7 +102,7 @@ def ppot_dispatch_fused(cdf, q, u1, u2):
         err = build.load().ppot_fused_cdf(
             *map(_ptr, (cdf, q, u1, u2)), n, B, _ptr(workers), _ptr(q_after),
             _stream(q))
-    _raise_on(err, "ppot_dispatch_fused")
+    build.LIBRARY.raise_on(err, "ppot_dispatch_fused")
     launches["ppot_dispatch_fused"] += 1
     return workers, q_after
 
@@ -127,7 +121,7 @@ def ppot_dispatch(cdf, q, u1, u2):
     with torch.cuda.device(q.device):
         err = build.load().ppot_select_cdf(
             *map(_ptr, (cdf, q, u1, u2)), n, B, _ptr(workers), _stream(q))
-    _raise_on(err, "ppot_dispatch")
+    build.LIBRARY.raise_on(err, "ppot_dispatch")
     launches["ppot_dispatch"] += 1
     return workers
 
@@ -148,7 +142,7 @@ def alias_pairing(p, stack, ns0):
         err = build.load().alias_pairing(
             _ptr(p), _ptr(stack), _ptr(ns0), n, _ptr(prob), _ptr(alias),
             _stream(p))
-    _raise_on(err, "alias_pairing")
+    build.LIBRARY.raise_on(err, "alias_pairing")
     launches["alias_pairing"] += 1
     return prob, alias
 

@@ -1,0 +1,309 @@
+"""Model building blocks of the dense family.
+
+Each block has an ``init_*`` that returns an ``nn.Module`` holding its
+parameters (random, from an explicit ``torch.Generator``) and an
+``*_apply`` that is a plain function on tensors. Weights keep the JAX
+package's layout (``x @ w`` with ``w`` [d_in, d_out]), so a JAX parameter
+tree carries across leaf for leaf (``convert.lm_params_from_numpy``).
+
+Left for later slices: the custom-VJP backward of the chunked attention
+(training), the int8 ``kv_quant`` cache and ``sincos_positions`` (encdec).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.config import ModelConfig
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _pdtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.param_dtype]
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    if scale is None:
+        scale = 1.0 / math.sqrt(fan_in)
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return _param((x * scale).to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ModelConfig, d: int | None = None, device=None) -> nn.Module:
+    d = d or cfg.d_model
+    p = nn.Module()
+    p.scale = _param(torch.ones(d, dtype=_pdtype(cfg), device=device))
+    if cfg.norm == "layernorm":
+        p.bias = _param(torch.zeros(d, dtype=_pdtype(cfg), device=device))
+    return p
+
+
+def norm_apply(cfg: ModelConfig, p: nn.Module, x):
+    """Norm with f32 statistics but elementwise math in the input dtype."""
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mean = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        inv = torch.rsqrt(var + cfg.norm_eps)
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        return y * p.scale.to(x.dtype) + p.bias.to(x.dtype)
+    ms = xf.square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(ms + cfg.norm_eps)
+    return x * inv.to(x.dtype) * p.scale.to(x.dtype)
+
+
+def rms_head_norm(x, scale, eps):
+    """Per-head RMSNorm over the head dim (qwen3 qk_norm)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(cfg: ModelConfig, rot_dim: int, device=None):
+    ar = torch.arange(0, rot_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (cfg.rope_theta ** (ar / rot_dim))  # [rot_dim/2]
+
+
+def apply_rope(cfg: ModelConfig, x, positions):
+    """x: [..., S, H, D]; positions: [..., S] (broadcastable). neox
+    rotate-half over the first ``rope_frac`` of the head dim (chatglm: 0.5,
+    2d-RoPE's rotary half); sin/cos in f32, cast back to x's dtype."""
+    if cfg.rope == "none":
+        return x
+    D = x.shape[-1]
+    rot = int(D * cfg.rope_frac)
+    rot -= rot % 2
+    inv = rope_freqs(cfg, rot, x.device)
+    ang = positions[..., :, None].float() * inv  # [..., S, rot/2]
+    sin = torch.sin(ang)[..., :, None, :]  # broadcast over heads
+    cos = torch.cos(ang)[..., :, None, :]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot[..., : rot // 2], x_rot[..., rot // 2:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, causal / sliding-window, chunked online softmax)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator) -> nn.Module:
+    d, dq, dkv, pdt = cfg.d_model, cfg.d_qkv, cfg.d_kv, _pdtype(cfg)
+    p = nn.Module()
+    p.wq = dense_init(gen, (d, dq), pdt)
+    p.wk = dense_init(gen, (d, dkv), pdt)
+    p.wv = dense_init(gen, (d, dkv), pdt)
+    p.wo = dense_init(gen, (dq, d), pdt, scale=1.0 / math.sqrt(dq))
+    if cfg.qk_norm:
+        p.q_norm = _param(torch.ones(cfg.d_head, dtype=pdt, device=gen.device))
+        p.k_norm = _param(torch.ones(cfg.d_head, dtype=pdt, device=gen.device))
+    return p
+
+
+def _repeat_kv(k, n_rep: int):
+    """[B, S, Hkv, D] -> [B, S, Hkv * n_rep, D]; q head h reads kv head
+    h // n_rep."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
+
+
+def _attn_ok(q_pos, k_pos, causal: bool, window: int):
+    """bool [..., Sq, Sk]: which (query, key) pairs may attend."""
+    dif = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = torch.ones(dif.shape, dtype=torch.bool, device=dif.device)
+    if causal:
+        ok &= dif >= 0
+    if window > 0:
+        ok &= dif < window
+    return ok
+
+
+def _attn_scores_mask(q_pos, k_pos, causal: bool, window: int):
+    """[..., Sq, Sk] additive f32 mask."""
+    ok = _attn_ok(q_pos, k_pos, causal, window)
+    return torch.zeros(ok.shape, dtype=torch.float32,
+                       device=ok.device).masked_fill(~ok, float("-inf"))
+
+
+def _pick_chunk(S1, S2, pref):
+    C = min(pref, S1, S2)
+    if S1 % C or S2 % C:
+        C = min(math.gcd(S1, S2), pref)
+    return C
+
+
+def flash_attention_plain(q, k, v, *, q_offset: int = 0, causal: bool = True,
+                          window: int = 0, chunk: int = 512):
+    """The chunked plain path: the forward of the JAX package's
+    ``flash_attention_xla`` (``_flash_fwd_impl``: online softmax over [C, C]
+    blocks, f32 accumulators) at query positions ``q_offset + arange(Sq)``
+    and key positions ``arange(Sk)``. q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv,
+    D], kv heads repeated to q's. The q blocks are independent, so they run
+    together and the kv blocks in order."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    k = _repeat_kv(k, H // k.shape[2])
+    v = _repeat_kv(v, H // v.shape[2])
+    scale = 1.0 / math.sqrt(D)
+    C = _pick_chunk(Sq, Sk, chunk)
+    nq, nk = Sq // C, Sk // C
+
+    qc = q.reshape(B, nq, C, H, D).permute(1, 0, 3, 2, 4).float()  # [nq,B,H,C,D]
+    kc = k.reshape(B, nk, C, H, D).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(B, nk, C, H, D).permute(1, 0, 3, 2, 4)
+    qp = (q_offset + torch.arange(Sq, device=q.device)).reshape(nq, C)
+    kp = torch.arange(Sk, device=q.device).reshape(nk, C)
+
+    acc = torch.zeros(nq, B, H, C, D, dtype=torch.float32, device=q.device)
+    m = torch.full((nq, B, H, C), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros(nq, B, H, C, dtype=torch.float32, device=q.device)
+    for j in range(nk):
+        s = torch.einsum("nbhqd,bhkd->nbhqk", qc, kc[j].float()) * scale
+        s = s + _attn_scores_mask(qp, kp[j], causal, window)[:, None, None]
+        m_new = torch.maximum(m, s.amax(-1)).clamp_min(-1e30)
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "nbhqk,bhkd->nbhqd", p.to(v.dtype).float(), vc[j].float())
+        m = m_new
+    o = (acc / l[..., None].clamp_min(1e-30)).to(q.dtype)
+    return o.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, D)
+
+
+def chunked_attention(cfg: ModelConfig, q, k, v, *, q_offset: int = 0,
+                      causal: bool = True, window: int = 0):
+    """Memory-bounded attention. q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D].
+    CUDA tensors go through the flash-attention kernel (the counterpart of
+    the JAX package's ``use_pallas=True``), CPU tensors through the
+    chunked plain path (its ``use_pallas=False``)."""
+    if q.is_cuda:
+        return fa_ops.flash_attention(q, k, v, q_offset=q_offset, causal=causal,
+                                      window=window)
+    return flash_attention_plain(q, k, v, q_offset=q_offset, causal=causal,
+                                 window=window, chunk=cfg.attn_chunk)
+
+
+def plain_attention(q, k, v, *, q_pos, k_pos, causal, window):
+    D = q.shape[-1]
+    Hq, Hkv = q.shape[2], k.shape[2]
+    k = _repeat_kv(k, Hq // Hkv)
+    v = _repeat_kv(v, Hq // Hkv)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = s / math.sqrt(D) + _attn_scores_mask(q_pos, k_pos, causal, window)[None, None]
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def attention_apply(cfg: ModelConfig, p: nn.Module, x, *, positions,
+                    causal: bool = True, window: int | None = None, cache=None):
+    """Attention block: qkv proj -> (qk_norm) -> rope -> attention -> out.
+
+    positions: [S] shared by the batch, or [B, S] per row (decode with a
+    cache). Without a cache they must be contiguous (``p0 + arange(S)``):
+    the mask depends only on ``qpos - kpos``, so the chunked path (S >=
+    2048) runs at ``q_offset`` 0.
+
+    cache: optional dict(k=[B, Smax, Hkv, D], v=..., len=i64[B]). Each row
+    writes its new k/v at its own ``len`` (clamped so the S new positions
+    fit) and attends over keys ``kpos < len + S`` with ``kpos <=`` its
+    position. Returns (out, new_cache); the cache is not written in place.
+    """
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    window = cfg.attn_window if window is None else window
+    dt = _dtype(cfg)
+
+    q = (x @ p.wq.to(dt)).reshape(B, S, H, D)
+    k = (x @ p.wk.to(dt)).reshape(B, S, Hkv, D)
+    v = (x @ p.wv.to(dt)).reshape(B, S, Hkv, D)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_head_norm(k, p.k_norm, cfg.norm_eps)
+    q = apply_rope(cfg, q, positions)
+    k = apply_rope(cfg, k, positions)
+
+    new_cache = None
+    if cache is not None:
+        if "k" not in cache:
+            raise NotImplementedError("the int8 kv_quant cache is not ported yet")
+        idx = cache["len"]
+        Smax = cache["k"].shape[1]
+        rows = torch.arange(B, device=x.device)[:, None]
+        cols = idx.clamp(0, Smax - S)[:, None] + torch.arange(S, device=x.device)
+        ck = cache["k"].clone()
+        cv = cache["v"].clone()
+        ck[rows, cols] = k.to(ck.dtype)
+        cv[rows, cols] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv, "len": idx + S}
+        kpos = torch.arange(Smax, device=x.device)
+        qpos = positions if positions.dim() == 2 else positions[None]  # [B|1, S]
+        ok = _attn_ok(qpos, kpos, True, window or 0)
+        ok = ok & (kpos[None, :] < (idx + S)[:, None])[:, None, :]
+        kk = _repeat_kv(ck.to(dt), H // Hkv)
+        vv = _repeat_kv(cv.to(dt), H // Hkv)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) / math.sqrt(D)
+        s = s.masked_fill(~ok[:, None], float("-inf"))
+        prob = torch.softmax(s, dim=-1).to(dt)
+        out = torch.einsum("bhqk,bkhd->bqhd", prob, vv)
+    elif S >= 2048:
+        out = chunked_attention(cfg, q, k, v, causal=causal, window=window or 0)
+    else:
+        out = plain_attention(q, k, v, q_pos=positions, k_pos=positions,
+                              causal=causal, window=window or 0)
+
+    out = out.reshape(B, S, H * D) @ p.wo.to(dt)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int | None = None) -> nn.Module:
+    d_ff = d_ff or cfg.d_ff
+    d, pdt = cfg.d_model, _pdtype(cfg)
+    p = nn.Module()
+    if cfg.act == "swiglu":
+        p.wg = dense_init(gen, (d, d_ff), pdt)
+    p.wu = dense_init(gen, (d, d_ff), pdt)
+    p.wd = dense_init(gen, (d_ff, d), pdt)
+    return p
+
+
+def mlp_apply(cfg: ModelConfig, p: nn.Module, x):
+    dt = _dtype(cfg)
+    if cfg.act == "swiglu":
+        g = F.silu(x @ p.wg.to(dt))
+        u = x @ p.wu.to(dt)
+        return (g * u) @ p.wd.to(dt)
+    return F.gelu(x @ p.wu.to(dt), approximate="tanh") @ p.wd.to(dt)

@@ -20,6 +20,8 @@ per batch.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -30,6 +32,19 @@ from repro_torch.core import policies as pol
 from repro_torch.core import scheduler as rs
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    replica: int
+    t_start: float
+    t_done: float
+    fake: bool = False
+
+    @property
+    def service_time(self) -> float:
+        return self.t_done - self.t_start
 
 
 class SimulatedPool:
@@ -209,6 +224,16 @@ class RosellaRouter:
         out = torch.cat([fake_js, workers]).cpu().numpy()  # one device sync
         fake_js = out[:MAX_FAKE]
         return fake_js[fake_js >= 0], out[MAX_FAKE:]
+
+    def complete(self, completions: "list[Completion]"):
+        """Fold a list of completions (``complete_arrays`` on their
+        replicas and service times, at the latest completion time)."""
+        if not completions:
+            return
+        workers = np.array([c.replica for c in completions], np.int32)
+        times = np.array([c.service_time for c in completions], np.float32)
+        now = max(c.t_done for c in completions)
+        self.complete_arrays(workers, times, now)
 
     def complete_arrays(self, workers, service_times, now: float):
         """Fold a completion batch: queue-view drain, learner fold and

@@ -5,11 +5,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; without one this raises rather than
-    run on the CPU. Pass ``device="cpu"`` to ask for the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` means the CUDA card. Asking for CUDA without a card raises
+    rather than run on the CPU; pass ``device="cpu"`` to ask for the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return dev

@@ -136,3 +136,134 @@ def test_engine_batches_on_the_card_launch_a_kernel(dev, alias, masked, slots):
     assert counts[name] == 1 and sum(counts.values()) == 1
     np.testing.assert_array_equal(got.workers.cpu().numpy(), want.workers.numpy())
     np.testing.assert_array_equal(got.q_after.cpu().numpy(), want.q_after.numpy())
+
+
+# ---------------------------------------------------------------------------
+# flash attention (K4)
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# each row's largest error over that row's largest |value| (chip_smoke.py)
+FLASH_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "BH,Sq,Sk,D,causal,window,q_offset",
+    [
+        (2, 128, 128, 64, True, 0, 0),
+        (2, 256, 256, 64, True, 64, 0),
+        (1, 128, 384, 128, False, 0, 0),
+        (3, 384, 384, 32, True, 0, 0),
+        (2, 128, 256, 64, True, 0, 128),
+        (2, 128, 256, 64, True, 16, 200),
+        (2, 2048, 2048, 64, True, 0, 0),
+    ],
+)
+def test_flash_kernel_matches_plain_version(dev, BH, Sq, Sk, D, causal, window, q_offset,
+                                            dtype):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + D)
+    q, k, v = ((torch.randn(BH, S, D, generator=g, device=dev) * 0.5).to(dtype)
+               for S in (Sq, Sk, Sk))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    fk.reset_launches()
+    got = fk.flash_attention_fwd(q, k, v, **kw)
+    assert fk.launch_counts()["flash_attention_fwd"] == 1
+    want = fref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert (fref.row_relative_error(got, want) <= FLASH_ROW_TOL[dtype]).all()
+    if window:  # rows whose window ends before the first key see none: 0
+        empty = q_offset + torch.arange(Sq, device=dev) >= Sk + window - 1
+        assert (got[:, empty] == 0).all()
+        assert empty.sum().item() == (57 if q_offset == 200 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_ops_gqa_matches_plain_version(dev, dtype):
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, S, H, Hkv, D = 2, 300, 6, 2, 64
+    q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype) for _ in range(2))
+    got = fops.flash_attention(q, k, v, q_offset=0, causal=True)
+    want = fref.attention_ref(q.transpose(1, 2).reshape(B * H, S, D),
+                              k.transpose(1, 2).reshape(B * Hkv, S, D),
+                              v.transpose(1, 2).reshape(B * Hkv, S, D))
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    want = want.reshape(B, H, S, D).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert (fref.row_relative_error(got.transpose(1, 2), want.transpose(1, 2))
+            <= FLASH_ROW_TOL[dtype]).all()
+
+
+def test_cuda_prefill_launches_flash_once_per_layer(dev):
+    """smollm-360m at its published widths, 3 layers, S=2048: the chunked
+    path takes the kernel in every layer; its logits are close to the
+    plain chunked path's, in bf16 at the last position and in f32 at every
+    position."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+
+    cfg = dataclasses.replace(configs.get_config("smollm-360m"), n_layers=3)
+    model = api.init_params(cfg, 0)
+    toks = torch.randint(0, cfg.vocab, (1, 2048), device=dev)
+    fk.reset_launches()
+    got = api.prefill(cfg, model, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert fk.launch_counts()["flash_attention_fwd"] == cfg.n_layers
+    assert got.shape == (1, 1, cfg.vocab) and torch.isfinite(got).all()
+    fk.reset_launches()
+    api.prefill(cfg, model, {"tokens": toks[:, :2047]})  # below 2048: plain attention
+    assert fk.launch_counts()["flash_attention_fwd"] == 0
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = api.init_params(cfg32, 0)
+
+    @torch.no_grad()
+    def all_logits():
+        return LM.logits_head(cfg32, model32, LM.forward(cfg32, model32, toks))
+
+    got32 = all_logits()
+    saved = L.chunked_attention
+    L.chunked_attention = lambda cfg, q, k, v, **kw: L.flash_attention_plain(
+        q, k, v, chunk=cfg.attn_chunk, **kw)
+    try:
+        want = api.prefill(cfg, model, {"tokens": toks})
+        want32 = all_logits()
+    finally:
+        L.chunked_attention = saved
+    # tolerances of chip_smoke.py's [prefill]
+    assert (got.float() - want.float()).abs().max().item() <= 0.125
+    assert (got32 - want32).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["dtype", "noncontiguous", "mixed_device"])
+def test_flash_wrapper_refuses_bad_inputs_on_the_card(dev, case):
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    q = torch.zeros(4, 64, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(4, 64, 64, device=dev, dtype=torch.bfloat16)
+    v = torch.zeros(4, 64, 64, device=dev, dtype=torch.bfloat16)
+    if case == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif case == "noncontiguous":
+        q = q.transpose(1, 2)
+    else:
+        v = v.cpu()
+    fk.reset_launches()
+    with pytest.raises(ValueError):
+        fk.flash_attention_fwd(q, k, v)
+    assert fk.launch_counts()["flash_attention_fwd"] == 0

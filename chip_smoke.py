@@ -15,6 +15,10 @@ on the card. Then it drives the port's two paths:
     ``models.api.prefill`` (one flash-attention launch per layer), then
     four such replicas as continuous-batching engines behind the router
     (``launch.serve._run_engine_executor``);
+  * the SSM family: a full-width mamba2-370m prefilled at B=4, S=4096 (one
+    SSD-scan launch per layer) and served by four engines behind the
+    router, and a full-width hymba-1.5b prefilled at B=2, S=4096 (one
+    flash-attention and one SSD-scan launch per layer);
 
 and times each kernel. Every phase is a hard failure: the script exits
 non-zero and prints no result line. The last line of standard output is
@@ -27,6 +31,7 @@ and refuses to run without a CUDA card.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -80,6 +85,44 @@ SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW = 64, 4, 8
 # dropped from the late rows gives ~0.2 (tests/test_torch_flash_attention.py)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:90"
+# the SSD scan against its plain version (the same chunked math in torch,
+# f32 throughout, on the same inputs, bf16 x widened the same way): the
+# two differ in summation order and in the last bits of the in-chunk
+# cumulative log decay, whose rounding grows with |cum| (hundreds at the
+# end of a 128-step chunk) and enters every decay factor. Elementwise
+# |err| <= tol + tol * |want|, and each row's (last axis) largest error
+# over that row's largest |value| (ref.row_relative_error); measured on an
+# H100 at the mamba2 layer shape: 2.3e-4 abs at |value| <= 31, rows 3.7e-5.
+# A key block or chunk left out moves a row by O(1) of its scale
+SSD_TOL = 5e-4
+SSD_ROW_TOL = 2e-4
+# against the sequential oracle, the bars of tests/test_kernels.py
+SSD_ORACLE_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+# the SSM family's cells: mamba2-370m prefilled at B=4, S=4096 and served
+# by four engines; hymba-1.5b prefilled at B=2, S=4096
+MAMBA_B, MAMBA_S = 4, 4096
+HYMBA_B, HYMBA_S = 2, 4096
+# The SSM models take Mamba2's own decays (``with_mamba2_decays``), so that
+# the state reaches across chunks. Last-position logits of the bf16 kernel
+# path against the bf16 plain path: over 48 (32) layers the bf16 rounding
+# of the residual stream parts any two roundings of the same function; the
+# plain path against itself at chunk 64 instead of 128 parts by 0.133
+# (mamba2) and 0.221 (hymba), the kernel path by 0.138 and 0.305 (measured
+# on an H100; every run prints the floor), so this bar catches garbage and
+# the carry-less fault of mamba2 (1.27), not hymba's (0.54). The argmax
+# must agree wherever the plain path's own rechunking agrees. The f32
+# twin's logits at every position against its plain path are the
+# model-level check: measured 9.5e-5 / 8.2e-5 (floors 5.0e-5 / 6.6e-5, mean
+# |logit| 0.51 / 0.80), while K5 without its chunk carry (``no_chunk_carry``,
+# planted in every run, which fails unless the bar sees it) reads 4.4 / 3.9.
+# The per-layer check is [ssd]'s, 2e-4 of each row's scale
+SSM_PREFILL_TOL = 0.5
+SSM_PREFILL_F32_TOL = 5e-4
+SSM_SERVE_REQUESTS = 32
+SSM_REUSE_CHECKS = 4
 
 
 class SmokeFailure(Exception):
@@ -371,8 +414,9 @@ def flash_plain_ops(FR, q, k, v, **kw):
 def phase_flash(torch, FK, FO, FR, dev):
     """K4 against its plain version on the card: the shapes of
     tests/test_kernels.py in f32 and bf16, the decode offset, a window
-    whose late rows see no key, GQA through ``ops``, and the prefill's
-    shape. Returns the largest error."""
+    whose late rows see no key, GQA through ``ops``, and the prefill
+    shapes of smollm-360m and of hymba-1.5b (window 1024, 25/5 heads).
+    Returns the largest error."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rand(*shape, dtype):
@@ -393,11 +437,14 @@ def phase_flash(torch, FK, FO, FR, dev):
         cases.append((f"ops GQA B=2 S=300 H=6 Hkv=2 D=64", dt, "ops",
                       (rand(2, 300, 6, 64, dtype=dt), rand(2, 300, 2, 64, dtype=dt),
                        rand(2, 300, 2, 64, dtype=dt)), dict(causal=True, q_offset=0)))
-    B, S = PREFILL_B, PREFILL_S
-    cases.append((f"ops prefill shape B={B} S={S} H=15 Hkv=5 D=64", torch.bfloat16, "ops",
-                  (rand(B, S, 15, 64, dtype=torch.bfloat16),
-                   rand(B, S, 5, 64, dtype=torch.bfloat16),
-                   rand(B, S, 5, 64, dtype=torch.bfloat16)), dict(causal=True, q_offset=0)))
+    # the prefill shapes: smollm-360m's, and hymba-1.5b's windowed attention
+    for label, B, S, H, Hkv, window in (("prefill", PREFILL_B, PREFILL_S, 15, 5, 0),
+                                        ("hymba prefill", HYMBA_B, HYMBA_S, 25, 5, 1024)):
+        bf = torch.bfloat16
+        cases.append((f"ops {label} shape B={B} S={S} H={H} Hkv={Hkv} D=64 window={window}",
+                      bf, "ops", (rand(B, S, H, 64, dtype=bf), rand(B, S, Hkv, 64, dtype=bf),
+                                  rand(B, S, Hkv, 64, dtype=bf)),
+                      dict(causal=True, window=window, q_offset=0)))
     worst = worst_row = 0.0
     for name, dt, route, (q, k, v), kw in cases:
         if route == "kernel":
@@ -419,7 +466,7 @@ def phase_flash(torch, FK, FO, FR, dev):
         need(bool((row <= row_tol).all()),
              f"[flash] {name} {dt}: {int((row > row_tol).sum())} rows with an error above "
              f"{row_tol} of the row's largest |value| (worst {row.max().item()})")
-        if kw.get("window"):
+        if kw.get("window"):  # the query axis is 1 in both layouts
             rows = kw["q_offset"] + torch.arange(q.shape[1], device=dev)
             empty = rows >= k.shape[1] + kw["window"] - 1  # see no key at all
             need(bool((got[:, empty] == 0).all()),
@@ -442,7 +489,6 @@ def phase_prefill(torch, FK, dev):
 
     from repro_torch import configs
     from repro_torch.models import api
-    from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
 
     cfg = configs.get_config("smollm-360m")
@@ -475,15 +521,10 @@ def phase_prefill(torch, FK, dev):
     torch.cuda.synchronize()
     need(FK.launch_counts()["flash_attention_fwd"] == cfg.n_layers,
          "[prefill] the f32 model did not go through the kernel in every layer")
-    saved = L.chunked_attention
-    L.chunked_attention = lambda cfg, q, k, v, **kw: L.flash_attention_plain(
-        q, k, v, chunk=cfg.attn_chunk, **kw)
-    try:
+    with api.plain_paths():
         plain = api.prefill(cfg, model, {"tokens": toks})
         want32 = all_logits()
         torch.cuda.synchronize()
-    finally:
-        L.chunked_attention = saved
     err = (logits.float() - plain.float()).abs().max().item()
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
     need(err <= PREFILL_TOL, f"[prefill] logits differ from the plain chunked path by "
@@ -608,6 +649,399 @@ def phase_model_profile(torch, cfg, model, dev, steps: int = 10):
           f"per tick, {prof['launches'] / steps:.1f} kernel launches per tick, device busy "
           f"{prof['busy_us'] / steps / 1e3:.3f} ms per tick (idle share {prof['idle']:.4f}); "
           f"top by device time: {[(nm[:60], round(us / 1e3, 3)) for nm, us in top]}")
+    decode = dict(tick_ms=prof["wall"] / steps * 1e3, launches=prof["launches"] / steps,
+                  busy_ms=prof["busy_us"] / steps / 1e3, idle=prof["idle"])
+    return prefill, decode
+
+
+# ---------------------------------------------------------------------------
+# the SSM family: the SSD scan, mamba2 and hymba prefill, mamba2 serving
+# ---------------------------------------------------------------------------
+
+
+def with_mamba2_decays(torch, model, dev):
+    """Every SSM layer's A_log and dt_bias drawn from the seed as Mamba2
+    draws them (``ref.mamba2_decays``; the same values for the same model
+    shape), so that the state reaches across chunks."""
+    from repro_torch.kernels.ssd_scan import ref as SR
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        for layer in model.layers:
+            A_log, dt_bias = SR.mamba2_decays(layer.ssm.A_log.shape[0], gen)
+            layer.ssm.A_log.copy_(A_log)
+            layer.ssm.dt_bias.copy_(dt_bias)
+    return model
+
+
+def ssd_inputs(torch, gen, dev, B, S, H, P, N, *, xdtype, heads: bool, decay: str = "fast"):
+    """Inputs shaped like the model's: x silu-sized (bf16 in the bf16
+    model), B/C rounded to bf16 as the model's are. decay "fast": dt =
+    softplus(N(0,1) - 1), A = -exp(N(0, 0.5²)), near the decays of
+    tests/test_kernels.py, under which the carry reaches only the first
+    rows of each chunk; "mamba2": A and dt = softplus(N(0,1) + dt_bias)
+    from ``ref.mamba2_decays``, under which it reaches across chunks.
+    heads: the model layout ([B, S, H, P], B/C [B, S, N]), else the
+    reference layout ([BH, S, P], B/C [BH, S, N])."""
+    from repro_torch.kernels.ssd_scan import ref as SR
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    xs = (B, S, H, P) if heads else (B * H, S, P)
+    dts = (B, S, H) if heads else (B * H, S)
+    x = (r(*xs) * 0.5).to(xdtype)
+    if decay == "fast":
+        dt = torch.nn.functional.softplus(r(*dts) - 1.0)
+        A = -torch.exp(r(H if heads else B * H) * 0.5)
+    else:
+        A_log, dt_bias = SR.mamba2_decays(H if heads else B * H, gen)
+        dt = torch.nn.functional.softplus(r(*dts) + (dt_bias if heads else dt_bias[:, None]))
+        A = -torch.exp(A_log)
+    G = B if heads else B * H
+    Bm, Cm = ((r(G, S, N) * 0.5).bfloat16().float() for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def phase_ssd(torch, SK, SO, SR, dev):
+    """K5 against its plain version on the card: the shapes of
+    tests/test_kernels.py with x in f32 and bf16 (also against the
+    sequential oracle), the mamba2 and hymba layer shapes through ``ops``,
+    gcd chunks, and B/C read in place against the broadcast form; each
+    with the fast decays of the JAX package's tests and, so that the chunk
+    carry is held too, Mamba2's (``ssd_inputs``). Returns the largest abs
+    error against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = worst_row = 0.0
+
+    def hold(name, got, want, oracle=None):
+        nonlocal worst, worst_row
+        torch.cuda.synchronize()
+        for part, g, w in (("y", got[0], want[0]), ("h", got[1], want[1])):
+            need(g.shape == w.shape and g.dtype == w.dtype == torch.float32,
+                 f"[ssd] {name} {part}: {g.dtype}{list(g.shape)} vs {w.dtype}{list(w.shape)}")
+            need(bool(torch.isfinite(g).all()), f"[ssd] {name} {part}: non-finite output")
+            err = (g - w).abs()
+            need(bool((err <= SSD_TOL + SSD_TOL * w.abs()).all()),
+                 f"[ssd] {name} {part}: max abs err {err.max().item()} above tol {SSD_TOL}")
+            row = SR.row_relative_error(g, w)
+            need(bool((row <= SSD_ROW_TOL).all()),
+                 f"[ssd] {name} {part}: {int((row > SSD_ROW_TOL).sum())} rows above "
+                 f"{SSD_ROW_TOL} of the row's largest |value| (worst {row.max().item()})")
+            worst, worst_row = max(worst, err.max().item()), max(worst_row, row.max().item())
+            msg = (f"[ssd] {name} {part}: max abs err {err.max().item():.3e} (|value| max "
+                   f"{w.abs().max().item():.3f}), worst row error {row.max().item():.3e}")
+            if oracle is not None:
+                o = oracle[0 if part == "y" else 1]
+                tol = SSD_ORACLE_TOL[oracle[2]]
+                oerr = (g - o).abs()
+                need(bool((oerr <= tol + tol * o.abs()).all()),
+                     f"[ssd] {name} {part}: {oerr.max().item()} from the sequential oracle "
+                     f"(tol {tol})")
+                msg += f"; vs the sequential oracle {oerr.max().item():.3e} (tol {tol})"
+            print(msg)
+
+    for decay in ("fast", "mamba2"):
+        for dt_name, xdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for BH, S, P, N, chunk in ((2, 128, 32, 16, 64), (1, 256, 64, 32, 128),
+                                       (4, 192, 16, 8, 64)):
+                x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, BH, S, 1, P, N, xdtype=xdt,
+                                              heads=False, decay=decay)
+                got = SK.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+                want = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk)
+                oracle = (*SR.ssd_ref(x, dt, A, Bm, Cm), dt_name)
+                hold(f"BH={BH} S={S} P={P} N={N} chunk={chunk} x {dt_name} {decay} decays",
+                     got, want, oracle)
+    for label, B, S, H, P, N, chunk, xdt, decay in (
+            ("mamba2 layer", MAMBA_B, MAMBA_S, 32, 64, 128, 128, torch.bfloat16, "fast"),
+            ("mamba2 layer", MAMBA_B, MAMBA_S, 32, 64, 128, 128, torch.bfloat16, "mamba2"),
+            ("hymba layer", HYMBA_B, HYMBA_S, 50, 64, 16, 128, torch.bfloat16, "fast"),
+            ("hymba layer", HYMBA_B, HYMBA_S, 50, 64, 16, 128, torch.bfloat16, "mamba2"),
+            ("gcd chunk 4 (S=100, chunk 64)", 2, 100, 4, 64, 128, 64, torch.float32, "mamba2"),
+            ("gcd chunk 4 (S=300, chunk 128)", 2, 300, 4, 64, 128, 128, torch.float32,
+             "mamba2")):
+        x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N, xdtype=xdt, heads=True,
+                                      decay=decay)
+        Q = SO.pick_chunk(S, chunk)
+        got = SO.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        want = SR.ssd_chunked_heads(x, dt, A, Bm, Cm, chunk=Q)
+        name = (f"ops {label} B={B} S={S} H={H} P={P} N={N} (Q={Q}) "
+                f"x {str(xdt).split('.')[-1]} {decay} decays")
+        hold(name, got, want)
+        if decay == "mamba2":  # the case holds the carry only if dropping it shows
+            carry = SR.row_relative_error(SR.without_carry(SR.ssd_chunked_heads, x, dt, A,
+                                                           Bm, Cm, chunk=Q)[0], want[0])
+            print(f"[ssd] {name}: the plain version without the chunk carry, worst row "
+                  f"error {carry.max().item():.3e}")
+            need(carry.max().item() > 100 * SSD_ROW_TOL,
+                 f"[ssd] {name}: the chunk carry adds too little to be held")
+        if label == "mamba2 layer" and decay == "fast":  # the function rounded otherwise
+            y64 = SR.ssd_chunked_heads(x, dt, A, Bm, Cm, chunk=64)[0]
+            print(f"[ssd] the plain version at chunk 64 against it at chunk 128 (mamba2 "
+                  f"layer, y): max abs err {(y64 - want[0]).abs().max().item():.3e}, worst "
+                  f"row error {SR.row_relative_error(y64, want[0]).max().item():.3e}")
+            del y64
+    # B/C once per batch row (G=2) against the broadcast form (G=BH): the
+    # kernel does the same arithmetic either way, so the two are equal
+    B, H, S, P, N = 2, 8, 512, 64, 128
+    x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N, xdtype=torch.bfloat16,
+                                  heads=False)
+    Bg, Cg = Bm[::H].contiguous(), Cm[::H].contiguous()
+    got = SK.ssd_scan(x, dt, A, Bg, Cg, chunk=128)
+    bcast = SK.ssd_scan(x, dt, A, Bg.repeat_interleave(H, 0), Cg.repeat_interleave(H, 0),
+                        chunk=128)
+    torch.cuda.synchronize()
+    need(torch.equal(got[0], bcast[0]) and torch.equal(got[1], bcast[1]),
+         "[ssd] B/C read in place differ from the broadcast form")
+    hold(f"in place B/C (G={B}, BH={B * H}) S={S} P={P} N={N} x bfloat16", got,
+         SR.ssd_chunked_ref(x, dt, A, Bg, Cg, chunk=128))
+    print(f"[ssd] in place B/C equal to the broadcast form (y and h bit for bit)")
+    print(f"[ssd] all cases: max abs err {worst:.3e}, worst row error {worst_row:.3e} "
+          f"(tol {SSD_TOL}, row tol {SSD_ROW_TOL})")
+    return worst
+
+
+class no_chunk_carry:
+    """A planted fault, to show what the model-level bars can see: inside
+    the block the model's SSD scan is K5 with the chunk carry left out
+    (every chunk starts from a zero state, as if ``h_in`` were 0)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssd_scan import ops as SO
+        from repro_torch.kernels.ssd_scan import ref as SR
+        from repro_torch.models import ssm as SSM
+
+        def faulty(cfg, x, dt, A, Bm, Cm):
+            return SR.without_carry(SO.ssd, x, dt, A, Bm, Cm,
+                                    chunk=SO.pick_chunk(x.shape[1], cfg.ssm_chunk))
+
+        self.SSM, self.saved = SSM, SSM.ssd_prefill
+        SSM.ssd_prefill = faulty
+
+    def __exit__(self, *exc):
+        self.SSM.ssd_prefill = self.saved
+
+
+def phase_ssm_prefill(torch, SK, FK, dev, arch, B, S):
+    """The full-width prefill of an SSM-family model (random weights from
+    the seed, A_log and dt_bias as Mamba2 draws them) through
+    ``api.prefill``: exactly one K5 launch per layer (and one K4 launch per
+    layer for the hybrid); its last-position logits against the plain
+    paths on the card; the same model in f32, logits at every position,
+    against its plain paths, and a planted fault (no chunk carry) that the
+    f32 bar must see."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.models import lm as LM
+
+    cfg = configs.get_config(arch)
+    model = with_mamba2_decays(torch, api.init_params(cfg, SEED, dev), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SK.reset_launches()
+    FK.reset_launches()
+    logits = api.prefill(cfg, model, {"tokens": toks})
+    torch.cuda.synchronize()
+    ssd = SK.launch_counts()["ssd_scan"]
+    flash = FK.launch_counts()["flash_attention_fwd"]
+    peak = torch.cuda.max_memory_allocated()
+    want_flash = cfg.n_layers if cfg.family == "hybrid" else 0
+    need(ssd == cfg.n_layers, f"[prefill {arch}] {ssd} SSD-scan launches, expected one "
+         f"per layer ({cfg.n_layers})")
+    need(flash == want_flash, f"[prefill {arch}] {flash} flash-attention launches, "
+         f"expected {want_flash}")
+    need(logits.shape == (B, 1, cfg.vocab) and logits.dtype == torch.bfloat16,
+         f"[prefill {arch}] logits {logits.dtype}{list(logits.shape)}")
+    need(bool(torch.isfinite(logits).all()), f"[prefill {arch}] non-finite logits")
+    ms = host_median_ms(torch, lambda: api.prefill(cfg, model, {"tokens": toks}), reps=5)
+    with api.plain_paths():
+        plain = api.prefill(cfg, model, {"tokens": toks})
+        # the same function rounded otherwise: the floor of the bf16 check
+        plain64 = api.prefill(dataclasses.replace(cfg, ssm_chunk=64), model, {"tokens": toks})
+        torch.cuda.synchronize()
+    with no_chunk_carry():
+        faulty = api.prefill(cfg, model, {"tokens": toks})
+        torch.cuda.synchronize()
+    err = (logits.float() - plain.float()).abs().max().item()
+    floor = (plain64.float() - plain.float()).abs().max().item()
+    fault = (faulty.float() - plain.float()).abs().max().item()
+    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    agree_floor = (plain64.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    out = dict(ssd_launches=ssd, flash_launches=flash, ms=ms, tok_s=B * S / (ms / 1e3),
+               peak=peak, err=err, floor=floor, fault=fault, agree=agree)
+    print(f"[prefill {arch}] full width (L={cfg.n_layers} d={cfg.d_model} "
+           f"H_ssm={cfg.n_ssm_heads} P={cfg.ssm_headdim} N={cfg.ssm_state} V={cfg.vocab}, "
+           f"bf16) B={B} S={S}: SSD launches {ssd}, flash launches {flash}, {ms:.3f} ms per "
+           f"prefill ({out['tok_s']:.1f} tokens/s), peak memory {peak / 2**30:.3f} GiB; "
+           f"last-position logits vs the plain path: max abs err {err:.4f} (tol "
+           f"{SSM_PREFILL_TOL}, |logit| max {logits.float().abs().max().item():.3f}; the "
+           f"plain path against itself at chunk 64: {floor:.4f}; K5 without the chunk carry: "
+           f"{fault:.4f}), argmax agreement {agree:.2f} (the plain path at chunk 64: "
+           f"{agree_floor:.2f})")
+    need(err <= SSM_PREFILL_TOL, f"[prefill {arch}] logits differ from the plain path by "
+         f"{err} (tol {SSM_PREFILL_TOL})")
+    need(agree >= agree_floor, f"[prefill {arch}] argmax agreement {agree} below the plain "
+         f"path's own at chunk 64 ({agree_floor})")
+    del logits, plain, plain64, faulty
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = with_mamba2_decays(torch, api.init_params(cfg32, SEED, dev), dev)
+
+    @torch.no_grad()
+    def all_logits():
+        return LM.logits_head(cfg32, model32, LM.forward(cfg32, model32, toks))
+
+    SK.reset_launches()
+    got32 = all_logits()
+    torch.cuda.synchronize()
+    need(SK.launch_counts()["ssd_scan"] == cfg.n_layers,
+         f"[prefill {arch}] the f32 model did not go through the kernel in every layer")
+    with no_chunk_carry():
+        fault32 = all_logits()
+    with api.plain_paths():
+        want32 = all_logits()
+        err32 = (got32 - want32).abs().max().item()
+        fault32 = (fault32 - want32).abs().max().item()
+        del got32
+        cfg32 = dataclasses.replace(cfg32, ssm_chunk=64)
+        floor32 = (all_logits() - want32).abs().max().item()
+        torch.cuda.synchronize()
+    mean32 = want32.abs().mean().item()
+    out.update(err_f32=err32, floor_f32=floor32, fault_f32=fault32)
+    print(f"[prefill {arch}] f32 model, logits at all {B}x{S} positions vs the plain path: "
+          f"max abs err {err32:.3e} (tol {SSM_PREFILL_F32_TOL}, mean |logit| {mean32:.3f}; "
+          f"the plain path against itself at chunk 64: {floor32:.3e}; K5 without the chunk "
+          f"carry: {fault32:.3e})")
+    need(math.isfinite(err32) and err32 <= SSM_PREFILL_F32_TOL, f"[prefill {arch}] f32 "
+         f"logits differ from the plain path by {err32} (tol {SSM_PREFILL_F32_TOL})")
+    need(fault32 > SSM_PREFILL_F32_TOL, f"[prefill {arch}] the f32 bar {SSM_PREFILL_F32_TOL} "
+         f"does not see K5 without its chunk carry ({fault32})")
+    del want32, model32
+    return cfg, model, out
+
+
+def recording_engine_class(Engine):
+    class RecordingEngine(Engine):
+        """An engine that records, per request, its slot, whether the slot
+        had held a request before, its prompt and its tokens."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.used = [False] * self.n_slots
+            self.log = {}
+
+        def try_admit_batch(self, requests):
+            free = [i for i in range(self.n_slots) if not self.active[i]]
+            accept = super().try_admit_batch(requests)
+            slots = iter(free)
+            for (rid, prompt, _n), ok in zip(requests, accept):
+                if ok:
+                    i = next(slots)
+                    self.log[rid] = dict(slot=i, reused=self.used[i], prompt=np.asarray(prompt))
+                    self.used[i] = True
+            return accept
+
+        def step(self):
+            done = super().step()
+            for rid, toks in done:
+                self.log[rid]["tokens"] = list(toks)
+            return done
+    return RecordingEngine
+
+
+def phase_ssm_serve(torch, cfg, model, dev):
+    """Four full-width mamba2 engines behind the router (16 slots for 32
+    requests, so slots are reused on the card); then requests served in a
+    reused slot against a fresh run of the same prompt in the same slot of
+    a new engine."""
+    import types
+
+    from repro_torch.launch import serve as S
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.router import RosellaRouter
+
+    Engine = recording_engine_class(ContinuousBatchingEngine)
+    engines = [Engine(cfg, model, n_slots=4, max_len=256) for _ in SERVE_SLOWDOWNS]
+    rates = S.engine_rates(engines, SERVE_SLOWDOWNS, SERVE_NEW)
+    router = RosellaRouter(len(engines), float(sum(rates)), seed=SEED, device=dev)
+    args = types.SimpleNamespace(requests=SSM_SERVE_REQUESTS, arrival_batch=SERVE_BATCH,
+                                 n_new=SERVE_NEW)
+    t0 = time.perf_counter()
+    lat = S._run_engine_executor(args, cfg, engines, list(SERVE_SLOWDOWNS), router,
+                                 np.random.RandomState(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    need(len(lat) == SSM_SERVE_REQUESTS, f"[serve {cfg.arch}] {len(lat)} of "
+         f"{SSM_SERVE_REQUESTS} completed")
+    need(not any(e.active.any() for e in engines), f"[serve {cfg.arch}] a slot is still active")
+    mu = router.mu_hat
+    need(min(mu[0], mu[3]) > mu[2], f"[serve {cfg.arch}] μ̂ {mu} does not rank the 1x "
+         f"replicas above the 5x one")
+    reused = [(e, rid, rec) for e in engines for rid, rec in e.log.items()
+              if rid >= 0 and rec["reused"]]
+    need(len(reused) >= SSM_REUSE_CHECKS, f"[serve {cfg.arch}] only {len(reused)} requests "
+         f"were served in a reused slot")
+    for _e, rid, rec in reused[:SSM_REUSE_CHECKS]:
+        fresh = ContinuousBatchingEngine(cfg, model, n_slots=4, max_len=256)
+        filler = np.array([1, 2, 3, 4])
+        reqs = [(-2 - k, filler, SERVE_NEW) for k in range(rec["slot"])]
+        fresh.try_admit_batch(reqs + [(rid, rec["prompt"], SERVE_NEW)])
+        toks = None
+        while toks is None:
+            toks = next((t for r, t in fresh.step() if r == rid), None)
+        need(toks == rec["tokens"], f"[serve {cfg.arch}] request {rid} in reused slot "
+             f"{rec['slot']} gave {rec['tokens']}, a fresh run {toks}")
+    tok_s = SSM_SERVE_REQUESTS * SERVE_NEW / wall
+    print(f"[serve {cfg.arch}] {len(engines)} engines (slowdowns {list(SERVE_SLOWDOWNS)}, 4 "
+          f"slots, max_len 256) behind RosellaRouter (ppot_sq2): {len(lat)} requests in "
+          f"{wall:.3f} s, latency mean {lat.mean() * 1e3:.3f} ms p95 "
+          f"{np.percentile(lat, 95) * 1e3:.3f} ms, decode {tok_s:.1f} tokens/s; μ̂ "
+          f"{[round(float(x), 3) for x in mu]} vs true speeds "
+          f"{[round(1.0 / s, 3) for s in SERVE_SLOWDOWNS]}; {len(reused)} requests in reused "
+          f"slots, {SSM_REUSE_CHECKS} of them equal to a fresh run of their prompt")
+    return dict(n=len(lat), mean_ms=lat.mean() * 1e3, p95_ms=np.percentile(lat, 95) * 1e3,
+                tok_s=tok_s, mu=mu.tolist(), reused=len(reused))
+
+
+def phase_ssm_profile(torch, cfg, model, dev, steps: int = 10):
+    """Where mamba2 serving's time goes: one full-width prefill, and
+    ``steps`` engine ticks with all 4 slots decoding."""
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (MAMBA_B, MAMBA_S), generator=gen, device=dev)
+    prof = device_profile(torch, lambda: api.prefill(cfg, model, {"tokens": toks}))
+    ssd_us = sum(us for name, us in prof["us"].items() if "ssd_scan" in name)
+    ssd_n = sum(n for name, n in prof["count"].items() if "ssd_scan" in name)
+    top = sorted(prof["us"].items(), key=lambda kv: -kv[1])[:5]
+    print(f"[profile prefill {cfg.arch}] {prof['wall'] * 1e3:.3f} ms wall, device busy "
+          f"{prof['busy_us'] / 1e3:.3f} ms (idle share {prof['idle']:.4f}), {prof['launches']} "
+          f"kernel launches of which {ssd_n} SSD scans; SSD scan {ssd_us / 1e3:.3f} ms "
+          f"({ssd_us / prof['busy_us']:.4f} of device time); top by device time: "
+          f"{[(nm[:60], round(us / 1e3, 3)) for nm, us in top]}")
+    prefill = dict(wall_ms=prof["wall"] * 1e3, busy_ms=prof["busy_us"] / 1e3, idle=prof["idle"],
+                   launches=prof["launches"], ssd_share=ssd_us / prof["busy_us"])
+
+    eng = ContinuousBatchingEngine(cfg, model, n_slots=4, max_len=256)
+    rng = np.random.RandomState(SEED)
+    eng.try_admit_batch([(i, rng.randint(1, cfg.vocab, size=4), 10 * steps)
+                         for i in range(4)])
+    eng.step()
+
+    def ticks():
+        for _ in range(steps):
+            eng.step()
+    prof = device_profile(torch, ticks)
+    top = sorted(prof["us"].items(), key=lambda kv: -kv[1])[:5]
+    print(f"[profile decode {cfg.arch}] {steps} engine ticks, 4 slots: "
+          f"{prof['wall'] / steps * 1e3:.3f} ms per tick, {prof['launches'] / steps:.1f} kernel "
+          f"launches per tick, device busy {prof['busy_us'] / steps / 1e3:.3f} ms per tick "
+          f"(idle share {prof['idle']:.4f}); top by device time: "
+          f"{[(nm[:60], round(us / 1e3, 3)) for nm, us in top]}")
     decode = dict(tick_ms=prof["wall"] / steps * 1e3, launches=prof["launches"] / steps,
                   busy_ms=prof["busy_us"] / steps / 1e3, idle=prof["idle"])
     return prefill, decode
@@ -746,6 +1180,49 @@ def phase_flash_times(torch, FK, FR, dev):
     return out
 
 
+def ssd_work(B, S, H, P, N, Q, x_bytes) -> tuple[int, int]:
+    """(bytes, FLOPs) the SSD scan must move and do: x, dt, B, C (once per
+    batch row), A read once, y and h written once; the products of the
+    chunked form with C·Bᵀ once per (batch row, chunk) on the causal
+    triangle, the intra-chunk product on the triangle, the inter-chunk
+    output and the state update, 2 FLOPs per multiply-add."""
+    nbytes = (B * S * H * P * x_bytes + 4 * (B * S * H + H + 2 * B * S * N)
+              + 4 * (B * S * H * P + B * H * N * P))
+    tri = Q * (Q + 1) // 2
+    nc = S // Q
+    flops = 2 * nc * (B * tri * N + B * H * (tri * P + 2 * Q * N * P))
+    return nbytes, flops
+
+
+def phase_ssd_times(torch, SK, SO, SR, dev):
+    """K5 alone at the mamba2 prefill's layer shape and at a smaller one
+    (B=1, S=2048), with its plain version and its bound; no single PyTorch
+    call computes the scan, so there is no library time."""
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, B, S in (("main", MAMBA_B, MAMBA_S), ("small", 1, 2048)):
+        H, P, N, Q = 32, 64, 128, 128
+        x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N, xdtype=torch.bfloat16,
+                                      heads=True)
+        ms = event_median_ms(torch, lambda: SK.ssd_scan_heads(x, dt, A, Bm, Cm, chunk=Q),
+                             reps=20)
+        plain_ms = event_median_ms(
+            torch, lambda: SR.ssd_chunked_heads(x, dt, A, Bm, Cm, chunk=Q), reps=5)
+        nbytes, flops = ssd_work(B, S, H, P, N, Q, x.element_size())
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_OPS_PER_S * 1e3
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes", flops=flops,
+                   bytes=nbytes)
+        out[label] = rec
+        print(f"[times] ssd_scan {label} (B={B} S={S} H={H} P={P} N={N} Q={Q}, x bf16): "
+              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']}: {flops} f32 FLOPs at 67 TFLOP/s = {ops_ms:.6f} ms, "
+              f"{nbytes} B at 3.35 TB/s = {bytes_ms:.6f} ms), library call: none, "
+              f"{rec['bound_ms'] / ms:.4f} of the bound")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -765,6 +1242,10 @@ def main() -> int:
         from repro_torch.kernels.ppot_dispatch import build
         from repro_torch.kernels.ppot_dispatch import kernel as K
         from repro_torch.kernels.ppot_dispatch import ref as R
+        from repro_torch.kernels.ssd_scan import build as ssd_build
+        from repro_torch.kernels.ssd_scan import kernel as SK
+        from repro_torch.kernels.ssd_scan import ops as SO
+        from repro_torch.kernels.ssd_scan import ref as SR
         from repro_torch.serving import router as tr
     except ImportError as e:
         raise SmokeFailure(f"the port is not next to this script ({e})") from e
@@ -777,10 +1258,11 @@ def main() -> int:
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
     t0 = time.perf_counter()
-    _nvcc.build_all(build.LIBRARY, flash_build.LIBRARY)
-    print(f"[build] {build.library_path().name} and {flash_build.library_path().name} "
+    libs = (build.LIBRARY, flash_build.LIBRARY, ssd_build.LIBRARY)
+    _nvcc.build_all(*libs)
+    print(f"[build] {', '.join(lib.library_path().name for lib in libs)} "
           f"in {time.perf_counter() - t0:.2f} s (one nvcc each, at once)")
-    for log in (build.LIBRARY.build_log, flash_build.LIBRARY.build_log):
+    for log in (lib.build_log for lib in libs):
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
@@ -788,14 +1270,24 @@ def main() -> int:
     chk = KernelChecks(torch, K, R)
     phase_kernels(torch, chk, dev)
     flash_err = phase_flash(torch, FK, FO, FR, dev)
+    ssd_err = phase_ssd(torch, SK, SO, SR, dev)
     speeds = tpch_speed_set(N_REPLICAS, SEED)
     main_runs = phase_main_path(torch, tr, K, met, chk, speeds, dev)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
+    del model
+    mcfg, mmodel, mamba_prefill = phase_ssm_prefill(torch, SK, FK, dev, "mamba2-370m",
+                                                    MAMBA_B, MAMBA_S)
+    mamba_serve = phase_ssm_serve(torch, mcfg, mmodel, dev)
+    mprof_prefill, mprof_decode = phase_ssm_profile(torch, mcfg, mmodel, dev)
+    del mmodel
+    _, _, hymba_prefill = phase_ssm_prefill(torch, SK, FK, dev, "hymba-1.5b", HYMBA_B,
+                                            HYMBA_S)
     per_turn, copies, idle = phase_turn_cost(torch, tr, speeds)
     times, floor_ms = phase_times(torch, K, R, build, dev)
     flash_times = phase_flash_times(torch, FK, FR, dev)
+    ssd_times = phase_ssd_times(torch, SK, SO, SR, dev)
 
     total = {name: sum(r["launches"][name] for r in main_runs.values())
              for name in REPLACES}
@@ -813,6 +1305,12 @@ def main() -> int:
         replaces=FLASH_REPLACES, launches=prefill["launches"], max_abs_err=flash_err,
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    t = ssd_times["main"]
+    kernels.append(dict(
+        name="ssd_scan", route="cuda", source=SSD_SOURCE, replaces=SSD_REPLACES,
+        launches=mamba_prefill["ssd_launches"], max_abs_err=ssd_err, ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=None))
     summary = {m: {k: r[k] for k in ("turns", "p50", "p99", "rho", "wall_s",
                                      "overflow_turns", "launches")}
                for m, r in main_runs.items()}
@@ -821,6 +1319,11 @@ def main() -> int:
     print(f"[summary] serve {json.dumps(serve)}")
     print(f"[summary] profile prefill {json.dumps(prof_prefill)} decode "
           f"{json.dumps(prof_decode)}")
+    print(f"[summary] prefill mamba2-370m {json.dumps(mamba_prefill)}")
+    print(f"[summary] serve mamba2-370m {json.dumps(mamba_serve)}")
+    print(f"[summary] profile mamba2-370m prefill {json.dumps(mprof_prefill)} decode "
+          f"{json.dumps(mprof_decode)}")
+    print(f"[summary] prefill hymba-1.5b {json.dumps(hymba_prefill)}")
     print(f"[summary] launches/turn {per_turn:.1f}, copies/turn {copies:.1f}, "
           f"idle share {idle:.4f}, launch floor {floor_ms:.6f} ms")
     print(card)

@@ -1,20 +1,20 @@
 """Architecture registry of the port, keyed by arch id.
 
-The dense family is ported; the other families' configs raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The dense, ssm and hybrid families are ported; the other families'
+configs raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
-from repro_torch.configs import chatglm3_6b, glm4_9b, qwen3_32b, smollm_360m
+from repro_torch.configs import (chatglm3_6b, glm4_9b, hymba_1p5b, mamba2_370m,
+                                 qwen3_32b, smollm_360m)
 from repro_torch.configs.common import SHAPES, reduced, shape_applicable
 
 REGISTRY = {m.ARCH: m.full_config for m in (glm4_9b, qwen3_32b, smollm_360m,
-                                            chatglm3_6b)}
+                                            chatglm3_6b, mamba2_370m, hymba_1p5b)}
 
 #: arch -> (family, the ROADMAP item that ports it)
 NOT_PORTED = {
-    "mamba2-370m": ("ssm", "ROADMAP A, the mamba2 / SSM slice (with kernel K5)"),
-    "hymba-1.5b": ("hybrid", "ROADMAP A, the hybrid family"),
     "moonshot-v1-16b-a3b": ("moe", "ROADMAP A, the MoE family"),
     "phi3.5-moe-42b-a6.6b": ("moe", "ROADMAP A, the MoE family"),
     "whisper-medium": ("encdec", "ROADMAP A, the encoder-decoder family"),

@@ -44,7 +44,8 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Smoke-test config: same family/wiring, tiny dims, CPU-friendly (the
-    dense family's; the other families' extra sizes come with them)."""
+    dense, ssm and hybrid families'; the other families' extra sizes come
+    with them)."""
     small = dict(
         n_layers=2,
         d_model=64,
@@ -60,5 +61,9 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         loss_chunk=32,
         scan_layers=True,
     )
+    if cfg.family in ("ssm", "hybrid"):
+        small.update(ssm_state=16, ssm_headdim=16, ssm_chunk=32)
+    if cfg.family == "hybrid":
+        small.update(attn_window=32)
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

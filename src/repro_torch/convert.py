@@ -29,6 +29,7 @@ from repro_torch.core import estimator as est
 from repro_torch.core import learner as lrn
 from repro_torch.models import api as model_api
 from repro_torch.models import layers as model_layers
+from repro_torch.models import lm as model_lm
 from repro_torch.utils.device import resolve_device
 
 _LEARNER = ("samples", "stamps", "widx", "count", "epoch_start", "mu_hat")
@@ -98,10 +99,11 @@ def _layer_keys(tree: dict, n_layers: int) -> set:
 
 
 def lm_params_from_numpy(cfg, tree: dict, device=None):
-    """The port's model (``models.lm.LM``) holding the JAX package's
+    """The port's model (``models.lm``) holding the JAX package's
     parameters, given as numpy arrays under their dotted key paths
-    (``embed``, ``final_norm.scale``, ``layers.attn.wq``, ...). Raises on a
-    missing, unknown or misshapen leaf."""
+    (``embed``, ``final_norm.scale``, ``layers.attn.wq``, ``layers.ssm.A_log``,
+    ...), stacked or per layer. Raises on a missing, unknown or misshapen
+    leaf."""
     model = model_api.init_params(cfg, 0, device)
     used = set()
     for name, p in model.named_parameters():
@@ -122,21 +124,46 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
     return model
 
 
+_CACHE_LEAVES = {"attn": ("k", "v", "len"), "ssm": ("conv_x", "conv_bc", "h")}
+
+
 def lm_cache_from_numpy(cfg, tree: dict, device=None) -> list:
-    """The port's decode cache (one dict per layer) from the JAX package's
-    cache, as numpy arrays under ``layers.attn.k`` / ``.v`` / ``.len``
-    (stacked) or ``layers.<i>.attn.k`` / ...; each row's ``len`` is the
-    layer's ``len``."""
+    """The port's decode cache (one nested dict per layer) from the JAX
+    package's cache, as numpy arrays under ``layers.attn.k`` / ``.v`` /
+    ``.len`` and ``layers.ssm.conv_x`` / ``.conv_bc`` / ``.h`` (stacked) or
+    ``layers.<i>.attn.k`` / ...; each row's ``len`` is the layer's ``len``.
+    Raises on a missing, unknown or misshapen leaf."""
     dev = resolve_device(device)
+    dt = model_layers.DTYPES[cfg.dtype]
+    parts = model_lm.LAYER_PARTS[model_lm._layer_kind(cfg)]
+    want = {f"{part}.{leaf}" for part in parts for leaf in _CACHE_LEAVES[part]}
+    have = _layer_keys(tree, cfg.n_layers) | {k for k in tree if not k.startswith("layers.")}
+    if have - want:
+        raise ValueError(f"cache leaves the port has no place for: {sorted(have - want)}")
+    t = lambda a, dtype: torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)  # noqa: E731
     out = []
     for i in range(cfg.n_layers):
-        k = _layer_leaf(tree, "attn.k", i, cfg.n_layers)
-        v = _layer_leaf(tree, "attn.v", i, cfg.n_layers)
-        n = int(_layer_leaf(tree, "attn.len", i, cfg.n_layers))
-        if k.shape != v.shape or k.shape[2:] != (cfg.n_kv_heads, cfg.d_head):
-            raise ValueError(f"layer {i}: k {k.shape}, v {v.shape}")
-        dt = model_layers.DTYPES[cfg.dtype]
-        out.append({"k": torch.from_numpy(np.array(k, np.float32)).to(dev, dt),
-                    "v": torch.from_numpy(np.array(v, np.float32)).to(dev, dt),
-                    "len": torch.full((k.shape[0],), n, dtype=torch.long, device=dev)})
+        leaf = lambda name: _layer_leaf(tree, name, i, cfg.n_layers)  # noqa: E731
+        c = {}
+        if "attn" in parts:
+            k, v = leaf("attn.k"), leaf("attn.v")
+            n = int(leaf("attn.len"))
+            if k.shape != v.shape or k.shape[2:] != (cfg.n_kv_heads, cfg.d_head):
+                raise ValueError(f"layer {i}: k {k.shape}, v {v.shape}")
+            c["attn"] = {"k": t(k, dt), "v": t(v, dt),
+                         "len": torch.full((k.shape[0],), n, dtype=torch.long, device=dev)}
+        if "ssm" in parts:
+            conv_x, conv_bc, h = leaf("ssm.conv_x"), leaf("ssm.conv_bc"), leaf("ssm.h")
+            batch = h.shape[0]
+            shapes = {"conv_x": (batch, cfg.d_conv - 1, cfg.d_inner),
+                      "conv_bc": (batch, cfg.d_conv - 1, 2 * cfg.ssm_state),
+                      "h": (batch, cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_headdim)}
+            got = {"conv_x": conv_x, "conv_bc": conv_bc, "h": h}
+            for name, shape in shapes.items():
+                if got[name].shape != shape:
+                    raise ValueError(f"layer {i}: ssm.{name} {got[name].shape}, "
+                                     f"expected {shape}")
+            c["ssm"] = {"conv_x": t(conv_x, dt), "conv_bc": t(conv_bc, dt),
+                        "h": t(h, torch.float32)}
+        out.append(c)
     return out

@@ -1,1 +1,2 @@
-"""The model zoo of the port: so far the decoder-only dense family."""
+"""The model zoo of the port: so far the decoder-only dense, ssm (mamba2)
+and hybrid (hymba) families."""

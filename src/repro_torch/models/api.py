@@ -1,9 +1,10 @@
-"""Model API of the port: the decoder-only dense family.
+"""Model API of the port: the decoder-only dense, ssm and hybrid families.
 
     init_params(cfg, seed, device)       -> model (nn.Module)
     init_cache(cfg, batch, max_len, device) -> cache
     prefill(cfg, model, batch)           -> logits at the last position
     decode_fn(cfg, model, batch, cache)  -> (logits, cache)
+    plain_paths()                        context: no kernels on the card
 
 ``device=None`` is the CUDA card and raises without one; pass
 ``device="cpu"`` to run on the CPU. ``loss_fn`` / ``chunked_xent`` wait
@@ -11,16 +12,32 @@ for the training slice, the encoder-decoder family for its own.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
+from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils.device import resolve_device
 
 
+@contextlib.contextmanager
+def plain_paths():
+    """Inside the block the model takes its plain chunked paths
+    (``layers.flash_attention_plain``, ``ssm.ssd_chunked``) on CUDA tensors
+    too: the model that the kernels' model path is held against on the
+    card."""
+    saved, L.PLAIN_PATHS = L.PLAIN_PATHS, True
+    try:
+        yield
+    finally:
+        L.PLAIN_PATHS = saved
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in LM.FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family is not ported yet "
                                   f"(ROADMAP A)")
 

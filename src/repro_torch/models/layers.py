@@ -199,13 +199,19 @@ def flash_attention_plain(q, k, v, *, q_offset: int = 0, causal: bool = True,
     return o.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, D)
 
 
+# True inside ``api.plain_paths()``: CUDA tensors take the plain chunked
+# paths (attention and the SSD scan) instead of the kernels
+PLAIN_PATHS = False
+
+
 def chunked_attention(cfg: ModelConfig, q, k, v, *, q_offset: int = 0,
                       causal: bool = True, window: int = 0):
     """Memory-bounded attention. q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D].
     CUDA tensors go through the flash-attention kernel (the counterpart of
-    the JAX package's ``use_pallas=True``), CPU tensors through the
-    chunked plain path (its ``use_pallas=False``)."""
-    if q.is_cuda:
+    the JAX package's ``use_pallas=True``), CPU tensors, and CUDA ones
+    inside ``api.plain_paths()``, through the chunked plain path (its
+    ``use_pallas=False``)."""
+    if q.is_cuda and not PLAIN_PATHS:
         return fa_ops.flash_attention(q, k, v, q_offset=q_offset, causal=causal,
                                       window=window)
     return flash_attention_plain(q, k, v, q_offset=q_offset, causal=causal,

@@ -1,9 +1,14 @@
-"""Decoder-only LM of the dense family (``attn_mlp`` layers).
+"""Decoder-only LM of the dense, ssm and hybrid families.
 
-The JAX package stacks the layers' parameters ([L, ...] leaves) and runs
-them under ``lax.scan``; here the layers are an ``nn.ModuleList`` walked by
-a loop, and ``convert.lm_params_from_numpy`` maps the stacked leaves onto
-it. The decode cache is a list with one dict per layer.
+Layer kinds: ``attn_mlp`` (dense: pre-norm attention, then pre-norm MLP),
+``ssm`` (mamba2: one pre-norm SSM block) and ``hybrid`` (hymba: attention
+and the SSM block side by side on one normed input, averaged, then the
+MLP). The JAX package stacks the layers' parameters ([L, ...] leaves) and
+runs them under ``lax.scan``; here the layers are an ``nn.ModuleList``
+walked by a loop, and ``convert.lm_params_from_numpy`` maps the stacked
+leaves onto it. The decode cache is a list with one dict per layer, nested
+as the reference's: ``{"attn": {k, v, len}}``, ``{"ssm": {conv_x, conv_bc,
+h}}`` or both.
 
   init_params(cfg, seed, device)              -> model (nn.Module)
   forward(cfg, model, tokens)                 -> hidden
@@ -17,16 +22,29 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
+_KINDS = {"dense": "attn_mlp", "ssm": "ssm", "hybrid": "hybrid"}
+FAMILIES = tuple(_KINDS)
+#: the cache parts of a layer of each kind
+LAYER_PARTS = {"attn_mlp": ("attn",), "ssm": ("ssm",), "hybrid": ("attn", "ssm")}
 
-def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> nn.Module:
-    """One ``attn_mlp`` layer: pre-norm attention, then pre-norm MLP."""
+
+def _layer_kind(cfg: ModelConfig) -> str:
+    return _KINDS[cfg.family]
+
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, kind: str) -> nn.Module:
     p = nn.Module()
     p.norm1 = L.init_norm(cfg, device=gen.device)
-    p.attn = L.init_attention(cfg, gen)
-    p.norm2 = L.init_norm(cfg, device=gen.device)
-    p.mlp = L.init_mlp(cfg, gen)
+    if kind in ("attn_mlp", "hybrid"):
+        p.attn = L.init_attention(cfg, gen)
+    if kind in ("ssm", "hybrid"):
+        p.ssm = SSM.init_ssm(cfg, gen)
+    if kind in ("attn_mlp", "hybrid"):
+        p.norm2 = L.init_norm(cfg, device=gen.device)
+        p.mlp = L.init_mlp(cfg, gen)
     return p
 
 
@@ -38,16 +56,28 @@ def init_params(cfg: ModelConfig, seed: int, device) -> nn.Module:
     model.final_norm = L.init_norm(cfg, device=gen.device)
     if not cfg.tie_embeddings:
         model.lm_head = L.dense_init(gen, (cfg.d_model, cfg.vocab), pdt)
-    model.layers = nn.ModuleList(_init_layer(cfg, gen) for _ in range(cfg.n_layers))
+    kind = _layer_kind(cfg)
+    model.layers = nn.ModuleList(_init_layer(cfg, gen, kind) for _ in range(cfg.n_layers))
     return model
 
 
-def _layer_apply(cfg: ModelConfig, p: nn.Module, x, *, positions, cache):
-    a, new_cache = L.attention_apply(cfg, p.attn, L.norm_apply(cfg, p.norm1, x),
-                                     positions=positions, cache=cache)
-    x = x + a
-    x = x + L.mlp_apply(cfg, p.mlp, L.norm_apply(cfg, p.norm2, x))
-    return x, new_cache
+def _layer_apply(cfg: ModelConfig, p: nn.Module, x, *, kind, positions, cache):
+    """One layer; cache None (prefill) or the layer's nested cache."""
+    sub = (lambda name: None) if cache is None else cache.get
+    new_cache = {}
+    xin = L.norm_apply(cfg, p.norm1, x)
+    if kind == "ssm":
+        h, new_cache["ssm"] = SSM.ssm_apply(cfg, p.ssm, xin, cache=sub("ssm"))
+        x = x + h
+    else:
+        a, new_cache["attn"] = L.attention_apply(cfg, p.attn, xin, positions=positions,
+                                                 cache=sub("attn"))
+        if kind == "hybrid":  # hymba: parallel attention and SSM heads, averaged
+            s, new_cache["ssm"] = SSM.ssm_apply(cfg, p.ssm, xin, cache=sub("ssm"))
+            a = 0.5 * (a + s)
+        x = x + a
+        x = x + L.mlp_apply(cfg, p.mlp, L.norm_apply(cfg, p.norm2, x))
+    return x, (None if cache is None else new_cache)
 
 
 def embed_tokens(cfg: ModelConfig, model: nn.Module, tokens):
@@ -57,9 +87,10 @@ def embed_tokens(cfg: ModelConfig, model: nn.Module, tokens):
 def backbone(cfg: ModelConfig, model: nn.Module, x, *, positions, cache=None):
     """Run all layers. cache: None (prefill) or a list of per-layer caches.
     Returns (hidden, new_cache)."""
+    kind = _layer_kind(cfg)
     new_cache = None if cache is None else []
     for i, layer in enumerate(model.layers):
-        x, c = _layer_apply(cfg, layer, x, positions=positions,
+        x, c = _layer_apply(cfg, layer, x, kind=kind, positions=positions,
                             cache=None if cache is None else cache[i])
         if cache is not None:
             new_cache.append(c)
@@ -80,20 +111,31 @@ def forward(cfg: ModelConfig, model: nn.Module, tokens):
     return backbone(cfg, model, x, positions=positions)[0]
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     if cfg.kv_quant:
         raise NotImplementedError("the int8 kv_quant cache is not ported yet")
     shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return [{"k": torch.zeros(shape, dtype=L._dtype(cfg), device=device),
-             "v": torch.zeros(shape, dtype=L._dtype(cfg), device=device),
-             "len": torch.zeros(batch, dtype=torch.long, device=device)}
-            for _ in range(cfg.n_layers)]
+    return {"k": torch.zeros(shape, dtype=L._dtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=L._dtype(cfg), device=device),
+            "len": torch.zeros(batch, dtype=torch.long, device=device)}
+
+
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device):
+    make = {"attn": lambda: _attn_cache(cfg, batch, max_len, device),
+            "ssm": lambda: SSM.init_ssm_cache(cfg, batch, device)}
+    return {part: make[part]() for part in LAYER_PARTS[kind]}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    kind = _layer_kind(cfg)
+    return [_layer_cache(cfg, kind, batch, max_len, device) for _ in range(cfg.n_layers)]
 
 
 def decode_step(cfg: ModelConfig, model: nn.Module, tokens, pos, cache):
     """One decode step. tokens [B, 1]; pos the current position, a scalar
-    shared by the batch or i64[B], one per row. Each row writes at its
-    cache ``len``. Returns (logits [B, 1, V], new_cache)."""
+    shared by the batch or i64[B], one per row. Each row's attention writes
+    at its cache ``len``; the SSM state advances one step. Returns (logits
+    [B, 1, V], new_cache); the input cache is left as it was."""
     x = embed_tokens(cfg, model, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]

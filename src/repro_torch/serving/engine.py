@@ -2,10 +2,10 @@
 router).
 
 One replica is one batched decode step over a fixed pool of ``n_slots``
-slots; each slot holds an independent sequence and its row of the KV
-cache. Requests are admitted into free slots between steps, finished
-slots free their row, and every active slot advances one token per engine
-tick.
+slots; each slot holds an independent sequence and its row of the cache
+(the KV cache of attention layers, the conv and SSD state of SSM layers).
+Requests are admitted into free slots between steps, finished slots free
+their row, and every active slot advances one token per engine tick.
 
   * Per-row positions: each row decodes at its own depth. The JAX package
     vmaps the single-sequence decode over the slots with each row's cache
@@ -15,6 +15,13 @@ tick.
   * A step computes every row; only the active rows are merged back
     (``_merge_rows``), so an idle row's cache and position stay as they
     were.
+  * Admission zeroes the admitted slots' SSM rows (``conv_x``,
+    ``conv_bc``, ``h``) beside resetting their position. The JAX engine
+    resets only the position (``src/repro/serving/engine.py:141-151``):
+    a stale attention row is masked by position, but an SSM state is read
+    as it stands, so there a request admitted into a reused slot starts
+    from the previous request's final state. Here it starts from zero, as
+    it would in a fresh engine.
   * Admission replays the prompts through the same step, all admitted
     slots together, one token step at a time: a step whose tokens are all
     the sentinel -1 is skipped, and a step merges only the rows that had a
@@ -105,6 +112,7 @@ class ContinuousBatchingEngine:
             accept.append(True)
         if not admitted:
             return accept
+        _zero_ssm_rows(self.cache, [i for i, _ in admitted])
         P = max(len(p) - 1 for _, p in admitted)
         if P > 0:
             C = self.prefill_chunk
@@ -167,25 +175,41 @@ class ContinuousBatchingEngine:
 
 def _batched_decode(cfg: ModelConfig, model, tokens, pos, cache):
     """One decode step with per-row positions: row b writes at ``pos[b]``
-    (its cache length) and attends over ``kpos <= pos[b]``. Returns
-    (logits [B, 1, V], new_cache, pos + 1)."""
-    rows = [dict(c, len=pos) for c in cache]
+    (its attention cache length) and attends over ``kpos <= pos[b]``.
+    Returns (logits [B, 1, V], new_cache, pos + 1)."""
+    rows = [{part: dict(c, len=pos) if part == "attn" else c for part, c in layer.items()}
+            for layer in cache]
     logits, new = api.decode_fn(cfg, model, {"tokens": tokens, "pos": pos}, rows)
-    return logits, [dict(n, len=c["len"]) for n, c in zip(new, cache)], pos + 1
+    new = [{part: dict(c, len=old["attn"]["len"]) if part == "attn" else c
+            for part, c in layer.items()} for layer, old in zip(new, cache)]
+    return logits, new, pos + 1
 
 
 def _merge_rows(new, old, mask):
-    """Rows of ``new`` where ``mask`` (bool[n_slots]) holds, of ``old``
-    elsewhere; the ``len`` entries keep ``old`` (the step sets them from
+    """Per layer and cache part, rows of ``new`` where ``mask``
+    (bool[n_slots]) holds, of ``old`` elsewhere. The slot axis is 0 for
+    every leaf; the ``len`` entries keep ``old`` (the step sets them from
     the positions)."""
     out = []
-    for n, o in zip(new, old):
+    for n_layer, o_layer in zip(new, old):
         merged = {}
-        for key, a in n.items():
-            if key == "len":
-                merged[key] = o[key]
-            else:
-                m = mask.reshape((-1,) + (1,) * (a.dim() - 1))
-                merged[key] = torch.where(m, a, o[key])
+        for part, n in n_layer.items():
+            o = o_layer[part]
+            merged[part] = {}
+            for key, a in n.items():
+                if key == "len":
+                    merged[part][key] = o[key]
+                else:
+                    m = mask.reshape((-1,) + (1,) * (a.dim() - 1))
+                    merged[part][key] = torch.where(m, a, o[key])
         out.append(merged)
     return out
+
+
+def _zero_ssm_rows(cache, slots: "list[int]") -> None:
+    """Zero the SSM state rows of ``slots``, in place: the engine owns its
+    cache tensors (each tick's merge makes new ones)."""
+    idx = torch.tensor(slots, dtype=torch.long)
+    for layer in cache:
+        for a in layer.get("ssm", {}).values():
+            a[idx.to(a.device)] = 0

@@ -185,21 +185,27 @@ def test_flash_kernel_matches_plain_version(dev, BH, Sq, Sk, D, causal, window, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_ops_gqa_matches_plain_version(dev, dtype):
+@pytest.mark.parametrize("B,S,H,Hkv,window,scale", [
+    (2, 300, 6, 2, 0, 1.0),
+    (2, 4096, 25, 5, 1024, 0.5),  # hymba-1.5b's prefill attention (chip_smoke.py [flash])
+])
+def test_flash_ops_gqa_matches_plain_version(dev, dtype, B, S, H, Hkv, window, scale):
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
 
     g = torch.Generator(device=dev).manual_seed(1)
-    B, S, H, Hkv, D = 2, 300, 6, 2, 64
-    q = torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
-    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=dev).to(dtype) for _ in range(2))
-    got = fops.flash_attention(q, k, v, q_offset=0, causal=True)
+    D = 64
+    q = (torch.randn(B, S, H, D, generator=g, device=dev) * scale).to(dtype)
+    k, v = ((torch.randn(B, S, Hkv, D, generator=g, device=dev) * scale).to(dtype)
+            for _ in range(2))
+    got = fops.flash_attention(q, k, v, q_offset=0, causal=True, window=window)
     want = fref.attention_ref(q.transpose(1, 2).reshape(B * H, S, D),
                               k.transpose(1, 2).reshape(B * Hkv, S, D),
-                              v.transpose(1, 2).reshape(B * Hkv, S, D))
+                              v.transpose(1, 2).reshape(B * Hkv, S, D), window=window)
     torch.cuda.synchronize()
     tol = FLASH_TOL[dtype]
     want = want.reshape(B, H, S, D).transpose(1, 2)
+    assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert (fref.row_relative_error(got.transpose(1, 2), want.transpose(1, 2))
             <= FLASH_ROW_TOL[dtype]).all()
@@ -215,7 +221,6 @@ def test_cuda_prefill_launches_flash_once_per_layer(dev):
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import api
-    from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
 
     cfg = dataclasses.replace(configs.get_config("smollm-360m"), n_layers=3)
@@ -237,14 +242,9 @@ def test_cuda_prefill_launches_flash_once_per_layer(dev):
         return LM.logits_head(cfg32, model32, LM.forward(cfg32, model32, toks))
 
     got32 = all_logits()
-    saved = L.chunked_attention
-    L.chunked_attention = lambda cfg, q, k, v, **kw: L.flash_attention_plain(
-        q, k, v, chunk=cfg.attn_chunk, **kw)
-    try:
+    with api.plain_paths():
         want = api.prefill(cfg, model, {"tokens": toks})
         want32 = all_logits()
-    finally:
-        L.chunked_attention = saved
     # tolerances of chip_smoke.py's [prefill]
     assert (got.float() - want.float()).abs().max().item() <= 0.125
     assert (got32 - want32).abs().max().item() <= 1e-4
@@ -267,3 +267,195 @@ def test_flash_wrapper_refuses_bad_inputs_on_the_card(dev, case):
     with pytest.raises(ValueError):
         fk.flash_attention_fwd(q, k, v)
     assert fk.launch_counts()["flash_attention_fwd"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunked scan (K5)
+# ---------------------------------------------------------------------------
+
+# against the plain version (chip_smoke.py's [ssd] bars) and the
+# sequential oracle (tests/test_kernels.py's bars)
+SSD_TOL, SSD_ROW_TOL = 5e-4, 2e-4
+SSD_ORACLE_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+
+
+def _ssd_inputs(dev, B, S, H, P, N, xdtype, *, heads, seed=0, mamba2_decays=False):
+    """chip_smoke.ssd_inputs: the decays of tests/test_kernels.py, or with
+    ``mamba2_decays`` Mamba2's (``ref.mamba2_decays``), under which the
+    state reaches across chunks."""
+    from repro_torch.kernels.ssd_scan import ref as sref
+
+    g = torch.Generator(device=dev).manual_seed(seed + S + P + N)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = (r(*((B, S, H, P) if heads else (B * H, S, P))) * 0.5).to(xdtype)
+    dts = (B, S, H) if heads else (B * H, S)
+    if mamba2_decays:
+        A_log, dt_bias = sref.mamba2_decays(H if heads else B * H, g)
+        dt = torch.nn.functional.softplus(r(*dts) + (dt_bias if heads else dt_bias[:, None]))
+        A = -torch.exp(A_log)
+    else:
+        dt = torch.nn.functional.softplus(r(*dts) - 1.0)
+        A = -torch.exp(r(H if heads else B * H) * 0.5)
+    G = B if heads else B * H
+    Bm, Cm = ((r(G, S, N) * 0.5).bfloat16().float() for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def _hold_ssd(got, want):
+    from repro_torch.kernels.ssd_scan import ref as sref
+
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=SSD_TOL, rtol=SSD_TOL)
+        assert (sref.row_relative_error(g, w) <= SSD_ROW_TOL).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,P,N,chunk",
+                         [(2, 128, 32, 16, 64), (1, 256, 64, 32, 128), (4, 192, 16, 8, 64)])
+def test_ssd_kernel_matches_plain_version(dev, BH, S, P, N, chunk, dtype):
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ref as sref
+
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, BH, S, 1, P, N, dtype, heads=False)
+    sk.reset_launches()
+    got = sk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    assert sk.launch_counts()["ssd_scan"] == 1
+    _hold_ssd(got, sref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk))
+    tol = SSD_ORACLE_TOL[dtype]
+    for g, w in zip(got, sref.ssd_ref(x, dt, A, Bm, Cm)):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", [
+    (4, 4096, 32, 64, 128, 128, torch.bfloat16),  # mamba2-370m's layer at B=4, S=4096
+    (2, 4096, 50, 64, 16, 128, torch.bfloat16),  # hymba-1.5b's layer at B=2, S=4096
+    (2, 100, 4, 64, 128, 64, torch.float32),  # gcd chunk: Q = 4
+    (2, 300, 4, 64, 128, 128, torch.float32),  # gcd chunk: Q = 4
+])
+def test_ssd_ops_matches_plain_version(dev, B, S, H, P, N, chunk, dtype):
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
+
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, B, S, H, P, N, dtype, heads=True)
+    Q = sops.pick_chunk(S, chunk)
+    _hold_ssd(sops.ssd(x, dt, A, Bm, Cm, chunk=chunk),
+              sref.ssd_chunked_heads(x, dt, A, Bm, Cm, chunk=Q))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dtype", [
+    (4, 4096, 32, 64, 128, 128, torch.bfloat16),
+    (2, 4096, 50, 64, 16, 128, torch.bfloat16),
+    (2, 300, 4, 64, 128, 128, torch.float32),
+])
+def test_ssd_ops_holds_the_carry_under_mamba2_decays(dev, B, S, H, P, N, chunk, dtype):
+    """chip_smoke.py's "mamba2 decays" cases of [ssd]: the kernel within the
+    bars, and the plain version without its chunk carry far outside them."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
+
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, B, S, H, P, N, dtype, heads=True, mamba2_decays=True)
+    Q = sops.pick_chunk(S, chunk)
+    want = sref.ssd_chunked_heads(x, dt, A, Bm, Cm, chunk=Q)
+    _hold_ssd(sops.ssd(x, dt, A, Bm, Cm, chunk=chunk), want)
+    faulty = sref.without_carry(sref.ssd_chunked_heads, x, dt, A, Bm, Cm, chunk=Q)[0]
+    assert sref.row_relative_error(faulty, want[0]).max().item() > 100 * SSD_ROW_TOL
+
+
+def test_ssd_in_place_bc_equals_the_broadcast_form(dev):
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    B, H = 2, 8
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, B, 512, H, 64, 128, torch.bfloat16, heads=False)
+    Bg, Cg = Bm[::H].contiguous(), Cm[::H].contiguous()
+    got = sk.ssd_scan(x, dt, A, Bg, Cg, chunk=128)
+    want = sk.ssd_scan(x, dt, A, Bg.repeat_interleave(H, 0), Cg.repeat_interleave(H, 0),
+                       chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("case", ["dtype", "noncontiguous", "mixed_device"])
+def test_ssd_wrapper_refuses_bad_inputs_on_the_card(dev, case):
+    from repro_torch.kernels.ssd_scan import kernel as sk
+
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, 2, 128, 1, 64, 16, torch.bfloat16, heads=False)
+    if case == "dtype":
+        x = x.half()
+    elif case == "noncontiguous":
+        Bm = Bm.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        dt = dt.cpu()
+    sk.reset_launches()
+    with pytest.raises(ValueError):
+        sk.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    assert sk.launch_counts()["ssd_scan"] == 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_cuda_prefill_launches_ssd_once_per_layer(dev, arch):
+    """mamba2-370m and hymba-1.5b at their published widths, 3 layers,
+    S=2048, A_log and dt_bias drawn as Mamba2 draws them: the prefill takes
+    K5 in every layer (and K4 in hymba's); bf16 last-position logits and
+    f32 logits at every position close to the plain paths' (smollm's
+    [prefill] bars of chip_smoke.py), and the f32 model with the chunk carry
+    left out far from them."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.models import api
+    from repro_torch.models import lm as LM
+    from repro_torch.models import ssm as SSM
+
+    def mamba2_init(cfg):
+        model, g = api.init_params(cfg, 0), torch.Generator(device=dev).manual_seed(0)
+        with torch.no_grad():
+            for layer in model.layers:
+                A_log, dt_bias = sref.mamba2_decays(cfg.n_ssm_heads, g)
+                layer.ssm.A_log.copy_(A_log)
+                layer.ssm.dt_bias.copy_(dt_bias)
+        return model
+
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=3)
+    model = mamba2_init(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (1, 2048), generator=g, device=dev)
+    sk.reset_launches()
+    fk.reset_launches()
+    got = api.prefill(cfg, model, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert sk.launch_counts()["ssd_scan"] == cfg.n_layers
+    assert fk.launch_counts()["flash_attention_fwd"] == (cfg.n_layers if arch == "hymba-1.5b"
+                                                         else 0)
+    assert got.shape == (1, 1, cfg.vocab) and torch.isfinite(got).all()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = mamba2_init(cfg32)
+
+    @torch.no_grad()
+    def all_logits():
+        return LM.logits_head(cfg32, model32, LM.forward(cfg32, model32, toks))
+
+    got32 = all_logits()
+    with api.plain_paths():
+        want = api.prefill(cfg, model, {"tokens": toks})
+        want32 = all_logits()
+    saved = SSM.ssd_prefill
+    SSM.ssd_prefill = lambda cfg, x, *a: sref.without_carry(
+        sops.ssd, x, *a, chunk=sops.pick_chunk(x.shape[1], cfg.ssm_chunk))
+    try:
+        faulty32 = all_logits()
+    finally:
+        SSM.ssd_prefill = saved
+    err, err32, fault32 = ((a.float() - b.float()).abs().max().item()
+                           for a, b in ((got, want), (got32, want32), (faulty32, want32)))
+    print(f"{arch} 3 layers: bf16 last-position logits {err}, f32 logits {err32}, f32 "
+          f"without the chunk carry {fault32}")
+    assert err <= 0.125 and err32 <= 1e-4 and fault32 > 1e-4

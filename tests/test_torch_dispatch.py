@@ -222,6 +222,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         import chip_smoke
         bad = [k for k in sys.modules if k.split(".")[0] in BLOCKED]
         assert not bad, bad
+        for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan.kernel",
+                  "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref",
+                  "repro_torch.kernels.ssd_scan.build"):
+            assert m in sys.modules, m
         print("clean")
     """)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))

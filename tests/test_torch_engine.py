@@ -1,6 +1,8 @@
 """The port's continuous-batching engine (``repro_torch.serving.engine``)
 and serving entry point (``repro_torch.launch.serve``) at the reduced
-smollm-360m config, on the CPU.
+smollm-360m config, on the CPU; at the end, the engine at reduced
+mamba2-370m and hymba-1.5b against the JAX engine, and the slot-reuse
+repair (an admitted slot's SSM state starts from zero).
 
 The first seven tests are those of ``tests/test_engine.py``, run against
 the port. The reference tests then drive the JAX package's engine on the
@@ -245,7 +247,7 @@ def ref():
         decode = jax.jit(lambda params, tokens, pos, cache: japi.decode_fn(
             cfg, params, {"tokens": tokens, "pos": pos}, cache))
         yield types.SimpleNamespace(
-            jax=jax, jnp=jnp, api=japi, decode=decode, engine=jengine, cfg=cfg,
+            jax=jax, jnp=jnp, api=japi, decode=decode, engine=jengine, cfg=cfg, configs=configs,
             params=params,
             tcfg=_cfg(), model=convert.lm_params_from_numpy(_cfg(), tree, "cpu"))
     finally:
@@ -362,3 +364,121 @@ def test_serve_refuses_cuda_without_a_card():
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--requests", "1"])
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families (reduced mamba2-370m, hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ["mamba2-370m", "hymba-1.5b"]
+
+
+@pytest.fixture(scope="module")
+def ssm_ref(ref):
+    """Per arch: the reference's reduced config, parameters and jitted
+    decode, and the port's config and model on the same parameters (the
+    shim of the ``ref`` fixture is active while it lives)."""
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = ref.configs.reduced(ref.configs.get_config(arch))
+        params = ref.api.init_params(cfg, ref.jax.random.PRNGKey(0))
+        tree = {".".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path):
+                np.asarray(leaf)
+                for path, leaf in ref.jax.tree_util.tree_flatten_with_path(params)[0]}
+        tcfg = tconfigs.reduced(tconfigs.get_config(arch))
+        decode = ref.jax.jit(lambda params, tokens, pos, cache, cfg=cfg: ref.api.decode_fn(
+            cfg, params, {"tokens": tokens, "pos": pos}, cache))
+        out[arch] = types.SimpleNamespace(
+            jax=ref.jax, jnp=ref.jnp, api=ref.api, engine=ref.engine, cfg=cfg, params=params,
+            decode=decode, tcfg=tcfg, model=convert.lm_params_from_numpy(tcfg, tree, "cpu"))
+    return out
+
+
+def _check_tokens(r, prompts, got, want, n_new):
+    """got == want, up to the first step whose reference top-2 logits lie
+    within NEAR_TIE (sequential reference decode)."""
+    assert set(got) == set(want) == set(range(len(prompts)))
+    near_ties = []
+    for rid, p in enumerate(prompts):
+        logits = _reference_logits(r, list(p), n_new)
+        assert [int(np.argmax(lg)) for lg in logits] == want[rid]
+        for i, (g, w) in enumerate(zip(got[rid], want[rid])):
+            top2 = np.sort(logits[i])[-2:]
+            if top2[1] - top2[0] < NEAR_TIE:
+                near_ties.append((rid, i, float(top2[1] - top2[0])))
+                break  # past a near-tie the two sequences may part
+            assert g == w, (rid, i, got[rid], want[rid])
+    print(f"near-ties (rid, step, top-2 gap): {near_ties}")
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+@pytest.mark.parametrize("chunk", [None, 4])
+def test_ssm_engine_tokens_match_reference_engine(ssm_ref, arch, chunk):
+    """Batch admission of three, one tick, a fourth admitted mid-flight,
+    whole and chunked replay; four slots, so no slot is reused."""
+    r = ssm_ref[arch]
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(1, r.cfg.vocab, size=ln) for ln in (6, 3, 9, 5)]
+    n_new = 6
+    want = _schedule(r.engine.ContinuousBatchingEngine(
+        r.cfg, r.params, n_slots=4, max_len=64, prefill_chunk=chunk), prompts, n_new)
+    got = _schedule(ContinuousBatchingEngine(
+        r.tcfg, r.model, n_slots=4, max_len=64, prefill_chunk=chunk), prompts, n_new)
+    _check_tokens(r, prompts, got, want, n_new)
+
+
+def _serve_in_one_slot(engine_cls, cfg, params, prompts, n_new):
+    """Serve ``prompts`` one after another through a one-slot engine."""
+    eng = engine_cls(cfg, params, n_slots=1, max_len=64)
+    outs = []
+    for rid, p in enumerate(prompts):
+        assert eng.try_admit(rid, np.asarray(p), n_new)
+        done = []
+        while not done:
+            done = eng.step()
+        outs.append(done[0][1])
+    return outs
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_slot_reuse_starts_from_a_fresh_state(ssm_ref, arch):
+    """Request B served in the slot that request A just freed gives the
+    tokens of B served fresh, in the port; the reference's B after A
+    differs from its fresh B, because its admission resets only the slot's
+    position and B starts from A's final SSM state
+    (``src/repro/serving/engine.py:141-151``)."""
+    r = ssm_ref[arch]
+    A, B, n_new = [5, 9, 11, 3], [7, 2, 8, 4], 6
+    port_after = _serve_in_one_slot(ContinuousBatchingEngine, r.tcfg, r.model, [A, B], n_new)[1]
+    port_fresh = _serve_in_one_slot(ContinuousBatchingEngine, r.tcfg, r.model, [B], n_new)[0]
+    ref_after = _serve_in_one_slot(r.engine.ContinuousBatchingEngine, r.cfg, r.params, [A, B],
+                                   n_new)[1]
+    ref_fresh = _serve_in_one_slot(r.engine.ContinuousBatchingEngine, r.cfg, r.params, [B],
+                                   n_new)[0]
+    assert port_after == port_fresh
+    _check_tokens(r, [B], {0: port_fresh}, {0: ref_fresh}, n_new)
+    assert ref_after != ref_fresh  # the reference's leak, pinned
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+@pytest.mark.parametrize("executor", ["engine", "replica"])
+def test_serve_main_serves_the_ssm_families_on_cpu(arch, executor):
+    """``--arch mamba2-370m`` / ``hymba-1.5b`` through both executors; the
+    replica executor replays each decode ``slowdown`` times on one input
+    cache, which a decode leaves unchanged."""
+    out = tserve.main(["--device", "cpu", "--arch", arch, "--executor", executor,
+                       "--requests", "4", "--arrival-batch", "2", "--n-new", "2",
+                       "--replicas", "2"])
+    assert out["executor"] == executor and len(out["mu_hat"]) == 2
+    assert out["mean_ms"] > 0
+
+
+def test_replica_slowdown_gives_the_tokens_of_one_decode():
+    """A slowdown-3 replica emits the tokens of a slowdown-1 one at reduced
+    mamba2: the SSM state advances once per token, not once per replay."""
+    cfg = tconfigs.reduced(tconfigs.get_config("mamba2-370m"))
+    model = _params(cfg)
+    prompt = np.array([5, 9, 11, 3])
+    one = tserve.LocalReplica(cfg, model, 1).serve(prompt, 5)
+    three = tserve.LocalReplica(cfg, model, 3).serve(prompt, 5)
+    assert one.tolist() == three.tolist() == _sequential_generate(cfg, model, list(prompt), 5)

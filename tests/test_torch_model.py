@@ -71,7 +71,8 @@ def _pair(ref, arch, **over):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-32b", "glm4-9b", "chatglm3-6b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-32b", "glm4-9b", "chatglm3-6b",
+                                  "mamba2-370m", "hymba-1.5b"])
 def test_configs_carry_across_field_for_field(ref, arch):
     j, t = ref.configs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -145,6 +146,8 @@ def test_decode_steps_match_reference(ref, arch):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
     conv = convert.lm_cache_from_numpy(tcfg, flat(ref.jax, jcache), "cpu")
     for c, t in zip(conv, tcache):
+        assert set(c) == set(t) == {"attn"}  # nested as the reference's layer cache
+        c, t = c["attn"], t["attn"]
         assert c["len"].tolist() == t["len"].tolist() == [8, 8]
         for key in ("k", "v"):
             np.testing.assert_allclose(c[key].numpy(), t[key].numpy(), atol=TOL, rtol=TOL)

@@ -45,6 +45,11 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
+# K4 and K5 before their redesign, at [times]'s shapes (main, small): the
+# first ports' times on NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+BEFORE_MS = {"flash_attention_fwd": {"main": 1.084800, "small": 0.111328},
+             "ssd_scan": {"main": 3.182272, "small": 1.559024}}
 SOURCE = "src/repro_torch/kernels/ppot_dispatch/csrc/ppot_dispatch.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:105"
@@ -428,7 +433,14 @@ def phase_flash(torch, FK, FO, FR, dev):
                 (2, 128, 128, 64, True, 0, 0), (2, 256, 256, 64, True, 64, 0),
                 (1, 128, 384, 128, False, 0, 0), (3, 384, 384, 32, True, 0, 0),
                 (2, 128, 256, 64, True, 0, 128), (2, 128, 256, 64, True, 16, 200),
-                (2, 2048, 2048, 64, True, 0, 0)):
+                (2, 2048, 2048, 64, True, 0, 0),
+                # the tile plan's edges: Sq not a multiple of the 64-row q tile
+                # nor Sk of the kv tile, windows whose first key falls inside
+                # a tile, q_offset > 0 with ragged tiles, D = 32 and 128
+                (1, 300, 300, 64, True, 0, 0), (2, 200, 333, 128, True, 0, 133),
+                (1, 500, 500, 32, True, 100, 0), (2, 1000, 1000, 64, True, 200, 0),
+                (1, 77, 1000, 64, False, 0, 0), (1, 256, 1024, 128, True, 300, 768),
+                (3, 130, 190, 32, True, 0, 60)):
             cases.append((f"BH={BH} Sq={Sq} Sk={Sk} D={D} causal={causal} "
                           f"window={window} q_offset={off}", dt, "kernel",
                           (rand(BH, Sq, D, dtype=dt), rand(BH, Sk, D, dtype=dt),
@@ -437,8 +449,15 @@ def phase_flash(torch, FK, FO, FR, dev):
         cases.append((f"ops GQA B=2 S=300 H=6 Hkv=2 D=64", dt, "ops",
                       (rand(2, 300, 6, 64, dtype=dt), rand(2, 300, 2, 64, dtype=dt),
                        rand(2, 300, 2, 64, dtype=dt)), dict(causal=True, q_offset=0)))
+        # q, k and v as strided views of one fused [B, S, H + 2 Hkv, D]
+        # projection: the model-layout entry reads them in place
+        qkv = rand(1, 333, 8 + 2 * 2, 32, dtype=dt)
+        cases.append((f"ops strided views B=1 S=333 H=8 Hkv=2 D=32 window=50", dt, "ops",
+                      (qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]),
+                      dict(causal=True, window=50, q_offset=0)))
     # the prefill shapes: smollm-360m's, and hymba-1.5b's windowed attention
     for label, B, S, H, Hkv, window in (("prefill", PREFILL_B, PREFILL_S, 15, 5, 0),
+                                        ("prefill B=1", 1, 2048, 15, 5, 0),
                                         ("hymba prefill", HYMBA_B, HYMBA_S, 25, 5, 1024)):
         bf = torch.bfloat16
         cases.append((f"ops {label} shape B={B} S={S} H={H} Hkv={Hkv} D=64 window={window}",
@@ -757,9 +776,16 @@ def phase_ssd(torch, SK, SO, SR, dev):
             ("mamba2 layer", MAMBA_B, MAMBA_S, 32, 64, 128, 128, torch.bfloat16, "mamba2"),
             ("hymba layer", HYMBA_B, HYMBA_S, 50, 64, 16, 128, torch.bfloat16, "fast"),
             ("hymba layer", HYMBA_B, HYMBA_S, 50, 64, 16, 128, torch.bfloat16, "mamba2"),
+            # B = 1, S = 2048: the smallest grid of the chunk-parallel scan
+            ("mamba2 layer B=1", 1, 2048, 32, 64, 128, 128, torch.bfloat16, "mamba2"),
             ("gcd chunk 4 (S=100, chunk 64)", 2, 100, 4, 64, 128, 64, torch.float32, "mamba2"),
             ("gcd chunk 4 (S=300, chunk 128)", 2, 300, 4, 64, 128, 128, torch.float32,
-             "mamba2")):
+             "mamba2"),
+            ("gcd chunk 32 (S=160, chunk 128)", 2, 160, 6, 64, 128, 128, torch.bfloat16,
+             "mamba2"),
+            # x rows of 40 bytes: read element by element, not 16 bytes at a time
+            ("gcd chunk 32 (S=160, chunk 128), P=20 N=12", 1, 160, 5, 20, 12, 128,
+             torch.bfloat16, "fast")):
         x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dev, B, S, H, P, N, xdtype=xdt, heads=True,
                                       decay=decay)
         Q = SO.pick_chunk(S, chunk)
@@ -847,11 +873,14 @@ def phase_ssm_prefill(torch, SK, FK, dev, arch, B, S):
     logits = api.prefill(cfg, model, {"tokens": toks})
     torch.cuda.synchronize()
     ssd = SK.launch_counts()["ssd_scan"]
+    grids = SK.launch_counts()["ssd_scan_grids"]
     flash = FK.launch_counts()["flash_attention_fwd"]
     peak = torch.cuda.max_memory_allocated()
     want_flash = cfg.n_layers if cfg.family == "hybrid" else 0
     need(ssd == cfg.n_layers, f"[prefill {arch}] {ssd} SSD-scan launches, expected one "
          f"per layer ({cfg.n_layers})")
+    need(grids == SK.GRIDS * cfg.n_layers and grids > cfg.n_layers, f"[prefill {arch}] "
+         f"{grids} SSD-scan grids, expected {SK.GRIDS} per layer")
     need(flash == want_flash, f"[prefill {arch}] {flash} flash-attention launches, "
          f"expected {want_flash}")
     need(logits.shape == (B, 1, cfg.vocab) and logits.dtype == torch.bfloat16,
@@ -871,11 +900,13 @@ def phase_ssm_prefill(torch, SK, FK, dev, arch, B, S):
     fault = (faulty.float() - plain.float()).abs().max().item()
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
     agree_floor = (plain64.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    out = dict(ssd_launches=ssd, flash_launches=flash, ms=ms, tok_s=B * S / (ms / 1e3),
+    out = dict(ssd_launches=ssd, ssd_grids=grids, flash_launches=flash, ms=ms,
+               tok_s=B * S / (ms / 1e3),
                peak=peak, err=err, floor=floor, fault=fault, agree=agree)
     print(f"[prefill {arch}] full width (L={cfg.n_layers} d={cfg.d_model} "
            f"H_ssm={cfg.n_ssm_heads} P={cfg.ssm_headdim} N={cfg.ssm_state} V={cfg.vocab}, "
-           f"bf16) B={B} S={S}: SSD launches {ssd}, flash launches {flash}, {ms:.3f} ms per "
+           f"bf16) B={B} S={S}: SSD launches {ssd} ({grids} grids), flash launches "
+           f"{flash}, {ms:.3f} ms per "
            f"prefill ({out['tok_s']:.1f} tokens/s), peak memory {peak / 2**30:.3f} GiB; "
            f"last-position logits vs the plain path: max abs err {err:.4f} (tol "
            f"{SSM_PREFILL_TOL}, |logit| max {logits.float().abs().max().item():.3f}; the "
@@ -1006,25 +1037,37 @@ def phase_ssm_serve(torch, cfg, model, dev):
                 tok_s=tok_s, mu=mu.tolist(), reused=len(reused))
 
 
-def phase_ssm_profile(torch, cfg, model, dev, steps: int = 10):
-    """Where mamba2 serving's time goes: one full-width prefill, and
-    ``steps`` engine ticks with all 4 slots decoding."""
+def prefill_profile(torch, cfg, model, dev, B, S) -> dict:
+    """One full-width prefill of an SSM-family model under the profiler:
+    device busy, launches, and the shares of K5's grids and K4."""
     from repro_torch.models import api
-    from repro_torch.serving.engine import ContinuousBatchingEngine
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    toks = torch.randint(0, cfg.vocab, (MAMBA_B, MAMBA_S), generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
     prof = device_profile(torch, lambda: api.prefill(cfg, model, {"tokens": toks}))
     ssd_us = sum(us for name, us in prof["us"].items() if "ssd_scan" in name)
     ssd_n = sum(n for name, n in prof["count"].items() if "ssd_scan" in name)
+    flash_us = sum(us for name, us in prof["us"].items() if "flash_fwd" in name)
+    flash_n = sum(n for name, n in prof["count"].items() if "flash_fwd" in name)
     top = sorted(prof["us"].items(), key=lambda kv: -kv[1])[:5]
-    print(f"[profile prefill {cfg.arch}] {prof['wall'] * 1e3:.3f} ms wall, device busy "
-          f"{prof['busy_us'] / 1e3:.3f} ms (idle share {prof['idle']:.4f}), {prof['launches']} "
-          f"kernel launches of which {ssd_n} SSD scans; SSD scan {ssd_us / 1e3:.3f} ms "
-          f"({ssd_us / prof['busy_us']:.4f} of device time); top by device time: "
+    print(f"[profile prefill {cfg.arch}] B={B} S={S}: {prof['wall'] * 1e3:.3f} ms wall, device "
+          f"busy {prof['busy_us'] / 1e3:.3f} ms (idle share {prof['idle']:.4f}), "
+          f"{prof['launches']} kernel launches of which {ssd_n} SSD-scan grids and {flash_n} "
+          f"flash attention; SSD scan {ssd_us / 1e3:.3f} ms ({ssd_us / prof['busy_us']:.4f} of "
+          f"device time), flash attention {flash_us / 1e3:.3f} ms "
+          f"({flash_us / prof['busy_us']:.4f}); top by device time: "
           f"{[(nm[:60], round(us / 1e3, 3)) for nm, us in top]}")
-    prefill = dict(wall_ms=prof["wall"] * 1e3, busy_ms=prof["busy_us"] / 1e3, idle=prof["idle"],
-                   launches=prof["launches"], ssd_share=ssd_us / prof["busy_us"])
+    return dict(wall_ms=prof["wall"] * 1e3, busy_ms=prof["busy_us"] / 1e3, idle=prof["idle"],
+                launches=prof["launches"], ssd_grids=ssd_n, ssd_share=ssd_us / prof["busy_us"],
+                flash_launches=flash_n, flash_share=flash_us / prof["busy_us"])
+
+
+def phase_ssm_profile(torch, cfg, model, dev, steps: int = 10):
+    """Where mamba2 serving's time goes: one full-width prefill, and
+    ``steps`` engine ticks with all 4 slots decoding."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    prefill = prefill_profile(torch, cfg, model, dev, MAMBA_B, MAMBA_S)
 
     eng = ContinuousBatchingEngine(cfg, model, n_slots=4, max_len=256)
     rng = np.random.RandomState(SEED)
@@ -1169,10 +1212,11 @@ def phase_flash_times(torch, FK, FR, dev):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(ops_ms, bytes_ms),
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes", flops=flops,
-                   bytes=nbytes)
+                   bytes=nbytes, before_ms=BEFORE_MS["flash_attention_fwd"][label])
         out[label] = rec
         print(f"[times] flash_attention_fwd {label} (B={B} S={S} H={H}/{Hkv} D={D} bf16 causal): "
-              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {rec['bound_ms']:.6f} ms "
+              f"kernel {ms:.6f} ms (before the redesign {rec['before_ms']:.6f} ms), plain "
+              f"{plain_ms:.6f} ms, bound {rec['bound_ms']:.6f} ms "
               f"({rec['bound_by']}: {flops} FLOPs at 989 TFLOP/s = {ops_ms:.6f} ms, "
               f"{nbytes} B at 3.35 TB/s = {bytes_ms:.6f} ms), library "
               f"(scaled_dot_product_attention) {lib_ms:.6f} ms, "
@@ -1180,18 +1224,31 @@ def phase_flash_times(torch, FK, FR, dev):
     return out
 
 
-def ssd_work(B, S, H, P, N, Q, x_bytes) -> tuple[int, int]:
-    """(bytes, FLOPs) the SSD scan must move and do: x, dt, B, C (once per
-    batch row), A read once, y and h written once; the products of the
-    chunked form with C·Bᵀ once per (batch row, chunk) on the causal
-    triangle, the intra-chunk product on the triangle, the inter-chunk
-    output and the state update, 2 FLOPs per multiply-add."""
+def ssd_work(B, S, H, P, N, Q, x_bytes) -> tuple[int, int, int, int]:
+    """(bytes, FLOPs, FLOPs of the products with x, FLOPs of C·Bᵀ) the SSD
+    scan must move and do: x, dt, B, C (once per batch row), A read once, y
+    and h written once; the products of the chunked form with C·Bᵀ once per
+    (batch row, chunk) on the causal triangle, the intra-chunk product on
+    the triangle, the inter-chunk output and the state update, 2 FLOPs per
+    multiply-add. The intra-chunk product and the state update multiply x."""
     nbytes = (B * S * H * P * x_bytes + 4 * (B * S * H + H + 2 * B * S * N)
               + 4 * (B * S * H * P + B * H * N * P))
     tri = Q * (Q + 1) // 2
     nc = S // Q
-    flops = 2 * nc * (B * tri * N + B * H * (tri * P + 2 * Q * N * P))
-    return nbytes, flops
+    flops_x = 2 * nc * B * H * (tri * P + Q * N * P)
+    flops_cb = 2 * nc * B * tri * N
+    flops = flops_cb + 2 * nc * B * H * Q * N * P + flops_x  # C·Bᵀ, inter-chunk, with x
+    return nbytes, flops, flops_x, flops_cb
+
+
+def ssd_units_ms(flops, flops_x, flops_cb, x_exact) -> float:
+    """The operations' least time on the units K5 runs them on: C·Bᵀ on the
+    FMA units (67 TFLOP/s), the rest on the TF32 tensor cores with each
+    f32 operand split in two ("3xTF32": 3 products, 495 / 3 TFLOP/s of f32
+    work), 2 products (495 / 2) where x is bf16 and so exact in TF32."""
+    rate_x = TF32_OPS_PER_S / (2 if x_exact else 3)
+    return (flops_cb / F32_OPS_PER_S + (flops - flops_x - flops_cb) / (TF32_OPS_PER_S / 3)
+            + flops_x / rate_x) * 1e3
 
 
 def phase_ssd_times(torch, SK, SO, SR, dev):
@@ -1208,18 +1265,24 @@ def phase_ssd_times(torch, SK, SO, SR, dev):
                              reps=20)
         plain_ms = event_median_ms(
             torch, lambda: SR.ssd_chunked_heads(x, dt, A, Bm, Cm, chunk=Q), reps=5)
-        nbytes, flops = ssd_work(B, S, H, P, N, Q, x.element_size())
+        nbytes, flops, flops_x, flops_cb = ssd_work(B, S, H, P, N, Q, x.element_size())
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_OPS_PER_S * 1e3
+        fma_ms = flops / F32_OPS_PER_S * 1e3  # the bound while K5 ran on the FMA units
+        ops_ms = ssd_units_ms(flops, flops_x, flops_cb, x.dtype == torch.bfloat16)
         rec = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(ops_ms, bytes_ms),
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes", flops=flops,
-                   bytes=nbytes)
+                   bytes=nbytes, fma_bound_ms=max(fma_ms, bytes_ms),
+                   before_ms=BEFORE_MS["ssd_scan"][label])
         out[label] = rec
         print(f"[times] ssd_scan {label} (B={B} S={S} H={H} P={P} N={N} Q={Q}, x bf16): "
-              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {rec['bound_ms']:.6f} ms "
-              f"({rec['bound_by']}: {flops} f32 FLOPs at 67 TFLOP/s = {ops_ms:.6f} ms, "
-              f"{nbytes} B at 3.35 TB/s = {bytes_ms:.6f} ms), library call: none, "
-              f"{rec['bound_ms'] / ms:.4f} of the bound")
+              f"kernel {ms:.6f} ms (before the redesign {rec['before_ms']:.6f} ms), plain "
+              f"{plain_ms:.6f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}: {flops} "
+              f"FLOPs, C·Bᵀ's {flops_cb} at 67 TFLOP/s, the rest on the TF32 tensor cores, "
+              f"3xTF32 ({flops_x} of them, the products with bf16 x, 2xTF32) = {ops_ms:.6f} ms; "
+              f"{nbytes} B at 3.35 TB/s = {bytes_ms:.6f} ms), "
+              f"{rec['bound_ms'] / ms:.4f} of the bound; on the FMA units (67 TFLOP/s) the "
+              f"bound was {rec['fma_bound_ms']:.6f} ms, {rec['fma_bound_ms'] / ms:.4f} of it; "
+              f"library call: none")
     return out
 
 
@@ -1282,8 +1345,10 @@ def main() -> int:
     mamba_serve = phase_ssm_serve(torch, mcfg, mmodel, dev)
     mprof_prefill, mprof_decode = phase_ssm_profile(torch, mcfg, mmodel, dev)
     del mmodel
-    _, _, hymba_prefill = phase_ssm_prefill(torch, SK, FK, dev, "hymba-1.5b", HYMBA_B,
-                                            HYMBA_S)
+    hcfg, hmodel, hymba_prefill = phase_ssm_prefill(torch, SK, FK, dev, "hymba-1.5b",
+                                                    HYMBA_B, HYMBA_S)
+    hprof_prefill = prefill_profile(torch, hcfg, hmodel, dev, HYMBA_B, HYMBA_S)
+    del hmodel
     per_turn, copies, idle = phase_turn_cost(torch, tr, speeds)
     times, floor_ms = phase_times(torch, K, R, build, dev)
     flash_times = phase_flash_times(torch, FK, FR, dev)
@@ -1324,6 +1389,7 @@ def main() -> int:
     print(f"[summary] profile mamba2-370m prefill {json.dumps(mprof_prefill)} decode "
           f"{json.dumps(mprof_decode)}")
     print(f"[summary] prefill hymba-1.5b {json.dumps(hymba_prefill)}")
+    print(f"[summary] profile hymba-1.5b prefill {json.dumps(hprof_prefill)}")
     print(f"[summary] launches/turn {per_turn:.1f}, copies/turn {copies:.1f}, "
           f"idle share {idle:.4f}, launch floor {floor_ms:.6f} ms")
     print(card)

@@ -1,46 +1,67 @@
 // Flash-attention forward for sm_90a. Replaces flash_attention_fwd
 // (src/repro/kernels/flash_attention/kernel.py, _kernel): blocked
-// online-softmax attention over [BH, S, D] with causal / sliding-window
-// masks built from positions (qpos = q_offset + row, kpos = col), f32
-// running max, sum and accumulator, and rows that see no valid key
-// written as 0.
+// online-softmax attention with causal / sliding-window masks built from
+// positions (qpos = q_offset + row, kpos = col), f32 running max, sum and
+// accumulator, p rounded to v's dtype before the PV product, and rows
+// that see no valid key written as 0.
 //
 // Bound on an H100 at the main path's shape (smollm-360m prefill, B=4,
-// S=4096, 15 heads so BH=60, 5 kv heads, D=64, bf16, causal): the two
-// products take 2 x 2 x BH x S(S+1)/2 x D = 1.29e11 FLOPs, 0.130 ms at
-// 989 TFLOP/s; q and o are 31.5 MB each and k, v 10.5 MB each (read once,
-// GQA), 84 MB, 0.025 ms at 3.35 TB/s (126 MB, 0.038 ms were the kv heads
-// repeated). Compute bounds it. Design answer: the bf16 products run on the tensor cores
-// (mma.sync m16n8k16, f32 accumulate), and every kv tile that is wholly
-// masked (above the causal diagonal, or before the window) is skipped,
-// which halves the causal work. The static TPU grid could not skip them.
+// S=4096, 15 heads, 5 kv heads, D=64, bf16, causal): the two products
+// take 2 x 2 x B x H x S(S+1)/2 x D = 1.29e11 FLOPs, 0.130 ms at 989
+// TFLOP/s; q and o are 31.5 MB each and k, v 10.5 MB each, read or
+// written once, 0.025 ms at 3.35 TB/s. The tensor cores bound it, and
+// close behind them the exponent unit: every score takes one ex2, and
+// at D=64 an SM's 16 ex2 per clock need as long for a tile's 128 x 128
+// exponents as its tensor cores need for the tile's two products.
 //
-// Layout: one block owns one (bh, 64-row q tile) and walks the kv tiles
-// itself; that loop takes the place of the TPU grid's sequential innermost
-// dimension, so the running max m, sum l and [64, D] accumulator stay in
-// registers for the whole sweep. Four warps each own 16 query rows. Q's
-// fragments are loaded once into registers; each 64-row kv tile is staged
-// in shared memory (rows padded by 8 elements so the fragment loads hit
-// 32 distinct banks). The S accumulator's register layout is the A
-// fragment layout of the PV product, so P never leaves registers: it is
-// rounded to bf16 there (p cast to v's dtype before the PV product, as
-// the TPU kernel does).
+// Design. One block owns one (batch, head, 64-row q tile) and walks the
+// kv tiles that can hold a valid key for it; tiles are scheduled longest
+// first, two blocks resident per SM. Two warpgroups:
+//   * a producer (one thread issues) keeps a ring of NS = 3 (K, V) tile
+//     stages in flight with TMA (cp.async.bulk.tensor; per stage a "full"
+//     and an "empty" mbarrier for K and for V, so that Q K^T starts before
+//     V lands). The tensor maps are encoded on the host with
+//     cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint, so
+//     nothing links libcuda) over the 4-d view [B, S, H, D] with any
+//     strides: the model's layout is read in place and GQA reads kv head
+//     h / group. TMA writes the tiles 128-byte swizzled (64-byte at D=32),
+//     the layout the wgmma descriptors name, and zero-fills rows past S;
+//   * the consumer warpgroup owns the 64 query rows. S = Q K^T is one
+//     wgmma chain with Q and K from shared memory; the S accumulator's
+//     register layout is the A-fragment layout of the PV product, so P is
+//     rounded to bf16 in registers and never leaves them (wgmma with A
+//     from registers, V read MN-major through the descriptor's transpose
+//     bit). The other resident block's softmax (ex2 unit) runs under this
+//     one's products (tensor cores). setmaxnreg hands the producer's
+//     registers (24 kept) to the consumer (232).
+// Less work per element: the mask is applied only on the tiles that need
+// it (the rule of ref.tile_plan: the ragged last kv tile, the tiles that
+// reach past the causal diagonal, the window's first tile); interior
+// tiles take no position test. Scores are scaled into the exponent as
+// ex2(s * scale * log2(e) - m * scale * log2(e)), one FFMA and one ex2.
+// Tiles wholly masked are never visited. What these choices measured
+// against their alternatives (two consumer warpgroups a block, softmax
+// overlapped with PV inside a warpgroup, ping-pong, skipping the
+// accumulator's rescale where no row maximum moved) is in PERF.md.
 //
-// GQA: k and v hold BH / group rows and q row bh reads kv row bh / group
-// (with bh = b * Hq + h and group = Hq / Hkv that is b * Hkv + h / group),
-// so the kv heads are never repeated in memory.
-//
-// float32 inputs take a plain FMA kernel (one thread per query row, 32
-// rows and 16 keys per tile): the tensor cores' TF32 would not hold the
-// f32 tolerance. It exists for the tests; the model path runs bf16.
+// float32 inputs take a plain FMA kernel (one thread per query row): the
+// tensor cores' TF32 would not hold the f32 tolerance. It exists for the
+// tests; the model path runs bf16.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf32 = -1e30f;  // the f32 kernel's masked score
+
+struct Strides {  // element strides of a [B, S, H, D] view (D contiguous)
+  long long b, s, h;
+};
 
 __device__ __forceinline__ bool valid(int qpos, int kpos, int Sk, int causal,
                                       int window) {
@@ -49,10 +70,10 @@ __device__ __forceinline__ bool valid(int qpos, int kpos, int Sk, int causal,
 }
 
 // The kv tiles [*t0, *t1) that can hold a valid key for query positions
-// [qlo, qhi]; the others are wholly masked and skipped.
-__device__ __forceinline__ void kv_tiles(int qlo, int qhi, int Sk, int BK,
-                                         int causal, int window, int* t0,
-                                         int* t1) {
+// [qlo, qhi]; the others are wholly masked and skipped (ref.tile_plan).
+__host__ __device__ __forceinline__ void kv_tiles(int qlo, int qhi, int Sk, int BK,
+                                                  int causal, int window, int* t0,
+                                                  int* t1) {
   int kend = Sk;
   if (causal) kend = min(kend, qhi + 1);
   const int kbeg = window > 0 ? max(0, qlo - window + 1) : 0;
@@ -60,187 +81,403 @@ __device__ __forceinline__ void kv_tiles(int qlo, int qhi, int Sk, int BK,
   *t1 = kend <= kbeg ? *t0 : (kend + BK - 1) / BK;
 }
 
+// Whether kv tile [k0, k0 + BK) holds an invalid pair for some query
+// position in [qlo, qhi] (ref.tile_plan): if not, no element is tested.
+__device__ __forceinline__ bool needs_mask(int k0, int BK, int qlo, int qhi, int Sk,
+                                           int causal, int window) {
+  return k0 + BK > Sk || (causal && k0 + BK - 1 > qlo) ||
+         (window > 0 && qhi - k0 >= window);
+}
+
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 h = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+// ---------------------------------------------------------------------------
+// Hopper primitives: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `phase` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(phase)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* base, int row,
-                                            int col, int S, int D) {
-  return row < S ? *reinterpret_cast<const uint32_t*>(base + (size_t)row * D + col)
-                 : 0u;
+// One box of a 4-d tensor map into shared memory; completion is counted
+// (in bytes) on `bar`. Coordinates innermost first: (d, h, s, b).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
+                                         int c1, int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), layout (1: 128-byte swizzle, 2: 64-byte).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin registers that an asynchronous wgmma reads or writes, so that the
+// compiler neither reuses nor reads them across the wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int R, int C>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d[32] = (scale_d ? d : 0) + A (smem, K-major) B (smem, K-major), m64n64k16
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d[64] = (scale_d ? d : 0) + A (smem, K-major) B (smem, K-major), m64n128k16
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d[16] += A (registers) B (smem, MN-major), m64n32k16
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d[32] += A (registers) B (smem, MN-major), m64n64k16
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d[64] += A (registers) B (smem, MN-major), m64n128k16
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64, kBK = 64, kThreadsBf16 = 128;
+// Consumer warpgroups per block, 64 query rows each. One, with two blocks
+// resident per SM, measured 6% faster at the main shape than two sharing
+// a block's K/V ring (PERF.md).
+constexpr int kConsumers = 1;
+constexpr int kThreadsTma = 128 * (kConsumers + 1);  // + the producer warpgroup
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsBf16) flash_fwd_bf16(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int group, int Sq, int Sk, float scale, int causal, int window,
+struct Tile {
+  static constexpr int BQ = 64 * kConsumers;   // query rows of a block
+  static constexpr int BK = D == 128 ? 64 : 128;  // keys of a kv tile
+  static constexpr int NS = 3;                 // K/V stages in flight
+  static constexpr int ROWB = D == 32 ? 64 : 128;  // bytes of a swizzled row
+  static constexpr int CW = ROWB / 2;          // elements of a column block's row
+  static constexpr int NCB = D / CW;           // column blocks (TMA boxes) per tile
+  static constexpr int LAYOUT = D == 32 ? 2 : 1;  // descriptor swizzle
+  static constexpr int QBYTES = BQ * D * 2, KVBYTES = BK * D * 2;
+  static constexpr int NBARS = 1 + 4 * NS;
+  static constexpr int SMEM = 1024 + QBYTES + 2 * NS * KVBYTES + 8 * NBARS;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTma, 3 - kConsumers) flash_fwd_wgmma(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, Strides so,
+    int Hq, int group, int Sq, int Sk, float scale_log2, int causal, int window,
     int q_offset) {
-  constexpr int LD = D + 8;      // padded shared-memory row
-  constexpr int NKC = D / 16;    // k-steps of Q K^T
-  constexpr int NDT = D / 8;     // n-tiles of the output
-  constexpr int NST = kBK / 8;   // n-tiles of S
-  constexpr int CPR = D / 8;     // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK * LD];
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grain
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t sq = smem_u32(smem);
+  const uint32_t sk = sq + T::QBYTES, sv = sk + T::NS * T::KVBYTES;
+  const uint32_t bar0 = sv + T::NS * T::KVBYTES;
+  const uint32_t full_q = bar0;
+  auto full_k = [&](int s) { return bar0 + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bar0 + 8u * (1 + T::NS + s); };
+  auto empty_k = [&](int s) { return bar0 + 8u * (1 + 2 * T::NS + s); };
+  auto empty_v = [&](int s) { return bar0 + 8u * (1 + 3 * T::NS + s); };
 
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + (size_t)bh * Sq * D;
-  const __nv_bfloat16* kb = k + (size_t)(bh / group) * Sk * D;
-  const __nv_bfloat16* vb = v + (size_t)(bh / group) * Sk * D;
-
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
-  const int qp0 = q_offset + r0, qp1 = q_offset + r1;
-
-  uint32_t qf[NKC][4];
-#pragma unroll
-  for (int kc = 0; kc < NKC; ++kc) {
-    qf[kc][0] = ld_pair(qb, r0, kc * 16 + 2 * t, Sq, D);
-    qf[kc][1] = ld_pair(qb, r1, kc * 16 + 2 * t, Sq, D);
-    qf[kc][2] = ld_pair(qb, r0, kc * 16 + 8 + 2 * t, Sq, D);
-    qf[kc][3] = ld_pair(qb, r1, kc * 16 + 8 + 2 * t, Sq, D);
-  }
-
-  float acc[NDT][4];
-#pragma unroll
-  for (int dt = 0; dt < NDT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;  // row maxima (equal across a row's 4 threads)
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
-
+  const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::BQ;  // longest tiles first
+  const int qlo = q_offset + q0, qhi = q_offset + min(q0 + T::BQ, Sq) - 1;
   int t0, t1;
-  kv_tiles(q_offset + q0, q_offset + min(q0 + kBQ, Sq) - 1, Sk, kBK, causal,
-           window, &t0, &t1);
+  kv_tiles(qlo, qhi, Sk, T::BK, causal, window, &t0, &t1);
 
-  for (int kt = t0; kt < t1; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = threadIdx.x; i < kBK * CPR; i += kThreadsBf16) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LD + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * LD + c) = vv;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < T::NS; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 4 * kConsumers);  // lane 0 of each consumer warp
+      mbar_init(empty_v(s), 4 * kConsumers);
     }
-    __syncthreads();
-
-    // S = Q K^T over the tile: rows (g, g+8), key columns j*8 + 2t + {0,1}
-    float s[NST][4];
-#pragma unroll
-    for (int j = 0; j < NST; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < NKC; ++kc) {
-        const __nv_bfloat16* kr = Ks + (j * 8 + g) * LD + kc * 16 + 2 * t;
-        mma_bf16(s[j], qf[kc], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // scale the f32 product, mask by position, new row maxima
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < NST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kp = k0 + j * 8 + 2 * t + e;
-        s[j][e] = valid(qp0, kp, Sk, causal, window) ? s[j][e] * scale : kNegInf;
-        s[j][2 + e] = valid(qp1, kp, Sk, causal, window) ? s[j][2 + e] * scale : kNegInf;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float c0 = __expf(m0 - mx0), c1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-
-    // p = exp(s - m), zeroed where masked, summed in f32, rounded to bf16
-    uint32_t pf[NST][2];
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NST; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kp = k0 + j * 8 + 2 * t + e;
-        p[e] = valid(qp0, kp, Sk, causal, window) ? __expf(s[j][e] - mx0) : 0.f;
-        p[2 + e] = valid(qp1, kp, Sk, causal, window) ? __expf(s[j][2 + e] - mx1) : 0.f;
-      }
-      ps0 += p[0] + p[1];
-      ps1 += p[2] + p[3];
-      pf[j][0] = pack_f32(p[0], p[1]);
-      pf[j][1] = pack_f32(p[2], p[3]);
-    }
-    l0 = l0 * c0 + ps0;
-    l1 = l1 * c1 + ps1;
-#pragma unroll
-    for (int dt = 0; dt < NDT; ++dt) {
-      acc[dt][0] *= c0;
-      acc[dt][1] *= c0;
-      acc[dt][2] *= c1;
-      acc[dt][3] *= c1;
-    }
-
-    // acc += P V: P's A fragments come straight from the S registers
-#pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      const uint32_t a[4] = {pf[2 * kc][0], pf[2 * kc][1], pf[2 * kc + 1][0],
-                             pf[2 * kc + 1][1]};
-#pragma unroll
-      for (int dt = 0; dt < NDT; ++dt) {
-        const __nv_bfloat16* vr = Vs + (kc * 16 + 2 * t) * LD + dt * 8 + g;
-        mma_bf16(acc[dt], a, pack_bf16(vr[0], vr[LD]),
-                 pack_bf16(vr[8 * LD], vr[9 * LD]));
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = l0 > 0.f ? l0 : 1.f, d1 = l1 > 0.f ? l1 : 1.f;
-  __nv_bfloat16* ob = o + (size_t)bh * Sq * D;
+  if (threadIdx.x < 128) {  // ---- producer warpgroup: one thread issues ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, T::QBYTES);
+      for (int cb = 0; cb < T::NCB; ++cb)
+        tma_load(sq + cb * T::BQ * T::ROWB, &tq, cb * T::CW, h, q0, b, full_q);
+      const int hk = h / group;
+      for (int it = 0; it < t1 - t0; ++it) {
+        const int s = it % T::NS, ph = (it / T::NS) & 1, k0 = (t0 + it) * T::BK;
+        mbar_wait(empty_k(s), ph ^ 1);
+        mbar_expect_tx(full_k(s), T::KVBYTES);
+        for (int cb = 0; cb < T::NCB; ++cb)
+          tma_load(sk + s * T::KVBYTES + cb * T::BK * T::ROWB, &tk, cb * T::CW, hk, k0, b,
+                   full_k(s));
+        mbar_wait(empty_v(s), ph ^ 1);
+        mbar_expect_tx(full_v(s), T::KVBYTES);
+        for (int cb = 0; cb < T::NCB; ++cb)
+          tma_load(sv + s * T::KVBYTES + cb * T::BK * T::ROWB, &tv, cb * T::CW, hk, k0, b,
+                   full_v(s));
+      }
+    }
+  } else {  // ---- consumer warpgroups, 64 query rows each ----
+    // the registers the producer gave up (65,536 per SM over the blocks)
+    if constexpr (kConsumers == 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    else asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + cw * 64 + warp * 16 + g, r1 = r0 + 8;  // this thread's rows
+    const int qp0 = q_offset + r0, qp1 = q_offset + r1;
+    constexpr uint32_t SBO = 8 * T::ROWB;  // between 8-row core-matrix groups
+
+    float acc[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < NDT; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * D + c) =
-          pack_f32(acc[dt][0] / d0, acc[dt][1] / d0);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * D + c) =
-          pack_f32(acc[dt][2] / d1, acc[dt][3] / d1);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // row maxima (equal across a row's 4 threads)
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+
+    mbar_wait(full_q, 0);
+    for (int it = 0; it < t1 - t0; ++it) {
+      const int s = it % T::NS, ph = (it / T::NS) & 1, k0 = (t0 + it) * T::BK;
+
+      // S = Q K^T: 64 rows x BK keys, f32
+      float sc[T::BK / 2];
+      mbar_wait(full_k(s), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t cb = kk * 16 / T::CW, off = (kk * 16 % T::CW) * 2;
+        const uint64_t da = smem_desc(sq + cb * T::BQ * T::ROWB + cw * 64 * T::ROWB + off,
+                                      16, SBO, T::LAYOUT);
+        const uint64_t db = smem_desc(sk + s * T::KVBYTES + cb * T::BK * T::ROWB + off, 16,
+                                      SBO, T::LAYOUT);
+        wgmma_ss<T::BK>(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(empty_k(s));
+
+      // positions only on the tiles that need them
+      if (needs_mask(k0, T::BK, qlo, qhi, Sk, causal, window)) {
+#pragma unroll
+        for (int j = 0; j < T::BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = k0 + j * 8 + 2 * t + e;
+            if (!valid(qp0, kp, Sk, causal, window)) sc[4 * j + e] = -INFINITY;
+            if (!valid(qp1, kp, Sk, causal, window)) sc[4 * j + 2 + e] = -INFINITY;
+          }
+      }
+
+      // new row maxima; p = ex2(s * c - m * c), c = scale * log2(e)
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < T::BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // a row with no valid key so far keeps m = -inf: subtract 0 there
+      const float mc0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+      const float mc1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+      const float c0 = ex2(m0 * scale_log2 - mc0), c1 = ex2(m1 * scale_log2 - mc1);
+
+      uint32_t pf[T::BK / 16][4];  // P in the A-fragment layout of the PV product
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < T::BK / 8; ++j) {
+        const float p0 = ex2(fmaf(sc[4 * j], scale_log2, -mc0));
+        const float p1 = ex2(fmaf(sc[4 * j + 1], scale_log2, -mc0));
+        const float p2 = ex2(fmaf(sc[4 * j + 2], scale_log2, -mc1));
+        const float p3 = ex2(fmaf(sc[4 * j + 3], scale_log2, -mc1));
+        ps0 += p0 + p1;
+        ps1 += p2 + p3;
+        pf[j / 2][2 * (j & 1)] = pack_f32(p0, p1);
+        pf[j / 2][2 * (j & 1) + 1] = pack_f32(p2, p3);
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= c0;
+        acc[4 * j + 1] *= c0;
+        acc[4 * j + 2] *= c1;
+        acc[4 * j + 3] *= c1;
+      }
+      m0 = mx0;
+      m1 = mx1;
+
+      // acc += P V, P from registers, V MN-major
+      mbar_wait(full_v(s), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < T::BK / 16; ++kk) {
+        const uint64_t db = smem_desc(sv + s * T::KVBYTES + kk * 16 * T::ROWB,
+                                      T::BK * T::ROWB, SBO, T::LAYOUT);
+        wgmma_rs<D>(acc, pf[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pf);
+      if (lane == 0) mbar_arrive(empty_v(s));
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = l0 > 0.f ? 1.f / l0 : 0.f, d1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    __nv_bfloat16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (r0 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * so.s + c) =
+            pack_f32(acc[4 * j] * d0, acc[4 * j + 1] * d0);
+      if (r1 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * so.s + c) =
+            pack_f32(acc[4 * j + 2] * d1, acc[4 * j + 3] * d1);
+    }
   }
 }
 
@@ -253,20 +490,21 @@ constexpr int kBQ32 = 32, kBK32 = 16;
 template <int D>
 __global__ void __launch_bounds__(kBQ32) flash_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int group, int Sq,
-    int Sk, float scale, int causal, int window, int q_offset) {
+    const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
+    Strides sv, Strides so, int Hq, int group, int Sq, int Sk, float scale, int causal,
+    int window, int q_offset) {
   __shared__ float Qs[kBQ32][D + 1];  // +1: each thread's row on its own bank
   __shared__ __align__(16) float Ks[kBK32][D];
   __shared__ __align__(16) float Vs[kBK32][D];
 
-  const int bh = blockIdx.x;
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, hk = h / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ32;
-  const float* qb = q + (size_t)bh * Sq * D;
-  const float* kb = k + (size_t)(bh / group) * Sk * D;
-  const float* vb = v + (size_t)(bh / group) * Sk * D;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + hk * sk.h;
+  const float* vb = v + b * sv.b + hk * sv.h;
   for (int i = threadIdx.x; i < kBQ32 * D; i += kBQ32) {
     const int r = i / D, c = i % D;
-    Qs[r][c] = q0 + r < Sq ? qb[(size_t)(q0 + r) * D + c] : 0.f;
+    Qs[r][c] = q0 + r < Sq ? qb[(q0 + r) * sq.s + c] : 0.f;
   }
   const int row = q0 + threadIdx.x;
   const int qp = q_offset + row;
@@ -274,7 +512,7 @@ __global__ void __launch_bounds__(kBQ32) flash_fwd_f32(
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
+  float m = kNegInf32, l = 0.f;
 
   int t0, t1;
   kv_tiles(q_offset + q0, q_offset + min(q0 + kBQ32, Sq) - 1, Sk, kBK32, causal,
@@ -286,8 +524,8 @@ __global__ void __launch_bounds__(kBQ32) flash_fwd_f32(
       const int r = i / (D / 4), c = (i % (D / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (k0 + r < Sk) {
-        kv = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + r) * D + c);
-        vv = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + r) * D + c);
+        kv = *reinterpret_cast<const float4*>(kb + (k0 + r) * sk.s + c);
+        vv = *reinterpret_cast<const float4*>(vb + (k0 + r) * sv.s + c);
       }
       *reinterpret_cast<float4*>(&Ks[r][c]) = kv;
       *reinterpret_cast<float4*>(&Vs[r][c]) = vv;
@@ -301,7 +539,7 @@ __global__ void __launch_bounds__(kBQ32) flash_fwd_f32(
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(Qs[threadIdx.x][d], Ks[j][d], dot);
-      s[j] = valid(qp, k0 + j, Sk, causal, window) ? dot * scale : kNegInf;
+      s[j] = valid(qp, k0 + j, Sk, causal, window) ? dot * scale : kNegInf32;
       mx = fmaxf(mx, s[j]);
     }
     const float c = expf(m - mx);
@@ -319,28 +557,83 @@ __global__ void __launch_bounds__(kBQ32) flash_fwd_f32(
   }
   if (row < Sq) {
     const float dn = l > 0.f ? l : 1.f;
-    float* orow = o + ((size_t)bh * Sq + row) * D;
+    float* orow = o + b * so.b + h * so.h + row * so.s;
 #pragma unroll
     for (int d = 0; d < D; ++d) orow[d] = acc[d] / dn;
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 [B, S, H, D] view, boxes of `rows` x one
+// swizzled column block.
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int group, int Sq, int Sk, int bf16, float scale, int causal,
+bool encode(CUtensorMap* map, const void* ptr, int B, int S, int H, Strides st, int rows) {
+  using T = Tile<D>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::CW, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+           int Sq, int Sk, int bf16, const Strides* st, float scale, int causal,
            int window, int q_offset, cudaStream_t stream) {
+  const int group = Hq / Hkv;
   if (bf16) {
-    const dim3 grid(BH, (Sq + kBQ - 1) / kBQ);
-    flash_fwd_bf16<D><<<grid, kThreadsBf16, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        group, Sq, Sk, scale, causal, window, q_offset);
+    using T = Tile<D>;
+    static bool configured = false;
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+      if (err != cudaSuccess) return (int)err;
+      configured = true;
+    }
+    CUtensorMap tq, tk, tv;
+    if (!encode<D>(&tq, q, B, Sq, Hq, st[0], T::BQ) ||
+        !encode<D>(&tk, k, B, Sk, Hkv, st[1], T::BK) ||
+        !encode<D>(&tv, v, B, Sk, Hkv, st[2], T::BK))
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid(B * Hq, (Sq + T::BQ - 1) / T::BQ);
+    flash_fwd_wgmma<D><<<grid, kThreadsTma, T::SMEM, stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], Hq, group, Sq, Sk,
+        scale * kLog2e, causal, window, q_offset);
   } else {
-    const dim3 grid(BH, (Sq + kBQ32 - 1) / kBQ32);
+    const dim3 grid(B * Hq, (Sq + kBQ32 - 1) / kBQ32);
     flash_fwd_f32<D><<<grid, kBQ32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), group, Sq, Sk,
-        scale, causal, window, q_offset);
+        static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2], st[3],
+        Hq, group, Sq, Sk, scale, causal, window, q_offset);
   }
   return (int)cudaGetLastError();
 }
@@ -349,22 +642,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
 
 extern "C" {
 
-// q [BH, Sq, D], k/v [BH / group, Sk, D], o [BH, Sq, D], all contiguous and
-// of one dtype (bf16 != 0: bfloat16, else float32); D in {32, 64, 128}.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int BH, int group, int Sq, int Sk, int D, int bf16,
-                        float scale, int causal, int window, int q_offset,
-                        cudaStream_t stream) {
+// q [B, Sq, Hq, D], k / v [B, Sk, Hkv, D], o [B, Sq, Hq, D], any element
+// strides with D contiguous (strides: 12 values, (batch, seq, head) of q,
+// k, v, o in that order), all of one dtype (bf16 != 0: bfloat16, else
+// float32); D in {32, 64, 128}; Hkv divides Hq (q head h reads kv head
+// h / (Hq / Hkv)). bfloat16 strides are multiples of 8 elements and the
+// pointers 16-byte aligned (TMA).
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
+                        int Hq, int Hkv, int Sq, int Sk, int D, int bf16,
+                        const long long* strides, float scale, int causal, int window,
+                        int q_offset, cudaStream_t stream) {
+  if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Sk < 1)
+    return (int)cudaErrorInvalidValue;
+  Strides st[4];
+  for (int i = 0; i < 4; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, BH, group, Sq, Sk, bf16, scale, causal,
-                        window, q_offset, stream);
+      return launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, bf16, st, scale, causal, window,
+                        q_offset, stream);
     case 64:
-      return launch<64>(q, k, v, o, BH, group, Sq, Sk, bf16, scale, causal,
-                        window, q_offset, stream);
+      return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, bf16, st, scale, causal, window,
+                        q_offset, stream);
     case 128:
-      return launch<128>(q, k, v, o, BH, group, Sq, Sk, bf16, scale, causal,
-                         window, q_offset, stream);
+      return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, bf16, st, scale, causal, window,
+                         q_offset, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

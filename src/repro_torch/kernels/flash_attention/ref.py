@@ -48,6 +48,47 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return (acc / torch.where(l > 0, l, 1.0)).to(q.dtype)
 
 
+def attention_heads_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """``attention_ref`` in the model's layout: q [B, Sq, Hq, D]; k, v [B,
+    Sk, Hkv, D] (q head h reads kv head h // (Hq / Hkv)) -> [B, Sq, Hq, D]
+    in q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    o = attention_ref(q.transpose(1, 2).reshape(B * H, Sq, D),
+                      k.transpose(1, 2).reshape(B * Hkv, Sk, D),
+                      v.transpose(1, 2).reshape(B * Hkv, Sk, D),
+                      causal=causal, window=window, q_offset=q_offset)
+    return o.reshape(B, H, Sq, D).transpose(1, 2)
+
+
+def tile_plan(Sq: int, Sk: int, BQ: int, BK: int, *, causal: bool, window: int,
+              q_offset: int) -> list[list[tuple[int, bool]]]:
+    """The rule the kernel walks by (``csrc/flash_attention.cu``:
+    ``kv_tiles``, ``needs_mask``): for each q tile of BQ rows, the kv tiles
+    of BK keys it visits, in order, each as (tile index, needs a mask).
+
+    A q tile visits the kv tiles that can hold a valid key for one of its
+    query positions [qlo, qhi] (``qlo = q_offset + q0``, ``qhi`` its last
+    row below Sq): up to the causal diagonal, from the window's first key.
+    A visited tile needs the position test only if it holds an invalid pair
+    for one of those positions: it reaches past Sk (the ragged last tile),
+    past the diagonal of the first row (causal), or behind the window of
+    the last row. Every other tile is wholly valid and takes no test."""
+    plan = []
+    for q0 in range(0, Sq, BQ):
+        qlo, qhi = q_offset + q0, q_offset + min(q0 + BQ, Sq) - 1
+        kend = min(Sk, qhi + 1) if causal else Sk
+        kbeg = max(0, qlo - window + 1) if window > 0 else 0
+        t0 = kbeg // BK
+        t1 = t0 if kend <= kbeg else -(-kend // BK)
+        plan.append([(kt, kt * BK + BK > Sk
+                      or (causal and kt * BK + BK - 1 > qlo)
+                      or (window > 0 and qhi - kt * BK >= window))
+                     for kt in range(t0, t1)])
+    return plan
+
+
 def row_relative_error(got, want) -> torch.Tensor:
     """f32[..., Sq]: each output row's largest abs error over the largest
     abs value of that row of ``want``; 0 where both rows are all zero (a

@@ -12,8 +12,9 @@ SRC = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, dt, A, Bm, Cm, y, h, BH, heads, G, nA, S, P, N, Q, bf16, stream
-    "ssd_scan": (_P,) * 7 + (_I,) * 9 + (_P,),
+    # x, dt, A, Bm, Cm, y, h, states, cum, cb (scratch), BH, heads, G, nA,
+    # S, P, N, Q, bf16, stream
+    "ssd_scan": (_P,) * 10 + (_I,) * 9 + (_P,),
 }
 
 LIBRARY = _nvcc.CudaLibrary(SRC, _SIGNATURES, "ssd_error_string")

@@ -13,13 +13,18 @@ Two layouts reach the one kernel:
 
 x is f32 or bf16; dt, A, B and C are f32; y and h are f32. The chunk
 length must divide S (``ops.ssd`` picks it as ``ssd_chunked`` does); P <=
-64, N <= 128, chunk <= 128. The wrapper checks device, dtype, shape and
-contiguity and raises on anything else. Given CPU tensors it runs the
-kernel's plain version (``ref.ssd_chunked_ref``, ``ref.ssd_chunked_heads``
-for the model layout); given CUDA tensors it
-launches the kernel on the current stream or raises.
-``launches["ssd_scan"]`` rises by one where the kernel is launched and
-nowhere else.
+64, N <= 128, chunk <= 128. The wrapper checks device, dtype, shape and contiguity and
+raises on anything else. Given CPU tensors it runs the kernel's plain
+version (``ref.ssd_chunked_ref``, ``ref.ssd_chunked_heads`` for the model
+layout); given CUDA tensors it launches the kernel's grids on the current
+stream or raises. Besides y and h it allocates the kernel's scratch with
+``torch.empty``: the chunk states [BH, S / Q, N, P] (134 MB at mamba2's
+prefill layer), the in-chunk cumulative decays [BH, S] and C·Bᵀ per
+(group, chunk) [G, S / Q, Qp, Qp] (Qp: Q rounded up to 32), all f32.
+
+``launches["ssd_scan"]`` rises by one per call that launches the kernel
+(one per SSM layer on the model path), ``launches["ssd_scan_grids"]`` by
+the grids that call launched (``GRIDS``); neither rises anywhere else.
 """
 from __future__ import annotations
 
@@ -31,7 +36,10 @@ DEFAULT_Q = 128
 MAX_Q, MAX_N, MAX_P = 128, 128, 64
 X_DTYPES = (torch.float32, torch.bfloat16)
 
-launches = {"ssd_scan": 0}
+# the grids one call launches (csrc/ssd_scan.cu: cb, intra, carry, inter)
+GRIDS = 4
+
+launches = {"ssd_scan": 0, "ssd_scan_grids": 0}
 
 
 def _check(x, dt, A, Bm, Cm, chunk, heads: bool) -> int:
@@ -80,14 +88,20 @@ def _check(x, dt, A, Bm, Cm, chunk, heads: bool) -> int:
 
 
 def _launch(x, dt, A, Bm, Cm, y, h, *, BH, heads, S, P, chunk) -> None:
+    G, N = Bm.shape[0], Bm.shape[-1]
+    nc, Qp = S // chunk, -(-chunk // 32) * 32
+    states = torch.empty(BH, nc, N, P, dtype=torch.float32, device=x.device)
+    cum = torch.empty(BH, S, dtype=torch.float32, device=x.device)
+    cb = torch.empty(G, nc, Qp, Qp, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = build.load().ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), h.data_ptr(), BH, heads, Bm.shape[0], A.shape[0], S, P,
-            Bm.shape[-1], chunk, int(x.dtype == torch.bfloat16),
+            y.data_ptr(), h.data_ptr(), states.data_ptr(), cum.data_ptr(), cb.data_ptr(), BH,
+            heads, G, A.shape[0], S, P, N, chunk, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.LIBRARY.raise_on(err, "ssd_scan")
     launches["ssd_scan"] += 1
+    launches["ssd_scan_grids"] += GRIDS
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = DEFAULT_Q):
@@ -119,7 +133,8 @@ def ssd_scan_heads(x, dt, A, Bm, Cm, *, chunk: int = DEFAULT_Q):
 
 
 def reset_launches() -> None:
-    launches["ssd_scan"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def launch_counts() -> dict[str, int]:

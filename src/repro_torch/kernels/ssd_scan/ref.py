@@ -9,6 +9,9 @@ bh // (BH / G):
                        dt [B, S, H], A [H], B/C [B, S, N]): the plain
                        version of ``kernel.ssd_scan_heads`` and the math of
                        ``models.ssm.ssd_chunked``;
+  ``ssd_chunk_parallel`` the same function in the kernel's decomposition:
+                       C·Bᵀ once per (group, chunk), the intra-chunk pass,
+                       the carry pass and the inter-chunk output;
   ``without_carry``    a planted fault: a scan with the chunk carry left out;
   ``mamba2_decays``    decay parameters under which the carry matters;
   ``ssd_ref``          the sequential recurrence, the oracle (a port of
@@ -60,6 +63,44 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int):
     h_in = torch.stack(h_in, dim=1)  # [BH, nc, N, P]
     y_inter = torch.einsum("zcqn,zcnp->zcqp", cc * torch.exp(cum)[..., None], h_in)
     return (y_intra + y_inter).reshape(BH, S, P), h
+
+
+def ssd_chunk_parallel(x, dt, A, Bm, Cm, *, chunk: int):
+    """``ssd_chunked_ref`` (reference layout, B/C [G, S, N]) computed as the
+    kernel's grids compute it (``csrc/ssd_scan.cu``):
+
+      0. per (group g, chunk c): CB = C·Bᵀ on the causal triangle, [Q, Q],
+         shared by the BH / G rows of the group;
+      1. per (row, chunk), independently: cum, the in-chunk cumulative sum
+         of dt·A; y = (CB ⊙ exp(cum_q − cum_k) dt_k) x; the chunk's own
+         state s_c = Σ_k exp(cum_end − cum_k) dt_k B_k ⊗ x_k;
+      2. per row, in chunk order: h_in,c = h; h = exp(cum_end,c) h + s_c;
+      3. per (row, chunk): y += exp(cum_q) (C_q · h_in,c).
+
+    Returns (y [BH, S, P], h [BH, N, P]), f32."""
+    BH, S, P = x.shape
+    G, N = Bm.shape[0], Bm.shape[-1]
+    Q = chunk
+    nc = S // Q
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    bc = Bm.float().reshape(G, nc, Q, N)
+    cc = Cm.float().reshape(G, nc, Q, N)
+    cb = torch.where(tri, torch.einsum("gcqn,gckn->gcqk", cc, bc), 0.0)  # 0.
+    rows = torch.arange(BH, device=x.device) // (BH // G)  # each row's group
+    xc = x.float().reshape(BH, nc, Q, P)
+    dtc = dt.float().reshape(BH, nc, Q)
+    cum = torch.cumsum(dtc * A.float()[:, None, None], dim=2)  # 1.
+    dec = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+    y = torch.einsum("zcqk,zck,zckp->zcqp", cb[rows] * dec, dtc, xc)
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    states = torch.einsum("zckn,zck,zckp->zcnp", bc[rows], w, xc)
+    h = torch.zeros(BH, N, P, dtype=torch.float32, device=x.device)
+    h_in = torch.empty_like(states)
+    for c in range(nc):  # 2.
+        h_in[:, c] = h
+        h = torch.exp(cum[:, c, -1])[:, None, None] * h + states[:, c]
+    y = y + torch.exp(cum)[..., None] * torch.einsum("zcqn,zcnp->zcqp", cc[rows], h_in)  # 3.
+    return y.reshape(BH, S, P), h
 
 
 def ssd_chunked_heads(x, dt, A, Bm, Cm, *, chunk: int):

@@ -158,6 +158,15 @@ FLASH_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
         (2, 128, 256, 64, True, 0, 128),
         (2, 128, 256, 64, True, 16, 200),
         (2, 2048, 2048, 64, True, 0, 0),
+        # the tile plan's edges (ref.tile_plan): ragged Sq and Sk, windows
+        # whose first key falls inside a tile, q_offset > 0, D = 32 and 128
+        (1, 300, 300, 64, True, 0, 0),
+        (2, 200, 333, 128, True, 0, 133),
+        (1, 500, 500, 32, True, 100, 0),
+        (2, 1000, 1000, 64, True, 200, 0),
+        (1, 77, 1000, 64, False, 0, 0),
+        (1, 256, 1024, 128, True, 300, 768),
+        (3, 130, 190, 32, True, 0, 60),
     ],
 )
 def test_flash_kernel_matches_plain_version(dev, BH, Sq, Sk, D, causal, window, q_offset,
@@ -187,6 +196,7 @@ def test_flash_kernel_matches_plain_version(dev, BH, Sq, Sk, D, causal, window, 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,Hkv,window,scale", [
     (2, 300, 6, 2, 0, 1.0),
+    (1, 2048, 15, 5, 0, 0.5),  # smollm-360m's attention at B = 1
     (2, 4096, 25, 5, 1024, 0.5),  # hymba-1.5b's prefill attention (chip_smoke.py [flash])
 ])
 def test_flash_ops_gqa_matches_plain_version(dev, dtype, B, S, H, Hkv, window, scale):
@@ -206,6 +216,28 @@ def test_flash_ops_gqa_matches_plain_version(dev, dtype, B, S, H, Hkv, window, s
     tol = FLASH_TOL[dtype]
     want = want.reshape(B, H, S, D).transpose(1, 2)
     assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert (fref.row_relative_error(got.transpose(1, 2), want.transpose(1, 2))
+            <= FLASH_ROW_TOL[dtype]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_heads_reads_strided_views_in_place(dev, dtype):
+    """q, k and v as views of one fused [B, S, H + 2 Hkv, D] projection:
+    the model-layout entry reads them through their strides, one launch."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    fused = (torch.randn(1, 333, 8 + 2 * 2, 32, generator=g, device=dev) * 0.5).to(dtype)
+    q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    assert not q.is_contiguous()
+    fk.reset_launches()
+    got = fk.flash_attention_heads(q, k, v, causal=True, window=50)
+    assert fk.launch_counts()["flash_attention_fwd"] == 1
+    want = fref.attention_heads_ref(q, k, v, causal=True, window=50)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert (fref.row_relative_error(got.transpose(1, 2), want.transpose(1, 2))
             <= FLASH_ROW_TOL[dtype]).all()
@@ -336,6 +368,11 @@ def test_ssd_kernel_matches_plain_version(dev, BH, S, P, N, chunk, dtype):
     (2, 4096, 50, 64, 16, 128, torch.bfloat16),  # hymba-1.5b's layer at B=2, S=4096
     (2, 100, 4, 64, 128, 64, torch.float32),  # gcd chunk: Q = 4
     (2, 300, 4, 64, 128, 128, torch.float32),  # gcd chunk: Q = 4
+    (1, 2048, 32, 64, 128, 128, torch.bfloat16),  # B = 1: the smallest chunk-parallel grid
+    (2, 160, 6, 64, 128, 128, torch.bfloat16),  # gcd chunk: Q = 32
+    (1, 160, 5, 20, 12, 128, torch.float32),  # Q = 32, P and N off the tile grid
+    (1, 160, 5, 20, 12, 128, torch.bfloat16),  # x rows not 16-byte multiples: scalar loads
+    (1, 96, 3, 18, 12, 32, torch.float32),  # the same in f32
 ])
 def test_ssd_ops_matches_plain_version(dev, B, S, H, P, N, chunk, dtype):
     from repro_torch.kernels.ssd_scan import ops as sops
@@ -351,6 +388,8 @@ def test_ssd_ops_matches_plain_version(dev, B, S, H, P, N, chunk, dtype):
     (4, 4096, 32, 64, 128, 128, torch.bfloat16),
     (2, 4096, 50, 64, 16, 128, torch.bfloat16),
     (2, 300, 4, 64, 128, 128, torch.float32),
+    (1, 2048, 32, 64, 128, 128, torch.bfloat16),
+    (2, 160, 6, 64, 128, 128, torch.bfloat16),
 ])
 def test_ssd_ops_holds_the_carry_under_mamba2_decays(dev, B, S, H, P, N, chunk, dtype):
     """chip_smoke.py's "mamba2 decays" cases of [ssd]: the kernel within the
@@ -433,6 +472,8 @@ def test_cuda_prefill_launches_ssd_once_per_layer(dev, arch):
     got = api.prefill(cfg, model, {"tokens": toks})
     torch.cuda.synchronize()
     assert sk.launch_counts()["ssd_scan"] == cfg.n_layers
+    # one call per layer, several grids per call
+    assert sk.launch_counts()["ssd_scan_grids"] == sk.GRIDS * cfg.n_layers > cfg.n_layers
     assert fk.launch_counts()["flash_attention_fwd"] == (cfg.n_layers if arch == "hymba-1.5b"
                                                          else 0)
     assert got.shape == (1, 1, cfg.vocab) and torch.isfinite(got).all()

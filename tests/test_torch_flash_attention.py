@@ -180,3 +180,108 @@ def test_row_relative_error_holds_the_late_rows(case):
     else:
         assert row[:, S - late:].min().item() > 2e-2  # the card's bf16 row bound
         assert (row[:, :S - late] == 0).all()
+
+
+# the kernel's tile plan (ref.tile_plan, the rule of csrc/flash_attention.cu)
+TILE_CASES = [
+    (300, 300, True, 0, 0), (128, 256, True, 0, 128), (128, 256, True, 16, 200),
+    (1000, 1000, True, 200, 0), (77, 1000, False, 0, 0), (256, 1024, True, 300, 768),
+    (130, 190, True, 0, 60), (500, 500, False, 100, 0), (4096, 4096, True, 1024, 0),
+    (64, 64, True, 0, 0), (50, 40, True, 0, 100),
+]
+
+
+@pytest.mark.parametrize("BK", sorted(set(tk.BLOCK_K.values())))
+@pytest.mark.parametrize("Sq,Sk,causal,window,q_offset", TILE_CASES)
+def test_tile_plan_visits_every_valid_pair_and_masks_only_edge_tiles(Sq, Sk, causal, window,
+                                                                     q_offset, BK):
+    """Against the dense mask: every valid (q, k) pair lies in a visited
+    tile, no skipped tile holds one, and a tile without the mask is wholly
+    valid (so the kernel's interior tiles need no position test)."""
+    BQ = tk.BLOCK_Q
+    ok = tref.valid_mask(Sq, Sk, causal=causal, window=window, q_offset=q_offset)
+    plan = tref.tile_plan(Sq, Sk, BQ, BK, causal=causal, window=window, q_offset=q_offset)
+    assert len(plan) == -(-Sq // BQ)
+    n_kt = -(-Sk // BK)
+    for i, tiles in enumerate(plan):
+        rows = slice(i * BQ, min(i * BQ + BQ, Sq))
+        visited = [kt for kt, _ in tiles]
+        assert visited == list(range(visited[0], visited[0] + len(visited))) if tiles else True
+        for kt in range(n_kt):
+            block = ok[rows, kt * BK:min(kt * BK + BK, Sk)]
+            if kt not in visited:
+                assert not block.any(), f"q tile {i}: skipped kv tile {kt} holds a valid pair"
+        for kt, mask in tiles:
+            assert 0 <= kt < n_kt
+            if not mask:
+                assert kt * BK + BK <= Sk and ok[rows, kt * BK:kt * BK + BK].all(), \
+                    f"q tile {i}: kv tile {kt} has no mask but holds an invalid pair"
+    # the edge tiles exist where they should: a causal plan masks its diagonal
+    if causal and q_offset == 0 and Sq == Sk:
+        assert all(tiles[-1][1] for tiles in plan)
+
+
+def _heads_inputs(B, Sq, Sk, H, Hkv, D, dtype, seed, strided):
+    """q [B, Sq, H, D], k/v [B, Sk, Hkv, D]; with ``strided`` q, k and v are
+    views of one fused [B, S, H + 2 Hkv, D] tensor (Sq = Sk)."""
+    rng = np.random.RandomState(seed)
+    jdt, tdt, tol = DTYPES[dtype]
+    if strided:
+        fused = torch.from_numpy((rng.randn(B, Sq, H + 2 * Hkv, D) * 0.5).astype(np.float32))
+        fused = fused.to(tdt)
+        q, k, v = fused[:, :, :H], fused[:, :, H:H + Hkv], fused[:, :, H + Hkv:]
+    else:
+        q, k, v = (torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32)).to(tdt)
+                   for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    return q, k, v, jdt, tol
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,window,q_offset,strided", [
+    (2, 128, 128, 6, 2, 64, 0, 0, False),
+    (1, 200, 333, 4, 4, 128, 0, 133, False),
+    (2, 130, 190, 3, 1, 32, 50, 60, False),
+    (1, 300, 300, 8, 2, 32, 50, 0, True),
+])
+def test_heads_entry_matches_transposing_path_and_pallas_kernel(B, Sq, Sk, H, Hkv, D, window,
+                                                                q_offset, strided, dtype):
+    """``flash_attention_heads`` (what ``ops.flash_attention`` now calls)
+    on [B, S, H, D] equals the transposing path the model took before (q,
+    k, v copied to [BH, S, D], the reference-layout entry, o transposed
+    back) and the JAX Pallas kernel in interpret mode on the kv heads
+    repeated."""
+    q, k, v, jdt, tol = _heads_inputs(B, Sq, Sk, H, Hkv, D, dtype, Sq + D, strided)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    tk.reset_launches()
+    got = tk.flash_attention_heads(q, k, v, **kw)
+    assert tk.launch_counts()["flash_attention_fwd"] == 0  # CPU: no launch
+    assert got.shape == (B, Sq, H, D) and got.dtype == q.dtype
+    assert torch.equal(tops.flash_attention(q, k, v, **kw), got)
+    flat = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1], D).contiguous()  # noqa: E731
+    before = tk.flash_attention_fwd(flat(q), flat(k), flat(v), **kw)
+    assert torch.equal(before.reshape(B, H, Sq, D).transpose(1, 2), got)
+    to_j = lambda t: jnp.asarray(_np(flat(t))).astype(jdt)  # noqa: E731
+    rep = lambda t: to_j(t.repeat_interleave(H // Hkv, dim=2))  # noqa: E731
+    kern = jfa(to_j(q), rep(k), rep(v), bq=64, bk=64, interpret=True, **kw)
+    np.testing.assert_allclose(_np(flat(got)), _np(kern), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", ["rank", "last_stride", "stride_8", "heads", "batch", "dtype"])
+def test_heads_entry_refuses_what_the_kernel_does_not_take(case):
+    q = torch.zeros(2, 16, 6, 32)
+    k = torch.zeros(2, 16, 2, 32)
+    v = torch.zeros(2, 16, 2, 32)
+    if case == "rank":
+        q = q[0]
+    elif case == "last_stride":
+        q = torch.zeros(2, 16, 32, 6).transpose(2, 3)
+    elif case == "stride_8":  # rows 36 elements apart: not a TMA stride
+        k = torch.zeros(2, 16, 2, 36)[..., :32]
+    elif case == "heads":
+        k, v = torch.zeros(2, 16, 4, 32), torch.zeros(2, 16, 4, 32)
+    elif case == "batch":
+        k, v = torch.zeros(1, 16, 2, 32), torch.zeros(1, 16, 2, 32)
+    elif case == "dtype":
+        q = q.half()
+    with pytest.raises(ValueError):
+        tk.flash_attention_heads(q, k, v)

@@ -214,3 +214,81 @@ def test_wrapper_refuses_bad_inputs(case):
     with pytest.raises(ValueError):
         tk.ssd_scan(x, dt, A, Bm, Cm, **kw)
     assert tk.launch_counts()["ssd_scan"] == 0
+
+
+# the kernel's decomposition (ref.ssd_chunk_parallel: C·Bᵀ per (group,
+# chunk), the intra-chunk pass, the carry pass, the inter-chunk output)
+
+
+def _chunk_parallel_heads(x, dt, A, Bm, Cm, *, chunk):
+    """``ref.ssd_chunk_parallel`` in the model layout (x [B, S, H, P], B/C
+    [B, S, N] as G = B groups), so that ``ref.without_carry`` can take it."""
+    B, S, H, P = x.shape
+    y, h = tref.ssd_chunk_parallel(x.permute(0, 2, 1, 3).reshape(B * H, S, P),
+                                   dt.permute(0, 2, 1).reshape(B * H, S), A.repeat(B), Bm, Cm,
+                                   chunk=chunk)
+    return y.reshape(B, H, S, P).permute(0, 2, 1, 3), h.reshape(B, H, *h.shape[1:])
+
+
+@pytest.mark.parametrize("decays", ["fast", "mamba2"])
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("BH,G,S,P,N,chunk", [
+    (2, 2, 128, 32, 16, 64), (8, 2, 256, 16, 8, 64), (4, 1, 192, 20, 12, 32),
+    (4, 4, 100, 16, 8, 4),
+])
+def test_chunk_parallel_matches_pallas_kernel_oracle_and_chunked(BH, G, S, P, N, chunk, dtype,
+                                                                 decays):
+    """The chunk-parallel form against the Pallas kernel (interpret, B/C
+    broadcast to [BH, S, N]) and the sequential oracle at the tolerances of
+    tests/test_kernels.py, and against the port's chunked form; under the
+    fast decays of tests/test_kernels.py and under Mamba2's own."""
+    make = _mamba2_inputs if decays == "mamba2" else _inputs
+    x, dt, A, Bm, Cm = make(BH, S, P, N, S + P + G)
+    Bm, Cm = Bm[::BH // G].copy(), Cm[::BH // G].copy()  # one row per group
+    if dtype == "bfloat16":
+        x, dt, Bm, Cm = map(_bf16, (x, dt, Bm, Cm))
+    t = torch.from_numpy
+    y, h = tref.ssd_chunk_parallel(t(x).to(getattr(torch, dtype)), *map(t, (dt, A, Bm, Cm)),
+                                   chunk=chunk)
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (BH, S, P) and h.shape == (BH, N, P)
+    rep = lambda a: np.repeat(a, BH // G, axis=0)  # noqa: E731
+    jdt = getattr(jnp, dtype)
+    jx, jdt_, jB, jC = (jnp.asarray(a).astype(jdt) for a in (x, dt, rep(Bm), rep(Cm)))
+    ky, kh = jssd(jx, jdt_, jnp.asarray(A), jB, jC, chunk=chunk, interpret=True)
+    oy, oh = jref.ssd_ref(*(jnp.asarray(a) for a in (x, dt, A, rep(Bm), rep(Cm))))
+    tol = TOL[dtype]
+    for got, want in ((y, ky), (y, oy), (h, kh), (h, oh)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol, rtol=tol)
+    cy, ch = tref.ssd_chunked_ref(t(x).to(getattr(torch, dtype)), *map(t, (dt, A, Bm, Cm)),
+                                  chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), cy.numpy(), atol=CHUNKED_TOL, rtol=CHUNKED_TOL)
+    np.testing.assert_allclose(h.numpy(), ch.numpy(), atol=CHUNKED_TOL, rtol=CHUNKED_TOL)
+
+
+@pytest.mark.parametrize("S,chunk", [(128, 64), (100, 64), (160, 128), (512, 128)])
+def test_chunk_parallel_matches_model_ssd_chunked_and_misses_without_carry(ref, S, chunk):
+    """In the model layout, under Mamba2's decays: the chunk-parallel form
+    against the reference's ``ssd_chunked`` and the port's
+    ``ssd_chunked_heads`` at 1e-3; the same form with each chunk started
+    from a zero state (``ref.without_carry``) misses by more than twice
+    that wherever the sequence has more than one chunk."""
+    B, H, P, N = 2, 3, 16, 8
+    x, _, _, Bm, Cm = _model_inputs(B, S, H, P, N, 7 + S)
+    gen = torch.Generator().manual_seed(S)
+    A_log, dt_bias = (a.numpy() for a in tref.mamba2_decays(H, gen))
+    z = np.random.RandomState(S).randn(B, S, H).astype(np.float32)
+    dt = np.log1p(np.exp(z + dt_bias)).astype(np.float32)
+    A = (-np.exp(A_log)).astype(np.float32)
+    arrs = (x, dt, A, Bm, Cm)
+    Q = tops.pick_chunk(S, chunk)
+    t = [torch.from_numpy(a) for a in arrs]
+    y, h = _chunk_parallel_heads(*t, chunk=Q)
+    want_y, want_h = ref.ssm.ssd_chunked(*map(jnp.asarray, arrs), chunk=chunk)
+    hy, hh = tref.ssd_chunked_heads(*t, chunk=Q)
+    for got, want in ((y, want_y), (h, want_h), (y, hy), (h, hh)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=CHUNKED_TOL,
+                                   rtol=CHUNKED_TOL)
+    y_nc, _ = tref.without_carry(_chunk_parallel_heads, *t, chunk=Q)
+    miss = np.abs(y_nc.numpy() - np.asarray(want_y))
+    assert (miss / (CHUNKED_TOL + CHUNKED_TOL * np.abs(np.asarray(want_y)))).max() > 2

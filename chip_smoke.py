@@ -50,6 +50,21 @@ TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 # first ports' times on NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
 BEFORE_MS = {"flash_attention_fwd": {"main": 1.084800, "small": 0.111328},
              "ssd_scan": {"main": 3.182272, "small": 1.559024}}
+# K2, K3 and the pairing walk before the alias table became one launch and
+# the CDF probe a bisection, at [times]'s (n, B): their times on NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md)
+PPOT_BEFORE_MS = {
+    "ppot_dispatch_fused": {1024: 0.017152, 2048: 0.031776},
+    "ppot_dispatch": {1024: 0.016832, 2048: 0.030976},
+    "alias_table": {1024: 0.081632, 2048: 0.158192},  # the pairing walk alone
+}
+# The walk's serial chain, in cycles a step, each dependent instruction at
+# least the 4-cycle issue-to-use latency of an f32 add. "sub": the floor that
+# counts the subtraction r = pl - d alone. "step": the shortest chain a step
+# can have, three deep: r_next = r < 1 ? n1 - (1 - r) : r - s1 needs the two
+# subtractions 1 - r and n1 - (1 - r) in series, then the select (the compare
+# r < 1 runs beside them).
+CHAIN_CYCLES = {"sub": 4, "step": 12}
 SOURCE = "src/repro_torch/kernels/ppot_dispatch/csrc/ppot_dispatch.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:105"
@@ -57,8 +72,10 @@ REPLACES = {
     "ppot_dispatch_fused_alias": "src/repro/kernels/ppot_dispatch/kernel.py:211",
     "ppot_dispatch_fused": "src/repro/kernels/ppot_dispatch/kernel.py:242",
     "ppot_dispatch": "src/repro/kernels/ppot_dispatch/kernel.py:126",
-    "alias_pairing": "src/repro/core/dispatch.py:184",
+    "alias_table": "src/repro/core/dispatch.py:108-195",
 }
+# the masks every PPoT kernel is held on: none, 10% of the workers off, a
+# single worker on, all off
 
 # the main-path cell: a thousand-replica cluster with the paper's §6.1
 # k²/100 speeds, Poisson arrivals at 70% of capacity, batches of 128
@@ -187,7 +204,7 @@ class KernelChecks:
         return {"ppot_dispatch_fused_alias": R.ppot_dispatch_fused_alias_ref,
                 "ppot_dispatch_fused": R.ppot_dispatch_fused_ref,
                 "ppot_dispatch": R.ppot_dispatch_ref,
-                "alias_pairing": R.alias_pairing_ref}[name]
+                "alias_table": R.alias_table_ref}[name]
 
     def wrap(self, name, every: int):
         """A stand-in for kernel.<name> that runs the kernel and, on every
@@ -203,46 +220,37 @@ class KernelChecks:
         return checked
 
 
-def pairing_inputs(torch, mu):
-    n = mu.shape[0]
-    w = torch.where(mu.sum() > 0, mu, torch.ones_like(mu))
-    s = w.sum()
-    p = (w * (torch.full_like(s, n) / s)).float()
-    idx = torch.arange(n, device=mu.device)
-    small = p < 1.0
-    stack = idx[torch.argsort(torch.where(small, idx, n + idx))].to(torch.int32)
-    return p, stack, small.sum(dtype=torch.int32).reshape(1)
-
-
-def phase_kernels(torch, chk, dev):
-    K = chk.K
+def phase_kernels(torch, chk, D, dev):
+    K, R = chk.K, chk.R
     shapes = [(n, B) for n in (1024, 2048) for B in (128, 300, 4096, 16384)]
     for n, B in shapes:
         for case in ("random", "zero", "single_hot"):
-            rng = np.random.RandomState(n + B)
-            mu = rng.rand(n).astype(np.float32) * 5
-            if case != "random":
-                mu[:] = 0
-            if case == "single_hot":
-                mu[rng.randint(n)] = 3.0
-            mu_t = torch.from_numpy(mu).to(dev)
-            q = torch.from_numpy(rng.randint(0, 50, n).astype(np.int32)).to(dev)
-            u1, u2, v1, v2 = (torch.from_numpy(rng.randint(0, 65536, B).astype(np.float32)
-                                               / 65536.0).to(dev) for _ in range(4))
-            cdf = chk.R.make_cdf(mu_t)
-            p, stack, ns0 = pairing_inputs(torch, mu_t)
-            prob, alias = K.alias_pairing(p, stack, ns0)
-            chk.compare("alias_pairing", (prob, alias),
-                        chk.R.alias_pairing_ref(p, stack, ns0))
-            chk.compare("ppot_dispatch_fused_alias",
-                        K.ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2),
-                        chk.R.ppot_dispatch_fused_alias_ref(prob, alias, q, u1, v1, u2, v2))
-            chk.compare("ppot_dispatch_fused", K.ppot_dispatch_fused(cdf, q, u1, u2),
-                        chk.R.ppot_dispatch_fused_ref(cdf, q, u1, u2))
-            chk.compare("ppot_dispatch", K.ppot_dispatch(cdf, q, u1, u2),
-                        chk.R.ppot_dispatch_ref(cdf, q, u1, u2))
-    print(f"[kernels] {len(shapes) * 3} shape/μ̂ cases: every kernel equal to "
-          f"its plain version (workers, q_after, prob, alias)")
+            for kind in R.MASKS:
+                rng = np.random.RandomState(n + B)
+                mu = rng.rand(n).astype(np.float32) * 5
+                if case != "random":
+                    mu[:] = 0
+                if case == "single_hot":
+                    mu[rng.randint(n)] = 3.0
+                mu_t = torch.from_numpy(mu).to(dev)
+                q = torch.from_numpy(rng.randint(0, 50, n).astype(np.int32)).to(dev)
+                u1, u2, v1, v2 = (torch.from_numpy(rng.randint(0, 65536, B).astype(
+                    np.float32) / 65536.0).to(dev) for _ in range(4))
+                m = R.make_mask(kind, n, rng)
+                act = None if m is None else torch.from_numpy(m).to(dev)
+                cdf = R.make_cdf(mu_t) if act is None else D.masked_cdf(mu_t, act)
+                p = D.scaled_weights(mu_t, act)
+                prob, alias = K.alias_table(p, act)
+                chk.compare("alias_table", (prob, alias), R.alias_table_ref(p, act))
+                chk.compare("ppot_dispatch_fused_alias",
+                            K.ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2),
+                            R.ppot_dispatch_fused_alias_ref(prob, alias, q, u1, v1, u2, v2))
+                chk.compare("ppot_dispatch_fused", K.ppot_dispatch_fused(cdf, q, u1, u2),
+                            R.ppot_dispatch_fused_ref(cdf, q, u1, u2))
+                chk.compare("ppot_dispatch", K.ppot_dispatch(cdf, q, u1, u2),
+                            R.ppot_dispatch_ref(cdf, q, u1, u2))
+    print(f"[kernels] {len(shapes) * 3 * len(R.MASKS)} shape/μ̂/mask cases (masks {R.MASKS}): "
+          f"every kernel equal to its plain version (workers, q_after, prob, alias)")
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +336,7 @@ def run_mode(torch, tr, K, chk, speeds, mode: str, dev):
 
 def phase_main_path(torch, tr, K, met, chk, speeds, dev):
     results = {}
-    expect = {"a": ("ppot_dispatch_fused_alias", "alias_pairing"),
+    expect = {"a": ("ppot_dispatch_fused_alias", "alias_table"),
               "b": ("ppot_dispatch_fused",),
               "c": ("ppot_dispatch_fused", "ppot_dispatch")}
     for mode in ("a", "b", "c"):
@@ -1124,14 +1132,39 @@ def host_median_ms(torch, fn, reps: int = 20) -> float:
     return float(np.median(ts))
 
 
-def phase_times(torch, K, R, build, dev):
+def sm_clock_mhz(torch) -> float:
+    """The SM clock nvidia-smi reads while a spin kernel keeps the card busy.
+    It reads twice and keeps the second reading only if the spin was still
+    running after it; else it spins twice as long and reads again."""
+    cycles = 3_000_000_000
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        for _ in range(2):
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=60).stdout
+        busy = not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+        if busy:
+            return float(out.split()[0])
+        cycles *= 2
+    raise RuntimeError("nvidia-smi never read the SM clock while the spin kernel ran")
+
+
+def phase_times(torch, K, R, D, build, dev):
     """Each kernel alone (its C entry point on preallocated buffers), its
-    plain version, and its bound, at the main path's shape and a large one."""
+    plain version, and its bound, at the main path's shape and a large one,
+    beside its time before this redesign. The alias table's build also gets
+    its chain bounds: n serial steps at CHAIN_CYCLES at the SM clock of this
+    run."""
     lib = build.load()
     stream = torch.cuda.current_stream().cuda_stream
     floor_t = torch.zeros(1, device=dev)
     floor_ms = event_median_ms(torch, floor_t.zero_)
     print(f"[times] launch floor (one 1-element fill kernel, event pair): {floor_ms:.6f} ms")
+    mhz = sm_clock_mhz(torch)
+    print(f"[times] SM clock under load (nvidia-smi clocks.sm): {mhz:.0f} MHz")
     out = {}
     for n, B in ((1024, BATCH), (2048, 16384)):
         rng = np.random.RandomState(n + B)
@@ -1139,11 +1172,13 @@ def phase_times(torch, K, R, build, dev):
         q = torch.from_numpy(rng.randint(0, 50, n).astype(np.int32)).to(dev)
         u1, u2, v1, v2 = (torch.from_numpy(rng.randint(0, 65536, B).astype(np.float32)
                                            / 65536.0).to(dev) for _ in range(4))
+        act = torch.from_numpy(R.make_mask("tenth_off", n, rng)).to(dev)
         cdf = R.make_cdf(mu)
-        p, stack, ns0 = pairing_inputs(torch, mu)
-        prob, alias = K.alias_pairing(p, stack, ns0)
+        p = D.scaled_weights(mu)
+        prob, alias = K.alias_table(p)
         w = torch.empty(B, dtype=torch.int32, device=dev)
         qa = q.clone()
+        pp, pa = torch.empty_like(prob), torch.empty_like(alias)
         P = lambda t: t.data_ptr()  # noqa: E731
         logn = int(np.ceil(np.log2(n)))
         cases = {
@@ -1161,15 +1196,18 @@ def phase_times(torch, K, R, build, dev):
                 lambda: lib.ppot_select_cdf(P(cdf), P(q), P(u1), P(u2), n, B, P(w), stream),
                 lambda: R.ppot_dispatch_ref(cdf, q, u1, u2),
                 8 * n + 12 * B, B * (2 * logn + 1)),
+            "alias_table": (
+                lambda: lib.alias_table(P(p), None, n, P(pp), P(pa), stream),
+                lambda: R.alias_table_ref(p),
+                12 * n, 3 * n),
+            "alias_table masked": (
+                lambda: lib.alias_table(P(p), P(act), n, P(pp), P(pa), stream),
+                lambda: R.alias_table_ref(p, act),
+                13 * n, 3 * n),
         }
-        pp, pa = torch.empty_like(prob), torch.empty_like(alias)
-        cases["alias_pairing"] = (
-            lambda: lib.alias_pairing(P(p), P(stack), P(ns0), n, P(pp), P(pa), stream),
-            lambda: R.alias_pairing_ref(p, stack, ns0),
-            16 * n + 4, 3 * n)
         for name, (kern, plain, nbytes, nops) in cases.items():
             ms = event_median_ms(torch, kern)
-            if name == "alias_pairing":  # the plain walk runs on the host
+            if name.startswith("alias_table"):  # the plain walk runs on the host
                 plain_ms = host_median_ms(torch, plain)
             else:
                 plain_ms = event_median_ms(torch, plain)
@@ -1179,12 +1217,59 @@ def phase_times(torch, K, R, build, dev):
                        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                        bytes=nbytes, library_ms=None)
             out[(name, n, B)] = rec
-            shape = f"n={n}" + ("" if name == "alias_pairing" else f" B={B}")
-            print(f"[times] {name} {shape}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-                  f"bound {rec['bound_ms']:.9f} ms ({rec['bound_by']}, {nbytes} B), "
-                  f"launch floor {floor_ms:.6f} ms, library call: none")
+            shape = f"n={n}" + ("" if name.startswith("alias_table") else f" B={B}")
+            extra = ""
+            if name.startswith("alias_table"):
+                for k, c in CHAIN_CYCLES.items():
+                    rec[f"chain_{k}_ms"] = n * c / (mhz * 1e6) * 1e3
+                extra = (f", chain bound {rec['chain_step_ms']:.6f} ms ({n} steps x "
+                         f"{CHAIN_CYCLES['step']} cycles: sub, sub, select; the subtraction "
+                         f"alone {CHAIN_CYCLES['sub']} cycles, {rec['chain_sub_ms']:.6f} ms; "
+                         f"at {mhz:.0f} MHz)")
+            before = PPOT_BEFORE_MS.get(name, {}).get(n)
+            print(f"[times] {name} {shape}: kernel {ms:.6f} ms"
+                  + ("" if before is None else f" (before {before:.6f} ms)")
+                  + f", plain {plain_ms:.6f} ms, bound {rec['bound_ms']:.9f} ms "
+                  f"({rec['bound_by']}, {nbytes} B){extra}, launch floor {floor_ms:.6f} ms, "
+                  f"library call: none")
     print("[times] library_ms: no single PyTorch call computes these functions")
     return out, floor_ms
+
+
+def composed_table(K, R, D, mu, active):
+    """The launches of the alias-table build as it was composed before
+    ``kernel.alias_table``: the scaling, the stack order as tensor ops, the
+    walk (one launch, stood in here by the table kernel on the unmasked
+    weights) and the mask pass as tensor ops. Only its launch count is read:
+    ``kernel_variants.py --parent`` times the earlier build itself."""
+    p = D.scaled_weights(mu, active)
+    R.stack_order(p)
+    prob, alias = K.alias_table(p)
+    return (prob, alias) if active is None else R.mask_pass(prob, alias, active)
+
+
+def phase_table_build(torch, K, R, D, dev, calls: int = 20):
+    """Launches and host time (synchronised) per build_alias_table call at
+    n = 1024, unmasked and with 10% of the workers off, and the launches of
+    the composition it replaced."""
+    rng = np.random.RandomState(5)
+    mu = torch.from_numpy(rng.rand(N_REPLICAS).astype(np.float32) * 5).to(dev)
+    act = torch.from_numpy(R.make_mask("tenth_off", N_REPLICAS, rng)).to(dev)
+    out = {}
+    for label, a in (("unmasked", None), ("masked", act)):
+        for how, fn in (("before", lambda: composed_table(K, R, D, mu, a)),
+                        ("now", lambda: D.build_alias_table(mu, a))):
+            fn()
+            prof = device_profile(torch, lambda: [fn() for _ in range(calls)])
+            out[(label, how)] = dict(launches=prof["launches"] / calls,
+                                     copies=prof["copies"] / calls)
+        b, c = out[(label, "before")], out[(label, "now")]
+        c["host_ms"] = host_median_ms(torch, lambda: D.build_alias_table(mu, a), reps=50)
+        print(f"[table build] n={N_REPLICAS} {label}: {c['launches']:.1f} launches and "
+              f"{c['copies']:.1f} copies per build_alias_table call, {c['host_ms']:.6f} ms "
+              f"host clock with sync; composed as before (tensor ops around a one-launch "
+              f"walk): {b['launches']:.1f} launches, {b['copies']:.1f} copies")
+    return out
 
 
 def phase_flash_times(torch, FK, FR, dev):
@@ -1296,6 +1381,7 @@ def main() -> int:
         raise SmokeFailure("no CUDA device")
     try:
         from repro_torch.configs.rosella_sim import tpch_speed_set
+        from repro_torch.core import dispatch as D
         from repro_torch.core import metrics as met
         from repro_torch.kernels import _nvcc
         from repro_torch.kernels.flash_attention import build as flash_build
@@ -1331,7 +1417,7 @@ def main() -> int:
                 print(f"[build] {line.strip()}")
 
     chk = KernelChecks(torch, K, R)
-    phase_kernels(torch, chk, dev)
+    phase_kernels(torch, chk, D, dev)
     flash_err = phase_flash(torch, FK, FO, FR, dev)
     ssd_err = phase_ssd(torch, SK, SO, SR, dev)
     speeds = tpch_speed_set(N_REPLICAS, SEED)
@@ -1350,7 +1436,8 @@ def main() -> int:
     hprof_prefill = prefill_profile(torch, hcfg, hmodel, dev, HYMBA_B, HYMBA_S)
     del hmodel
     per_turn, copies, idle = phase_turn_cost(torch, tr, speeds)
-    times, floor_ms = phase_times(torch, K, R, build, dev)
+    times, floor_ms = phase_times(torch, K, R, D, build, dev)
+    table_build = phase_table_build(torch, K, R, D, dev)
     flash_times = phase_flash_times(torch, FK, FR, dev)
     ssd_times = phase_ssd_times(torch, SK, SO, SR, dev)
 
@@ -1392,6 +1479,8 @@ def main() -> int:
     print(f"[summary] profile hymba-1.5b prefill {json.dumps(hprof_prefill)}")
     print(f"[summary] launches/turn {per_turn:.1f}, copies/turn {copies:.1f}, "
           f"idle share {idle:.4f}, launch floor {floor_ms:.6f} ms")
+    print(f"[summary] build_alias_table per call "
+          f"{json.dumps({f'{k[0]} {k[1]}': v for k, v in table_build.items()})}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Times the port's flash-attention (K4) and SSD-scan (K5) kernels against
-variants of their own sources on one CUDA card, at the shapes of
-chip_smoke.py's [times] phase.
+"""Times the port's flash-attention (K4), SSD-scan (K5) and PPoT dispatch
+(K1-K3 and the alias-table build) kernels against variants of their own
+sources on one CUDA card, at the shapes of chip_smoke.py's [times] phase.
 
 Each variant is the current source with one textual edit (a design choice
 undone, or a part of the work left out to see what it costs: those are
 marked "diagnostic" and compute a wrong result). With ``--parent DIR``,
 the kernels of another checkout of this repository (``git archive`` of an
 earlier commit unpacked into DIR) are built and timed on the same inputs,
-in turns with the current ones (parent, current, current, parent).
+in turns with the current ones (parent, current, current, parent). Its
+K4/K5 entry points are read as they were before their redesign, its PPoT
+ones as they were before the alias-table kernel (``alias_pairing`` walks a
+stack built by tensor ops). ``--kernels``
+picks the sources (default all three).
 
-    python3 kernel_variants.py [--parent DIR] [--out FILE.json]
+    python3 kernel_variants.py [--kernels flash,ssd,ppot] [--parent DIR] [--out FILE.json]
 
 Needs a CUDA card and nvcc; imports torch and the port, nothing of JAX.
 """
@@ -26,6 +30,8 @@ import sys
 import tempfile
 import types
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -94,11 +100,151 @@ K5_VARIANTS = [
          "Bs + tn * 32 * kLdN);")),
 ]
 
+PPOT_SRC = "src/repro_torch/kernels/ppot_dispatch/csrc/ppot_dispatch.cu"
+_PROBE = "  int a = 0, b = 0;\n"
+_PROBE_END = "  j1 = a < n - 1 ? a : n - 1;\n"
+_WALK = "  // 2. the walk"
+_WALK_BODY = "  if (threadIdx.x == 0) {\n    int steps = 0;"
+_WALK_END = "  // 3. where the walk ended"
+_LOOKAHEAD_WALK = """  if (threadIdx.x == 0) {
+    int steps = 0;
+    if (ns0 > 0 && nl0 > 0) {
+      const float* ps = val + ns0 - 1;  // the next small
+      const float* pL = val + n - 1;    // the current large
+      float s1 = ps[0], s2 = ps[-1];    // the next two smalls
+      float pl = pL[0], n1 = pL[-1], n2 = pL[-2];  // the large, the next two
+      // The small a consuming step shifts in and the large a drop shifts in
+      // are loaded two steps ahead, one load for each outcome of the steps
+      // between (c: for this step, n: for the next)
+      float yc0 = ps[-1], yc1 = ps[-2], yn0 = ps[-2], yn1 = ps[-3];
+      float xc0 = pL[-3], xc1 = pL[-4], xc2 = pL[-5];
+      float xn0 = xc0, xn1 = xc1, xn2 = xc2;
+      bool pend = false, pend_prev = false;  // the last residual is the next small
+      float a = 0.0f;  // its deficit
+      for (;;) {
+#pragma unroll
+        for (int u = 0; u < kWalkUnroll; ++u) {
+          const float y = pend_prev ? yc0 : yc1;
+          const float x = pend_prev ? (pend ? xc2 : xc1) : (pend ? xc1 : xc0);
+          // the loads for two steps on, issued before this step's store to
+          // the log (which the compiler does not move loads across)
+          const float* ps_nx = pend ? ps : ps - 1;
+          const float yf0 = ps_nx[-2], yf1 = ps_nx[-3];
+          const float xf0 = pL[-3], xf1 = pL[-4], xf2 = pL[-5];
+          // the large's residual mass, two explicit roundings as in the reference
+          const float r = __fsub_rn(pl, pend ? a : s1);
+          lg[steps + u] = r;
+          const bool drop = r < 1.0f;
+          a = __fsub_rn(1.0f, r);
+          if (!pend) {
+            s1 = s2;
+            s2 = y;
+          }
+          ps = ps_nx;
+          if (drop) {
+            pl = n1;
+            n1 = n2;
+            n2 = x;
+            --pL;
+          } else {
+            pl = r;
+          }
+          pend_prev = pend;
+          pend = drop;
+          yc0 = yn0;
+          yc1 = yn1;
+          yn0 = yf0;
+          yn1 = yf1;
+          xc0 = xn0;
+          xc1 = xn1;
+          xc2 = xn2;
+          xn0 = xf0;
+          xn1 = xf1;
+          xn2 = xf2;
+        }
+        steps += kWalkUnroll;
+        if ((ps < val && !pend) || pL < val + ns0) break;  // both stay true once true
+      }
+    }
+    s_steps = steps;
+  }
+  __syncthreads();
+
+"""
+
+def _l1_search(s: str) -> str:
+    """K2/K3 search the cdf and read q through L1 (__ldg) with nothing
+    staged; the alias kernel (K1) keeps its staging."""
+    edits = [
+        ("    const float ca = cdf[min(a + step, n) - 1];\n"
+         "    const float cb = cdf[min(b + step, n) - 1];\n",
+         "    const float ca = __ldg(cdf + min(a + step, n) - 1);\n"
+         "    const float cb = __ldg(cdf + min(b + step, n) - 1);\n"),
+        ("    s_tab[i] = tab[i];\n    s_q[i] = q[i];\n",
+         "    if (ALIAS) {\n      s_tab[i] = tab[i];\n      s_q[i] = q[i];\n    }\n"),
+        ("  __syncthreads();\n\n  const int b = blockIdx.x",
+         "  if (ALIAS || FOLD) __syncthreads();\n\n  const int b = blockIdx.x"),
+        ("cdf_probe2(s_tab, n, u1[b], u2[b], j1, j2);",
+         "cdf_probe2(tab, n, u1[b], u2[b], j1, j2);"),
+        ("const int w = s_q[j1] <= s_q[j2] ? j1 : j2;",
+         "const int w = (ALIAS ? s_q[j1] : __ldg(q + j1)) <= (ALIAS ? s_q[j2] : __ldg(q + j2))"
+         " ? j1 : j2;"),
+        ("(size_t)n * 4 * (2 + (ALIAS ? 1 : 0) + (FOLD ? 1 : 0))",
+         "(size_t)n * 4 * (ALIAS ? 3 + (FOLD ? 1 : 0) : (FOLD ? 3 : 0))"),
+    ]
+    for a, b in edits:
+        if s.count(a) != 1:
+            raise SystemExit(f"the L1 search variant no longer applies: {a!r}")
+        s = s.replace(a, b)
+    return s
+
+
+PPOT_VARIANTS = [
+    ("K2/K3: the dense probe #{i : cdf[i] <= u} (the earlier design)",
+     lambda s: _between(s, _PROBE, _PROBE_END, """  int a = 0, b = 0;
+  for (int i = 0; i < n; ++i) a += cdf[i] <= u1 ? 1 : 0;
+  for (int i = 0; i < n; ++i) b += cdf[i] <= u2 ? 1 : 0;
+""")),
+    ("K2/K3: the cdf and q read through L1 (__ldg), nothing staged", _l1_search),
+    ("alias_table: the earlier stack walk (every operand and update through shared memory)",
+     lambda s: _between(s, _WALK, _WALK_END, """  // 2. the walk as the earlier stack walk, writing the same log
+  if (threadIdx.x == 0) {
+    int steps = 0, ns = ns0, nl = nl0;
+    while (ns > 0 && nl > 0) {
+      float* ds = val + ns - 1;        // the top small's deficit
+      float* pL = val + ns0 + nl - 1;  // the current large
+      const float r = __fsub_rn(*pL, *ds);
+      lg[steps++] = r;
+      *pL = r;
+      if (r < 1.0f) {
+        *ds = __fsub_rn(1.0f, r);  // the residual takes the vacated slot
+        --nl;
+      } else {
+        --ns;
+      }
+    }
+    s_steps = steps;
+  }
+  __syncthreads();
+
+""")),
+    ("alias_table: no register windows (a step loads its own small and the large after a drop)",
+     lambda s: s.replace("pend ? a : s1", "pend ? a : ps[0]").replace("pl = n1;", "pl = pL[-1];")),
+    ("alias_table: what a step shifts in loaded two steps ahead, one load per outcome",
+     lambda s: _between(s, _WALK_BODY, _WALK_END, _LOOKAHEAD_WALK)),
+    ("alias_table: the exit test every step",
+     lambda s: s.replace("constexpr int kWalkUnroll = 32;", "constexpr int kWalkUnroll = 1;")),
+]
+
 # the C entry points of the kernels before their redesign, for --parent
 _P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_SIGNATURES = {
     "flash": {"flash_attention_fwd": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _I, _I, _I, _P)},
     "ssd": {"ssd_scan": (_P,) * 7 + (_I,) * 9 + (_P,)},
+    "ppot": {"ppot_fused_alias": (_P,) * 7 + (_I, _I, _P, _P, _P),
+             "ppot_fused_cdf": (_P,) * 4 + (_I, _I, _P, _P, _P),
+             "ppot_select_cdf": (_P,) * 4 + (_I, _I, _P, _P),
+             "alias_pairing": (_P, _P, _P, _I, _P, _P, _P)},
 }
 
 
@@ -115,11 +261,123 @@ def variant_sources(path: str, variants, tmp: Path) -> list[tuple[str, Path]]:
     return out
 
 
+def time_ppot(torch, libs, parent, median_ms) -> dict:
+    """K2/K3 and the alias-table kernel against their variants, each in turns
+    with the current source (current, variant, variant, current), at
+    chip_smoke.py's [times] shapes; with a parent, its K1-K3 and its pairing
+    walk the same way, and its whole table build (tensor ops for the stack
+    order and the mask pass around its walk) against build_alias_table."""
+    import chip_smoke as CS
+    from repro_torch.core import dispatch as D
+    from repro_torch.kernels.ppot_dispatch import ref as R
+
+    stream = torch.cuda.current_stream().cuda_stream
+    P = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    out = {}
+    for n, B in ((1024, CS.BATCH), (2048, 16384)):
+        rng = np.random.RandomState(n + B)
+        dev = torch.device("cuda")
+        mu = torch.from_numpy(rng.rand(n).astype(np.float32) * 5).to(dev)
+        q = torch.from_numpy(rng.randint(0, 50, n).astype(np.int32)).to(dev)
+        u1, u2, v1, v2 = (torch.from_numpy(rng.randint(0, 65536, B).astype(np.float32)
+                                           / 65536.0).to(dev) for _ in range(4))
+        act = torch.from_numpy(R.make_mask("tenth_off", n, rng)).to(dev)
+        cdf = R.make_cdf(mu)
+        p = D.scaled_weights(mu)
+        prob, alias = R.alias_table_ref(p)
+        w, qa = torch.empty(B, dtype=torch.int32, device=dev), q.clone()
+        pp, pa = torch.empty_like(prob), torch.empty_like(alias)
+        calls = {  # name -> (launch on a library, output, plain version)
+            "ppot_dispatch_fused": (
+                lambda lib: lib.ppot_fused_cdf(P(cdf), P(q), P(u1), P(u2), n, B, P(w), P(qa),
+                                               stream), lambda: w,
+                lambda: R.ppot_dispatch_ref(cdf, q, u1, u2)),
+            "ppot_dispatch": (
+                lambda lib: lib.ppot_select_cdf(P(cdf), P(q), P(u1), P(u2), n, B, P(w),
+                                                stream), lambda: w,
+                lambda: R.ppot_dispatch_ref(cdf, q, u1, u2)),
+            "alias_table": (
+                lambda lib: lib.alias_table(P(p), None, n, P(pp), P(pa), stream),
+                lambda: (pp, pa), lambda: (prob, alias)),
+            "alias_table masked": (
+                lambda lib: lib.alias_table(P(p), P(act), n, P(pp), P(pa), stream),
+                lambda: (pp, pa), lambda: R.alias_table_ref(p, act)),
+        }
+        label = f"n={n} B={B}"
+        row = out[label] = {}
+        cur = libs[0][1].load()
+        for vname, lib in libs[1:]:
+            vl = lib.load()
+            names = [k for k in calls if k.startswith("alias_table") == vname.startswith("alias")]
+            for name in names:
+                launch, got, want = calls[name]
+                launch(vl)
+                torch.cuda.synchronize()
+                g, wnt = got(), want()
+                equal = all(torch.equal(a, b) for a, b in zip(
+                    g if isinstance(g, tuple) else (g,), wnt if isinstance(wnt, tuple) else (wnt,)))
+                turns = [median_ms(lambda lb=lb: launch(lb), 200) for lb in (cur, vl, vl, cur)]
+                row.setdefault(name, {})[vname] = dict(
+                    ms=statistics.mean(turns[1:3]),
+                    current_same_call_ms=statistics.mean((turns[0], turns[3])), equal=equal)
+        if parent is not None:
+            pl = parent.load()
+            stack, ns0 = R.stack_order(p)
+            old = {
+                "ppot_dispatch_fused_alias": lambda: pl.ppot_fused_alias(
+                    P(prob), P(alias), P(q), P(u1), P(v1), P(u2), P(v2), n, B, P(w), P(qa),
+                    stream),
+                "ppot_dispatch_fused": lambda: pl.ppot_fused_cdf(
+                    P(cdf), P(q), P(u1), P(u2), n, B, P(w), P(qa), stream),
+                "ppot_dispatch": lambda: pl.ppot_select_cdf(
+                    P(cdf), P(q), P(u1), P(u2), n, B, P(w), stream),
+                "alias_table": lambda: pl.alias_pairing(
+                    P(p), P(stack), P(ns0), n, P(pp), P(pa), stream),
+            }
+            new = dict(calls, ppot_dispatch_fused_alias=(
+                lambda lib: lib.ppot_fused_alias(P(prob), P(alias), P(q), P(u1), P(v1), P(u2),
+                                                 P(v2), n, B, P(w), P(qa), stream),))
+            for name, fn in old.items():
+                nf = lambda: new[name][0](cur)  # noqa: E731
+                turns = [median_ms(f, 200) for f in (fn, nf, nf, fn)]
+                row.setdefault(name, {})["parent"] = dict(
+                    ms=statistics.mean((turns[0], turns[3])),
+                    current_same_call_ms=statistics.mean(turns[1:3]))
+
+            def parent_build(a):
+                pw = D.scaled_weights(mu, a)
+                st, k = R.stack_order(pw)
+                pr, al = torch.empty_like(pw), torch.empty(n, dtype=torch.int32, device=dev)
+                pl.alias_pairing(P(pw), P(st), P(k), n, P(pr), P(al), stream)
+                return (pr, al) if a is None else R.mask_pass(pr, al, a)
+
+            for mlabel, a in (("unmasked", None), ("masked", act)):
+                want = D.build_alias_table(mu, a)
+                got = parent_build(a)
+                torch.cuda.synchronize()
+                rec = {}
+                for how, fn in (("parent composition", lambda: parent_build(a)),
+                                ("build_alias_table", lambda: D.build_alias_table(mu, a))):
+                    prof = CS.device_profile(torch, lambda: [fn() for _ in range(20)])
+                    rec[how] = dict(launches=prof["launches"] / 20,
+                                    host_ms=CS.host_median_ms(torch, fn, reps=50))
+                rec["equal"] = all(torch.equal(x, y) for x, y in zip(got, want))
+                row[f"table build {mlabel}"] = rec
+        for name, r in row.items():
+            print(f"[ppot {label}] {name}: {json.dumps(r)}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default="flash,ssd,ppot",
+                    help="comma-separated sources to time: flash, ssd, ppot")
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit")
     ap.add_argument("--out", type=Path, help="write the readings as JSON")
     args = ap.parse_args()
+    kinds = set(args.kernels.split(","))
+    if not kinds <= {"flash", "ssd", "ppot"}:
+        raise SystemExit(f"--kernels: unknown {sorted(kinds - {'flash', 'ssd', 'ppot'})}")
 
     import torch
 
@@ -128,6 +386,7 @@ def main() -> int:
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels.flash_attention import build as fbuild
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ppot_dispatch import build as pbuild
     from repro_torch.kernels.ssd_scan import build as sbuild
     from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.kernels.ssd_scan import ref as SR
@@ -138,20 +397,18 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
     tmp = Path(tempfile.mkdtemp(prefix="kernel_variants_", dir=ROOT / "build"
                                 if (ROOT / "build").is_dir() else None))
-    k4 = [("current", fbuild.LIBRARY)] + [
-        (n, _nvcc.CudaLibrary(p, fbuild._SIGNATURES, "flash_error_string"))
-        for n, p in variant_sources(K4_SRC, K4_VARIANTS, tmp)]
-    k5 = [("current", sbuild.LIBRARY)] + [
-        (n, _nvcc.CudaLibrary(p, sbuild._SIGNATURES, "ssd_error_string"))
-        for n, p in variant_sources(K5_SRC, K5_VARIANTS, tmp)]
-    parent = {}
-    if args.parent:
-        parent = {
-            "flash": _nvcc.CudaLibrary(args.parent / K4_SRC, PARENT_SIGNATURES["flash"],
-                                       "flash_error_string"),
-            "ssd": _nvcc.CudaLibrary(args.parent / K5_SRC, PARENT_SIGNATURES["ssd"],
-                                     "ssd_error_string")}
-    _nvcc.build_all(*(lib for _, lib in k4 + k5), *parent.values())
+    sources = {"flash": (K4_SRC, K4_VARIANTS, fbuild, "flash_error_string"),
+               "ssd": (K5_SRC, K5_VARIANTS, sbuild, "ssd_error_string"),
+               "ppot": (PPOT_SRC, PPOT_VARIANTS, pbuild, "ppot_error_string")}
+    libs, parent = {}, {}
+    for kind in sorted(kinds):
+        path, variants, bld, err = sources[kind]
+        libs[kind] = [("current", bld.LIBRARY)] + [
+            (n, _nvcc.CudaLibrary(p, bld._SIGNATURES, err))
+            for n, p in variant_sources(path, variants, tmp)]
+        if args.parent:
+            parent[kind] = _nvcc.CudaLibrary(args.parent / path, PARENT_SIGNATURES[kind], err)
+    _nvcc.build_all(*(lib for row in libs.values() for _, lib in row), *parent.values())
 
     def median_ms(fn, reps):
         for _ in range(3):
@@ -181,12 +438,17 @@ def main() -> int:
             self.module.build = self.saved
 
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    readings = {"card": card, "flash_attention_fwd": {}, "ssd_scan": {}}
+    readings = {"card": card}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "ppot" in kinds:
+        readings["ppot"] = time_ppot(torch, libs["ppot"], parent.get("ppot"), median_ms)
 
     # K4: q [B, S, H, D] in the model's layout, causal (hymba: window 1024)
+    k4 = libs.get("flash", [])
+    if k4:
+        readings["flash_attention_fwd"] = {}
     for label, B, S, H, Hkv, window in (("main", 4, 4096, 15, 5, 0), ("small", 1, 2048, 15, 5, 0),
-                                        ("hymba", 2, 4096, 25, 5, 1024)):
+                                        ("hymba", 2, 4096, 25, 5, 1024)) if k4 else ():
         D = 64
         q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
         k, v = (torch.randn(B, S, Hkv, D, generator=gen, device="cuda").bfloat16()
@@ -230,7 +492,10 @@ def main() -> int:
     import chip_smoke as CS
     from torch.profiler import ProfilerActivity, profile
 
-    for label, B, S in (("main", 4, 4096), ("small", 1, 2048)):
+    k5 = libs.get("ssd", [])
+    if k5:
+        readings["ssd_scan"] = {}
+    for label, B, S in (("main", 4, 4096), ("small", 1, 2048)) if k5 else ():
         H, P, N, Q = 32, 64, 128, 128
         x, dt, A, Bm, Cm = CS.ssd_inputs(torch, gen, torch.device("cuda"), B, S, H, P, N,
                                          xdtype=torch.bfloat16, heads=True)

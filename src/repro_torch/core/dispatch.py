@@ -18,10 +18,10 @@ the kernel on CUDA tensors and runs its plain version only on CPU tensors.
 A batch with an alias table runs the fused alias kernel (a masked table
 gives inactive workers no mass, so the kernel serves masked batches too);
 a CDF batch runs the fused CDF kernel or, under a slot or membership mask,
-the select kernel. Inactive slots are folded out here. The alias table's
-pairing walk is a single-block kernel, so a table build costs a few
-launches, not one per bin. C > 1 chunks select with tensor ops, as the
-reference's chunk scan does.
+the select kernel. Inactive slots are folded out here. A table build is
+the scaling as tensor ops, then one single-block kernel for the stack
+order, the pairing walk and the mask pass. C > 1 chunks select with tensor
+ops, as the reference's chunk scan does.
 
 Only PPoT-SQ(2) is ported; the engine raises for the other policies.
 """
@@ -55,10 +55,18 @@ def build_alias_table(mu_hat: torch.Tensor,
 
     ``active`` (bool[n]) gives inactive workers exactly zero mass: their
     threshold is 0 and their alias an active worker; if every active worker
-    has μ̂ = 0 the mass is uniform over the active set. The scaling, the
-    stack order and the mask post-pass are tensor ops; the pairing walk is
-    ``kernel.alias_pairing``.
+    has μ̂ = 0 the mass is uniform over the active set. The scaling
+    (``scaled_weights``) is tensor ops, so its sum order is torch's; the
+    stack order, the pairing walk and the mask pass are
+    ``kernel.alias_table``.
     """
+    return AliasTable(*kernel.alias_table(scaled_weights(mu_hat, active), active))
+
+
+def scaled_weights(mu_hat: torch.Tensor,
+                   active: torch.Tensor | None = None) -> torch.Tensor:
+    """The alias table's weights p (f32[n], mean 1): μ̂ (masked), or uniform
+    where it has no mass, times n over its sum."""
     n = mu_hat.shape[0]
     if active is None:
         w = torch.where(mu_hat.sum() > 0, mu_hat, torch.ones_like(mu_hat))
@@ -68,20 +76,7 @@ def build_alias_table(mu_hat: torch.Tensor,
                                torch.ones_like(mu_hat))
         w = torch.where(masked.sum() > 0, masked, fallback)
     s = w.sum()
-    p = (w * (torch.full_like(s, n) / s)).to(torch.float32)  # mean 1
-    idx = torch.arange(n, device=mu_hat.device)
-    small = p < 1.0
-    stack = idx[torch.argsort(torch.where(small, idx, n + idx))].to(torch.int32)
-    ns0 = small.sum(dtype=torch.int32).reshape(1)
-    prob, alias = kernel.alias_pairing(p, stack, ns0)
-    if active is not None:
-        # hard mask guarantee, whatever the pairing's float drift
-        any_active = active.any()
-        prob = torch.where(any_active, torch.where(active, prob, 0.0),
-                           torch.ones_like(prob))
-        first_active = active.to(torch.int32).argmax().to(torch.int32)
-        alias = torch.where(active[alias.long()], alias, first_active)
-    return AliasTable(prob=prob, alias=alias)
+    return (w * (torch.full_like(s, n) / s)).to(torch.float32)
 
 
 def alias_sample(table: AliasTable, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

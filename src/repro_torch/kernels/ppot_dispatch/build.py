@@ -18,8 +18,8 @@ _SIGNATURES = {
     "ppot_fused_cdf": (_P,) * 4 + (_I, _I, _P, _P, _P),
     # cdf, q, u1, u2, n, B, workers, stream
     "ppot_select_cdf": (_P,) * 4 + (_I, _I, _P, _P),
-    # p, stack, ns0, n, prob, alias, stream
-    "alias_pairing": (_P, _P, _P, _I, _P, _P, _P),
+    # p, active (or null), n, prob, alias, stream
+    "alias_table": (_P, _P, _I, _P, _P, _P),
 }
 
 LIBRARY = _nvcc.CudaLibrary(SRC, _SIGNATURES, "ppot_error_string")

@@ -12,7 +12,11 @@ int raised by one where the kernel is launched and nowhere else;
   ppot_dispatch_fused_alias   alias probe -> SQ(2) -> fold-back    (K1)
   ppot_dispatch_fused         inverse-CDF probe -> SQ(2) -> fold   (K2)
   ppot_dispatch               inverse-CDF probe -> SQ(2), no fold  (K3)
-  alias_pairing               the alias table's pairing walk
+  alias_table                 the alias table from scaled weights: stack
+                              order, pairing walk and mask pass
+
+K2 and K3 search the cdf by bisection: it must be non-decreasing (see
+``ppot_dispatch_fused``).
 """
 from __future__ import annotations
 
@@ -21,7 +25,11 @@ import torch
 from repro_torch.kernels.ppot_dispatch import build, ref
 
 launches = {"ppot_dispatch_fused_alias": 0, "ppot_dispatch_fused": 0,
-            "ppot_dispatch": 0, "alias_pairing": 0}
+            "ppot_dispatch": 0, "alias_table": 0}
+
+#: the largest n one alias_table launch takes: its block keeps 12n bytes of
+#: shared memory (kTableMaxN in the source)
+ALIAS_TABLE_MAX_N = 16384
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -87,7 +95,13 @@ def ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2):
 
 
 def ppot_dispatch_fused(cdf, q, u1, u2):
-    """cdf f32[n], q i32[n], u1,u2 f32[B] -> (workers i32[B], q_after i32[n])."""
+    """cdf f32[n], q i32[n], u1,u2 f32[B] -> (workers i32[B], q_after i32[n]).
+
+    The kernel finds each probe by bisection, which equals the plain
+    version's dense count #{i : cdf[i] <= u} only where ``cdf`` is
+    non-decreasing and has no NaN. ``ref.make_cdf`` and
+    ``core.dispatch.masked_cdf`` give that order by construction; the
+    wrapper does not check it on the card (a launch and a sync)."""
     n = cdf.shape[0]
     _check(cdf, "cdf", torch.float32, n)
     _check(q, "q", torch.int32, n)
@@ -108,7 +122,8 @@ def ppot_dispatch_fused(cdf, q, u1, u2):
 
 
 def ppot_dispatch(cdf, q, u1, u2):
-    """cdf f32[n], q i32[n], u1,u2 f32[B] -> workers i32[B] (no fold-back)."""
+    """cdf f32[n], q i32[n], u1,u2 f32[B] -> workers i32[B] (no fold-back).
+    ``cdf`` must be non-decreasing, as for ``ppot_dispatch_fused``."""
     n = cdf.shape[0]
     _check(cdf, "cdf", torch.float32, n)
     _check(q, "q", torch.int32, n)
@@ -126,24 +141,29 @@ def ppot_dispatch(cdf, q, u1, u2):
     return workers
 
 
-def alias_pairing(p, stack, ns0):
-    """p f32[n] scaled weights (mean 1), stack i32[n] (smalls then larges,
-    each in index order), ns0 i32[1] number of smalls ->
-    (prob f32[n], alias i32[n])."""
+def alias_table(p, active=None):
+    """p f32[n] scaled weights (mean 1), active bool[n] or None ->
+    (prob f32[n], alias i32[n]): the stack order, the pairing walk and,
+    with a mask, the mask pass, in one launch."""
     n = p.shape[0]
     _check(p, "p", torch.float32, n)
-    _check(stack, "stack", torch.int32, n)
-    _check(ns0, "ns0", torch.int32, 1)
-    if not _on_cuda(p, stack, ns0):
-        return ref.alias_pairing_ref(p, stack, ns0)
+    if n < 1:
+        raise ValueError("need at least one worker")
+    if active is not None:
+        _check(active, "active", torch.bool, n)
+    if not _on_cuda(*((p,) if active is None else (p, active))):
+        return ref.alias_table_ref(p, active)
+    if n > ALIAS_TABLE_MAX_N:
+        raise ValueError(f"alias_table: n={n} exceeds the {ALIAS_TABLE_MAX_N} "
+                         f"bins one block's shared memory holds")
     prob = torch.empty(n, dtype=torch.float32, device=p.device)
     alias = torch.empty(n, dtype=torch.int32, device=p.device)
     with torch.cuda.device(p.device):
-        err = build.load().alias_pairing(
-            _ptr(p), _ptr(stack), _ptr(ns0), n, _ptr(prob), _ptr(alias),
-            _stream(p))
-    build.LIBRARY.raise_on(err, "alias_pairing")
-    launches["alias_pairing"] += 1
+        err = build.load().alias_table(
+            _ptr(p), None if active is None else _ptr(active), n, _ptr(prob),
+            _ptr(alias), _stream(p))
+    build.LIBRARY.raise_on(err, "alias_table")
+    launches["alias_table"] += 1
     return prob, alias
 
 

@@ -8,12 +8,15 @@ Semantics (paper Fig. 5, batched): for each job b
 
 or, with a Walker alias table, ``j = v < prob[bin] ? bin : alias[bin]`` for
 ``bin = min(int(u * n), n - 1)``. The fused forms also return
-``q_after = q + histogram(workers)``. ``alias_pairing_ref`` is the plain
-small/large pairing loop of the alias-table build.
+``q_after = q + histogram(workers)``. ``alias_table_ref`` is the
+alias-table build after the scaling: the stack order, the plain
+small/large pairing loop (``alias_pairing_ref``) and the mask pass.
 
 These are the CPU path of every wrapper in ``kernel.py`` and the versions
 each CUDA kernel is held against on the card. They run on whatever device
 their inputs live on (the pairing loop always walks on the host).
+``alias_sweep_ref`` mirrors the CUDA kernel's restructured walk in numpy,
+for the tests that show the restructuring exact.
 """
 from __future__ import annotations
 
@@ -107,3 +110,101 @@ def alias_pairing_ref(p: torch.Tensor, stack: torch.Tensor, ns0: torch.Tensor):
             ns -= 1
     return (torch.from_numpy(prob).to(dev),
             torch.from_numpy(alias).to(dev))
+
+
+def stack_order(p: torch.Tensor):
+    """The reference's packed stacks: (stack i32[n] with the smalls, p < 1,
+    in index order at [0, ns0) and the larges in index order after them,
+    ns0 i32[1]). NaN counts as large."""
+    n = p.shape[0]
+    idx = torch.arange(n, device=p.device)
+    small = p < 1.0
+    stack = idx[torch.argsort(torch.where(small, idx, n + idx))].to(torch.int32)
+    return stack, small.sum(dtype=torch.int32).reshape(1)
+
+
+def alias_table_ref(p: torch.Tensor, active: torch.Tensor | None = None):
+    """p f32[n] scaled weights (mean 1), active bool[n] or None ->
+    (prob f32[n], alias i32[n]): the stack walk, then the hard mask
+    guarantee (inactive bins accept nothing and every alias edge lands on
+    an active worker; all inactive gives prob 1 and alias 0 everywhere)."""
+    prob, alias = alias_pairing_ref(p, *stack_order(p))
+    return (prob, alias) if active is None else mask_pass(prob, alias, active)
+
+
+def mask_pass(prob: torch.Tensor, alias: torch.Tensor, active: torch.Tensor):
+    """The reference's mask pass over a walked table, independent of the
+    walk's float drift."""
+    prob = torch.where(active.any(), torch.where(active, prob, 0.0),
+                       torch.ones_like(prob))
+    first_active = active.to(torch.int32).argmax().to(torch.int32)
+    return prob, torch.where(active[alias.long()], alias, first_active)
+
+
+MASKS = ("none", "tenth_off", "single_on", "all_off")
+
+
+def make_mask(kind: str, n: int, rng) -> np.ndarray | None:
+    """A worker mask for holding the kernels against their plain versions:
+    None, a tenth of the workers (at least one) off, a single worker on, or
+    all off. ``rng`` is a ``numpy.random.RandomState``."""
+    if kind == "none":
+        return None
+    m = np.full(n, kind == "tenth_off")
+    if kind == "tenth_off":
+        m[rng.choice(n, max(n // 10, 1), replace=False)] = False
+    elif kind == "single_on":
+        m[rng.randint(n)] = True
+    return m
+
+
+def alias_sweep_ref(p: torch.Tensor):
+    """The CUDA kernel's walk and rebuild, in numpy f32.
+
+    The walk takes the smalls (descending index) and the larges (ascending
+    index) each as a fixed sequence, one step per small finalised: the
+    small is the last residual if the step before dropped its large below 1
+    (in the stack walk that residual took the vacated top slot), else the
+    next small; the large is the next one after a drop. A step records only
+    its residual r. The table is rebuilt from the residuals alone: step t
+    dropped iff r[t] < 1, so counts of drops say which small and which
+    large each step took. The same f32 operations in the same order as
+    ``alias_pairing_ref``, so the result is bit-identical."""
+    dev = p.device
+    p = p.detach().cpu().numpy().astype(np.float32)
+    n = p.shape[0]
+    small = p < 1.0
+    smalls, larges = np.nonzero(small)[0][::-1], np.nonzero(~small)[0]
+    ns0, nl0 = len(smalls), len(larges)
+    one = np.float32(1.0)
+    log = []  # the residual after each step
+    ns, nl, i_s, j, pend = ns0, nl0, 0, 0, False
+    pl = p[larges[0]] if nl0 else one
+    while ns > 0 and nl > 0:
+        d = one - log[-1] if pend else one - p[smalls[i_s]]
+        r = pl - d
+        log.append(r)
+        if not pend:
+            i_s += 1
+        drop = bool(r < one)
+        if drop:
+            j += 1
+            nl -= 1
+            pl = p[larges[j]] if j < nl0 else one
+        else:
+            ns -= 1
+            pl = r
+        pend = drop
+    dropped = np.array([bool(r < one) for r in log], bool)
+    drops = np.concatenate([[0], np.cumsum(dropped)])  # drops before each step
+    prob = np.ones(n, np.float32)
+    alias = np.arange(n, dtype=np.int32)
+    for t, r in enumerate(log):
+        if t > 0 and dropped[t - 1]:  # the residual of large drops[t] - 1
+            b, pr = larges[drops[t] - 1], log[t - 1]
+        else:
+            b = smalls[t - (drops[t - 1] if t > 0 else 0)]
+            pr = p[b]
+        prob[b] = pr
+        alias[b] = larges[drops[t]]
+    return torch.from_numpy(prob).to(dev), torch.from_numpy(alias).to(dev)

@@ -61,24 +61,69 @@ def test_dispatch_kernels_match_plain_versions(dev, n, B, case):
         assert g.device == w.device and torch.equal(g, w)
     counts = tk.launch_counts()
     assert counts["ppot_dispatch"] == counts["ppot_dispatch_fused"] == 1
-    assert counts["ppot_dispatch_fused_alias"] == 1 and counts["alias_pairing"] == 1
+    assert counts["ppot_dispatch_fused_alias"] == 1 and counts["alias_table"] == 1
 
 
-@pytest.mark.parametrize("n", [1, 7, 1024, 2048])
-def test_alias_pairing_kernel_matches_plain_version(dev, n):
-    for seed in range(3):
-        w = torch.from_numpy(np.random.RandomState(seed).rand(n).astype(np.float32))
-        w[: n // 10] = 0
-        p = (w * (n / w.sum())).to(dev)
-        idx = torch.arange(n, device=dev)
-        small = p < 1.0
-        stack = idx[torch.argsort(torch.where(small, idx, n + idx))].to(torch.int32)
-        ns0 = small.sum(dtype=torch.int32).reshape(1)
-        got = tk.alias_pairing(p, stack, ns0)
-        want = tref.alias_pairing_ref(p, stack, ns0)
+@pytest.mark.parametrize("kind", tref.MASKS)
+@pytest.mark.parametrize("n,B", [(8, 1), (1024, 128), (2048, 16384)])
+def test_cdf_kernels_match_plain_versions_on_masked_cdfs(dev, n, B, kind):
+    """K2 and K3 bisect the cdf: on masked_cdf's zero-mass plateaus too
+    they equal the dense count of their plain versions."""
+    mu, q, (u1, u2, _, _) = _inputs(n, B, "random", dev)
+    m = tref.make_mask(kind, n, np.random.RandomState(n))
+    cdf = tref.make_cdf(mu) if m is None else tdsp.masked_cdf(mu, torch.from_numpy(m).to(dev))
+    got = [tk.ppot_dispatch(cdf, q, u1, u2), *tk.ppot_dispatch_fused(cdf, q, u1, u2)]
+    want = [tref.ppot_dispatch_ref(cdf, q, u1, u2), *tref.ppot_dispatch_fused_ref(cdf, q, u1, u2)]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _scaled(case, n, rng):
+    """Scaled weights p (mean about 1) as build_alias_table makes them, and
+    the walk's edge cases: a residual one ulp below 1, larges that run out
+    first, every p below 1, every p exactly 1, a NaN."""
+    w = rng.rand(n).astype(np.float32)
+    w[: n // 10] = 0
+    p = w * np.float32(n / w.sum())
+    if case == "residual_below" and n > 1:
+        p[0], p[n - 1] = 1.5, 0.5 - 2.0 ** -24
+    elif case == "smalls_left":
+        p = rng.rand(n) * 0.5 + 0.3
+        p[: max(n // 8, 1)] = 1.2
+    elif case == "all_small":
+        p = np.full(n, 1 - 2.0 ** -24)
+    elif case == "uniform":
+        p = np.ones(n)
+    elif case == "nan":  # a NaN weight counts as large and never drops
+        p[n // 2] = np.nan
+    return torch.from_numpy(p.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["random", "residual_below", "smalls_left", "all_small",
+                                  "uniform", "nan"])
+@pytest.mark.parametrize("n", [1, 7, 1024, 2048, tk.ALIAS_TABLE_MAX_N])
+def test_alias_table_kernel_matches_plain_version(dev, n, case):
+    rng = np.random.RandomState(n)
+    p = _scaled(case, n, rng).to(dev)
+    for kind in tref.MASKS:
+        m = tref.make_mask(kind, n, rng)
+        active = None if m is None else torch.from_numpy(m).to(dev)
+        tk.reset_launches()
+        got = tk.alias_table(p, active)
+        assert tk.launch_counts()["alias_table"] == 1
+        want = tref.alias_table_ref(p, active)
         torch.cuda.synchronize()
-        for g, w_ in zip(got, want):
-            assert torch.equal(g, w_)
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), kind
+        assert torch.equal(got[1], want[1]), kind
+
+
+def test_alias_table_refuses_what_one_block_cannot_hold(dev):
+    p = torch.ones(tk.ALIAS_TABLE_MAX_N + 1, device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        tk.alias_table(p)
+    with pytest.raises(ValueError, match="active"):
+        tk.alias_table(p[:8], torch.ones(8, dtype=torch.int32, device=dev))
 
 
 def test_wrappers_refuse_mixed_devices(dev):
@@ -101,7 +146,7 @@ def test_router_runs_through_the_kernels(dev, use_alias):
     counts = tk.launch_counts()
     fused = "ppot_dispatch_fused_alias" if use_alias else "ppot_dispatch_fused"
     assert counts[fused] == len(mu)
-    assert (counts["alias_pairing"] > 0) == use_alias
+    assert (counts["alias_table"] > 0) == use_alias
     assert np.isfinite(resp).all() and (resp > 0).all()
     assert (r.q_view >= 0).all()
 

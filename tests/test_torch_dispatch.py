@@ -156,6 +156,62 @@ def test_cdf_within_stated_ulps(n):
                     rdsp.masked_cdf(jnp.asarray(mu), jnp.asarray(mask))) <= CDF_ULPS
 
 
+def _mu_cases(n: int, rng):
+    """(μ̂, mask) pairs that K2 and K3 are fed: plain, zero, single-hot and
+    masked μ̂, a mask with every active worker at zero, and every worker
+    masked."""
+    mu = (rng.rand(n) * 5).astype(np.float32)
+    mask = rng.rand(n) < 0.8
+    mask[0] = True
+    hot = np.zeros(n, np.float32)
+    hot[rng.randint(n)] = 3.0
+    return [(mu, None), (np.zeros(n, np.float32), None), (hot, None), (mu, mask),
+            (np.where(mask, 0, mu).astype(np.float32), mask),
+            (mu, np.zeros(n, bool)), (hot, np.arange(n) % 3 == 0)]
+
+
+def _bisect(cdf: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """The kernel's probe, modelled: binary lifting in power-of-two steps
+    from the smallest power of two >= n, then the clip to n - 1."""
+    n = len(cdf)
+    a = np.zeros(len(u), np.int64)
+    step = 1 if n <= 1 else 1 << (n - 1).bit_length()
+    while step:
+        c = cdf[np.minimum(a + step, n) - 1]
+        a += np.where((a + step <= n) & (c <= u), step, 0)
+        step >>= 1
+    return np.minimum(a, n - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 64, 1000, 1024, 2048])
+def test_cdf_producers_are_sorted_so_bisection_equals_the_dense_count(n):
+    """K2 and K3 bisect the cdf. make_cdf and masked_cdf are non-decreasing
+    on every kind of μ̂ the engine feeds them, and on them the bisection
+    (searchsorted, and the kernel's lifting modelled) equals the dense
+    count of ref.cdf_probe, ties and zero-mass plateaus included."""
+    rng = np.random.RandomState(n)
+    for mu, mask in _mu_cases(n, rng):
+        cdf = tref.make_cdf(_t(mu)) if mask is None else tdsp.masked_cdf(_t(mu), _t(mask))
+        c = cdf.numpy()
+        assert not np.isnan(c).any() and (c[1:] >= c[:-1]).all()
+        u = np.concatenate([rng.randint(0, 65536, 300) / 65536.0, rng.rand(100),
+                            c, np.nextafter(c, 0), [0.0]]).astype(np.float32)
+        want = tref.cdf_probe(cdf, _t(u)).numpy()
+        got = torch.searchsorted(cdf, _t(u), right=True).clamp(max=n - 1)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(_bisect(c, u), want)
+
+
+def test_bisection_needs_a_sorted_cdf():
+    """The precondition is real: on an unsorted cdf the bisection and the
+    dense count part."""
+    cdf = np.array([0.5, 0.2, 0.9, 1.0], np.float32)
+    u = np.array([0.3], np.float32)
+    dense = tref.cdf_probe(_t(cdf), _t(u)).numpy()
+    assert dense[0] == 1 and _bisect(cdf, u)[0] == 2
+    assert torch.searchsorted(_t(cdf), _t(u), right=True)[0] != dense[0]
+
+
 #: build_alias_table: the scaled weights p = w * (n / sum(w)) inherit the
 #: sum's reduction order (measured at most 8 ulps, n <= 2048). The pairing
 #: walk is exact given the same p (test_torch_ppot_kernels), but a

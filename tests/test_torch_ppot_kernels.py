@@ -1,5 +1,7 @@
 """The PPoT dispatch kernels' plain versions against the reference Pallas
-kernels (interpret mode), the alias pairing walk and the wrappers' checks.
+kernels (interpret mode), the alias-table build (the stack walk, the
+kernel's restructured walk, and the whole build against the reference's)
+and the wrappers' checks.
 The CUDA kernels themselves are held to these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 
@@ -102,6 +104,120 @@ def test_alias_pairing_matches_reference_on_same_p(n, zeros):
     got = tdsp.build_alias_table(_t(p))
     np.testing.assert_array_equal(got.prob.numpy(), np.asarray(want.prob))
     np.testing.assert_array_equal(got.alias.numpy(), np.asarray(want.alias))
+
+
+@pytest.mark.parametrize("kind", tref.MASKS)
+@pytest.mark.parametrize("n", [1, 8, 64, 1024, 2048])
+def test_alias_table_matches_reference_exactly_on_grid_weights(n, kind):
+    """The port's build_alias_table (on the CPU: the scaling, then
+    ``ref.alias_table_ref``) is bit-identical to the reference's, masked or
+    not, wherever both see the same scaled weights: the masked twin of
+    test_alias_pairing_matches_reference_on_same_p."""
+    from repro_torch.core import dispatch as tdsp
+
+    rng = np.random.RandomState(n + len(kind))
+    mu = _exact_weights(n, rng, zeros=n // 10)
+    m = tref.make_mask(kind, n, rng)
+    want = rdsp.build_alias_table(jnp.asarray(mu), None if m is None else jnp.asarray(m))
+    got = tdsp.build_alias_table(_t(mu), None if m is None else _t(m))
+    np.testing.assert_array_equal(got.prob.numpy().view(np.int32),
+                                  np.asarray(want.prob).view(np.int32))
+    np.testing.assert_array_equal(got.alias.numpy(), np.asarray(want.alias))
+
+
+def _bits(t) -> np.ndarray:
+    a = np.asarray(t)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _sweep_p(case: str, n: int) -> np.ndarray:
+    """Scaled weights for the walk. The planted cases put a small at the
+    highest index and a large at index 0, so that the first step pairs them
+    and leaves the large's residual at exactly 1.0 or one ulp below it."""
+    rng = np.random.RandomState(100 + n)
+    if case == "random":
+        p = rng.rand(n) * 2
+    elif case == "grid_zeros":
+        p = _exact_weights(n, rng, zeros=n // 10)
+    elif case == "single_hot":
+        p = np.zeros(n)
+        p[rng.randint(n)] = n
+    elif case == "uniform":
+        p = np.ones(n)
+    elif case == "all_small":  # float drift can leave every p below 1
+        p = np.full(n, 1 - 2.0 ** -24)
+    elif case == "smalls_left":  # mean below 1: the larges run out first
+        p = rng.rand(n) * 0.5 + 0.3
+        p[: max(n // 8, 1)] = 1.2
+    elif case == "nan":
+        p = rng.rand(n) * 2
+        p[n // 2] = np.nan
+    else:
+        p = rng.rand(n) * 2
+        if n > 1:
+            p[0], p[n - 1] = 1.5, {"residual_one": 0.5,
+                                   "residual_below": 0.5 - 2.0 ** -24}[case]
+    return p.astype(np.float32)
+
+
+SWEEP_CASES = ["random", "grid_zeros", "single_hot", "uniform", "all_small",
+               "smalls_left", "nan", "residual_one", "residual_below"]
+
+
+@pytest.mark.parametrize("case", SWEEP_CASES)
+@pytest.mark.parametrize("n", [1, 2, 7, 64, 1024, 2048])
+def test_alias_sweep_matches_the_stack_walk(n, case):
+    """The kernel's walk (two sequences, the residual large as the next
+    small) is bit-identical to the reference's stack walk."""
+    p = _t(_sweep_p(case, n))
+    want = tref.alias_pairing_ref(p, *tref.stack_order(p))
+    got = tref.alias_sweep_ref(p)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w.numpy()))
+    prob, pn = got[0].numpy(), p.numpy()
+    if case == "smalls_left" and n > 2:  # some small was never finalised
+        assert ((pn < 1) & (prob == 1)).any()
+    if case in ("residual_one", "residual_below") and n > 1:
+        assert prob[n - 1] == pn[n - 1] and got[1][n - 1] == 0
+
+
+@pytest.mark.parametrize("case", ["random", "grid_zeros", "nan", "residual_below"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_alias_table_ref_is_the_stack_walk_and_the_mask_pass(case, masked):
+    """alias_table_ref (the CPU path and the card's oracle) composes the
+    stack order, the unchanged stack walk and the reference's mask pass."""
+    n = 64
+    p = _t(_sweep_p(case, n))
+    active = _t(np.random.RandomState(3).rand(n) < 0.8) if masked else None
+    prob, alias = tref.alias_table_ref(p, active)
+    want_prob, want_alias = tref.alias_pairing_ref(p, *tref.stack_order(p))
+    if masked:
+        a = active.numpy()
+        assert (prob.numpy()[~a] == 0).all() and a[alias.numpy()].all()
+        keep = a & a[want_alias.numpy()]
+        np.testing.assert_array_equal(alias.numpy()[keep], want_alias.numpy()[keep])
+        np.testing.assert_array_equal(_bits(prob.numpy()[a]), _bits(want_prob.numpy()[a]))
+    else:
+        np.testing.assert_array_equal(_bits(prob.numpy()), _bits(want_prob.numpy()))
+        np.testing.assert_array_equal(alias.numpy(), want_alias.numpy())
+
+
+def test_alias_table_wrapper_checks_and_cpu_path():
+    p = _t(_sweep_p("random", 16))
+    active = _t(np.arange(16) % 4 != 0)
+    tk.reset_launches()
+    for a in (None, active):
+        got = tk.alias_table(p, a)
+        for g, w in zip(got, tref.alias_table_ref(p, a)):
+            np.testing.assert_array_equal(_bits(g.numpy()), _bits(w.numpy()))
+    assert set(tk.launch_counts().values()) == {0}
+    with pytest.raises(ValueError, match="active"):
+        tk.alias_table(p, active.to(torch.int32))
+    with pytest.raises(ValueError, match="active"):
+        tk.alias_table(p, active[:8])
+    with pytest.raises(ValueError, match="p"):
+        tk.alias_table(p.double())
 
 
 def test_wrappers_check_their_inputs():

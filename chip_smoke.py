@@ -10,6 +10,12 @@ on the card. Then it drives the port's two paths:
   * the scheduler: the serving turn (``RosellaRouter`` +
     ``run_simulation``) at a thousand-replica cell in three modes, through
     the PPoT dispatch kernels;
+  * the one-program serving loop (``serving.scanloop``): every turn on the
+    device, captured once as a CUDA graph and replayed, held bit for bit
+    to the host loop at n=4 and n=1024, then run at the thousand-replica
+    cell four ways (alias, inverse CDF, and 5% of the replicas offline
+    mid-run under each), through the PPoT kernels, the alias-table build
+    and the pool-chain kernel;
   * model serving: a full-width smollm-360m (published config, bf16,
     random weights from the seed) prefilled at B=4, S=4096 through
     ``models.api.prefill`` (one flash-attention launch per layer), then
@@ -66,6 +72,17 @@ PPOT_BEFORE_MS = {
 # r < 1 runs beside them).
 CHAIN_CYCLES = {"sub": 4, "step": 12}
 SOURCE = "src/repro_torch/kernels/ppot_dispatch/csrc/ppot_dispatch.cu"
+POOL_SOURCE = "src/repro_torch/kernels/pool_chain/csrc/pool_chain.cu"
+# not a Pallas kernel: the reference's inner lax.scan over a turn's
+# submissions (pstep)
+POOL_REPLACES = "src/repro/serving/scanloop.py:203-210"
+# H100 SXM f64 outside the tensor cores (NVIDIA's data sheet)
+F64_OPS_PER_S = 34e12
+# the pool chain's serial floor in cycles a step: its max and its f64 add,
+# two dependent instructions, each at least 4 cycles before the next (the
+# shared-memory round trip through free_at binds only where consecutive
+# steps share a replica, so it is left out)
+POOL_CHAIN_CYCLES = 8
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:105"
 REPLACES = {
@@ -83,6 +100,20 @@ N_REPLICAS, BATCH, LOAD, SEED = 1024, 128, 0.7, 0
 TURNS = {"a": 2050, "b": 520, "c": 520}  # horizon, in expected turns
 MIN_TURNS = {"a": 2000, "b": 500, "c": 500}
 CHECK_EVERY = 10
+# the scan at the same cell, against the host loop at async_mu=False with
+# the same probe stream: (a) alias, (b) inverse CDF, (c) inverse CDF and
+# (d) alias with 5% of the replicas offline from mid-run. Parity there is
+# statistical (the host pool's closed-form chains are ~1e-12 from the
+# scan's exact ones): p50 and p99 within SCAN_TOL of the host loop's, the
+# bar of tests/test_scanloop.py
+SCAN_MODES = {"a": (True, False), "b": (False, False), "c": (False, True),
+              "d": (True, True)}  # (use_alias, churn)
+SCAN_TURNS, SCAN_MIN_TURNS, SCAN_TOL = 2050, 2000, 0.15
+SCAN_PROFILE_TURNS = 50
+# exact parity on the card: the reference test's shape (n=4) and n=1024 at
+# a load where neither loop overflows a capacity
+EXACT_N4 = dict(arrival_rate=3.0, horizon=150.0, seed=0, arrival_batch=16)
+EXACT_LOAD, EXACT_TURNS, EXACT_PEND_CAP, EXACT_CHUNK = 0.5, 300, 8192, 7
 
 # model serving: smollm-360m at its published widths (15 heads, 5 kv heads,
 # d_head 64), prefilled at B=4, S=4096; four engine replicas of it at
@@ -271,6 +302,8 @@ def make_router_class(tr):
         speeds: np.ndarray | None = None
         overflow_turns = 0
         turns = 0
+        max_due = 0  # the largest completion flush of a turn
+        in_flight = max_in_flight = 0  # submitted and not yet flushed
 
         def serve_turn(self, now, k, comp_workers=None, comp_times=None, comp_now=None):
             if self.membership_at is not None and now >= self.membership_at[0]:
@@ -285,10 +318,14 @@ def make_router_class(tr):
                 comp_workers = w if comp_workers is None else np.concatenate([w, comp_workers])
                 comp_times = ts if comp_times is None else np.concatenate([ts, comp_times])
                 comp_now = now if comp_now is None else comp_now
-            if comp_workers is not None and len(comp_workers) > tr.SERVE_COMP_CAP:
+            due = 0 if comp_workers is None else len(comp_workers)
+            if due > tr.SERVE_COMP_CAP:
                 self.overflow_turns += 1
             fake, workers = super().serve_turn(now, k, comp_workers, comp_times, comp_now)
             self.turns += 1
+            self.max_due = max(self.max_due, due)
+            self.in_flight += len(fake) + k - due
+            self.max_in_flight = max(self.max_in_flight, self.in_flight)
             need(len(workers) == k, "wrong batch size")
             routed = np.concatenate([fake, workers])
             need(((routed >= 0) & (routed < self.n)).all(), "worker out of range")
@@ -407,6 +444,257 @@ def phase_turn_cost(torch, tr, speeds, timed_turns: int = 300, prof_turns: int =
           f"{prof['busy_us'] / 1e3:.3f} ms of {prof['wall'] * 1e3:.3f} ms wall (idle share {idle:.4f})")
     print(f"[profile] most launched: {[(n[:90], c) for n, c in top]}")
     return kernels / pturns, copies / pturns, idle
+
+
+# ---------------------------------------------------------------------------
+# the one-program serving loop: every turn on the device, as a CUDA graph
+# ---------------------------------------------------------------------------
+
+# the wrapper that launched a kernel, from the kernel's name as the profiler
+# gives it (demangled, spaces dropped) or as the driver does (mangled)
+PROFILE_NAMES = {"ppot_dispatch_fused_alias": ("ppot_kernel<true,true>",
+                                               "ppot_kernelILb1ELb1E"),
+                 "ppot_dispatch_fused": ("ppot_kernel<false,true>", "ppot_kernelILb0ELb1E"),
+                 "ppot_dispatch": ("ppot_kernel<false,false>", "ppot_kernelILb0ELb0E"),
+                 "alias_table": ("alias_table_kernel",) * 2,
+                 "pool_chain": ("pool_chain_kernel",) * 2}
+
+
+def wrapper_of(kernel_name: str):
+    nm = kernel_name.replace(" ", "")
+    return next((w for w, pats in PROFILE_NAMES.items() if any(p in nm for p in pats)),
+                None)
+
+
+def by_wrapper(counts: dict) -> dict:
+    """Kernel counts by name -> counts by the wrapper that launched them."""
+    out = {w: 0 for w in PROFILE_NAMES}
+    for name, c in counts.items():
+        w = wrapper_of(name)
+        if w is not None:
+            out[w] += c
+    return out
+
+
+def pool_chain_case(torch, dev, n=N_REPLICAS, M=BATCH + 8, seed=7):
+    """A turn's submissions at the cell's shape: random replicas, one
+    replica repeated 30 times, arrivals equal to a replica's free_at (ties)
+    and inactive slots."""
+    rng = np.random.RandomState(seed)
+    fa = rng.rand(n) * 3
+    sp = rng.rand(n) + 0.05
+    w = rng.randint(0, n, M).astype(np.int32)
+    w[10:40] = 5
+    a = np.sort(rng.rand(M) * 3)
+    a[12] = fa[5]
+    a[50] = fa[w[50]]
+    c = rng.exponential(1.0, M)
+    act = rng.rand(M) < 0.9
+    return tuple(torch.from_numpy(x).to(dev) for x in (fa, sp, w, a, c, act))
+
+
+def phase_pool_chain(torch, CK, CR, dev):
+    args = pool_chain_case(torch, dev)
+    got, want = CK.pool_chain(*args), CR.pool_chain_ref(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for part, g, w in zip(("start", "done", "free_at"), got, want):
+        need(g.dtype == w.dtype == torch.float64 and g.shape == w.shape,
+             f"[scan] pool_chain {part}: {g.dtype}{list(g.shape)}")
+        err = max(err, (g - w).abs().max().item())
+        need(torch.equal(g, w), f"[scan] pool_chain {part} differs from its plain "
+             f"version (max abs err {err})")
+    print(f"[scan] pool_chain n={args[0].shape[0]} M={args[2].shape[0]} (a replica 30 "
+          f"times, arrivals tied with free_at, {int((~args[5]).sum())} inactive): start, "
+          f"done and free_at bit-equal to the plain version (f64)")
+    return err
+
+
+def _same_run(tag, host, scan):
+    """The scan's outputs and final state against the host loop's, bit for bit."""
+    (ra, pa, rh, mh), (rb, pb, rs_, ms) = host, scan
+    for part, ok in (("responses", np.array_equal(rh, rs_)),
+                     ("mu trace", np.array_equal(mh, ms)),
+                     ("free_at", np.array_equal(pa.free_at, pb.free_at)),
+                     ("q_view", bool((ra.q_view == rb.q_view).all())),
+                     ("learner mu_hat", bool((ra.learner.mu_hat == rb.learner.mu_hat).all())),
+                     ("key", ra.key == rb.key)):
+        need(ok, f"[scan] {tag}: the graph's {part} differ from the host loop's")
+
+
+def phase_scan_exact(torch, tr, tsl, speeds, dev):
+    """The scan (graph replays) against the host loop, both on the card, with
+    SequentialPool and async_mu=False: equal at the reference test's shape
+    and at n=1024, and in chunks of EXACT_CHUNK turns equal to one chunk."""
+    s4 = np.array([0.25, 0.5, 1.0, 2.0])
+    rate = EXACT_LOAD * float(speeds.sum())
+    big = dict(arrival_rate=rate, horizon=EXACT_TURNS * BATCH / rate, seed=SEED,
+               arrival_batch=BATCH)
+    Router = make_router_class(tr)
+    out = {}
+    for label, n, sp, kw, pend_cap in (("n=4", 4, s4, EXACT_N4, tsl.PEND_CAP),
+                                       (f"n={N_REPLICAS}", N_REPLICAS, speeds, big,
+                                        EXACT_PEND_CAP)):
+        for use_alias in (True, False):
+            tag = f"{label} {'alias' if use_alias else 'icdf'}"
+            mk = lambda: Router(n, float(sp.sum()), seed=SEED, async_mu=False,  # noqa: E731
+                                use_alias=use_alias, device=dev)
+            ra, pa = mk(), tr.SequentialPool(sp)
+            rh, mh = tr.run_simulation(ra, pa, **kw)
+            need(ra.overflow_turns == 0, f"[scan] {tag}: the host loop overflowed")
+            runs = {}
+            for chunk in (None, EXACT_CHUNK):
+                rb, pb = mk(), tr.SequentialPool(sp)
+                rs_, ms, info = tsl.run_simulation_scan(rb, pb, pend_cap=pend_cap,
+                                                        chunk_turns=chunk, **kw)
+                need(info["flush_overflow"] == 0 and info["pend_overflow"] == 0,
+                     f"[scan] {tag}: {info}")
+                need(info["graph_nodes"] is not None and info["replays"] == info["turns"],
+                     f"[scan] {tag}: the turns were not graph replays ({info})")
+                _same_run(f"{tag} chunk={chunk}", (ra, pa, rh, mh), (rb, pb, rs_, ms))
+                runs[chunk] = info
+            out[tag] = dict(turns=len(mh), nodes=runs[None]["graph_nodes"])
+            print(f"[scan] exact {tag} (k={kw['arrival_batch']}, rate "
+                  f"{kw['arrival_rate']:.3f}, pend_cap {pend_cap}): {len(mh)} turns, "
+                  f"responses, mu trace, free_at, q_view, learner mu_hat and key equal to "
+                  f"the host loop on the card, unchunked and in chunks of {EXACT_CHUNK}; "
+                  f"overflows 0 (host overflow_turns 0); graph nodes "
+                  f"{runs[None]['graph_nodes']}")
+    return out
+
+
+def _pow2_at_least(x: float) -> int:
+    return 1 << max(int(math.ceil(math.log2(max(x, 1.0)))), 0)
+
+
+def scan_cell(torch, tr, tsl, K, CK, met, speeds, dev, mode: str):
+    """The scheduler cell through the scan, beside the host loop at
+    async_mu=False with the same probe stream (and the same membership
+    change), on the same workload draws."""
+    use_alias, churn = SCAN_MODES[mode]
+    rate = LOAD * float(speeds.sum())
+    horizon = SCAN_TURNS * BATCH / rate
+    off = np.random.RandomState(SEED + 1).choice(N_REPLICAS, N_REPLICAS // 20,
+                                                 replace=False)
+    act = np.ones(N_REPLICAS, bool)
+    act[off] = False
+    host = make_router_class(tr)(N_REPLICAS, float(speeds.sum()), seed=SEED,
+                                 use_alias=use_alias, async_mu=False, device=dev)
+    host.speeds = speeds
+    if churn:
+        host.membership_at = (horizon / 2, act)
+    t0 = time.perf_counter()
+    resp_h, _ = tr.run_simulation(host, tr.SimulatedPool(speeds), arrival_rate=rate,
+                                  horizon=horizon, seed=SEED, arrival_batch=BATCH)
+    torch.cuda.synchronize()
+    wall_h = time.perf_counter() - t0
+    comp_cap = _pow2_at_least(1.25 * host.max_due)
+    pend_cap = _pow2_at_least(1.25 * host.max_in_flight)
+
+    times, costs, sp = tsl._precompute_workload(rate, horizon, 1.0, None, SEED, BATCH,
+                                                speeds)
+    T = len(times)
+    active = (np.where((times[:, -1] >= horizon / 2)[:, None], act[None], True)
+              if churn else None)
+    router = tr.RosellaRouter(N_REPLICAS, float(speeds.sum()), seed=SEED,
+                              use_alias=use_alias, async_mu=False, device=dev)
+    K.reset_launches()
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp, mu_trace, info = tsl.run_workload_scan(
+        router, tr.SimulatedPool(speeds), times, costs, sp, active_np=active,
+        fake_cost=0.25, pend_cap=pend_cap, comp_cap=comp_cap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # launches of this run: the eager warm-up turns before the capture (the
+    # wrappers' counts; nothing is counted under capture) and each replay's
+    # kernel nodes, read from the captured graph, times the replays issued
+    eager = {**K.launch_counts(), **CK.launch_counts()}
+    per_replay = by_wrapper(info["graph_kernels"])
+    launches = {w: eager[w] + info["replays"] * per_replay[w] for w in PROFILE_NAMES}
+    need(info["graph_nodes"] is not None and info["replays"] == info["turns"],
+         f"[scan {mode}] the turns were not graph replays ({info['replays']} replays "
+         f"for {info['turns']} turns, {info['graph_nodes']} nodes)")
+    need(info["turns"] >= SCAN_MIN_TURNS, f"[scan {mode}] only {info['turns']} turns")
+    need(info["flush_overflow"] == 0 and info["pend_overflow"] == 0, f"[scan {mode}] {info}")
+    need(np.isfinite(resp).all() and (resp > 0).all() and resp.shape == (T * BATCH,)
+         and mu_trace.shape == (T, N_REPLICAS), f"[scan {mode}] bad responses or trace")
+    if churn:
+        need(bool((router.active.cpu().numpy() == act).all()),
+             f"[scan {mode}] the final membership was not written back")
+    s, sh = met.serve_summary(resp), met.serve_summary(resp_h)
+    rho = spearman(router.mu_hat, speeds)
+    for q in ("p50", "p99"):
+        need(abs(s[q] - sh[q]) <= SCAN_TOL * sh[q], f"[scan {mode}] {q} {s[q]:.6f} is not "
+             f"within {SCAN_TOL} of the host loop's {sh[q]:.6f}")
+    need(rho >= 0.9, f"[scan {mode}] μ̂ ranks the replicas poorly (Spearman {rho:.4f})")
+
+    # a window of replays, from a fresh router's state, under the profiler
+    cfg = tsl.scan_config(router, BATCH, churn=churn, fake_cost=0.25, pend_cap=pend_cap,
+                          comp_cap=comp_cap)
+    run = tsl.runner(cfg, str(dev), T)
+    fresh = tr.RosellaRouter(N_REPLICAS, float(speeds.sum()), seed=SEED,
+                             use_alias=use_alias, async_mu=False, device=dev)
+    run.load(fresh, tr.SimulatedPool(speeds))
+    W = SCAN_PROFILE_TURNS
+    cols = dict(times=times[:W], costs=costs[:W], speeds=sp[:W])
+    if churn:
+        cols.update(active=active[:W], rejoin=np.zeros((W, N_REPLICAS), bool),
+                    burst=np.zeros((W, 0), np.int32))
+    prof = device_profile(torch, lambda: run.run_chunk(cols))
+    per_turn = {w: c / W for w, c in by_wrapper(prof["count"]).items()}
+    need(per_turn == {w: float(c) for w, c in per_replay.items()},
+         f"[scan {mode}] the profiled replays launched {per_turn} a turn, the graph "
+         f"holds {per_replay}")
+    run_s = wall - info["capture_s"]
+    res = dict(turns=info["turns"], p50=s["p50"], p99=s["p99"], host_p50=sh["p50"],
+               host_p99=sh["p99"], rho=rho, wall_s=wall, capture_s=info["capture_s"],
+               graph_nodes=info["graph_nodes"], turns_per_s=info["turns"] / run_s,
+               decisions_per_s=len(resp) / run_s, host_turns_per_s=host.turns / wall_h,
+               host_decisions_per_s=len(resp_h) / wall_h, comp_cap=comp_cap,
+               pend_cap=pend_cap, host_max_due=host.max_due,
+               host_max_in_flight=host.max_in_flight,
+               host_overflow_turns=host.overflow_turns,
+               launches_per_turn=prof["launches"] / W, copies_per_turn=prof["copies"] / W,
+               kernel_per_turn=per_turn, launches=launches, replays=info["replays"],
+               graph_kernels=per_replay, eager_launches=eager,
+               idle=prof["idle"], busy_ms_per_turn=prof["busy_us"] / 1e3 / W,
+               wall_ms_per_turn=prof["wall"] * 1e3 / W)
+    print(f"[scan {mode}] use_alias={use_alias} churn={churn}: {info['turns']} turns, "
+          f"p50={s['p50']:.6f} p99={s['p99']:.6f} (host loop {sh['p50']:.6f} / "
+          f"{sh['p99']:.6f}), spearman(mu_hat, speeds)={rho:.4f}; "
+          f"{res['turns_per_s']:.2f} turns/s, {res['decisions_per_s']:.1f} decisions/s "
+          f"(host loop, checked: {res['host_turns_per_s']:.2f} turns/s, "
+          f"{res['host_decisions_per_s']:.1f} decisions/s); capture "
+          f"{info['capture_s']} s apart from the turns, graph nodes "
+          f"{info['graph_nodes']}; comp_cap {comp_cap} pend_cap {pend_cap} (host loop: "
+          f"largest flush {host.max_due}, most in flight {host.max_in_flight}, "
+          f"overflow_turns {host.overflow_turns}); overflows 0")
+    print(f"[scan {mode}] {W} replays profiled: {res['launches_per_turn']:.2f} kernel "
+          f"launches and {res['copies_per_turn']:.2f} copies per turn, device busy "
+          f"{res['busy_ms_per_turn']:.4f} of {res['wall_ms_per_turn']:.4f} ms a turn (idle "
+          f"share {prof['idle']:.4f}); per turn by name "
+          f"{json.dumps({k: round(v, 3) for k, v in per_turn.items()})}, the graph's kernel "
+          f"nodes {json.dumps(per_replay)}; launches of the scan run "
+          f"{json.dumps(launches)} (eager warm-up {json.dumps(eager)} + "
+          f"{info['replays']} replays x the graph's nodes)")
+    return res
+
+
+def phase_scan(torch, tr, tsl, K, CK, CR, met, speeds, dev):
+    pool_err = phase_pool_chain(torch, CK, CR, dev)
+    exact = phase_scan_exact(torch, tr, tsl, speeds, dev)
+    cells = {m: scan_cell(torch, tr, tsl, K, CK, met, speeds, dev, m) for m in SCAN_MODES}
+    expect = {"a": ("ppot_dispatch_fused_alias", "alias_table", "pool_chain"),
+              "b": ("ppot_dispatch_fused", "pool_chain"),
+              "c": ("ppot_dispatch", "pool_chain"),
+              "d": ("ppot_dispatch_fused_alias", "alias_table", "pool_chain")}
+    for mode, names in expect.items():
+        for name in names:
+            need(cells[mode]["launches"][name] > 0,
+                 f"[scan {mode}] {name} was never launched by the graph's replays")
+    return pool_err, exact, cells
 
 
 # ---------------------------------------------------------------------------
@@ -1233,7 +1521,44 @@ def phase_times(torch, K, R, D, build, dev):
                   f"({rec['bound_by']}, {nbytes} B){extra}, launch floor {floor_ms:.6f} ms, "
                   f"library call: none")
     print("[times] library_ms: no single PyTorch call computes these functions")
-    return out, floor_ms
+    return out, floor_ms, mhz
+
+
+def phase_pool_chain_times(torch, CK, CR, cbuild, dev, mhz, floor_ms):
+    """The pool-chain kernel alone (its C entry point on preallocated
+    buffers) at the cell's turn (n=1024, M=136) and at the kernel's limit
+    (n=16384, M=4096), its plain version (a host walk), its bound and its
+    serial-chain floor (M steps of POOL_CHAIN_CYCLES at this run's SM
+    clock)."""
+    lib = cbuild.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for n, M in ((N_REPLICAS, BATCH + 8), (16384, 4096)):
+        args = pool_chain_case(torch, dev, n, M, seed=n + M)
+        start, done, free = (torch.empty_like(args[i]) for i in (3, 3, 0))
+        ptrs = [t.data_ptr() for t in args]
+
+        def kern():
+            lib.pool_chain(*ptrs, n, M, start.data_ptr(), done.data_ptr(),
+                           free.data_ptr(), stream)
+
+        ms = event_median_ms(torch, kern)
+        plain_ms = host_median_ms(torch, lambda: CR.pool_chain_ref(*args))
+        # free_at in and out, the steps' w, arrival, cost, active, start and
+        # done, and the speed of each distinct replica the steps submit to
+        nbytes = 16 * n + 37 * M + 8 * int(torch.unique(args[2]).numel())
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 3 * M / F64_OPS_PER_S * 1e3  # a division, a max and an add a step
+        chain_ms = M * POOL_CHAIN_CYCLES / (mhz * 1e6) * 1e3
+        rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bytes=nbytes, chain_ms=chain_ms, library_ms=None)
+        out[(n, M)] = rec
+        print(f"[times] pool_chain n={n} M={M}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms "
+              f"(host walk), bound {rec['bound_ms']:.9f} ms ({rec['bound_by']}, {nbytes} B), "
+              f"chain bound {chain_ms:.6f} ms ({M} steps x {POOL_CHAIN_CYCLES} cycles at "
+              f"{mhz:.0f} MHz), launch floor {floor_ms:.6f} ms, library call: none")
+    return out
 
 
 def composed_table(K, R, D, mu, active):
@@ -1391,11 +1716,15 @@ def main() -> int:
         from repro_torch.kernels.ppot_dispatch import build
         from repro_torch.kernels.ppot_dispatch import kernel as K
         from repro_torch.kernels.ppot_dispatch import ref as R
+        from repro_torch.kernels.pool_chain import build as pool_build
+        from repro_torch.kernels.pool_chain import kernel as CK
+        from repro_torch.kernels.pool_chain import ref as CR
         from repro_torch.kernels.ssd_scan import build as ssd_build
         from repro_torch.kernels.ssd_scan import kernel as SK
         from repro_torch.kernels.ssd_scan import ops as SO
         from repro_torch.kernels.ssd_scan import ref as SR
         from repro_torch.serving import router as tr
+        from repro_torch.serving import scanloop as tsl
     except ImportError as e:
         raise SmokeFailure(f"the port is not next to this script ({e})") from e
     dev = torch.device("cuda")
@@ -1407,7 +1736,7 @@ def main() -> int:
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
     t0 = time.perf_counter()
-    libs = (build.LIBRARY, flash_build.LIBRARY, ssd_build.LIBRARY)
+    libs = (build.LIBRARY, flash_build.LIBRARY, ssd_build.LIBRARY, pool_build.LIBRARY)
     _nvcc.build_all(*libs)
     print(f"[build] {', '.join(lib.library_path().name for lib in libs)} "
           f"in {time.perf_counter() - t0:.2f} s (one nvcc each, at once)")
@@ -1422,6 +1751,8 @@ def main() -> int:
     ssd_err = phase_ssd(torch, SK, SO, SR, dev)
     speeds = tpch_speed_set(N_REPLICAS, SEED)
     main_runs = phase_main_path(torch, tr, K, met, chk, speeds, dev)
+    pool_err, scan_exact, scan_cells = phase_scan(torch, tr, tsl, K, CK, CR, met, speeds,
+                                                  dev)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
@@ -1436,7 +1767,8 @@ def main() -> int:
     hprof_prefill = prefill_profile(torch, hcfg, hmodel, dev, HYMBA_B, HYMBA_S)
     del hmodel
     per_turn, copies, idle = phase_turn_cost(torch, tr, speeds)
-    times, floor_ms = phase_times(torch, K, R, D, build, dev)
+    times, floor_ms, mhz = phase_times(torch, K, R, D, build, dev)
+    pool_times = phase_pool_chain_times(torch, CK, CR, pool_build, dev, mhz, floor_ms)
     table_build = phase_table_build(torch, K, R, D, dev)
     flash_times = phase_flash_times(torch, FK, FR, dev)
     ssd_times = phase_ssd_times(torch, SK, SO, SR, dev)
@@ -1451,6 +1783,12 @@ def main() -> int:
             launches=total[name], max_abs_err=chk.max_err[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None))
+    t = pool_times[(N_REPLICAS, BATCH + 8)]
+    kernels.append(dict(
+        name="pool_chain", route="cuda", source=POOL_SOURCE, replaces=POOL_REPLACES,
+        launches=sum(c["launches"]["pool_chain"] for c in scan_cells.values()),
+        max_abs_err=pool_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None))
     t = flash_times["main"]
     kernels.append(dict(
         name="flash_attention_fwd", route="cuda", source=FLASH_SOURCE,
@@ -1467,6 +1805,8 @@ def main() -> int:
                                      "overflow_turns", "launches")}
                for m, r in main_runs.items()}
     print(f"[summary] {json.dumps(summary)}")
+    print(f"[summary] scan exact {json.dumps(scan_exact)}")
+    print(f"[summary] scan {json.dumps(scan_cells)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")
     print(f"[summary] profile prefill {json.dumps(prof_prefill)} decode "

@@ -18,8 +18,11 @@ halves the estimate's variance while keeping its lag within the paper's
 volatility timescales.
 
 The rings and estimates are tensors on the learner's device. The window
-parameters (α̂, ε, μ*, L) are scalars of λ̂ and computed on the host in
-float32, so no device value is read back.
+parameters (α̂, ε, μ*, L) are scalars of λ̂: on the host loop they are
+float32 scalars and a Python int L, so no device value is read back; in
+the device-resident turn (``serving.scanloop``) λ̂ and ``now`` are 0-d
+tensors, and so are the parameters (L an int32 tensor). One code path
+serves both (``utils.scalars``), so the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.utils import scalars
 from repro_torch.utils.device import resolve_device
 
 f32 = np.float32
@@ -122,10 +126,10 @@ def record_completions(state: LearnerState, workers: torch.Tensor,
     survives = valid & (rank >= counts[wc] - cap)
     slot = (state.widx[wc] + rank) % cap
     flat = torch.where(survives, wc * cap + slot, n * cap)
+    now = scalars.of(now).f32(now)
     return state.replace(
         samples=_ring_write(state.samples, flat, service_times),
-        stamps=_ring_write(state.stamps, flat,
-                           torch.full_like(service_times, float(f32(now)))),
+        stamps=_ring_write(state.stamps, flat, scalars.fill(now, service_times)),
         widx=(state.widx + counts) % cap,
         count=state.count + counts,
     )
@@ -147,24 +151,40 @@ def reset_workers(state: LearnerState, reset: torch.Tensor, now,
         stamps=torch.where(r, 0.0, state.stamps),
         widx=torch.where(reset, 0, state.widx),
         count=torch.where(reset, 0, state.count),
-        epoch_start=torch.where(reset, float(f32(now)), state.epoch_start),
+        epoch_start=torch.where(reset, scalars.fill(scalars.of(now).f32(now),
+                                                    state.epoch_start),
+                                state.epoch_start),
         mu_hat=torch.where(reset, mu0, state.mu_hat),
     )
 
 
 def window_params(cfg: LearnerConfig, lam_hat, n: int):
-    """(α̂, ε, μ*, L): Fig. 6 lines 4-5 with the §6.2 practical window, as
-    host float32 scalars and a Python int L."""
-    alpha = min(max(f32(lam_hat) / max(cfg.mu_bar, f32(1e-9)), f32(0.0)), f32(0.999))
-    eps = f32(0.3) * (f32(1.0) - alpha)
+    """(α̂, ε, μ*, L): Fig. 6 lines 4-5 with the §6.2 practical window. On a
+    host λ̂, float32 scalars and a Python int L; on a 0-d tensor λ̂, 0-d
+    tensors (L int32). The theory window's log(n) is a host constant on
+    both, so the device's log cannot move L."""
+    x = scalars.of(lam_hat)
+    one = x.const(1.0)
+    alpha = x.minimum(x.maximum(x.f32(lam_hat) / x.const(max(cfg.mu_bar, f32(1e-9))),
+                                x.const(0.0)), x.const(0.999))
+    eps = x.const(0.3) * (one - alpha)
     avg_rate = cfg.mu_bar / f32(n)  # the paper normalises the average worker to 1
-    mu_star = (f32(1.0) - alpha) / f32(10.0) * avg_rate
+    mu_star = (one - alpha) / x.const(10.0) * x.const(avg_rate)
     if cfg.window_mode == "theory":
-        L_f = cfg.c_window * np.log(f32(max(n, 2))) / max(eps * eps, f32(1e-6))
+        L_f = (x.const(cfg.c_window * np.log(f32(max(n, 2))))
+               / x.maximum(eps * eps, x.const(1e-6)))
     else:
-        L_f = cfg.c_window / max(f32(1.0) - alpha, f32(1e-3))
-    L = min(max(int(np.ceil(L_f)), 1), cfg.ring_cap)
+        L_f = x.const(cfg.c_window) / x.maximum(one - alpha, x.const(1e-3))
+    L = x.ceil_int(L_f, 1, cfg.ring_cap)
     return alpha, eps, mu_star, L
+
+
+def avg_window(L, cap: int):
+    """min(int(AVG_WINDOW_MULT * L), cap): the product in double, floored,
+    for a Python int L or an int32 tensor."""
+    if isinstance(L, torch.Tensor):
+        return (L.double() * AVG_WINDOW_MULT).floor().to(torch.int32).clamp(max=cap)
+    return min(int(AVG_WINDOW_MULT * L), cap)
 
 
 def refresh_estimates(state: LearnerState, cfg: LearnerConfig, lam_hat,
@@ -173,21 +193,22 @@ def refresh_estimates(state: LearnerState, cfg: LearnerConfig, lam_hat,
     docstring); μ̂_i keeps its value while worker i has no sample."""
     n, cap = state.samples.shape
     _, eps, mu_star, L = window_params(cfg, lam_hat, n)
+    x = scalars.of(eps)
     dev = state.samples.device
 
     lanes = torch.arange(cap, device=dev)[None, :]
     widx = state.widx[:, None]
     count = state.count[:, None]
     age = (widx - 1 - lanes) % cap  # 0 = most recent; unwritten: >= count
-    k = count.clamp(max=min(int(AVG_WINDOW_MULT * L), cap))
+    k = torch.clamp(count, max=avg_window(L, cap))
     valid = (age < k) & (lanes < count.clamp(max=cap))
 
     sums = torch.where(valid, state.samples, 0.0).sum(1)
     nval = valid.sum(1).clamp(min=1)
     q_hat = sums / nval
-    # scalar / tensor: a true division (Python's rtruediv multiplies by a
-    # reciprocal, which rounds differently)
-    mu_new = torch.full_like(q_hat, float(f32(1.0) - eps)) / q_hat.clamp(min=1e-9)
+    # a true division of the filled numerator (Python's scalar / tensor
+    # multiplies by a reciprocal, which rounds differently)
+    mu_new = scalars.fill(x.const(1.0) - eps, q_hat) / q_hat.clamp(min=1e-9)
     mu_new = torch.where(state.count > 0, mu_new, state.mu_hat)
 
     # dead-worker cut-off: the L-th most recent sample's time (or the epoch
@@ -195,14 +216,23 @@ def refresh_estimates(state: LearnerState, cfg: LearnerConfig, lam_hat,
     idx_Lth = ((state.widx - L) % cap).long()
     t_Lth = state.stamps.gather(1, idx_Lth[:, None])[:, 0]
     t_ref = torch.where(state.count >= L, t_Lth, state.epoch_start)
-    horizon = (f32(1.0) + eps) * f32(L) / max(mu_star, f32(1e-9))
-    too_slow = (float(f32(now)) - t_ref) > float(horizon)
+    horizon = (x.const(1.0) + eps) * x.int_f32(L) / x.maximum(mu_star, x.const(1e-9))
+    too_slow = (scalars.fill(x.f32(now), t_ref) - t_ref) > scalars.fill(horizon, t_ref)
     return state.replace(mu_hat=torch.where(too_slow, 0.0, mu_new))
 
 
-def fake_job_rate(cfg: LearnerConfig, lam_hat) -> np.float32:
-    """LEARNER-DISPATCHER Poisson rate c0 · (μ̄ − λ̂), clipped at 0."""
-    return cfg.c0 * max(cfg.mu_bar - f32(lam_hat), f32(0.0))
+def select(cond: torch.Tensor, a: LearnerState, b: LearnerState) -> LearnerState:
+    """``a`` where the 0-d bool ``cond`` holds, else ``b``, field by field
+    (the device form of a host branch between two learner states)."""
+    return LearnerState(**{f.name: torch.where(cond, getattr(a, f.name), getattr(b, f.name))
+                           for f in dataclasses.fields(LearnerState)})
+
+
+def fake_job_rate(cfg: LearnerConfig, lam_hat):
+    """LEARNER-DISPATCHER Poisson rate c0 · (μ̄ − λ̂), clipped at 0 (a host
+    float32, or a 0-d tensor for a tensor λ̂)."""
+    x = scalars.of(lam_hat)
+    return x.const(cfg.c0) * x.maximum(x.const(cfg.mu_bar) - x.f32(lam_hat), x.const(0.0))
 
 
 def sync_estimates(mu_hats: torch.Tensor) -> torch.Tensor:

@@ -9,11 +9,20 @@ alias table) it is handed, while completions fold into the learner beside
 it; ``use_fresh_mu=True`` instead routes on this flush's refreshed μ̂.
 
 Tensors (queue view, rings, μ̂, tables, draws) live on the caller's
-device. Keys, the arrival estimator and the turn's time scalars are host
-values; every time scalar is taken to float32 before any arithmetic on it,
-as the reference does on the device. Completion batches arrive as host
-arrays from the replica pool, so whether a turn has any completion is a
-host decision and costs no device synchronisation.
+device. In ``serve_step`` keys, the arrival estimator and the turn's time
+scalars are host values; every time scalar is taken to float32 before any
+arithmetic on it, as the reference does on the device. Completion batches
+arrive as host arrays from the replica pool, so whether a turn has any
+completion is a host decision and costs no device synchronisation.
+
+``serve_step_device`` is the same turn with everything on the device (the
+key an int64 tensor, the estimator and the time scalars 0-d tensors, the
+completion batch a padded tensor), for the device-resident loop
+(``serving.scanloop``), the counterpart of the reference's
+``_serve_step_math``. It makes no host decision: the completion fold
+always runs and its result is selected, as ``lax.cond`` does. It routes
+on the fresh μ̂ (``use_fresh_mu=True``). Both forms share the draws and
+the route (``_draw_and_route``).
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ from repro_torch.core import dispatch as dsp
 from repro_torch.core import estimator as est
 from repro_torch.core import learner as lrn
 from repro_torch.core import policies as pol
-from repro_torch.utils import prng
+from repro_torch.utils import prng, scalars
 
 f32 = np.float32
 
@@ -80,16 +89,34 @@ def fake_jobs_from(lcfg: lrn.LearnerConfig, key, lam_hat, dt, max_fake: int,
     ``device`` defaults to the mask's (and must be given without one).
     """
     dev = mask.device if mask is not None else torch.device(device)
-    lam = lrn.fake_job_rate(lcfg, lam_hat) * max(f32(dt), f32(0.0))
+    x = scalars.of(lam_hat)
+    lam = lrn.fake_job_rate(lcfg, lam_hat) * x.maximum(x.f32(dt), x.const(0.0))
     u1, u2 = prng.uniform_pair(key, max_fake, dev)
     ks = torch.arange(max_fake + 1, dtype=torch.float32, device=dev)
     logfact = torch.zeros(max_fake + 1, dtype=torch.float32, device=dev)
     logfact[1:] = torch.cumsum(torch.log(ks[1:]), 0)
-    log_lam = torch.log(torch.full((), float(max(lam, f32(1e-30))), device=dev))
-    cdf = torch.cumsum(torch.exp(ks * log_lam - float(lam) - logfact), 0)
+    lam_t = scalars.fill(lam, torch.empty((), dtype=torch.float32, device=dev))
+    log_lam = torch.log(lam_t.clamp(min=1e-30))
+    cdf = torch.cumsum(torch.exp(ks * log_lam - lam_t - logfact), 0)
     k = (cdf <= u1[0]).sum()
     js = (u2 * n).to(torch.int32) if mask is None else dsp.active_choice(mask, u2)
     return torch.where(torch.arange(max_fake, device=dev) < k, js, -1)
+
+
+def _draw_and_route(q1, arr, lam0, lcfg, key, now, last_fake, m: int, policy: str,
+                    max_fake: int, mu_route, tbl, mask):
+    """The turn after the completion fold: the key splits in the
+    reference's order (``key1, k_fake = split(key)``, then ``key2, k_route
+    = split(key1)``), the benchmark draw, the λ̂ EMA and the route.
+    Returns (fake_js, workers, q_view', arr', key')."""
+    key1, k_fake = prng.split(key)
+    key2, k_route = prng.split(key1)
+    fake_js = fake_jobs_from(lcfg, k_fake, lam0, now - last_fake, max_fake,
+                             q1.shape[0], mask=mask, device=q1.device)
+    arr2 = est.observe_arrivals_ema(arr, now, m, window=est.EMA_ARR_WINDOW)
+    res = dsp.dispatch(policy, k_route, q1, mu_route, mu_route,
+                       pol.default_policy_config(), m, table=tbl, mask=mask)
+    return fake_js, res.workers, res.q_after, arr2, key2
 
 
 def serve_step(q_view, learner, arr, mu_hat, lcfg, key,
@@ -114,12 +141,6 @@ def serve_step(q_view, learner, arr, mu_hat, lcfg, key,
     learner2 = learner
     if (np.asarray(comp_workers) >= 0).any():
         learner2 = fold_telemetry(learner, lcfg, cw, ct, lam0, comp_now)
-    key1, k_fake = prng.split(key)
-    key2, k_route = prng.split(key1)
-    n = q1.shape[0]
-    fake_js = fake_jobs_from(lcfg, k_fake, lam0, now - last_fake, max_fake, n,
-                             mask=mask, device=dev)
-    arr2 = est.observe_arrivals_ema(arr, now, m, window=est.EMA_ARR_WINDOW)
     if use_fresh_mu:
         # route on THIS flush's μ̂: the front table would be stale, so the
         # table is rebuilt from the fresh estimates (once per flush)
@@ -128,6 +149,32 @@ def serve_step(q_view, learner, arr, mu_hat, lcfg, key,
     else:
         mu_route = mu_hat
         tbl = table if use_alias else None
-    res = dsp.dispatch(policy, k_route, q1, mu_route, mu_route,
-                       pol.default_policy_config(), m, table=tbl, mask=mask)
-    return fake_js, res.workers, res.q_after, learner2, arr2, key2
+    fake_js, workers, q2, arr2, key2 = _draw_and_route(
+        q1, arr, lam0, lcfg, key, now, last_fake, m, policy, max_fake, mu_route, tbl, mask)
+    return fake_js, workers, q2, learner2, arr2, key2
+
+
+def serve_step_device(q_view, learner, arr, lcfg, key, comp_workers: torch.Tensor,
+                      comp_times: torch.Tensor, clock, m: int,
+                      policy: str = pol.PPOT_SQ2, max_fake: int = 8,
+                      use_alias: bool = False, mask: torch.Tensor | None = None):
+    """``serve_step`` with the whole turn on the device and fresh-μ̂
+    routing: ``key`` an int64 tensor [2], ``arr`` the device estimator,
+    ``clock`` = (now, last_fake_time, comp_now) as f32 0-d tensors, the
+    completion batch i32/f32 tensors padded with -1.
+
+    The fold runs every turn and is selected only where the batch has a
+    completion: over an all-padding batch it is not a no-op
+    (``refresh_estimates`` moves μ̂ through the dead-worker cut-off).
+    Returns (fake_js[max_fake], workers[m], q_view', learner', arr', key').
+    """
+    now, last_fake, comp_now = clock
+    q1 = absorb_completions(q_view, comp_workers)
+    lam0 = est.lam_hat_ema(arr)
+    folded = fold_telemetry(learner, lcfg, comp_workers, comp_times, lam0, comp_now)
+    learner2 = lrn.select((comp_workers >= 0).any(), folded, learner)
+    tbl = dsp.build_alias_table(learner2.mu_hat, mask) if use_alias else None
+    fake_js, workers, q2, arr2, key2 = _draw_and_route(
+        q1, arr, lam0, lcfg, key, now, last_fake, m, policy, max_fake, learner2.mu_hat,
+        tbl, mask)
+    return fake_js, workers, q2, learner2, arr2, key2

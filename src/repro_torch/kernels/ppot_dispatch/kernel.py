@@ -7,7 +7,10 @@ from a failed build or launch to the plain version.
 
 Each wrapper counts its launches in ``launches[<wrapper name>]``, a plain
 int raised by one where the kernel is launched and nowhere else;
-``reset_launches``/``launch_counts`` clear and read them.
+``reset_launches``/``launch_counts`` clear and read them. A launch made
+while the stream is captured into a CUDA graph is not counted: it runs
+on each replay of the graph, without Python, and the graph's owner counts
+those (``serving.scanloop``: kernel nodes times replays).
 
   ppot_dispatch_fused_alias   alias probe -> SQ(2) -> fold-back    (K1)
   ppot_dispatch_fused         inverse-CDF probe -> SQ(2) -> fold   (K2)
@@ -90,7 +93,7 @@ def ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2):
             *map(_ptr, (prob, alias, q, u1, v1, u2, v2)), n, B,
             _ptr(workers), _ptr(q_after), _stream(q))
     build.LIBRARY.raise_on(err, "ppot_dispatch_fused_alias")
-    launches["ppot_dispatch_fused_alias"] += 1
+    _count("ppot_dispatch_fused_alias")
     return workers, q_after
 
 
@@ -117,7 +120,7 @@ def ppot_dispatch_fused(cdf, q, u1, u2):
             *map(_ptr, (cdf, q, u1, u2)), n, B, _ptr(workers), _ptr(q_after),
             _stream(q))
     build.LIBRARY.raise_on(err, "ppot_dispatch_fused")
-    launches["ppot_dispatch_fused"] += 1
+    _count("ppot_dispatch_fused")
     return workers, q_after
 
 
@@ -137,7 +140,7 @@ def ppot_dispatch(cdf, q, u1, u2):
         err = build.load().ppot_select_cdf(
             *map(_ptr, (cdf, q, u1, u2)), n, B, _ptr(workers), _stream(q))
     build.LIBRARY.raise_on(err, "ppot_dispatch")
-    launches["ppot_dispatch"] += 1
+    _count("ppot_dispatch")
     return workers
 
 
@@ -163,8 +166,13 @@ def alias_table(p, active=None):
             _ptr(p), None if active is None else _ptr(active), n, _ptr(prob),
             _ptr(alias), _stream(p))
     build.LIBRARY.raise_on(err, "alias_table")
-    launches["alias_table"] += 1
+    _count("alias_table")
     return prob, alias
+
+
+def _count(name: str) -> None:
+    if not torch.cuda.is_current_stream_capturing():
+        launches[name] += 1
 
 
 def reset_launches() -> None:

@@ -234,9 +234,12 @@ def attention_apply(cfg: ModelConfig, p: nn.Module, x, *, positions,
     """Attention block: qkv proj -> (qk_norm) -> rope -> attention -> out.
 
     positions: [S] shared by the batch, or [B, S] per row (decode with a
-    cache). Without a cache they must be contiguous (``p0 + arange(S)``):
-    the mask depends only on ``qpos - kpos``, so the chunked path (S >=
-    2048) runs at ``q_offset`` 0.
+    cache), or the host integer ``p0`` of contiguous positions ``p0 +
+    arange(S)``. The chunked path (S >= 2048) needs them
+    contiguous (its mask depends only on ``qpos - kpos``, so it runs at
+    ``q_offset`` 0), and a tensor cannot be checked for that without
+    reading it back from the device, so it takes only ``p0`` and raises on
+    a tensor.
 
     cache: optional dict(k=[B, Smax, Hkv, D], v=..., len=i64[B]). Each row
     writes its new k/v at its own ``len`` (clamped so the S new positions
@@ -247,6 +250,11 @@ def attention_apply(cfg: ModelConfig, p: nn.Module, x, *, positions,
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     window = cfg.attn_window if window is None else window
     dt = _dtype(cfg)
+    if isinstance(positions, int):
+        positions = positions + torch.arange(S, device=x.device)
+    elif cache is None and S >= 2048:
+        raise ValueError(f"the chunked attention path (S={S} >= 2048) needs contiguous "
+                         f"positions: pass their first one as the host integer p0")
 
     q = (x @ p.wq.to(dt)).reshape(B, S, H, D)
     k = (x @ p.wk.to(dt)).reshape(B, S, Hkv, D)

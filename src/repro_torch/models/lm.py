@@ -86,7 +86,8 @@ def embed_tokens(cfg: ModelConfig, model: nn.Module, tokens):
 
 def backbone(cfg: ModelConfig, model: nn.Module, x, *, positions, cache=None):
     """Run all layers. cache: None (prefill) or a list of per-layer caches.
-    Returns (hidden, new_cache)."""
+    positions: a tensor, or for a prefill the host integer p0 of contiguous
+    positions (``layers.attention_apply``). Returns (hidden, new_cache)."""
     kind = _layer_kind(cfg)
     new_cache = None if cache is None else []
     for i, layer in enumerate(model.layers):
@@ -107,8 +108,7 @@ def logits_head(cfg: ModelConfig, model: nn.Module, hidden):
 def forward(cfg: ModelConfig, model: nn.Module, tokens):
     """Prefill forward over [B, S] tokens -> hidden [B, S, d]."""
     x = embed_tokens(cfg, model, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
-    return backbone(cfg, model, x, positions=positions)[0]
+    return backbone(cfg, model, x, positions=0)[0]  # p0: positions 0..S-1
 
 
 def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, device):

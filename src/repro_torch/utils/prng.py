@@ -1,8 +1,11 @@
 """Explicit key stream: threefry2x32 keys plus the counter-hash uniforms.
 
-Keys are host-side pairs of 32-bit words held as Python ints, so deriving a
-key never touches the device. The layout is JAX's partitionable threefry
-(the default of current JAX releases):
+Keys are pairs of 32-bit words. The host loop holds them as Python ints,
+so deriving a key never touches the device; the device-resident turn
+(``serving.scanloop``) holds them as an int64 tensor of shape [2], and
+every function here takes either form and gives the same words. The
+layout is JAX's partitionable threefry (the default of current JAX
+releases):
 
   * ``PRNGKey(s)`` is the word pair ``(0, s mod 2**32)`` (JAX without
     64-bit mode keeps the low 32 bits of the seed);
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-Key = tuple[int, int]
+Key = tuple[int, int]  # or an int64 tensor [2] (a device key)
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -61,12 +64,38 @@ def PRNGKey(seed: int) -> Key:
     return 0, int(seed) & M32
 
 
-def split(key: Key, num: int = 2) -> list[Key]:
+def _threefry_t(key: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """threefry2x32(key, (0, x1)) of a device key over int64 words x1 [m]:
+    the blocks as an int64 tensor [m, 2]."""
+    x0, y1 = _threefry_rounds(key[0], key[1], torch.zeros_like(x1), x1, _add_int,
+                              _rotl_t)
+    return torch.stack([x0, y1], -1)
+
+
+def split(key: Key, num: int = 2):
+    """``num`` keys: a list of host keys, or an int64 tensor [num, 2] (which
+    unpacks row by row) for a device key."""
+    if isinstance(key, torch.Tensor):
+        return _threefry_t(key, torch.arange(num, dtype=torch.int64, device=key.device))
     return [threefry2x32(key, 0, i) for i in range(num)]
 
 
 def fold_in(key: Key, data: int) -> Key:
+    if isinstance(key, torch.Tensor):
+        x1 = torch.full((1,), int(data) & M32, dtype=torch.int64, device=key.device)
+        return _threefry_t(key, x1)[0]
     return threefry2x32(key, 0, int(data) & M32)
+
+
+def device_key(key: Key, device) -> torch.Tensor:
+    """A host key as a device key."""
+    return torch.tensor([int(key[0]), int(key[1])], dtype=torch.int64, device=device)
+
+
+def host_key(key: torch.Tensor) -> Key:
+    """A device key as a host key (one device-to-host copy)."""
+    k0, k1 = key.tolist()
+    return int(k0), int(k1)
 
 
 def _rotl_t(v: torch.Tensor, r: int) -> torch.Tensor:
@@ -86,8 +115,9 @@ def uniform(key: Key, n: int, device=None) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for x < 2**32, without overflowing int64."""
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for x < 2**32 (an int or an int64 tensor), without
+    overflowing int64."""
     lo = x * (c & 0xFFFF)
     hi = ((x * (c >> 16)) & 0xFFFF) << 16
     return (lo + hi) & M32
@@ -116,7 +146,8 @@ def _halves(h: torch.Tensor):
 def uniform_pair(key: Key, B: int, device=None):
     """Two f32[B] uniforms on a 2**-16 grid from one counter-hash sweep."""
     x = _weyl(key, B, device)
-    return _halves(fmix32(x ^ ((key[1] * 0x85EBCA6B) & M32)))
+    # _mul32: on a device key the plain product leaves int64 with bit 31 set
+    return _halves(fmix32(x ^ _mul32(key[1], 0x85EBCA6B)))
 
 
 def uniform_quad(key: Key, B: int, device=None):
@@ -124,8 +155,8 @@ def uniform_quad(key: Key, B: int, device=None):
     first sweep is ``uniform_pair``; the second re-mixes the same counter
     against another key schedule for the acceptance draws."""
     x = _weyl(key, B, device)
-    h1 = fmix32(x ^ ((key[1] * 0x85EBCA6B) & M32))
-    h2 = fmix32(((x + 0x7F4A7C15) & M32) ^ ((key[1] * 0xC2B2AE35) & M32))
+    h1 = fmix32(x ^ _mul32(key[1], 0x85EBCA6B))
+    h2 = fmix32(((x + 0x7F4A7C15) & M32) ^ _mul32(key[1], 0xC2B2AE35))
     u1, u2 = _halves(h1)
     v1, v2 = _halves(h2)
     return u1, u2, v1, v2

@@ -545,3 +545,120 @@ def test_cuda_prefill_launches_ssd_once_per_layer(dev, arch):
     print(f"{arch} 3 layers: bf16 last-position logits {err}, f32 logits {err32}, f32 "
           f"without the chunk carry {fault32}")
     assert err <= 0.125 and err32 <= 1e-4 and fault32 > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the pool chain and the one-program serving loop
+# ---------------------------------------------------------------------------
+
+
+def _chain(n, M, dev, seed=0):
+    rng = np.random.RandomState(seed + n + M)
+    fa, sp = rng.rand(n) * 3, rng.rand(n) + 0.05
+    w = rng.randint(0, n, M).astype(np.int32)
+    w[M // 4:M // 2] = n // 2  # one replica many times in a row
+    a = np.sort(rng.rand(M) * 3)
+    if M > 4:
+        a[M // 4 + 1] = fa[n // 2]  # an arrival tied with its replica's clock
+    c, act = rng.exponential(1.0, M), rng.rand(M) < 0.9
+    return [torch.from_numpy(x).to(dev) for x in (fa, sp, w, a, c, act)]
+
+
+@pytest.mark.parametrize("n,M", [(4, 24), (1024, 136), (1024, 0), (16384, 4096)])
+def test_pool_chain_kernel_matches_plain_version(dev, n, M):
+    from repro_torch.kernels.pool_chain import kernel as ck
+    from repro_torch.kernels.pool_chain import ref as cr
+
+    args = _chain(n, M, dev)
+    ck.reset_launches()
+    got = ck.pool_chain(*args)
+    want = cr.pool_chain_ref(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device == w.device and g.dtype == torch.float64 and torch.equal(g, w)
+    assert ck.launch_counts()["pool_chain"] == 1
+
+
+def test_pool_chain_refuses_what_one_block_cannot_hold(dev):
+    from repro_torch.kernels.pool_chain import kernel as ck
+
+    with pytest.raises(ValueError, match="outside"):
+        ck.pool_chain(*_chain(ck.MAX_N + 1, 8, dev))
+    with pytest.raises(ValueError, match="outside"):
+        ck.pool_chain(*_chain(16, ck.MAX_M + 1, dev))
+
+
+@pytest.mark.parametrize("use_alias", [True, False])
+@pytest.mark.parametrize("churn", [False, True])
+def test_graph_replays_equal_eager_turns(dev, use_alias, churn):
+    """The captured turn replayed against the same turn run eagerly on the
+    card, from the same state: results and carry equal after every turn
+    of a 40-turn chunk at n=256, k=32."""
+    from repro_torch.serving import router as tr
+    from repro_torch.serving import scanloop as tsl
+
+    n, k = 256, 32
+    speeds = np.linspace(0.2, 3.0, n)
+    rate = 0.7 * speeds.sum()
+    times, costs, sp = tsl._precompute_workload(rate, 40 * k / rate, 1.0, None, 3, k, speeds)
+    T = len(times)
+    cols = dict(times=times, costs=costs, speeds=sp)
+    if churn:
+        active = np.ones((T, n), bool)
+        active[T // 2:, :13] = False
+        cols.update(active=active, rejoin=np.zeros((T, n), bool),
+                    burst=np.zeros((T, 0), np.int32))
+    router = tr.RosellaRouter(n, float(speeds.sum()), seed=1, async_mu=False,
+                              use_alias=use_alias, device=dev)
+    cfg = tsl.scan_config(router, k, churn=churn, pend_cap=4096)
+    from repro_torch.kernels.pool_chain import kernel as ck
+
+    ck.reset_launches()
+    graph = tsl.TurnRunner(cfg, dev, T)
+    # the eager warm-up turns count; the launch recorded by the capture does not
+    assert ck.launch_counts()["pool_chain"] == tsl.WARMUP_TURNS
+    eager = tsl.TurnRunner(cfg, dev, T)
+    assert graph.graph is not None and graph.graph_nodes > 100
+
+    def nodes(pattern):
+        return sum(c for nm, c in graph.graph_kernels.items() if pattern in nm)
+
+    assert nodes("pool_chain_kernel") == nodes("ppot_kernel") == 1
+    assert nodes("alias_table_kernel") == int(use_alias)
+    for r in (graph, eager):
+        r.load(router, tr.SimulatedPool(speeds))
+    resp_g, mu_g = graph.run_chunk(cols)
+    assert graph.replays == T
+    eager.xs.put(cols)
+    eager.turn.zero_()
+    for _ in range(T):
+        eager.step()
+    ys = eager.ys.get(T)
+    np.testing.assert_array_equal(resp_g, ys["resp"])
+    np.testing.assert_array_equal(mu_g, ys["mu"])
+    for name, t in graph.carry.items():
+        assert torch.equal(t, eager.carry[name]), name
+    assert int(graph.carry["over_pend"]) == 0
+
+
+@pytest.mark.parametrize("use_alias", [True, False])
+def test_scan_on_the_card_equals_the_host_loop(dev, use_alias):
+    """tests/test_scanloop.py's exact case on the card: the graph against
+    the host loop, SequentialPool, async_mu=False."""
+    from repro_torch.serving import router as tr
+    from repro_torch.serving import scanloop as tsl
+
+    speeds = np.array([0.25, 0.5, 1.0, 2.0])
+    kw = dict(arrival_rate=3.0, horizon=150.0, seed=0, arrival_batch=16)
+    mk = lambda: tr.RosellaRouter(4, 3.75, seed=0, async_mu=False,  # noqa: E731
+                                  use_alias=use_alias, device=dev)
+    ra, pa = mk(), tr.SequentialPool(speeds)
+    rh, mh = tr.run_simulation(ra, pa, **kw)
+    rb, pb = mk(), tr.SequentialPool(speeds)
+    rs, ms, info = tsl.run_simulation_scan(rb, pb, **kw)
+    assert info["capture_s"] is not None and info["pend_overflow"] == 0
+    assert info["replays"] == info["turns"] == len(mh)
+    np.testing.assert_array_equal(rh, rs)
+    np.testing.assert_array_equal(mh, ms)
+    np.testing.assert_array_equal(pa.free_at, pb.free_at)
+    assert torch.equal(ra.learner.mu_hat, rb.learner.mu_hat) and ra.key == rb.key

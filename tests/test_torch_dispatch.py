@@ -280,7 +280,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         assert not bad, bad
         for m in ("repro_torch.models.ssm", "repro_torch.kernels.ssd_scan.kernel",
                   "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref",
-                  "repro_torch.kernels.ssd_scan.build"):
+                  "repro_torch.kernels.ssd_scan.build", "repro_torch.serving.scanloop",
+                  "repro_torch.kernels.pool_chain.kernel",
+                  "repro_torch.kernels.pool_chain.ref",
+                  "repro_torch.kernels.pool_chain.build", "repro_torch.utils.scalars"):
             assert m in sys.modules, m
         print("clean")
     """)
@@ -319,3 +322,20 @@ def test_every_single_chunk_batch_goes_through_a_kernel_wrapper(monkeypatch, ali
     if masked:
         assert mask[placed].all()
     np.testing.assert_array_equal(res.q_after.numpy(), q + np.bincount(placed, minlength=64))
+
+
+@pytest.mark.parametrize("alias", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_engine_takes_a_device_key(alias, masked):
+    """The device-resident turn passes its key as an int64 tensor [2]: the
+    same draws and placements as the host key, for keys with bit 31 set."""
+    mu, q, mask = _case(64, 21)
+    tm = _t(mask) if masked else None
+    tab = tdsp.build_alias_table(_t(mu), tm) if alias else None
+    for key in (prng.PRNGKey(21), (0xFFFFFFFF, 0x80000000), (0x9E3779B9, 0xC2B2AE35)):
+        want = tdsp.dispatch(tpol.PPOT_SQ2, key, _t(q), _t(mu), _t(mu), TCFG, 40,
+                             table=tab, mask=tm)
+        got = tdsp.dispatch(tpol.PPOT_SQ2, prng.device_key(key, "cpu"), _t(q), _t(mu),
+                            _t(mu), TCFG, 40, table=tab, mask=tm)
+        assert torch.equal(got.workers, want.workers)
+        assert torch.equal(got.q_after, want.q_after)

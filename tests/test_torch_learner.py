@@ -197,3 +197,133 @@ def test_fake_jobs_match_reference_except_at_cdf_ties(masked):
         if masked:
             assert mask[got[got >= 0]].all()
     assert ties <= 2
+
+
+# ---------------------------------------------------------------------------
+# device forms (the device-resident turn's): equal to the host forms, bit
+# for bit
+# ---------------------------------------------------------------------------
+
+
+def _f32_round(exact):
+    """An exact rational rounded to the nearest float32, ties to even."""
+    from fractions import Fraction
+
+    r = np.float32(float(exact))
+    cands = [r, np.nextafter(r, np.float32(np.inf)), np.nextafter(r, np.float32(-np.inf))]
+    best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                     int(np.array(v).view(np.int32)) & 1))
+    return best
+
+
+def _planted_midpoints():
+    """(a, b, c) whose a*b is exactly halfway between two floats and c a
+    nudge below the double's resolution there, of either sign: the double
+    sum lands on the midpoint, and only the nudge says which way to round.
+    a = s(1 + i 2^-12), b = s(1 + j 2^-12) with i*j odd puts i*j 2^-24 in
+    the product's half-ulp bit."""
+    out = []
+    for i in (1, 3, 5, 7):
+        for j in (1, 3, 5, 7):
+            for sgn in (1.0, -1.0):
+                for scale in (1.0, 2.0**-10, 2.0**20):
+                    a = np.float32(sgn * scale * (1.0 + i * 2.0**-12))
+                    b = np.float32(1.0 + j * 2.0**-12)
+                    for nudge in (2.0**-80, -2.0**-80, 2.0**-70, -2.0**-75):
+                        out.append((a, b, np.float32(nudge * scale)))
+    return out
+
+
+def test_fma_device_form_rounds_once_like_the_host_form():
+    """Planted exact midpoints (both signs of the nudge, both parities of
+    the lower neighbour) and random triples: the tensor form equals the
+    host form and the correctly rounded a*b + c."""
+    from fractions import Fraction
+
+    rng = np.random.RandomState(0)
+    triples = _planted_midpoints()
+    triples += [tuple(np.float32(v) for v in rng.randn(3) * 10.0 ** rng.randint(-3, 4, 3))
+                for _ in range(300)]
+    a, b, c = (torch.tensor([t[i] for t in triples]) for i in range(3))
+    got = test_.fma_f32(a, b, c).numpy()
+    naive_differs = 0
+    for i, (x, y, z) in enumerate(triples):
+        host = test_.fma_f32(x, y, z)
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        assert got[i] == host == _f32_round(exact), (x, y, z)
+        naive_differs += np.float32(float(x) * float(y) + float(z)) != host
+    assert naive_differs >= 100  # the planted cases do catch double rounding
+
+
+@pytest.mark.parametrize("m", [8, 128, 7, 100])
+def test_arrival_ema_device_form_equals_host_form(m):
+    """300 batches: the device EMA (0-d f32 tensors, i32 count) equals the
+    host one after every step, and so does λ̂."""
+    rng = np.random.RandomState(100 + m)
+    h, d = test_.init_ema_arrival(), test_.to_device(test_.init_ema_arrival(), "cpu")
+    assert d.count.dtype == torch.int32 and d.mean_gap.dtype == torch.float32
+    t = 0.0
+    for _ in range(300):
+        t += float(rng.exponential(0.8)) * (rng.rand() < 0.95)  # some zero gaps
+        h = test_.observe_arrivals_ema(h, t, m, test_.EMA_ARR_WINDOW)
+        d = test_.observe_arrivals_ema(d, torch.tensor(np.float32(t)), m,
+                                       test_.EMA_ARR_WINDOW)
+        assert test_.to_host(d) == h
+        assert test_.lam_hat_ema(d).item() == test_.lam_hat_ema(h)
+
+
+@pytest.mark.parametrize("mode", ["practical", "theory"])
+@pytest.mark.parametrize("n", [64, 1000])
+def test_window_params_device_form_equals_host_form(mode, n):
+    """A λ̂ grid over both ends of the α clamp (λ̂ = 0 and λ̂ past μ̄)."""
+    cfg = tlrn.default_learner_config(40.0, window_mode=mode)
+    grid = np.concatenate([np.linspace(0.0, 45.0, 61), [39.96, 39.98, 40.0, 1e-7, 1e6]])
+    for lam in grid.astype(np.float32):
+        host = tlrn.window_params(cfg, lam, n)
+        dev = tlrn.window_params(cfg, torch.tensor(lam), n)
+        assert dev[3].dtype == torch.int32
+        for a, b in zip(host, dev):
+            assert np.float32(a) == np.float32(b.item()), (mode, lam)
+        assert tlrn.avg_window(dev[3], 128).item() == tlrn.avg_window(host[3], 128)
+        assert tlrn.fake_job_rate(cfg, torch.tensor(lam)).item() == \
+            tlrn.fake_job_rate(cfg, lam)
+
+
+@pytest.mark.parametrize("mode", ["practical", "theory"])
+def test_refresh_and_record_device_forms_equal_host_forms(mode):
+    """30 completion batches with λ̂ and ``now`` as 0-d tensors: rings and
+    μ̂ (the dead-worker cut-offs included) equal the host forms'."""
+    rng = np.random.RandomState(9)
+    n = 24
+    cfg = tlrn.default_learner_config(0.3 * n, window_mode=mode)
+    h = d = tlrn.init_learner(n, cfg, device="cpu")
+    now = 0.0
+    for i in range(30):
+        w = rng.randint(-1, n, 48).astype(np.int32)
+        if i > 5:
+            w[w == 0] = 1  # worker 0 goes quiet, so the cut-off takes it
+        w = torch.from_numpy(w)
+        st = torch.from_numpy(rng.exponential(1.0, 48).astype(np.float32))
+        now += float(rng.exponential(100.0 if mode == "practical" else 600.0))
+        lam = np.float32(rng.rand() * 0.1 * n)
+        h = tlrn.refresh_estimates(tlrn.record_completions(h, w, st, now), cfg, lam, now)
+        tnow = torch.tensor(np.float32(now))
+        d = tlrn.refresh_estimates(tlrn.record_completions(d, w, st, tnow), cfg,
+                                   torch.tensor(lam), tnow)
+        _eq(h, d, ("samples", "stamps", "widx", "count", "epoch_start", "mu_hat"))
+    assert (h.mu_hat == 0).any()  # the cut-off ran
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fake_jobs_device_form_equals_host_form(masked):
+    n = 32
+    tc = tlrn.default_learner_config(30.0)
+    mask = _t(np.random.RandomState(5).rand(n) < 0.6) if masked else None
+    for s in range(100):
+        rng = np.random.RandomState(s)
+        lam_hat, dt = np.float32(rng.rand() * 35), np.float32(rng.rand() * 3 - 0.5)
+        key = prng.PRNGKey(s)
+        host = tsch.fake_jobs_from(tc, key, lam_hat, dt, 8, n, mask=mask, device="cpu")
+        dev = tsch.fake_jobs_from(tc, prng.device_key(key, "cpu"), torch.tensor(lam_hat),
+                                  torch.tensor(dt), 8, n, mask=mask, device="cpu")
+        assert torch.equal(host, dev), s

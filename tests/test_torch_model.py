@@ -257,3 +257,29 @@ def test_entry_points_refuse_cuda_without_a_card():
         tapi.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tapi.init_cache(cfg, 1, 8, "cuda")
+
+
+@pytest.mark.parametrize("S", [16, 2048])
+def test_prefill_positions_as_p0_and_the_chunked_path_refuses_a_tensor(S):
+    """Without a cache, attention takes its positions as the host integer
+    p0 (contiguous by construction: ``p0 + arange(S)``), equal to passing
+    that range as a tensor where the plain path checks nothing (S < 2048).
+    The chunked path (S >= 2048) assumes contiguous positions and cannot
+    read a tensor back from the device to check them, so a tensor, here a
+    non-contiguous one, raises there."""
+    cfg = tconfigs.reduced(tconfigs.get_config("smollm-360m"))
+    model = tapi.init_params(cfg, 0, "cpu")
+    x = torch.from_numpy(np.random.RandomState(S).randn(1, S, cfg.d_model)
+                         .astype(np.float32))
+    attn = model.layers[0].attn
+    got, _ = TL.attention_apply(cfg, attn, x, positions=3)
+    gaps = torch.arange(S) * 2  # not contiguous
+    if S < 2048:
+        want, _ = TL.attention_apply(cfg, attn, x, positions=3 + torch.arange(S))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        TL.attention_apply(cfg, attn, x, positions=gaps)  # the plain path takes any
+    else:
+        assert torch.isfinite(got).all()
+        for pos in (gaps, torch.arange(S)):
+            with pytest.raises(ValueError, match="contiguous"):
+                TL.attention_apply(cfg, attn, x, positions=pos)

@@ -61,3 +61,46 @@ def test_fmix32_matches_reference_on_edge_words():
     want = np.asarray(rdsp._fmix32(jnp.asarray(x)))
     got = prng.fmix32(torch.from_numpy(x.astype(np.int64))).numpy()
     np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+#: host keys with bit 31 set in either word, where a plain product of the
+#: second word by a 32-bit constant leaves int64's range
+HIGH_KEYS = [(0x80000000, 0xFFFFFFFF), (0xDEADBEEF, 0x80000001), (0xFFFFFFFF, 0xFFFFFFFF),
+             (0, 0x80000000)]
+
+
+def test_device_keys_give_the_host_keys_words():
+    """A key held as an int64 tensor [2] (the device-resident turn's)
+    splits, folds and draws the same words as the host ints, bit for bit."""
+    import torch
+
+    keys = HIGH_KEYS + [prng.PRNGKey(int(s)) for s in SEEDS[:30]]
+    keys += [k for s in SEEDS[:10] for k in prng.split(prng.PRNGKey(int(s)), 3)]
+    assert any(k[1] >= 2**31 for k in keys) and any(k[0] >= 2**31 for k in keys)
+    for k in keys:
+        dk = prng.device_key(k, "cpu")
+        assert dk.dtype == torch.int64 and prng.host_key(dk) == k
+        got = prng.split(dk, 3)
+        assert got.shape == (3, 2) and [tuple(r.tolist()) for r in got] == prng.split(k, 3)
+        a, b = prng.split(dk)  # unpacks row by row, as the host list does
+        assert (prng.host_key(a), prng.host_key(b)) == tuple(prng.split(k))
+        assert prng.host_key(prng.fold_in(dk, 77)) == prng.fold_in(k, 77)
+        for x, y in zip(prng.uniform_pair(dk, 64), prng.uniform_pair(k, 64)):
+            assert torch.equal(x, y)
+        for x, y in zip(prng.uniform_quad(dk, 64), prng.uniform_quad(k, 64)):
+            assert torch.equal(x, y)
+        assert torch.equal(prng.uniform(dk, 16), prng.uniform(k, 16))
+
+
+def test_device_key_chain_matches_jax():
+    """The serving turn's two splits a turn, 100 turns, with the key
+    carried as a tensor."""
+    jk = jax.random.PRNGKey(11)
+    tk = prng.device_key(prng.PRNGKey(11), "cpu")
+    for _ in range(100):
+        jk, jf = jax.random.split(jk)
+        jk, jr_ = jax.random.split(jk)
+        tk, tf = prng.split(tk)
+        tk, tr_ = prng.split(tk)
+        for j, t in ((jk, tk), (jf, tf), (jr_, tr_)):
+            assert _words(j) == prng.host_key(t)

@@ -14,8 +14,10 @@ on the card. Then it drives the port's two paths:
     device, captured once as a CUDA graph and replayed, held bit for bit
     to the host loop at n=4 and n=1024, then run at the thousand-replica
     cell four ways (alias, inverse CDF, and 5% of the replicas offline
-    mid-run under each), through the PPoT kernels, the alias-table build
-    and the pool-chain kernel;
+    mid-run under each) and at two thousand replicas with arrival batches
+    of 2048 (alias), through the PPoT kernels, the alias-table build and
+    the pool-chain kernel, whose result on a real turn of the alias cells
+    is held bit for bit to its plain version;
   * model serving: a full-width smollm-360m (published config, bf16,
     random weights from the seed) prefilled at B=4, S=4096 through
     ``models.api.prefill`` (one flash-attention launch per layer), then
@@ -78,11 +80,16 @@ POOL_SOURCE = "src/repro_torch/kernels/pool_chain/csrc/pool_chain.cu"
 POOL_REPLACES = "src/repro/serving/scanloop.py:203-210"
 # H100 SXM f64 outside the tensor cores (NVIDIA's data sheet)
 F64_OPS_PER_S = 34e12
-# the pool chain's serial floor in cycles a step: its max and its f64 add,
-# two dependent instructions, each at least 4 cycles before the next (the
-# shared-memory round trip through free_at binds only where consecutive
-# steps share a replica, so it is left out)
+# the pool chain's serial floor in cycles a step of the longest per-replica
+# chain of the inputs: its max and its f64 add, two dependent instructions,
+# each at least 4 cycles before the next (chains on other replicas run
+# beside it)
 POOL_CHAIN_CYCLES = 8
+# the pool chain's sized cases, (n, M, every step on one replica): the
+# smallest, the scheduler cell's turn, an empty turn, the kernel's limit,
+# and its worst case, one chain of M steps
+POOL_CASES = ((4, 24, False), (1024, 136, False), (1024, 0, False), (16384, 4096, False),
+              (16384, 4096, True))
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:105"
 REPLACES = {
@@ -107,9 +114,17 @@ CHECK_EVERY = 10
 # scan's exact ones): p50 and p99 within SCAN_TOL of the host loop's, the
 # bar of tests/test_scanloop.py
 SCAN_MODES = {"a": (True, False), "b": (False, False), "c": (False, True),
-              "d": (True, True)}  # (use_alias, churn)
+              "d": (True, True), "e": (True, False)}  # (use_alias, churn)
 SCAN_TURNS, SCAN_MIN_TURNS, SCAN_TOL = 2050, 2000, 0.15
 SCAN_PROFILE_TURNS = 50
+# (e) the one-program loop at the paper's scale (§1: thousands of servers,
+# millions of tasks a second): n = 2048 replicas, the largest n the
+# reference's dispatch kernel is written for, with the same §6.1 speed grid
+# and load and arrival batches of 2048; cut in turns only. The other cells
+# run at (N_REPLICAS, BATCH, SCAN_TURNS, SCAN_MIN_TURNS)
+SCAN_SHAPE = {"e": (2048, 2048, 300, 280)}  # (n, batch, turns, min turns)
+# the cells whose real turn is held against the plain version and timed
+REAL_TURN_MODES = ("a", "e")
 # exact parity on the card: the reference test's shape (n=4) and n=1024 at
 # a load where neither loop overflows a capacity
 EXACT_N4 = dict(arrival_rate=3.0, horizon=150.0, seed=0, arrival_batch=16)
@@ -476,38 +491,162 @@ def by_wrapper(counts: dict) -> dict:
     return out
 
 
-def pool_chain_case(torch, dev, n=N_REPLICAS, M=BATCH + 8, seed=7):
-    """A turn's submissions at the cell's shape: random replicas, one
-    replica repeated 30 times, arrivals equal to a replica's free_at (ties)
-    and inactive slots."""
+def pool_chain_case(torch, dev, n, M, seed, one=False):
+    """A turn's submissions at (n, M): random replicas, one replica repeated
+    30 times, arrivals equal to a replica's free_at (ties) and inactive
+    slots; with ``one``, every step on that replica."""
     rng = np.random.RandomState(seed)
     fa = rng.rand(n) * 3
     sp = rng.rand(n) + 0.05
     w = rng.randint(0, n, M).astype(np.int32)
-    w[10:40] = 5
+    r = min(5, n - 1)
+    w[10:40] = r
+    if one:
+        w[:] = r
     a = np.sort(rng.rand(M) * 3)
-    a[12] = fa[5]
-    a[50] = fa[w[50]]
+    if M > 50:
+        a[12] = fa[r]
+        a[50] = fa[w[50]]
     c = rng.exponential(1.0, M)
     act = rng.rand(M) < 0.9
     return tuple(torch.from_numpy(x).to(dev) for x in (fa, sp, w, a, c, act))
 
 
-def phase_pool_chain(torch, CK, CR, dev):
-    args = pool_chain_case(torch, dev)
-    got, want = CK.pool_chain(*args), CR.pool_chain_ref(*args)
-    torch.cuda.synchronize()
+def pool_case_label(n, M, one) -> str:
+    return f"n={n} M={M}" + (" one replica" if one else "")
+
+
+def held_equal(torch, tag, parts, got, want) -> float:
+    """need() every output of the kernel equal to the plain version's, NaN
+    where it has NaN; returns the largest |difference| elsewhere."""
     err = 0.0
-    for part, g, w in zip(("start", "done", "free_at"), got, want):
-        need(g.dtype == w.dtype == torch.float64 and g.shape == w.shape,
-             f"[scan] pool_chain {part}: {g.dtype}{list(g.shape)}")
-        err = max(err, (g - w).abs().max().item())
-        need(torch.equal(g, w), f"[scan] pool_chain {part} differs from its plain "
-             f"version (max abs err {err})")
-    print(f"[scan] pool_chain n={args[0].shape[0]} M={args[2].shape[0]} (a replica 30 "
-          f"times, arrivals tied with free_at, {int((~args[5]).sum())} inactive): start, "
-          f"done and free_at bit-equal to the plain version (f64)")
+    for part, g, w in zip(parts, got, want):
+        need(g.dtype == w.dtype and g.shape == w.shape,
+             f"{tag} {part}: {g.dtype}{list(g.shape)} against {w.dtype}{list(w.shape)}")
+        fl = w.is_floating_point()
+        nan = torch.isnan(w) if fl else torch.zeros_like(w, dtype=torch.bool)
+        same = torch.equal(torch.isnan(g) if fl else nan, nan) and torch.equal(g[~nan], w[~nan])
+        if fl and bool((~nan).any()):
+            err = max(err, torch.where(g == w, 0.0, (g - w).abs())[~nan].max().item())
+        need(same, f"{tag} {part} differs from the plain version (max abs err {err})")
     return err
+
+
+def phase_pool_chain(torch, CK, CR, dev):
+    """The pool-chain kernel against its plain version (the host walk), bit
+    for bit, at POOL_CASES's sizes and on the planted chains."""
+    cases = {pool_case_label(n, M, one): pool_chain_case(torch, dev, n, M, n + M, one)
+             for n, M, one in POOL_CASES}
+    cases.update({name: tuple(torch.from_numpy(x).to(dev) for x in case)
+                  for name, case in CR.planted_chains().items()})
+    err = 0.0
+    for name, args in cases.items():
+        got, want = CK.pool_chain(*args), CR.pool_chain_ref(*args)
+        torch.cuda.synchronize()
+        err = max(err, held_equal(torch, f"[scan] pool_chain {name}",
+                                  ("start", "done", "free_at"), got, want))
+        print(f"[scan] pool_chain {name}: start, done and free_at bit-equal to the plain "
+              f"version (f64); longest chain {CR.longest_chain(args[2], args[0].shape[0])}, "
+              f"{int((~args[5]).sum())} inactive")
+    return err
+
+
+def scan_turn_args(torch, tr, tsl, speeds, dev, use_alias: bool, B: int, comp_cap: int,
+                   pend_cap: int, turns: int = SCAN_PROFILE_TURNS):
+    """The pool_turn arguments of a real turn of a cell (no churn): turn
+    ``turns`` of a scan from a fresh router on the cell's workload draws, the
+    turns before it replayed from the graph in chunks of at most
+    SCAN_PROFILE_TURNS, this one run eagerly on a copy of the carry."""
+    n = len(speeds)
+    rate = LOAD * float(speeds.sum())
+    times, costs, sp = tsl._precompute_workload(rate, (turns + 10) * B / rate, 1.0, None,
+                                                SEED, B, speeds)
+    need(len(times) > turns, f"only {len(times)} turns drawn for a real turn")
+    router = tr.RosellaRouter(n, float(speeds.sum()), seed=SEED, use_alias=use_alias,
+                              async_mu=False, device=dev)
+    cfg = tsl.scan_config(router, B, fake_cost=0.25, pend_cap=pend_cap, comp_cap=comp_cap)
+    run = tsl.runner(cfg, str(dev), SCAN_PROFILE_TURNS)
+    run.load(router, tr.SimulatedPool(speeds))
+    for s in range(0, turns, SCAN_PROFILE_TURNS):
+        e = min(s + SCAN_PROFILE_TURNS, turns)
+        run.run_chunk(dict(times=times[s:e], costs=costs[s:e], speeds=sp[s:e]))
+    real, rec = tsl.pool_kernel.pool_turn, []
+
+    def spy(*args, **kw):
+        rec.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return real(*args, **kw)
+
+    carry = {name: t.clone() for name, t in run.carry.items()}
+    x = {name: torch.from_numpy(np.ascontiguousarray(v[turns])).to(run.device)
+         for name, v in (("times", times), ("costs", costs), ("speeds", sp))}
+    tsl.pool_kernel.pool_turn = spy
+    try:
+        tsl._turn(run.cfg, carry, x)
+    finally:
+        tsl.pool_kernel.pool_turn = real
+    need(len(rec) == 1, f"a turn called pool_turn {len(rec)} times")
+    return rec[0]
+
+
+def chain_by_turn(torch, tr, tsl, cfg, speeds, dev, use_alias: bool, cols: dict):
+    """The longest per-replica chain of each turn of a cell (no churn) and
+    the μ̂ entering each turn: the scan replayed a turn a chunk from a fresh
+    router, the carry's ``chain_max`` zeroed before each turn and read after
+    it. Returns (i64[T], f32[T, n])."""
+    T = len(cols["times"])
+    run = tsl.runner(cfg, str(dev), T)
+    router = tr.RosellaRouter(len(speeds), float(speeds.sum()), seed=SEED,
+                              use_alias=use_alias, async_mu=False, device=dev)
+    run.load(router, tr.SimulatedPool(speeds))
+    chains, mus = np.zeros(T, np.int64), []
+    for t in range(T):
+        run.carry["chain_max"].zero_()
+        mus.append(run.run_chunk({name: v[t:t + 1] for name, v in cols.items()})[1][0])
+        chains[t] = int(run.carry["chain_max"].item())
+    need(int(run.carry["over_flush"].item()) == 0 and int(run.carry["over_pend"].item()) == 0,
+         "the turn-by-turn scan overflowed a capacity")
+    return chains, np.stack(mus)
+
+
+def chain_cause(chains, mus, speeds, B: int) -> dict:
+    """What set the longest chain of a run: its turn, the replica whose μ̂
+    weighs most in the next turn's μ̂ (the μ̂ that turn's dispatch read,
+    after the turn's own completions were folded in), that replica's share
+    of μ̂ and of the true speeds, and the steps PPoT-SQ(2) sends it when both
+    of an arrival's probes land on it (B·share²) and, at most, when one
+    does (B·(1 - (1 - share)²): it then wins where its queue is shorter)."""
+    t = int(np.argmax(chains))
+    mu = mus[min(t + 1, len(mus) - 1)].astype(np.float64)
+    j = int(np.argmax(mu))
+    share = float(mu[j] / mu.sum())
+    top = np.argsort(-chains, kind="stable")[:5]
+    return dict(turn=t, chain=int(chains[t]), replica=j, mu_share=share,
+                speed_share=float(speeds[j] / speeds.sum()),
+                mu_over_speed=float(mu[j] / speeds[j]),
+                mu_share_before=float(mus[t][j] / mus[t].sum()),
+                both_probes=B * share ** 2, one_probe=B * (1 - (1 - share) ** 2),
+                median_chain=float(np.median(chains)),
+                turns_over_100=int((chains > 100).sum()),
+                top_turns={int(i): int(chains[i]) for i in top})
+
+
+def check_real_turn(torch, CK, CR, mode, turn, args) -> dict:
+    """A real turn's pool_turn against its plain version, bit for bit."""
+    n, k = args[0].shape[0], args[4].shape[0]
+    got, want = CK.pool_turn(*args), CR.pool_turn_ref(*args)
+    torch.cuda.synchronize()
+    err = held_equal(torch, f"[scan {mode}] pool_chain on real turn {turn}",
+                     ("start", "done", "sub_w", "act", "free_at", "resp"), got, want)
+    M = want[0].shape[0]
+    longest = CR.longest_chain(want[2], n)
+    print(f"[scan {mode}] pool_chain on real turn {turn} (n={n}, M={M}, k={k}): start, "
+          f"done, sub_w, act, free_at and resp bit-equal to the plain version; longest "
+          f"chain {longest}, {int(torch.unique(want[2]).numel())} replicas touched")
+    return dict(turn=turn, n=n, M=M, longest_chain=longest, err=err)
+
+
+def real_turn_label(mode, turn, n, M) -> str:
+    return f"real turn {turn} of [scan {mode}] n={n} M={M}"
 
 
 def _same_run(tag, host, scan):
@@ -567,36 +706,40 @@ def _pow2_at_least(x: float) -> int:
     return 1 << max(int(math.ceil(math.log2(max(x, 1.0)))), 0)
 
 
-def scan_cell(torch, tr, tsl, K, CK, met, speeds, dev, mode: str):
-    """The scheduler cell through the scan, beside the host loop at
+def scan_cell(torch, tr, tsl, K, CK, CR, met, speed_set, dev, mode: str):
+    """A scheduler cell through the scan, beside the host loop at
     async_mu=False with the same probe stream (and the same membership
-    change), on the same workload draws."""
+    change), on the same workload draws. Returns its record and, for
+    REAL_TURN_MODES, the pool_turn arguments of its real turns by index:
+    turn SCAN_PROFILE_TURNS and the turn with the run's longest chain."""
     use_alias, churn = SCAN_MODES[mode]
+    n, B, turns, min_turns = SCAN_SHAPE.get(mode, (N_REPLICAS, BATCH, SCAN_TURNS,
+                                                   SCAN_MIN_TURNS))
+    speeds = speed_set(n, SEED)
     rate = LOAD * float(speeds.sum())
-    horizon = SCAN_TURNS * BATCH / rate
-    off = np.random.RandomState(SEED + 1).choice(N_REPLICAS, N_REPLICAS // 20,
-                                                 replace=False)
-    act = np.ones(N_REPLICAS, bool)
+    horizon = turns * B / rate
+    off = np.random.RandomState(SEED + 1).choice(n, n // 20, replace=False)
+    act = np.ones(n, bool)
     act[off] = False
-    host = make_router_class(tr)(N_REPLICAS, float(speeds.sum()), seed=SEED,
+    host = make_router_class(tr)(n, float(speeds.sum()), seed=SEED,
                                  use_alias=use_alias, async_mu=False, device=dev)
     host.speeds = speeds
     if churn:
         host.membership_at = (horizon / 2, act)
     t0 = time.perf_counter()
     resp_h, _ = tr.run_simulation(host, tr.SimulatedPool(speeds), arrival_rate=rate,
-                                  horizon=horizon, seed=SEED, arrival_batch=BATCH)
+                                  horizon=horizon, seed=SEED, arrival_batch=B)
     torch.cuda.synchronize()
     wall_h = time.perf_counter() - t0
     comp_cap = _pow2_at_least(1.25 * host.max_due)
     pend_cap = _pow2_at_least(1.25 * host.max_in_flight)
 
-    times, costs, sp = tsl._precompute_workload(rate, horizon, 1.0, None, SEED, BATCH,
-                                                speeds)
+    times, costs, sp = tsl._precompute_workload(rate, horizon, 1.0, None, SEED, B, speeds)
     T = len(times)
+    cols_all = dict(times=times, costs=costs, speeds=sp)
     active = (np.where((times[:, -1] >= horizon / 2)[:, None], act[None], True)
               if churn else None)
-    router = tr.RosellaRouter(N_REPLICAS, float(speeds.sum()), seed=SEED,
+    router = tr.RosellaRouter(n, float(speeds.sum()), seed=SEED,
                               use_alias=use_alias, async_mu=False, device=dev)
     K.reset_launches()
     CK.reset_launches()
@@ -616,10 +759,11 @@ def scan_cell(torch, tr, tsl, K, CK, met, speeds, dev, mode: str):
     need(info["graph_nodes"] is not None and info["replays"] == info["turns"],
          f"[scan {mode}] the turns were not graph replays ({info['replays']} replays "
          f"for {info['turns']} turns, {info['graph_nodes']} nodes)")
-    need(info["turns"] >= SCAN_MIN_TURNS, f"[scan {mode}] only {info['turns']} turns")
+    need(info["turns"] >= min_turns, f"[scan {mode}] only {info['turns']} turns")
     need(info["flush_overflow"] == 0 and info["pend_overflow"] == 0, f"[scan {mode}] {info}")
-    need(np.isfinite(resp).all() and (resp > 0).all() and resp.shape == (T * BATCH,)
-         and mu_trace.shape == (T, N_REPLICAS), f"[scan {mode}] bad responses or trace")
+    need(np.isfinite(resp).all() and (resp > 0).all() and resp.shape == (T * B,)
+         and mu_trace.shape == (T, n), f"[scan {mode}] bad responses or trace")
+    need(info["longest_chain"] >= 1, f"[scan {mode}] no chain was walked ({info})")
     if churn:
         need(bool((router.active.cpu().numpy() == act).all()),
              f"[scan {mode}] the final membership was not written back")
@@ -631,25 +775,51 @@ def scan_cell(torch, tr, tsl, K, CK, met, speeds, dev, mode: str):
     need(rho >= 0.9, f"[scan {mode}] μ̂ ranks the replicas poorly (Spearman {rho:.4f})")
 
     # a window of replays, from a fresh router's state, under the profiler
-    cfg = tsl.scan_config(router, BATCH, churn=churn, fake_cost=0.25, pend_cap=pend_cap,
+    cfg = tsl.scan_config(router, B, churn=churn, fake_cost=0.25, pend_cap=pend_cap,
                           comp_cap=comp_cap)
     run = tsl.runner(cfg, str(dev), T)
-    fresh = tr.RosellaRouter(N_REPLICAS, float(speeds.sum()), seed=SEED,
+    fresh = tr.RosellaRouter(n, float(speeds.sum()), seed=SEED,
                              use_alias=use_alias, async_mu=False, device=dev)
     run.load(fresh, tr.SimulatedPool(speeds))
     W = SCAN_PROFILE_TURNS
     cols = dict(times=times[:W], costs=costs[:W], speeds=sp[:W])
     if churn:
-        cols.update(active=active[:W], rejoin=np.zeros((W, N_REPLICAS), bool),
+        cols.update(active=active[:W], rejoin=np.zeros((W, n), bool),
                     burst=np.zeros((W, 0), np.int32))
     prof = device_profile(torch, lambda: run.run_chunk(cols))
     per_turn = {w: c / W for w, c in by_wrapper(prof["count"]).items()}
     need(per_turn == {w: float(c) for w, c in per_replay.items()},
          f"[scan {mode}] the profiled replays launched {per_turn} a turn, the graph "
          f"holds {per_replay}")
+    # each kernel's device time inside a replay, by name
+    in_replay = {w: us / 1e3 / W for w, us in by_wrapper(prof["us"]).items() if us > 0}
+    turn_args = real = cause = None
+    if mode in REAL_TURN_MODES:
+        # which turn raised the run's longest chain, and why
+        chains, mus = chain_by_turn(torch, tr, tsl, cfg, speeds, dev, use_alias, cols_all)
+        need(int(chains.max()) == info["longest_chain"],
+             f"[scan {mode}] turn by turn the longest chain is {int(chains.max())}, the "
+             f"run's {info['longest_chain']}")
+        cause = chain_cause(chains, mus, speeds, B)
+        turn_args, real = {}, {}
+        for t in sorted({SCAN_PROFILE_TURNS, cause["turn"]}):
+            turn_args[t] = scan_turn_args(torch, tr, tsl, speeds, dev, use_alias, B,
+                                          comp_cap, pend_cap, turns=t)
+            real[t] = check_real_turn(torch, CK, CR, mode, t, turn_args[t])
+            need(real[t]["longest_chain"] == chains[t], f"[scan {mode}] turn {t} recorded "
+                 f"alone has a longest chain of {real[t]['longest_chain']}, {chains[t]} "
+                 f"in the run")
+        print(f"[scan {mode}] longest chain by turn: median {cause['median_chain']}, "
+              f"{cause['turns_over_100']} turns over 100, the longest "
+              f"{json.dumps(cause['top_turns'])}; turn {cause['turn']} ({cause['chain']} "
+              f"steps): replica {cause['replica']} holds {cause['mu_share']:.6f} of the "
+              f"μ̂ its dispatch read ({cause['mu_share_before']:.6f} entering the turn), "
+              f"{cause['mu_over_speed']:.2f}x its speed, whose share is "
+              f"{cause['speed_share']:.6f}; B·share² {cause['both_probes']:.1f}, "
+              f"B·(1-(1-share)²) {cause['one_probe']:.1f}")
     run_s = wall - info["capture_s"]
-    res = dict(turns=info["turns"], p50=s["p50"], p99=s["p99"], host_p50=sh["p50"],
-               host_p99=sh["p99"], rho=rho, wall_s=wall, capture_s=info["capture_s"],
+    res = dict(n=n, batch=B, turns=info["turns"], p50=s["p50"], p99=s["p99"],
+               host_p50=sh["p50"], host_p99=sh["p99"], rho=rho, wall_s=wall, capture_s=info["capture_s"],
                graph_nodes=info["graph_nodes"], turns_per_s=info["turns"] / run_s,
                decisions_per_s=len(resp) / run_s, host_turns_per_s=host.turns / wall_h,
                host_decisions_per_s=len(resp_h) / wall_h, comp_cap=comp_cap,
@@ -660,8 +830,10 @@ def scan_cell(torch, tr, tsl, K, CK, met, speeds, dev, mode: str):
                kernel_per_turn=per_turn, launches=launches, replays=info["replays"],
                graph_kernels=per_replay, eager_launches=eager,
                idle=prof["idle"], busy_ms_per_turn=prof["busy_us"] / 1e3 / W,
-               wall_ms_per_turn=prof["wall"] * 1e3 / W)
-    print(f"[scan {mode}] use_alias={use_alias} churn={churn}: {info['turns']} turns, "
+               wall_ms_per_turn=prof["wall"] * 1e3 / W, in_replay_ms=in_replay,
+               longest_chain=info["longest_chain"], real_turns=real, chain_cause=cause)
+    print(f"[scan {mode}] n={n} batch={B} use_alias={use_alias} churn={churn}: "
+          f"{info['turns']} turns, "
           f"p50={s['p50']:.6f} p99={s['p99']:.6f} (host loop {sh['p50']:.6f} / "
           f"{sh['p99']:.6f}), spearman(mu_hat, speeds)={rho:.4f}; "
           f"{res['turns_per_s']:.2f} turns/s, {res['decisions_per_s']:.1f} decisions/s "
@@ -670,7 +842,8 @@ def scan_cell(torch, tr, tsl, K, CK, met, speeds, dev, mode: str):
           f"{info['capture_s']} s apart from the turns, graph nodes "
           f"{info['graph_nodes']}; comp_cap {comp_cap} pend_cap {pend_cap} (host loop: "
           f"largest flush {host.max_due}, most in flight {host.max_in_flight}, "
-          f"overflow_turns {host.overflow_turns}); overflows 0")
+          f"overflow_turns {host.overflow_turns}); overflows 0; the longest per-replica "
+          f"chain of a turn {info['longest_chain']}")
     print(f"[scan {mode}] {W} replays profiled: {res['launches_per_turn']:.2f} kernel "
           f"launches and {res['copies_per_turn']:.2f} copies per turn, device busy "
           f"{res['busy_ms_per_turn']:.4f} of {res['wall_ms_per_turn']:.4f} ms a turn (idle "
@@ -679,22 +852,28 @@ def scan_cell(torch, tr, tsl, K, CK, met, speeds, dev, mode: str):
           f"nodes {json.dumps(per_replay)}; launches of the scan run "
           f"{json.dumps(launches)} (eager warm-up {json.dumps(eager)} + "
           f"{info['replays']} replays x the graph's nodes)")
-    return res
+    print(f"[scan {mode}] device time per replay by kernel (ms, profiler): "
+          f"{json.dumps({k: round(v, 6) for k, v in in_replay.items()})}")
+    return res, turn_args
 
 
-def phase_scan(torch, tr, tsl, K, CK, CR, met, speeds, dev):
+def phase_scan(torch, tr, tsl, K, CK, CR, met, speed_set, dev):
     pool_err = phase_pool_chain(torch, CK, CR, dev)
-    exact = phase_scan_exact(torch, tr, tsl, speeds, dev)
-    cells = {m: scan_cell(torch, tr, tsl, K, CK, met, speeds, dev, m) for m in SCAN_MODES}
-    expect = {"a": ("ppot_dispatch_fused_alias", "alias_table", "pool_chain"),
-              "b": ("ppot_dispatch_fused", "pool_chain"),
-              "c": ("ppot_dispatch", "pool_chain"),
-              "d": ("ppot_dispatch_fused_alias", "alias_table", "pool_chain")}
+    exact = phase_scan_exact(torch, tr, tsl, speed_set(N_REPLICAS, SEED), dev)
+    cells, real_turns = {}, {}
+    for m in SCAN_MODES:
+        cells[m], args = scan_cell(torch, tr, tsl, K, CK, CR, met, speed_set, dev, m)
+        for t, a in (args or {}).items():
+            real_turns[(m, t)] = a
+            pool_err = max(pool_err, cells[m]["real_turns"][t]["err"])
+    alias = ("ppot_dispatch_fused_alias", "alias_table", "pool_chain")
+    expect = {"a": alias, "b": ("ppot_dispatch_fused", "pool_chain"),
+              "c": ("ppot_dispatch", "pool_chain"), "d": alias, "e": alias}
     for mode, names in expect.items():
         for name in names:
             need(cells[mode]["launches"][name] > 0,
                  f"[scan {mode}] {name} was never launched by the graph's replays")
-    return pool_err, exact, cells
+    return pool_err, exact, cells, real_turns
 
 
 # ---------------------------------------------------------------------------
@@ -1524,40 +1703,71 @@ def phase_times(torch, K, R, D, build, dev):
     return out, floor_ms, mhz
 
 
-def phase_pool_chain_times(torch, CK, CR, cbuild, dev, mhz, floor_ms):
-    """The pool-chain kernel alone (its C entry point on preallocated
-    buffers) at the cell's turn (n=1024, M=136) and at the kernel's limit
-    (n=16384, M=4096), its plain version (a host walk), its bound and its
-    serial-chain floor (M steps of POOL_CHAIN_CYCLES at this run's SM
-    clock)."""
+def phase_pool_chain_times(torch, CK, CR, cbuild, dev, mhz, floor_ms, real_turns):
+    """The pool-chain kernel alone (its C entry points on preallocated
+    buffers): the array form at POOL_CASES's sizes, and the turn form on the
+    real turns of REAL_TURN_MODES, in place as the scan runs it; its plain
+    version (a host walk), its bound and its serial-chain floor (the longest
+    per-replica chain of the inputs, POOL_CHAIN_CYCLES a step at this run's
+    SM clock)."""
     lib = cbuild.load()
     stream = torch.cuda.current_stream().cuda_stream
+    P = lambda t: t.data_ptr()  # noqa: E731
     out = {}
-    for n, M in ((N_REPLICAS, BATCH + 8), (16384, 4096)):
-        args = pool_chain_case(torch, dev, n, M, seed=n + M)
+
+    def record(label, ms, plain_ms, nbytes, M, longest):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 3 * M / F64_OPS_PER_S * 1e3  # a division, a max and an add a step
+        chain_ms = longest * POOL_CHAIN_CYCLES / (mhz * 1e6) * 1e3
+        rec = out[label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
+            longest_chain=longest, chain_ms=chain_ms, floor_ms=floor_ms, library_ms=None)
+        print(f"[times] pool_chain {label}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms "
+              f"(host walk), bound {rec['bound_ms']:.9f} ms "
+              f"({rec['bound_by']}, {nbytes} B), chain bound {chain_ms:.6f} ms (longest chain "
+              f"{longest} x {POOL_CHAIN_CYCLES} cycles at {mhz:.0f} MHz), launch floor "
+              f"{floor_ms:.6f} ms, library call: none")
+
+    for n, M, one in POOL_CASES:
+        args = pool_chain_case(torch, dev, n, M, n + M, one)
         start, done, free = (torch.empty_like(args[i]) for i in (3, 3, 0))
-        ptrs = [t.data_ptr() for t in args]
+        ptrs = [P(t) for t in args]
 
         def kern():
-            lib.pool_chain(*ptrs, n, M, start.data_ptr(), done.data_ptr(),
-                           free.data_ptr(), stream)
+            lib.pool_chain(*ptrs, n, M, P(start), P(done), P(free), stream)
 
         ms = event_median_ms(torch, kern)
         plain_ms = host_median_ms(torch, lambda: CR.pool_chain_ref(*args))
         # free_at in and out, the steps' w, arrival, cost, active, start and
         # done, and the speed of each distinct replica the steps submit to
-        nbytes = 16 * n + 37 * M + 8 * int(torch.unique(args[2]).numel())
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 3 * M / F64_OPS_PER_S * 1e3  # a division, a max and an add a step
-        chain_ms = M * POOL_CHAIN_CYCLES / (mhz * 1e6) * 1e3
-        rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   bytes=nbytes, chain_ms=chain_ms, library_ms=None)
-        out[(n, M)] = rec
-        print(f"[times] pool_chain n={n} M={M}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms "
-              f"(host walk), bound {rec['bound_ms']:.9f} ms ({rec['bound_by']}, {nbytes} B), "
-              f"chain bound {chain_ms:.6f} ms ({M} steps x {POOL_CHAIN_CYCLES} cycles at "
-              f"{mhz:.0f} MHz), launch floor {floor_ms:.6f} ms, library call: none")
+        distinct = int(torch.unique(args[2]).numel())
+        record(pool_case_label(n, M, one), ms, plain_ms, 16 * n + 37 * M + 8 * distinct, M,
+               CR.longest_chain(args[2], n))
+    for (mode, turn), args in real_turns.items():
+        free_at, speeds, fake_js, burst, workers, times, costs, fc, bcost = args
+        n, mf, bc, k = free_at.shape[0], fake_js.shape[0], burst.shape[0], workers.shape[0]
+        M = mf + bc + k
+        f64 = dict(dtype=torch.float64, device=dev)
+        start, done, resp = torch.empty(M, **f64), torch.empty(M, **f64), torch.empty(k, **f64)
+        sub_w = torch.empty(M, dtype=torch.int32, device=dev)
+        act = torch.empty(M, dtype=torch.bool, device=dev)
+        free = free_at.clone()  # in place, as the scan runs it
+        ins = [P(t) for t in (free, speeds, fake_js, burst, workers, times, costs)]
+        outs = [P(t) for t in (start, done, sub_w, act, free, resp)]
+
+        def kern():
+            lib.pool_turn(*ins, fc, bcost, n, mf, bc, k, *outs, None, stream)
+
+        ms = event_median_ms(torch, kern)
+        plain_ms = host_median_ms(torch, lambda: CR.pool_turn_ref(*args))
+        w = CR.turn_submissions(fake_js, burst, workers, times, costs, fc, bcost)[0]
+        distinct = int(torch.unique(w).numel())
+        # in place: each touched replica's clock in and out and its speed; a
+        # step's replica in and start, done, sub_w and act out; a batch
+        # step's arrival and cost in and response out
+        record(real_turn_label(mode, turn, n, M), ms, plain_ms,
+               24 * distinct + 25 * M + 24 * k, M, CR.longest_chain(w, n))
     return out
 
 
@@ -1751,8 +1961,8 @@ def main() -> int:
     ssd_err = phase_ssd(torch, SK, SO, SR, dev)
     speeds = tpch_speed_set(N_REPLICAS, SEED)
     main_runs = phase_main_path(torch, tr, K, met, chk, speeds, dev)
-    pool_err, scan_exact, scan_cells = phase_scan(torch, tr, tsl, K, CK, CR, met, speeds,
-                                                  dev)
+    pool_err, scan_exact, scan_cells, real_turns = phase_scan(torch, tr, tsl, K, CK, CR, met,
+                                                              tpch_speed_set, dev)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
@@ -1768,7 +1978,32 @@ def main() -> int:
     del hmodel
     per_turn, copies, idle = phase_turn_cost(torch, tr, speeds)
     times, floor_ms, mhz = phase_times(torch, K, R, D, build, dev)
-    pool_times = phase_pool_chain_times(torch, CK, CR, pool_build, dev, mhz, floor_ms)
+    pool_times = phase_pool_chain_times(torch, CK, CR, pool_build, dev, mhz, floor_ms,
+                                        real_turns)
+    pool_turn_times = {(m, t): pool_times[real_turn_label(m, t, r["n"], r["M"])]
+                       for m in REAL_TURN_MODES
+                       for t, r in scan_cells[m]["real_turns"].items()}
+    W = SCAN_PROFILE_TURNS
+    alone = {"ppot_dispatch_fused_alias": times[("ppot_dispatch_fused_alias", 1024, BATCH)],
+             "alias_table": times[("alias_table", 1024, BATCH)],
+             "pool_chain": pool_turn_times[("a", W)]}
+    for m in REAL_TURN_MODES:
+        cell = scan_cells[m]
+        print(f"[replay] [scan {m}] n={cell['n']} batch={cell['batch']}: device time per "
+              f"replay (profiler, {W} replays) against an event pair "
+              f"around the kernel alone: "
+              + "; ".join(f"{w} {cell['in_replay_ms'].get(w, 0.0):.6f} ms"
+                          + (f" against {alone[w]['ms']:.6f} ms" if m == "a" else "")
+                          for w in alone)
+              + f" (pool_chain on this cell's real turn {W} alone "
+              f"{pool_turn_times[(m, W)]['ms']:.6f} ms; launch floor {floor_ms:.6f} ms)")
+        c = cell["chain_cause"]
+        if c["turn"] != W:
+            worst, typical = pool_turn_times[(m, c["turn"])], pool_turn_times[(m, W)]
+            print(f"[worst turn] [scan {m}] pool_chain on turn {c['turn']} (longest chain "
+                  f"{worst['longest_chain']}) {worst['ms']:.6f} ms, chain bound "
+                  f"{worst['chain_ms']:.6f} ms; on turn {W} (longest chain "
+                  f"{typical['longest_chain']}) {typical['ms']:.6f} ms")
     table_build = phase_table_build(torch, K, R, D, dev)
     flash_times = phase_flash_times(torch, FK, FR, dev)
     ssd_times = phase_ssd_times(torch, SK, SO, SR, dev)
@@ -1783,12 +2018,16 @@ def main() -> int:
             launches=total[name], max_abs_err=chk.max_err[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None))
-    t = pool_times[(N_REPLICAS, BATCH + 8)]
+    # the array form at (1024, 136), the scheduler cell's turn size with a
+    # planted 30-step chain: a fixed case, so the line compares from run to
+    # run; real_turn_ms: the turn form in place on real turn 50 of [scan a]
+    t = pool_times[pool_case_label(*POOL_CASES[1])]
     kernels.append(dict(
         name="pool_chain", route="cuda", source=POOL_SOURCE, replaces=POOL_REPLACES,
         launches=sum(c["launches"]["pool_chain"] for c in scan_cells.values()),
         max_abs_err=pool_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], library_ms=None))
+        bound_by=t["bound_by"], library_ms=None,
+        real_turn_ms=pool_turn_times[("a", W)]["ms"]))
     t = flash_times["main"]
     kernels.append(dict(
         name="flash_attention_fwd", route="cuda", source=FLASH_SOURCE,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the port's flash-attention (K4), SSD-scan (K5) and PPoT dispatch
-(K1-K3 and the alias-table build) kernels against variants of their own
-sources on one CUDA card, at the shapes of chip_smoke.py's [times] phase.
+"""Times the port's flash-attention (K4), SSD-scan (K5), PPoT dispatch
+(K1-K3 and the alias-table build) and pool-chain kernels against variants
+of their own sources on one CUDA card, at the shapes of chip_smoke.py's
+[times] phase.
 
 Each variant is the current source with one textual edit (a design choice
 undone, or a part of the work left out to see what it costs: those are
@@ -11,10 +12,12 @@ earlier commit unpacked into DIR) are built and timed on the same inputs,
 in turns with the current ones (parent, current, current, parent). Its
 K4/K5 entry points are read as they were before their redesign, its PPoT
 ones as they were before the alias-table kernel (``alias_pairing`` walks a
-stack built by tensor ops). ``--kernels``
-picks the sources (default all three).
+stack built by tensor ops), its pool chain's array form (``pool_chain``) as
+it has been since the chain was ported; with the chain, the one-program
+loop's [scan a] and [scan e] also run whole on each checkout, each in a
+process of its own. ``--kernels`` picks the sources (default all four).
 
-    python3 kernel_variants.py [--kernels flash,ssd,ppot] [--parent DIR] [--out FILE.json]
+    python3 kernel_variants.py [--kernels flash,ssd,ppot,chain] [--parent DIR] [--out FILE.json]
 
 Needs a CUDA card and nvcc; imports torch and the port, nothing of JAX.
 """
@@ -236,6 +239,24 @@ PPOT_VARIANTS = [
      lambda s: s.replace("constexpr int kWalkUnroll = 32;", "constexpr int kWalkUnroll = 1;")),
 ]
 
+POOL_SRC = "src/repro_torch/kernels/pool_chain/csrc/pool_chain.cu"
+CHAIN_VARIANTS = [
+    ("256 threads a block",
+     lambda s: s.replace("constexpr int kThreads = 1024;", "constexpr int kThreads = 256;")),
+    ("a chain's clock read from device memory by its walker (not gathered in step 2)",
+     lambda s: s.replace("double clk = fa0[h];", "double clk = p.free_at[ws[h]];")),
+    ("one warp links the tiles in turn (tile groups and stitch in one pass)",
+     lambda s: s.replace("for (int base = warp * 32; base < M; base += nt) {",
+                         "for (int base = 0; warp == 0 && base < M; base += 32) {")),
+    ("the stitch reads one tile ahead (not 8)",
+     lambda s: s.replace("constexpr int kStitch = 8;", "constexpr int kStitch = 1;")),
+    ("diagnostic: no walk (chains linked, none walked)",
+     lambda s: s.replace("    if (!(one_tile ? flag[h] & kFirst : flag[h])) continue;",
+                         "    if (true) continue;")),
+    ("diagnostic: no stitch (every tile's groups walked as chains of their own)",
+     lambda s: s.replace("if (warp == 0 && !one_tile) {", "if (false) {")),
+]
+
 # the C entry points of the kernels before their redesign, for --parent
 _P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_SIGNATURES = {
@@ -245,6 +266,7 @@ PARENT_SIGNATURES = {
              "ppot_fused_cdf": (_P,) * 4 + (_I, _I, _P, _P, _P),
              "ppot_select_cdf": (_P,) * 4 + (_I, _I, _P, _P),
              "alias_pairing": (_P, _P, _P, _I, _P, _P, _P)},
+    "chain": {"pool_chain": (_P,) * 6 + (_I, _I) + (_P,) * 4},
 }
 
 
@@ -368,16 +390,166 @@ def time_ppot(torch, libs, parent, median_ms) -> dict:
     return out
 
 
+# the one-program loop run whole by one checkout's package, for --parent:
+# per cell (n, batch, turns, comp_cap, pend_cap: the capacities chip_smoke.py
+# sizes for [scan a] and [scan e] from the host loop), the turns/s of the
+# replays (the best of five runs, capture left out: the host's noise is
+# larger than the difference), the graph's nodes and a hash of the
+# responses, printed as JSON
+SCAN_CELLS = {"a": (1024, 128, 2050, 256, 4096), "e": (2048, 2048, 300, 4096, 16384)}
+SCAN_RUN = """
+import hashlib, json, sys, time
+sys.path.insert(0, {src!r})
+import torch
+from repro_torch.configs.rosella_sim import tpch_speed_set
+from repro_torch.serving import router as tr, scanloop as tsl
+out = {{}}
+for mode, (n, B, turns, comp_cap, pend_cap) in {cells!r}.items():
+    sp = tpch_speed_set(n, 0)
+    rate = 0.7 * float(sp.sum())
+    times, costs, spd = tsl._precompute_workload(rate, turns * B / rate, 1.0, None, 0, B, sp)
+    walls = []
+    for _ in range(5):
+        r = tr.RosellaRouter(n, float(sp.sum()), seed=0, use_alias=True, async_mu=False,
+                             device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp, mu, info = tsl.run_workload_scan(r, tr.SimulatedPool(sp), times, costs, spd,
+                                               fake_cost=0.25, pend_cap=pend_cap,
+                                               comp_cap=comp_cap)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0 - (info["capture_s"] or 0.0))
+    out[mode] = dict(turns=info["turns"], turns_per_s=info["turns"] / min(walls),
+                     graph_nodes=info["graph_nodes"],
+                     resp_sha256=hashlib.sha256(resp.tobytes()).hexdigest()[:16])
+print(json.dumps(out))
+"""
+
+
+def time_scan(parent_dir: Path) -> dict:
+    """[scan a] and [scan e] run whole by this checkout and by the parent,
+    each in a process of its own, in turns (parent, current, current,
+    parent)."""
+    runs = []
+    for tree in (parent_dir, ROOT, ROOT, parent_dir):
+        res = subprocess.run([sys.executable, "-c", SCAN_RUN.format(
+            src=str(tree / "src"), cells=SCAN_CELLS)], capture_output=True, text=True)
+        if res.returncode:
+            raise SystemExit(f"the scan run of {tree} failed:\n{res.stderr[-3000:]}")
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    out = {}
+    for mode in SCAN_CELLS:
+        r = [run[mode] for run in runs]
+        out[mode] = dict(
+            parent_turns_per_s=statistics.mean((r[0]["turns_per_s"], r[3]["turns_per_s"])),
+            current_turns_per_s=statistics.mean((r[1]["turns_per_s"], r[2]["turns_per_s"])),
+            parent_graph_nodes=r[0]["graph_nodes"], current_graph_nodes=r[1]["graph_nodes"],
+            turns=r[0]["turns"], runs=r,
+            same_responses=len({x["resp_sha256"] for x in r}) == 1)
+        print(f"[scan {mode}] {json.dumps(out[mode])}", flush=True)
+    return out
+
+
+def time_chain(torch, libs, parent, median_ms) -> dict:
+    """The pool chain's array form at chip_smoke.py's POOL_CASES and on the
+    steps of two real turns of each of its REAL_TURN_MODES cells (turn
+    SCAN_PROFILE_TURNS and the turn with the cell's longest chain): each variant
+    and, with a parent, the parent's kernel in turns with the current
+    source (other, current, current, other), every result held against the
+    plain version, beside the launch floor (one 1-element fill kernel
+    between an event pair) of the same run; on the real turns also the turn
+    form in place, as the scan runs it."""
+    import chip_smoke as CS
+    from repro_torch.configs.rosella_sim import tpch_speed_set
+    from repro_torch.kernels.pool_chain import ref as CR
+    from repro_torch.serving import router as tr
+    from repro_torch.serving import scanloop as tsl
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    floor_t = torch.zeros(1, device=dev)
+    out = {"launch_floor_ms": median_ms(floor_t.zero_, 200)}
+    print(f"[chain] launch floor {out['launch_floor_ms']:.6f} ms", flush=True)
+    cur = libs[0][1].load()
+    others = [(name, lib.load()) for name, lib in libs[1:]]
+    if parent is not None:
+        others.append(("parent", parent.load()))
+    cases = {CS.pool_case_label(n, M, one): CS.pool_chain_case(torch, dev, n, M, n + M, one)
+             for n, M, one in CS.POOL_CASES}
+    real = {}
+    for mode in CS.REAL_TURN_MODES:
+        # turn SCAN_PROFILE_TURNS and the turn with the cell's longest chain,
+        # at capacities no turn of these cells fills
+        n, B, turns = CS.SCAN_SHAPE.get(mode, (CS.N_REPLICAS, CS.BATCH, CS.SCAN_TURNS))[:3]
+        speeds = tpch_speed_set(n, CS.SEED)
+        pend_cap, comp_cap = 65536, 8192
+        rate = CS.LOAD * float(speeds.sum())
+        cols = dict(zip(("times", "costs", "speeds"), tsl._precompute_workload(
+            rate, turns * B / rate, 1.0, None, CS.SEED, B, speeds)))
+        router = tr.RosellaRouter(n, float(speeds.sum()), seed=CS.SEED, use_alias=True,
+                                  async_mu=False, device=dev)
+        cfg = tsl.scan_config(router, B, fake_cost=0.25, pend_cap=pend_cap,
+                              comp_cap=comp_cap)
+        chains, _ = CS.chain_by_turn(torch, tr, tsl, cfg, speeds, dev, True, cols)
+        for turn in sorted({CS.SCAN_PROFILE_TURNS, int(chains.argmax())}):
+            t = CS.scan_turn_args(torch, tr, tsl, speeds, dev, True, B, comp_cap, pend_cap,
+                                  turns=turn)
+            w, a, c, act = CR.turn_submissions(*t[2:])
+            label = CS.real_turn_label(mode, turn, n, len(w))
+            real[label] = t
+            cases[label] = (t[0], t[1], w, a, c, act)
+    for label, args in cases.items():
+        n, M = args[0].shape[0], args[2].shape[0]
+        want = CR.pool_chain_ref(*args)
+        got = (torch.empty_like(args[3]), torch.empty_like(args[3]), torch.empty_like(args[0]))
+        ptrs = [x.data_ptr() for x in (*args, *got)]
+
+        def call(lib):
+            lib.pool_chain(*ptrs[:6], n, M, *ptrs[6:], stream)
+
+        def equal(lib):
+            for x in got:
+                x.fill_(float("nan"))
+            call(lib)
+            torch.cuda.synchronize()
+            return all(torch.equal(g, w) for g, w in zip(got, want))
+
+        row = {"current": dict(ms=median_ms(lambda: call(cur), 200), equal=equal(cur))}
+        for name, lib in others:
+            turns = [median_ms(lambda lb=lb: call(lb), 200) for lb in (lib, cur, cur, lib)]
+            row[name] = dict(ms=statistics.mean((turns[0], turns[3])),
+                             current_same_call_ms=statistics.mean(turns[1:3]),
+                             equal=equal(lib))
+        if label in real:  # the turn form, in place
+            t = real[label]
+            k = t[4].shape[0]
+            f64 = dict(dtype=torch.float64, device=dev)
+            outs = (torch.empty(M, **f64), torch.empty(M, **f64),
+                    torch.empty(M, dtype=torch.int32, device=dev),
+                    torch.empty(M, dtype=torch.bool, device=dev), t[0].clone(),
+                    torch.empty(k, **f64))
+            ins = [x.data_ptr() for x in (outs[4], *t[1:7])]
+            ptrs_t = [x.data_ptr() for x in outs]
+            row["current, turn form in place"] = dict(ms=median_ms(
+                lambda: cur.pool_turn(*ins, t[7], t[8], n, t[2].shape[0], t[3].shape[0], k,
+                                      *ptrs_t, None, stream), 200))
+        out[label] = dict(row, longest_chain=CR.longest_chain(args[2], n))
+        for name, r in row.items():
+            print(f"[chain {label}] {name}: {json.dumps(r)}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="flash,ssd,ppot",
-                    help="comma-separated sources to time: flash, ssd, ppot")
+    ap.add_argument("--kernels", default="flash,ssd,ppot,chain",
+                    help="comma-separated sources to time: flash, ssd, ppot, chain")
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit")
     ap.add_argument("--out", type=Path, help="write the readings as JSON")
     args = ap.parse_args()
     kinds = set(args.kernels.split(","))
-    if not kinds <= {"flash", "ssd", "ppot"}:
-        raise SystemExit(f"--kernels: unknown {sorted(kinds - {'flash', 'ssd', 'ppot'})}")
+    known = {"flash", "ssd", "ppot", "chain"}
+    if not kinds <= known:
+        raise SystemExit(f"--kernels: unknown {sorted(kinds - known)}")
 
     import torch
 
@@ -386,6 +558,7 @@ def main() -> int:
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels.flash_attention import build as fbuild
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.pool_chain import build as cbuild
     from repro_torch.kernels.ppot_dispatch import build as pbuild
     from repro_torch.kernels.ssd_scan import build as sbuild
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -399,7 +572,8 @@ def main() -> int:
                                 if (ROOT / "build").is_dir() else None))
     sources = {"flash": (K4_SRC, K4_VARIANTS, fbuild, "flash_error_string"),
                "ssd": (K5_SRC, K5_VARIANTS, sbuild, "ssd_error_string"),
-               "ppot": (PPOT_SRC, PPOT_VARIANTS, pbuild, "ppot_error_string")}
+               "ppot": (PPOT_SRC, PPOT_VARIANTS, pbuild, "ppot_error_string"),
+               "chain": (POOL_SRC, CHAIN_VARIANTS, cbuild, "pool_chain_error_string")}
     libs, parent = {}, {}
     for kind in sorted(kinds):
         path, variants, bld, err = sources[kind]
@@ -442,6 +616,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "ppot" in kinds:
         readings["ppot"] = time_ppot(torch, libs["ppot"], parent.get("ppot"), median_ms)
+    if "chain" in kinds:
+        readings["pool_chain"] = time_chain(torch, libs["chain"], parent.get("chain"), median_ms)
+        if args.parent:
+            readings["scan"] = time_scan(args.parent)
 
     # K4: q [B, S, H, D] in the model's layout, causal (hymba: window 1024)
     k4 = libs.get("flash", [])

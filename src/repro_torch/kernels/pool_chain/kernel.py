@@ -1,15 +1,17 @@
-"""Wrapper of the hand-written pool-chain kernel (``csrc/pool_chain.cu``).
+"""Wrappers of the hand-written pool-chain kernel (``csrc/pool_chain.cu``).
 
-It checks device, dtype, shape and contiguity. Given CPU tensors it runs
-the plain version from ``ref.py``; given CUDA tensors it launches the
-kernel on the current stream or raises. There is no fallback from a
-failed build or launch to the plain version.
+``pool_chain`` takes the steps as arrays; ``pool_turn`` takes a serving
+turn's three groups and assembles the steps in the same launch. Each
+checks device, dtype, shape and contiguity. Given CPU tensors it runs its
+plain version from ``ref.py``; given CUDA tensors it launches the kernel on
+the current stream or raises. There is no fallback from a failed build or
+launch to the plain version.
 
-``launches["pool_chain"]`` counts launches: a plain int raised by one
-where the kernel is launched and nowhere else. A launch made while the
-stream is captured into a CUDA graph is not counted: it runs on each
-replay of the graph, without Python, and the graph's owner counts those
-(``serving.scanloop``: kernel nodes times replays).
+``launches["pool_chain"]`` counts launches of either entry point: a plain
+int raised by one where the kernel is launched and nowhere else. A launch
+made while the stream is captured into a CUDA graph is not counted: it
+runs on each replay of the graph, without Python, and the graph's owner
+counts those (``serving.scanloop``: kernel nodes times replays).
 """
 from __future__ import annotations
 
@@ -19,17 +21,37 @@ from repro_torch.kernels.pool_chain import build, ref
 
 launches = {"pool_chain": 0}
 
-#: the largest n and M one launch takes: its block keeps 8n + 21M bytes of
+#: the largest n and M one launch takes: its block keeps 4n + 34M bytes of
 #: shared memory (kMaxN, kMaxM in the source)
 MAX_N, MAX_M = 16384, 4096
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, size: int) -> None:
-    if t.dtype != dtype or t.dim() != 1 or t.shape[0] != size:
-        raise ValueError(f"{name}: expected {dtype}[{size}], got "
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected {dtype}{list(shape)}, got "
                          f"{t.dtype}{list(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _device(ts) -> torch.device:
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _fits(n: int, M: int) -> None:
+    if not (1 <= n <= MAX_N and M <= MAX_M):
+        raise ValueError(f"pool_chain: n={n}, M={M} outside n <= {MAX_N}, M <= {MAX_M}")
+
+
+def _counted() -> None:
+    if not torch.cuda.is_current_stream_capturing():
+        launches["pool_chain"] += 1
 
 
 def pool_chain(free_at, speeds, workers, arrivals, costs, active):
@@ -37,23 +59,18 @@ def pool_chain(free_at, speeds, workers, arrivals, costs, active):
     costs f64[M], active bool[M] -> (start f64[M], done f64[M], free_at'
     f64[n]). Workers must lie in [0, n)."""
     n, M = free_at.shape[0], workers.shape[0]
-    _check(free_at, "free_at", torch.float64, n)
-    _check(speeds, "speeds", torch.float64, n)
-    _check(workers, "workers", torch.int32, M)
-    _check(arrivals, "arrivals", torch.float64, M)
-    _check(costs, "costs", torch.float64, M)
-    _check(active, "active", torch.bool, M)
+    for t, name, dt, size in ((free_at, "free_at", torch.float64, n),
+                              (speeds, "speeds", torch.float64, n),
+                              (workers, "workers", torch.int32, M),
+                              (arrivals, "arrivals", torch.float64, M),
+                              (costs, "costs", torch.float64, M),
+                              (active, "active", torch.bool, M)):
+        _check(t, name, dt, (size,))
     ts = (free_at, speeds, workers, arrivals, costs, active)
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
+    dev = _device(ts)
     if dev.type == "cpu":
         return ref.pool_chain_ref(*ts)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not (1 <= n <= MAX_N and M <= MAX_M):
-        raise ValueError(f"pool_chain: n={n}, M={M} outside n <= {MAX_N}, M <= {MAX_M}")
+    _fits(n, M)
     start = torch.empty(M, dtype=torch.float64, device=dev)
     done = torch.empty(M, dtype=torch.float64, device=dev)
     free_out = torch.empty(n, dtype=torch.float64, device=dev)
@@ -62,9 +79,62 @@ def pool_chain(free_at, speeds, workers, arrivals, costs, active):
             *(t.data_ptr() for t in ts), n, M, start.data_ptr(), done.data_ptr(),
             free_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.LIBRARY.raise_on(err, "pool_chain")
-    if not torch.cuda.is_current_stream_capturing():
-        launches["pool_chain"] += 1
+    _counted()
     return start, done, free_out
+
+
+def pool_turn(free_at, speeds, fake_js, burst, workers, times, costs, fake_cost: float,
+              burst_cost: float, *, free_out=None, chain_max=None):
+    """A serving turn's replica chain from its groups: benchmark replicas
+    fake_js i32[mf] (-1 inactive), probe-burst targets burst i32[bc] (-1 a
+    pad), the batch's replicas workers i32[k], arrival times f64[k] and
+    costs f64[k], k >= 1, on free_at f64[n] and speeds f64[n].
+
+    Returns (start f64[M], done f64[M], sub_w i32[M], act bool[M], free_at'
+    f64[n], resp f64[k]), M = mf + bc + k, as ``ref.pool_turn_ref``. With
+    ``free_out`` (f64[n], may be ``free_at`` itself) the new clocks are
+    written there; ``chain_max`` (an i32 scalar) is raised to the longest
+    chain of this turn. Replicas must lie in [0, n)."""
+    n, mf, bc, k = free_at.shape[0], fake_js.shape[0], burst.shape[0], workers.shape[0]
+    if k < 1:
+        raise ValueError("pool_turn: the batch is empty")
+    checks = [(free_at, "free_at", torch.float64, (n,)), (speeds, "speeds", torch.float64, (n,)),
+              (fake_js, "fake_js", torch.int32, (mf,)), (burst, "burst", torch.int32, (bc,)),
+              (workers, "workers", torch.int32, (k,)), (times, "times", torch.float64, (k,)),
+              (costs, "costs", torch.float64, (k,))]
+    if free_out is not None:
+        checks.append((free_out, "free_out", torch.float64, (n,)))
+    if chain_max is not None:
+        checks.append((chain_max, "chain_max", torch.int32, ()))
+    for t, name, dt, shape in checks:
+        _check(t, name, dt, shape)
+    dev = _device([c[0] for c in checks])
+    if dev.type == "cpu":
+        *out, fa, resp = ref.pool_turn_ref(free_at, speeds, fake_js, burst, workers, times,
+                                           costs, fake_cost, burst_cost)
+        if chain_max is not None:
+            chain_max.clamp_(min=ref.longest_chain(out[2], n))
+        if free_out is not None:
+            fa = free_out.copy_(fa)
+        return (*out, fa, resp)
+    M = mf + bc + k
+    _fits(n, M)
+    f64 = dict(dtype=torch.float64, device=dev)
+    start, done, resp = torch.empty(M, **f64), torch.empty(M, **f64), torch.empty(k, **f64)
+    sub_w = torch.empty(M, dtype=torch.int32, device=dev)
+    act = torch.empty(M, dtype=torch.bool, device=dev)
+    if free_out is None:
+        free_out = torch.empty(n, **f64)
+    with torch.cuda.device(dev):
+        err = build.load().pool_turn(
+            *(t.data_ptr() for t in (free_at, speeds, fake_js, burst, workers, times, costs)),
+            float(fake_cost), float(burst_cost), n, mf, bc, k,
+            *(t.data_ptr() for t in (start, done, sub_w, act, free_out, resp)),
+            None if chain_max is None else chain_max.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.LIBRARY.raise_on(err, "pool_turn")
+    _counted()
+    return start, done, sub_w, act, free_out, resp
 
 
 def reset_launches() -> None:

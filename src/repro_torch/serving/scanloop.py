@@ -14,10 +14,12 @@ tensors of fixed size, the carry:
     ``comp_cap`` oldest due completions in (done time, insertion) order,
     the host loop's stable sort;
   * the replica pool (``free_at`` per replica, f64). The turn's submission
-    chain is the ``pool_chain`` kernel, ``SimulatedPool.submit``'s
+    chain is one launch of the pool-chain kernel (``pool_turn``), which
+    assembles the turn's submissions and runs ``SimulatedPool.submit``'s
     recurrence ``start = max(arrival, free_at); done = start + cost/μ``
     step for step (the host side pairs with ``SequentialPool`` for exact
-    parity).
+    parity); ``chain_max`` keeps the most submissions one replica took in
+    a turn (``info["longest_chain"]``).
 
 A turn reads its row of the workload (arrival times, costs, speeds, and
 with churn the membership columns) from a chunk of rows on the device and
@@ -146,10 +148,12 @@ class ScanConfig:
 def _turn(cfg: ScanConfig, c: dict, x: dict):
     """One serving turn on the carry ``c`` and the workload row ``x``, as
     the reference's scan body. Returns (new carry, resp f64[k], μ̂ sample
-    f32[n]); the inputs are not written."""
+    f32[n]). The pool chain writes the carry's ``free_at`` and
+    ``chain_max`` in place; the new carry holds everything else, and
+    nothing else of the inputs is written."""
     times64, costs64, speeds64 = x["times"], x["costs"], x["speeds"]
     dev = times64.device
-    P, C, k, mf, bc = cfg.pend_cap, cfg.comp_cap, cfg.k, cfg.max_fake, cfg.burst_cap
+    P, C, k, mf = cfg.pend_cap, cfg.comp_cap, cfg.k, cfg.max_fake
     t64 = times64[-1]
     t32 = t64.float()
     p_done, p_start, p_rep, p_seq, p_valid = (
@@ -187,18 +191,12 @@ def _turn(cfg: ScanConfig, c: dict, x: dict):
         (t32, c["last_fake"], comp_now32), k, cfg.policy, mf, cfg.use_alias, active_t)
 
     # -- the replica pool: fakes, probe bursts, then the arrival batch, in
-    #    the host's submit order; inactive fakes and burst pads reach no
-    #    replica's clock
-    act = torch.cat([fake_js >= 0, burst_t >= 0,
-                     torch.ones(k, dtype=torch.bool, device=dev)])
-    sub_w = torch.cat([fake_js.clamp(min=0), burst_t.clamp(min=0), workers])
-    sub_arr = torch.cat([t64.expand(mf + bc), times64])
-    f64 = dict(dtype=torch.float64, device=dev)
-    sub_cost = torch.cat([torch.full((mf,), cfg.fake_cost, **f64),
-                          torch.full((bc,), cfg.burst_cost, **f64), costs64])
-    sub_start, sub_done, free_at = pool_kernel.pool_chain(
-        c["free_at"], speeds64, sub_w, sub_arr, sub_cost, act)
-    resp = sub_done[mf + bc:] - times64
+    #    the host's submit order, assembled and chained in one launch that
+    #    updates the carry's clocks in place; inactive fakes and burst pads
+    #    reach no replica's clock
+    sub_start, sub_done, sub_w, act, _, resp = pool_kernel.pool_turn(
+        c["free_at"], speeds64, fake_js, burst_t, workers, times64, costs64,
+        cfg.fake_cost, cfg.burst_cost, free_out=c["free_at"], chain_max=c["chain_max"])
 
     # -- append the new in-flight work: compact the survivors to the front
     #    in insertion order, then write the active submissions behind them;
@@ -219,7 +217,7 @@ def _turn(cfg: ScanConfig, c: dict, x: dict):
 
     new = dict(
         q_view=q_view, arr_last=arr.last_time, arr_gap=arr.mean_gap,
-        arr_count=arr.count, key=key, last_fake=t32, free_at=free_at,
+        arr_count=arr.count, key=key, last_fake=t32,
         p_done=append(p_done, sub_done), p_start=append(p_start, sub_start),
         p_rep=append(p_rep, sub_w), p_seq=append(p_seq, c["seq_ctr"] + pos),
         p_valid=append(p_valid, torch.ones_like(act)),
@@ -337,7 +335,7 @@ class TurnRunner:
             widx=z((n,), i32), count=z((n,), i32), epoch_start=z((n,), f32),
             mu_hat=z((n,), f32, 1.0), arr_last=z((), f32), arr_gap=z((), f32),
             arr_count=z((), i32), key=z((2,), torch.int64), last_fake=z((), f32),
-            free_at=z((n,), f64), p_done=z((P,), f64, float("inf")),
+            free_at=z((n,), f64), chain_max=z((), i32), p_done=z((P,), f64, float("inf")),
             p_start=z((P,), f64), p_rep=z((P,), i32), p_seq=z((P,), i32),
             p_valid=z((P,), torch.bool), seq_ctr=z((), i32), over_flush=z((), i32),
             over_pend=z((), i32))
@@ -406,8 +404,8 @@ class TurnRunner:
         c["last_fake"].fill_(float(np.float32(router.last_fake_time)))
         c["free_at"].copy_(torch.from_numpy(np.asarray(pool.free_at, np.float64)))
         c["p_done"].fill_(float("inf"))
-        for f in ("p_start", "p_rep", "p_seq", "p_valid", "seq_ctr", "over_flush",
-                  "over_pend"):
+        for f in ("chain_max", "p_start", "p_rep", "p_seq", "p_valid", "seq_ctr",
+                  "over_flush", "over_pend"):
             c[f].zero_()
 
     def run_chunk(self, columns: dict):
@@ -476,7 +474,8 @@ def run_simulation_scan(
     Semantics are the router's deterministic ``async_mu=False`` mode.
     Returns ``(response_times, mu_trace, info)``; ``info`` carries the
     overflow counters (both 0: the fixed capacities were faithful to the
-    host loop), the turn count and, on CUDA, the capture's time (0.0 where
+    host loop), the turn count, the most submissions one replica took in a
+    turn (``longest_chain``) and, on CUDA, the capture's time (0.0 where
     the graph was captured by an earlier run), the graph's node count, its
     kernel nodes by name and the replays this run issued.
     """
@@ -485,7 +484,7 @@ def run_simulation_scan(
                               seed, arrival_batch, pool.speeds)
     if wl is None:
         return np.empty(0), np.zeros((0, router.n)), {
-            "turns": 0, "flush_overflow": 0, "pend_overflow": 0}
+            "turns": 0, "flush_overflow": 0, "pend_overflow": 0, "longest_chain": 0}
     times_np, costs_np, speeds_np = wl
     return run_workload_scan(
         router, pool, times_np, costs_np, speeds_np, fake_cost=request_cost * 0.25,
@@ -599,6 +598,7 @@ def _drive_scan(router: rt.RosellaRouter, pool: rt.SimulatedPool, chunks, *,
     info = {"turns": sum(len(m) for m in mu_l),
             "flush_overflow": int(c["over_flush"].item()),
             "pend_overflow": int(c["over_pend"].item()),
+            "longest_chain": int(c["chain_max"].item()),
             "capture_s": run.capture_s if replays0 == 0 else 0.0,
             "graph_nodes": run.graph_nodes,
             "graph_kernels": dict(run.graph_kernels), "replays": run.replays - replays0}

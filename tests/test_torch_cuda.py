@@ -579,6 +579,71 @@ def test_pool_chain_kernel_matches_plain_version(dev, n, M):
     assert ck.launch_counts()["pool_chain"] == 1
 
 
+def _same_nan(g, w) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    nan = torch.isnan(w)
+    return torch.equal(torch.isnan(g), nan) and torch.equal(g[~nan], w[~nan])
+
+
+def test_pool_chain_kernel_walks_one_replica_of_every_step(dev):
+    """The worst case: all M = 4096 steps on one replica, one chain."""
+    from repro_torch.kernels.pool_chain import kernel as ck
+    from repro_torch.kernels.pool_chain import ref as cr
+
+    args = _chain(16384, ck.MAX_M, dev)
+    args[2].fill_(123)
+    got, want = ck.pool_chain(*args), cr.pool_chain_ref(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["empty", "distinct", "one replica", "a replica 30 times",
+                                  "tile borders", "inactive heads", "ties", "nan arrivals"])
+def test_pool_chain_kernel_matches_plain_version_on_planted_chains(dev, name):
+    from repro_torch.kernels.pool_chain import kernel as ck
+    from repro_torch.kernels.pool_chain import ref as cr
+
+    args = [torch.from_numpy(x).to(dev) for x in cr.planted_chains()[name]]
+    got, want = ck.pool_chain(*args), cr.pool_chain_ref(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float64 and _same_nan(g, w)
+
+
+@pytest.mark.parametrize("n,mf,bc,k", [(64, 8, 3, 32), (1024, 8, 0, 128), (2048, 8, 0, 2048),
+                                       (16384, 8, 5, 4083)])
+def test_pool_turn_kernel_matches_plain_version(dev, n, mf, bc, k):
+    """The turn form: assembly, chain, responses, in-place clocks and the
+    running longest chain, against the assembly and the host walk."""
+    from repro_torch.kernels.pool_chain import kernel as ck
+    from repro_torch.kernels.pool_chain import ref as cr
+
+    rng = np.random.RandomState(n + k)
+    fa, sp = rng.rand(n) * 3, rng.rand(n) + 0.05
+    fake = rng.randint(0, n, mf).astype(np.int32)
+    fake[::3] = -1
+    burst = rng.randint(0, n, bc).astype(np.int32)
+    burst[::2] = -1
+    workers = rng.randint(0, n, k).astype(np.int32)
+    workers[k // 3:k // 3 + 20] = fake[1]  # a benchmarked replica takes 20 in a row
+    times = np.sort(rng.rand(k) * 3)
+    costs = rng.exponential(1.0, k)
+    t = [torch.from_numpy(x).to(dev) for x in (fa, sp, fake, burst, workers, times, costs)]
+    want = cr.pool_turn_ref(*t, 0.25, 1.0)
+    cm = torch.zeros((), dtype=torch.int32, device=dev)
+    free = t[0].clone()
+    ck.reset_launches()
+    got = ck.pool_turn(free, *t[1:], 0.25, 1.0, free_out=free, chain_max=cm)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["pool_chain"] == 1 and got[4] is free
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(cm) == cr.longest_chain(want[2], n) >= 21
+    got = ck.pool_turn(*t, 0.25, 1.0)  # into a new free_at
+    assert torch.equal(got[4], want[4]) and torch.equal(t[0], torch.from_numpy(fa).to(dev))
+
+
 def test_pool_chain_refuses_what_one_block_cannot_hold(dev):
     from repro_torch.kernels.pool_chain import kernel as ck
 
@@ -658,6 +723,7 @@ def test_scan_on_the_card_equals_the_host_loop(dev, use_alias):
     rs, ms, info = tsl.run_simulation_scan(rb, pb, **kw)
     assert info["capture_s"] is not None and info["pend_overflow"] == 0
     assert info["replays"] == info["turns"] == len(mh)
+    assert info["longest_chain"] >= 2  # 16 arrivals and benchmarks on 4 replicas
     np.testing.assert_array_equal(rh, rs)
     np.testing.assert_array_equal(mh, ms)
     np.testing.assert_array_equal(pa.free_at, pb.free_at)

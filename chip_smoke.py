@@ -18,6 +18,12 @@ on the card. Then it drives the port's two paths:
     of 2048 (alias), through the PPoT kernels, the alias-table build and
     the pool-chain kernel, whose result on a real turn of the alias cells
     is held bit for bit to its plain version;
+  * the environment engine (``repro_torch.env``): the ten fault-free
+    scenarios of the registry at the thousand-replica cell, each through
+    the one-program loop beside the host loop (``run_workload``,
+    ``run_workload_scan``), with the adaptation-time summary; four of them
+    also through ``run_scenario`` on both loops with the exact pool chain,
+    held equal bit for bit, two of those on the inverse-CDF stream too;
   * model serving: a full-width smollm-360m (published config, bf16,
     random weights from the seed) prefilled at B=4, S=4096 through
     ``models.api.prefill`` (one flash-attention launch per layer), then
@@ -115,8 +121,16 @@ CHECK_EVERY = 10
 # bar of tests/test_scanloop.py
 SCAN_MODES = {"a": (True, False), "b": (False, False), "c": (False, True),
               "d": (True, True), "e": (True, False)}  # (use_alias, churn)
-SCAN_TURNS, SCAN_MIN_TURNS, SCAN_TOL = 2050, 2000, 0.15
+# ~1550 turns a cell (2050 before the scenario phase came in, which keeps
+# the whole script near 400 s)
+SCAN_TURNS, SCAN_MIN_TURNS, SCAN_TOL = 1550, 1500, 0.15
 SCAN_PROFILE_TURNS = 50
+# The profiler on the H100 now and then drops a graph kernel's record, at a
+# random point of a session (one replay's K1, table and chain, or one
+# kernel alone): a session whose per-turn counts miss the graph's nodes is
+# run again, up to PROFILE_ATTEMPTS sessions, and the last must match
+# exactly
+PROFILE_ATTEMPTS = 3
 # (e) the one-program loop at the paper's scale (§1: thousands of servers,
 # millions of tasks a second): n = 2048 replicas, the largest n the
 # reference's dispatch kernel is written for, with the same §6.1 speed grid
@@ -125,6 +139,24 @@ SCAN_PROFILE_TURNS = 50
 SCAN_SHAPE = {"e": (2048, 2048, 300, 280)}  # (n, batch, turns, min turns)
 # the cells whose real turn is held against the plain version and timed
 REAL_TURN_MODES = ("a", "e")
+# the environment engine (repro_torch.env) at the scheduler cell: n =
+# N_REPLICAS with the same speeds, arrivals at LOAD·Σ speeds, batches of
+# BATCH, async_mu=False, each scenario on its own clock (the registry's
+# horizon of 360 s, its shifts at the registry's instants, its process
+# parameters the registry's; only the cluster is scaled). churn,
+# cotenant_shock and grey_failure touch the registry's fixed replicas 0-2,
+# so at n = 1024 they move one or two replicas. Each runs through the
+# one-program loop beside the host loop on a SimulatedPool (p50 and p99
+# within SCAN_TOL); SCENARIO_EXACT also on a SequentialPool, where the two
+# loops must be equal bit for bit, on the alias stream and, for
+# SCENARIO_CDF, on the inverse-CDF stream (K2 unmasked, K3 under churn)
+SCENARIOS = ("null", "reshuffle", "flash_crowd", "diurnal", "cotenant_shock", "speed_drift",
+             "churn", "churn_heavy", "trace_replay", "grey_failure")
+SCENARIO_EXACT = ("null", "flash_crowd", "churn", "churn_heavy")
+SCENARIO_CDF = ("flash_crowd", "churn_heavy")
+SCENARIO_FIXED_REPLICAS = {"churn": "replica 1", "cotenant_shock": "replicas 0-1",
+                           "grey_failure": "replicas 0-1"}
+SCENARIO_MIN_RHO = {"null": 0.9}
 # exact parity on the card: the reference test's shape (n=4) and n=1024 at
 # a load where neither loop overflows a capacity
 EXACT_N4 = dict(arrival_rate=3.0, horizon=150.0, seed=0, arrival_batch=16)
@@ -778,19 +810,23 @@ def scan_cell(torch, tr, tsl, K, CK, CR, met, speed_set, dev, mode: str):
     cfg = tsl.scan_config(router, B, churn=churn, fake_cost=0.25, pend_cap=pend_cap,
                           comp_cap=comp_cap)
     run = tsl.runner(cfg, str(dev), T)
-    fresh = tr.RosellaRouter(n, float(speeds.sum()), seed=SEED,
-                             use_alias=use_alias, async_mu=False, device=dev)
-    run.load(fresh, tr.SimulatedPool(speeds))
     W = SCAN_PROFILE_TURNS
     cols = dict(times=times[:W], costs=costs[:W], speeds=sp[:W])
     if churn:
         cols.update(active=active[:W], rejoin=np.zeros((W, n), bool),
                     burst=np.zeros((W, 0), np.int32))
-    prof = device_profile(torch, lambda: run.run_chunk(cols))
-    per_turn = {w: c / W for w, c in by_wrapper(prof["count"]).items()}
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        run.load(tr.RosellaRouter(n, float(speeds.sum()), seed=SEED, use_alias=use_alias,
+                                  async_mu=False, device=dev), tr.SimulatedPool(speeds))
+        prof = device_profile(torch, lambda: run.run_chunk(cols))
+        per_turn = {w: c / W for w, c in by_wrapper(prof["count"]).items()}
+        if per_turn == {w: float(c) for w, c in per_replay.items()}:
+            break
+        print(f"[scan {mode}] profiler session {attempt}: {per_turn} a turn, the graph "
+              f"holds {per_replay}")
     need(per_turn == {w: float(c) for w, c in per_replay.items()},
          f"[scan {mode}] the profiled replays launched {per_turn} a turn, the graph "
-         f"holds {per_replay}")
+         f"holds {per_replay} ({PROFILE_ATTEMPTS} profiler sessions)")
     # each kernel's device time inside a replay, by name
     in_replay = {w: us / 1e3 / W for w, us in by_wrapper(prof["us"]).items() if us > 0}
     turn_args = real = cause = None
@@ -874,6 +910,261 @@ def phase_scan(torch, tr, tsl, K, CK, CR, met, speed_set, dev):
             need(cells[mode]["launches"][name] > 0,
                  f"[scan {mode}] {name} was never launched by the graph's replays")
     return pool_err, exact, cells, real_turns
+
+
+# ---------------------------------------------------------------------------
+# the environment engine: scenarios through both serving loops
+# ---------------------------------------------------------------------------
+
+
+def scenario_router_class(tr):
+    """CheckedRouter that also keeps the most work in flight when a turn
+    starts: what its pool (``counting_pool``) took less what was flushed."""
+    Checked = make_router_class(tr)
+
+    class ScenarioRouter(Checked):
+        pool = None
+        flushed = most_pending = 0
+
+        def serve_turn(self, now, k, comp_workers=None, comp_times=None, comp_now=None):
+            self.most_pending = max(self.most_pending, self.pool.submitted - self.flushed)
+            self.flushed += 0 if comp_workers is None else len(comp_workers)
+            return super().serve_turn(now, k, comp_workers, comp_times, comp_now)
+    return ScenarioRouter
+
+
+def counting_pool(pool):
+    """``pool``, counting the submissions it takes in ``pool.submitted``."""
+    submit = pool.submit_batch
+    pool.submitted = 0
+
+    def counted(replicas, arrivals, costs):
+        pool.submitted += len(replicas)
+        return submit(replicas, arrivals, costs)
+    pool.submit_batch = counted
+    return pool
+
+
+def scan_launches(K, CK, info) -> dict:
+    """A scan run's launches by wrapper: the eager warm-up turns before a
+    capture (the wrappers' counts; nothing is counted under capture) and
+    each replay's kernel nodes, read from the captured graph, times the
+    replays issued."""
+    eager = {**K.launch_counts(), **CK.launch_counts()}
+    per_replay = by_wrapper(info["graph_kernels"])
+    return {w: eager.get(w, 0) + info["replays"] * per_replay[w] for w in PROFILE_NAMES}
+
+
+def scenario_host(torch, tr, tenv, K, chk, scn, dev, *, use_alias, sequential, wl=None):
+    """The host loop over ``scn`` on the card, its kernels held to their
+    plain versions every CHECK_EVERY calls: through ``run_scenario`` when
+    ``wl`` is None, else ``run_workload`` on ``wl``. Returns the run, its
+    wall clock, its launches and the capacities the scan needs (the largest
+    flush and the most in flight, x1.25 to a power of two)."""
+    speeds0 = np.asarray(scn.speeds, float)
+    router = scenario_router_class(tr)(scn.n, float(speeds0.sum()), seed=SEED,
+                                        use_alias=use_alias, async_mu=False, device=dev)
+    router.speeds = speeds0
+    pool = counting_pool((tr.SequentialPool if sequential else tr.SimulatedPool)(speeds0))
+    router.pool = pool
+    saved = {name: getattr(K, name) for name in REPLACES}
+    for name in REPLACES:
+        setattr(K, name, chk.wrap(name, CHECK_EVERY))
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        if wl is None:
+            out = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_alias=use_alias,
+                                    router=router, pool=pool, device=dev)
+        else:
+            resp, mu, info = tenv.run_workload(router, pool, wl,
+                                               fake_cost=scn.request_cost * 0.25)
+            out = dict(responses=resp, mu_trace=mu, info=info, workload=wl, router=router,
+                       pool=pool)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name, fn)
+    most = max(router.most_pending, pool.submitted - router.flushed)
+    caps = dict(comp_cap=_pow2_at_least(1.25 * max(router.max_due, 1)),
+                pend_cap=_pow2_at_least(1.25 * max(most, 1)), max_due=router.max_due,
+                most_in_flight=most)
+    need(np.isfinite(out["responses"]).all() and (out["responses"] > 0).all(),
+         f"[scenario {scn.name}] bad host responses")
+    return out, wall, launches, caps
+
+
+def scenario_exact(torch, tr, tenv, K, CK, chk, scn, dev, use_alias: bool) -> dict:
+    """``run_scenario`` on the card, host loop and one-program loop, both on
+    a SequentialPool: responses, μ̂ trace and free_at equal bit for bit,
+    overflows 0 (``strict_overflow``)."""
+    stream = "alias" if use_alias else "icdf"
+    h, _, host_launches, caps = scenario_host(torch, tr, tenv, K, chk, scn, dev,
+                                              use_alias=use_alias, sequential=True)
+    router = tr.RosellaRouter(scn.n, float(np.sum(scn.speeds)), seed=SEED,
+                              use_alias=use_alias, async_mu=False, device=dev)
+    K.reset_launches()
+    CK.reset_launches()
+    s = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_alias=use_alias,
+                          use_scan=True, sequential_pool=True, router=router,
+                          pend_cap=caps["pend_cap"], comp_cap=caps["comp_cap"], device=dev)
+    torch.cuda.synchronize()
+    info = s["info"]
+    launches = scan_launches(K, CK, info)
+    need(info["replays"] == info["turns"] == s["workload"].turns,
+         f"[scenario {scn.name} exact {stream}] the turns were not graph replays ({info})")
+    need(info["flush_overflow"] == 0 and info["pend_overflow"] == 0,
+         f"[scenario {scn.name} exact {stream}] {info}")
+    for part, ok in (("responses", np.array_equal(h["responses"], s["responses"])),
+                     ("mu trace", np.array_equal(h["mu_trace"], s["mu_trace"])),
+                     ("free_at", np.array_equal(h["pool"].free_at, s["pool"].free_at))):
+        need(ok, f"[scenario {scn.name} exact {stream}] the scan's {part} differ from the "
+             f"host loop's")
+    print(f"[scenario {scn.name}] exact {stream}: run_scenario host loop and one-program "
+          f"loop on a SequentialPool, {info['turns']} turns: responses, mu trace and free_at "
+          f"equal; overflows 0 at pend_cap {caps['pend_cap']} comp_cap {caps['comp_cap']} "
+          f"(host loop: largest flush {caps['max_due']}, most in flight "
+          f"{caps['most_in_flight']}); launches host {json.dumps(host_launches)}, scan "
+          f"{json.dumps(launches)}")
+    return dict(turns=info["turns"], host=host_launches, scan=launches, **caps)
+
+
+def scenario_cell(torch, tr, tsl, tenv, K, CK, chk, met, scn, dev) -> dict:
+    """One scenario on the alias stream: the host loop on a SimulatedPool,
+    then the one-program loop on the same workload; p50/p99 within
+    SCAN_TOL, μ̂ ranking over the active replicas, adaptation summary."""
+    t0 = time.perf_counter()
+    wl = scn.compile_serving(seed=SEED, arrival_batch=BATCH)
+    compile_s = time.perf_counter() - t0
+    h, wall_h, host_launches, caps = scenario_host(torch, tr, tenv, K, chk, scn, dev,
+                                                   use_alias=True, sequential=False, wl=wl)
+    speeds0 = np.asarray(scn.speeds, float)
+    router = tr.RosellaRouter(scn.n, float(speeds0.sum()), seed=SEED, use_alias=True,
+                              async_mu=False, device=dev)
+    K.reset_launches()
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp, mu_trace, info = tsl.run_workload_scan(
+        router, tr.SimulatedPool(speeds0), wl.times, wl.costs, wl.speeds,
+        active_np=wl.active, rejoin_np=wl.rejoin, burst_np=wl.burst,
+        fake_cost=scn.request_cost * 0.25, pend_cap=caps["pend_cap"],
+        comp_cap=caps["comp_cap"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = scan_launches(K, CK, info)
+    T = wl.turns
+    need(info["replays"] == info["turns"] == T and info["graph_nodes"] is not None,
+         f"[scenario {scn.name}] the turns were not graph replays ({info})")
+    need(info["flush_overflow"] == 0 and info["pend_overflow"] == 0,
+         f"[scenario {scn.name}] {info}")
+    need(np.isfinite(resp).all() and (resp > 0).all() and resp.shape == (T * BATCH,)
+         and mu_trace.shape == (T, scn.n), f"[scenario {scn.name}] bad responses or trace")
+    for name in ("ppot_dispatch_fused_alias", "alias_table"):
+        need(host_launches[name] > 0, f"[scenario {scn.name}] the host loop never "
+             f"launched {name}")
+    for name in ("ppot_dispatch_fused_alias", "alias_table", "pool_chain"):
+        need(launches[name] > 0, f"[scenario {scn.name}] the scan never launched {name}")
+    s, sh = met.serve_summary(resp), met.serve_summary(h["responses"])
+    for q in ("p50", "p99"):
+        need(abs(s[q] - sh[q]) <= SCAN_TOL * sh[q], f"[scenario {scn.name}] {q} "
+             f"{s[q]:.6f} is not within {SCAN_TOL} of the host loop's {sh[q]:.6f}")
+    live = np.ones(scn.n, bool) if wl.active is None else wl.active[-1]
+    rho = spearman(router.mu_hat[live], wl.speeds[-1][live])
+    rho_h = spearman(h["router"].mu_hat[live], wl.speeds[-1][live])
+    if scn.name in SCENARIO_MIN_RHO:
+        need(min(rho, rho_h) >= SCENARIO_MIN_RHO[scn.name], f"[scenario {scn.name}] μ̂ "
+             f"ranks the replicas poorly (Spearman {rho:.4f}, host loop {rho_h:.4f})")
+    # the first SCAN_PROFILE_TURNS replays again, from a fresh router's
+    # state, under the profiler: device busy time and idle share a turn
+    churn = wl.active is not None
+    cfg = tsl.scan_config(router, BATCH, churn=churn,
+                          burst_cap=wl.burst.shape[1] if churn else 0,
+                          fake_cost=scn.request_cost * 0.25, pend_cap=caps["pend_cap"],
+                          comp_cap=caps["comp_cap"])
+    run = tsl.runner(cfg, str(dev), T)
+    run.load(tr.RosellaRouter(scn.n, float(speeds0.sum()), seed=SEED, use_alias=True,
+                              async_mu=False, device=dev), tr.SimulatedPool(speeds0))
+    W = SCAN_PROFILE_TURNS
+    cols = dict(times=wl.times[:W], costs=wl.costs[:W], speeds=wl.speeds[:W])
+    if churn:
+        cols.update(active=wl.active[:W], rejoin=wl.rejoin[:W], burst=wl.burst[:W])
+    prof = device_profile(torch, lambda: run.run_chunk(cols))
+    adapt = met.adaptation_report(wl.times[:, -1], mu_trace, wl.speeds, wl.shift_times,
+                                  active=wl.active)
+    adapt_h = met.adaptation_report(wl.times[:, -1], h["mu_trace"], wl.speeds,
+                                    wl.shift_times, active=wl.active)
+    run_s = wall - info["capture_s"]
+    res = dict(turns=T, requests=int(resp.size), trace_dropped=int(wl.trace_dropped),
+               compile_s=compile_s, turns_per_s=T / run_s, decisions_per_s=resp.size / run_s,
+               host_turns_per_s=T / wall_h, host_decisions_per_s=resp.size / wall_h,
+               capture_s=info["capture_s"], graph_nodes=info["graph_nodes"],
+               launches_per_replay=sum(info["graph_kernels"].values()),
+               busy_ms_per_turn=prof["busy_us"] / 1e3 / W, idle=prof["idle"], p50=s["p50"],
+               p99=s["p99"], host_p50=sh["p50"], host_p99=sh["p99"], rho=rho, rho_host=rho_h,
+               active_final=int(live.sum()), longest_chain=info["longest_chain"],
+               adaptation={k: adapt[k] for k in ("n_shifts", "n_unadapted", "mean", "max")},
+               adaptation_host={k: adapt_h[k] for k in ("n_shifts", "n_unadapted", "mean",
+                                                        "max")},
+               host_launches=host_launches, launches=launches, **caps)
+    fixed = SCENARIO_FIXED_REPLICAS.get(scn.name)
+    print(f"[scenario {scn.name}] n={scn.n} batch={BATCH} alias"
+          + (f" (moves {fixed} of {scn.n})" if fixed else "")
+          + f": {T} turns, {resp.size} requests"
+          + (f", trace_dropped {wl.trace_dropped}" if wl.trace_dropped else "")
+          + f" (compiled in {compile_s:.3f} s); scan {res['turns_per_s']:.2f} turns/s "
+          f"{res['decisions_per_s']:.1f} decisions/s, host loop (checked) "
+          f"{res['host_turns_per_s']:.2f} turns/s {res['host_decisions_per_s']:.1f} "
+          f"decisions/s; capture_s {info['capture_s']}, graph nodes {info['graph_nodes']}, "
+          f"launches per replay {res['launches_per_replay']}, {W} replays profiled: busy "
+          f"{res['busy_ms_per_turn']:.4f} ms a turn, idle share {prof['idle']:.4f}; p50 "
+          f"{s['p50']:.6f} p99 "
+          f"{s['p99']:.6f} (host loop {sh['p50']:.6f} / {sh['p99']:.6f}); "
+          f"spearman(mu_hat, speeds) over the {res['active_final']} active replicas "
+          f"{rho:.4f} (host loop {rho_h:.4f}); adaptation n_shifts {adapt['n_shifts']} "
+          f"n_unadapted {adapt['n_unadapted']} mean {adapt['mean']:.3f} s max "
+          f"{adapt['max']:.3f} s (host loop {adapt_h['n_unadapted']} / "
+          f"{adapt_h['mean']:.3f} / {adapt_h['max']:.3f}); pend_cap {caps['pend_cap']} "
+          f"comp_cap {caps['comp_cap']} (host loop: largest flush {caps['max_due']}, most "
+          f"in flight {caps['most_in_flight']}); longest chain {info['longest_chain']}")
+    return res
+
+
+def phase_scenarios(torch, tr, tsl, tenv, K, CK, chk, met, speeds, dev, card):
+    """Every fault-free scenario of the registry at the scheduler cell
+    through both serving loops on the card; returns the records and the
+    phase's launches by wrapper."""
+    t0 = time.perf_counter()
+    rate = LOAD * float(speeds.sum())
+    print(f"[scenarios] {card}; n={N_REPLICAS} (tpch_speed_set, sum {speeds.sum():.2f}), "
+          f"rate {rate:.3f}/s, batches of {BATCH}, async_mu=False, seed {SEED}")
+    cells, exact = {}, {}
+    total = {w: 0 for w in PROFILE_NAMES}
+    for name in SCENARIOS:
+        scn = tenv.make(name, speeds=tuple(speeds), rate=rate)
+        cells[name] = scenario_cell(torch, tr, tsl, tenv, K, CK, chk, met, scn, dev)
+        runs = [cells[name]]
+        for use_alias in (True, False):
+            if name in (SCENARIO_EXACT if use_alias else SCENARIO_CDF):
+                rec = scenario_exact(torch, tr, tenv, K, CK, chk, scn, dev, use_alias)
+                exact[f"{name} {'alias' if use_alias else 'icdf'}"] = rec
+                runs.append(dict(host_launches=rec["host"], launches=rec["scan"]))
+        for r in runs:
+            for w in PROFILE_NAMES:
+                total[w] += r["host_launches"].get(w, 0) + r["launches"][w]
+    for key, names in (("flash_crowd icdf", ("ppot_dispatch_fused",)),
+                       ("churn_heavy icdf", ("ppot_dispatch",))):
+        for w in names:
+            need(exact[key]["host"][w] > 0 and exact[key]["scan"][w] > 0,
+                 f"[scenario {key}] {w} was not launched by both loops")
+    for w in PROFILE_NAMES:
+        need(total[w] > 0, f"[scenarios] {w} was never launched")
+    secs = time.perf_counter() - t0
+    print(f"[scenarios] {len(cells)} scenarios, {len(exact)} exact pairs in {secs:.1f} s; "
+          f"launches {json.dumps(total)}")
+    return dict(cells=cells, exact=exact, seconds=secs), total
 
 
 # ---------------------------------------------------------------------------
@@ -1917,6 +2208,7 @@ def main() -> int:
     try:
         from repro_torch.configs.rosella_sim import tpch_speed_set
         from repro_torch.core import dispatch as D
+        from repro_torch import env as tenv
         from repro_torch.core import metrics as met
         from repro_torch.kernels import _nvcc
         from repro_torch.kernels.flash_attention import build as flash_build
@@ -1945,7 +2237,7 @@ def main() -> int:
     card = smi[0] if smi else "nvidia-smi gave nothing"
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     libs = (build.LIBRARY, flash_build.LIBRARY, ssd_build.LIBRARY, pool_build.LIBRARY)
     _nvcc.build_all(*libs)
     print(f"[build] {', '.join(lib.library_path().name for lib in libs)} "
@@ -1963,6 +2255,8 @@ def main() -> int:
     main_runs = phase_main_path(torch, tr, K, met, chk, speeds, dev)
     pool_err, scan_exact, scan_cells, real_turns = phase_scan(torch, tr, tsl, K, CK, CR, met,
                                                               tpch_speed_set, dev)
+    scenarios, scenario_launches = phase_scenarios(torch, tr, tsl, tenv, K, CK, chk, met,
+                                                   speeds, dev, card)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
@@ -2009,7 +2303,7 @@ def main() -> int:
     ssd_times = phase_ssd_times(torch, SK, SO, SR, dev)
 
     total = {name: sum(r["launches"][name] for r in main_runs.values())
-             for name in REPLACES}
+             + scenario_launches[name] for name in REPLACES}
     kernels = []
     for name in REPLACES:
         t = times[(name, 1024, BATCH)]
@@ -2024,7 +2318,8 @@ def main() -> int:
     t = pool_times[pool_case_label(*POOL_CASES[1])]
     kernels.append(dict(
         name="pool_chain", route="cuda", source=POOL_SOURCE, replaces=POOL_REPLACES,
-        launches=sum(c["launches"]["pool_chain"] for c in scan_cells.values()),
+        launches=sum(c["launches"]["pool_chain"] for c in scan_cells.values())
+        + scenario_launches["pool_chain"],
         max_abs_err=pool_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None,
         real_turn_ms=pool_turn_times[("a", W)]["ms"]))
@@ -2046,6 +2341,7 @@ def main() -> int:
     print(f"[summary] {json.dumps(summary)}")
     print(f"[summary] scan exact {json.dumps(scan_exact)}")
     print(f"[summary] scan {json.dumps(scan_cells)}")
+    print(f"[summary] scenarios {json.dumps(scenarios)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")
     print(f"[summary] profile prefill {json.dumps(prof_prefill)} decode "
@@ -2060,6 +2356,7 @@ def main() -> int:
           f"idle share {idle:.4f}, launch floor {floor_ms:.6f} ms")
     print(f"[summary] build_alias_table per call "
           f"{json.dumps({f'{k[0]} {k[1]}': v for k, v in table_build.items()})}")
+    print(f"[total] {time.perf_counter() - t_start:.1f} s from the build to the result lines")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -120,7 +120,8 @@ class RosellaRouter:
                  c0: float = 0.1, c_window: float = 10.0, seed: int = 0,
                  async_mu: bool = True, use_alias: bool = True, device=None):
         if policy != pol.PPOT_SQ2:
-            raise NotImplementedError(f"policy {policy!r} is not ported yet")
+            raise NotImplementedError(f"policy {policy!r} is not ported yet: only "
+                                      f"{pol.PPOT_SQ2!r} is (ROADMAP queue A, A3)")
         self.device = resolve_device(device)
         self.n = n_replicas
         self.policy = policy

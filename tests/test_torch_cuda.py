@@ -728,3 +728,32 @@ def test_scan_on_the_card_equals_the_host_loop(dev, use_alias):
     np.testing.assert_array_equal(mh, ms)
     np.testing.assert_array_equal(pa.free_at, pb.free_at)
     assert torch.equal(ra.learner.mu_hat, rb.learner.mu_hat) and ra.key == rb.key
+
+
+@pytest.mark.parametrize("use_alias", [True, False])
+@pytest.mark.parametrize("name", ["null", "churn", "churn_heavy"])
+def test_scenario_scan_on_the_card_equals_the_host_loop(dev, name, use_alias):
+    """The environment engine on the card at n = 64 (the §6.1 speed grid,
+    arrivals at 0.7·Σ speeds, the registry's horizon), batches of 32:
+    ``run_scenario``'s host loop and one-program loop equal bit for bit on
+    a SequentialPool, overflows 0, the final membership equal."""
+    from repro_torch import env as tenv
+    from repro_torch.configs.rosella_sim import tpch_speed_set
+
+    speeds = tpch_speed_set(64, 0)
+    scn = tenv.make(name, speeds=tuple(speeds), rate=0.7 * float(speeds.sum()))
+    kw = dict(seed=0, arrival_batch=32, use_alias=use_alias, sequential_pool=True,
+              device=dev)
+    h = tenv.run_scenario(scn, **kw)
+    s = tenv.run_scenario(scn, use_scan=True, **kw)
+    info = s["info"]
+    assert info["flush_overflow"] == info["pend_overflow"] == 0
+    assert info["replays"] == info["turns"] == len(h["mu_trace"]) > 100
+    np.testing.assert_array_equal(h["responses"], s["responses"])
+    np.testing.assert_array_equal(h["mu_trace"], s["mu_trace"])
+    np.testing.assert_array_equal(h["pool"].free_at, s["pool"].free_at)
+    assert torch.equal(h["router"].learner.mu_hat, s["router"].learner.mu_hat)
+    wl = h["workload"]
+    if wl.active is not None:
+        assert (~wl.active).any()
+        assert torch.equal(h["router"].active, s["router"].active)

@@ -283,7 +283,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                   "repro_torch.kernels.ssd_scan.build", "repro_torch.serving.scanloop",
                   "repro_torch.kernels.pool_chain.kernel",
                   "repro_torch.kernels.pool_chain.ref",
-                  "repro_torch.kernels.pool_chain.build", "repro_torch.utils.scalars"):
+                  "repro_torch.kernels.pool_chain.build", "repro_torch.utils.scalars",
+                  "repro_torch.env", "repro_torch.env.processes", "repro_torch.env.scenario",
+                  "repro_torch.env.serving", "repro_torch.core.metrics"):
             assert m in sys.modules, m
         print("clean")
     """)

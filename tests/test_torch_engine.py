@@ -16,6 +16,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from test_torch_model import reference_shim
 
 from repro_torch import configs as tconfigs
 from repro_torch import convert
@@ -225,13 +226,7 @@ def test_engine_rows_at_the_end_of_the_cache():
 def ref():
     """The JAX package's engine and model API, imported under the jax-0.9
     shim (see tests/test_torch_model.py), with params carried across."""
-    from jax._src.interpreters import batching
-
-    proxy = batching.PrimitiveBatchersProxy
-    had = "__contains__" in vars(proxy)
-    if not had:
-        proxy.__contains__ = lambda self, prim: prim in batching.fancy_primitive_batchers
-    try:
+    with reference_shim():
         import jax
         import jax.numpy as jnp
 
@@ -250,9 +245,6 @@ def ref():
             jax=jax, jnp=jnp, api=japi, decode=decode, engine=jengine, cfg=cfg, configs=configs,
             params=params,
             tcfg=_cfg(), model=convert.lm_params_from_numpy(_cfg(), tree, "cpu"))
-    finally:
-        if not had:
-            del proxy.__contains__
 
 
 def _reference_logits(ref, prompt, n_new):

@@ -4,14 +4,18 @@ parameters (carried across by ``convert.lm_params_from_numpy``).
 
 ``repro.models`` imports only on jax 0.9 with a shim: its compat module
 asks ``prim in batching.primitive_batchers`` of a proxy that has no
-``__contains__``. The ``ref`` fixture gives the proxy one, imports the
-reference, and takes the shim away again; nothing of it runs while the
-test files are collected.
+``__contains__``. ``reference_shim`` gives the proxy one while the ``ref``
+fixture imports the reference, and at the fixture's end takes the shim
+away again together with every ``repro`` module imported under it, so
+that no other test file sees them; nothing of it runs while the test
+files are collected.
 
 Tolerance of the logits: atol = rtol = 2e-5 (f32; matmul reduction order,
 rsqrt and sin/cos differ by ulps between XLA and torch; measured up to
 3e-6 on logits of size ~3)."""
+import contextlib
 import dataclasses
+import sys
 import types
 
 import numpy as np
@@ -27,15 +31,37 @@ TOL = 2e-5
 ARCHS = ["smollm-360m", "qwen3-32b", "chatglm3-6b"]
 
 
-@pytest.fixture(scope="module")
-def ref():
+@contextlib.contextmanager
+def reference_shim():
+    """Give jax 0.9's ``PrimitiveBatchersProxy`` the ``__contains__`` that
+    ``repro.utils.jax_compat`` needs at import. On exit take it away and
+    drop from ``sys.modules`` (and from their parent packages) the
+    ``repro`` modules imported inside, so that a JAX-package test importing
+    ``repro.models`` later fails as it does on its own, whichever test
+    files ran before it on the same process."""
     from jax._src.interpreters import batching
 
     proxy = batching.PrimitiveBatchersProxy
     had = "__contains__" in vars(proxy)
+    before = set(sys.modules)
     if not had:
         proxy.__contains__ = lambda self, prim: prim in batching.fancy_primitive_batchers
     try:
+        yield
+    finally:
+        if not had:
+            del proxy.__contains__
+        for name in sorted(set(sys.modules) - before, reverse=True):
+            if name == "repro" or name.startswith("repro."):
+                mod = sys.modules.pop(name)
+                parent, _, child = name.rpartition(".")
+                if getattr(sys.modules.get(parent), child, None) is mod:
+                    delattr(sys.modules[parent], child)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    with reference_shim():
         import jax
         import jax.numpy as jnp
 
@@ -44,9 +70,6 @@ def ref():
 
         yield types.SimpleNamespace(jax=jax, jnp=jnp, configs=configs, api=api,
                                     layers=layers)
-    finally:
-        if not had:
-            del proxy.__contains__
 
 
 def flat(jax, tree) -> dict:

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_model import reference_shim
 
 from repro.kernels.ssd_scan import ref as jref
 from repro.kernels.ssd_scan.kernel import ssd_scan as jssd
@@ -34,19 +35,10 @@ CHUNKED_TOL = 1e-3
 def ref():
     """``repro.models.ssm`` under the jax-0.9 shim (see
     tests/test_torch_model.py), undone after the module's tests."""
-    from jax._src.interpreters import batching
-
-    proxy = batching.PrimitiveBatchersProxy
-    had = "__contains__" in vars(proxy)
-    if not had:
-        proxy.__contains__ = lambda self, prim: prim in batching.fancy_primitive_batchers
-    try:
+    with reference_shim():
         from repro.models import ssm
 
         yield types.SimpleNamespace(ssm=ssm)
-    finally:
-        if not had:
-            del proxy.__contains__
 
 
 def _inputs(BH, S, P, N, seed, G=None):

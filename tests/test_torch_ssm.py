@@ -18,6 +18,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from test_torch_model import reference_shim
 
 from repro_torch import configs as tconfigs
 from repro_torch import convert
@@ -34,13 +35,7 @@ CONST_LEAVES = ("A_log", "dt_bias", "D", "norm_scale", "conv_bx", "conv_bbc")
 
 @pytest.fixture(scope="module")
 def ref():
-    from jax._src.interpreters import batching
-
-    proxy = batching.PrimitiveBatchersProxy
-    had = "__contains__" in vars(proxy)
-    if not had:
-        proxy.__contains__ = lambda self, prim: prim in batching.fancy_primitive_batchers
-    try:
+    with reference_shim():
         import jax
         import jax.numpy as jnp
 
@@ -48,9 +43,6 @@ def ref():
         from repro.models import api, ssm
 
         yield types.SimpleNamespace(jax=jax, jnp=jnp, configs=configs, api=api, ssm=ssm)
-    finally:
-        if not had:
-            del proxy.__contains__
 
 
 def _name(path) -> str:

@@ -24,6 +24,10 @@ on the card. Then it drives the port's two paths:
     ``run_workload_scan``), with the adaptation-time summary; four of them
     also through ``run_scenario`` on both loops with the exact pool chain,
     held equal bit for bit, two of those on the inverse-CDF stream too;
+  * the eight scheduling policies (``core.policies``): each one's engine
+    call on the card held to the CPU's and timed at three shapes, and the
+    scheduler cell under each through ``run_scenario`` on both loops, held
+    equal bit for bit;
   * model serving: a full-width smollm-360m (published config, bf16,
     random weights from the seed) prefilled at B=4, S=4096 through
     ``models.api.prefill`` (one flash-attention launch per layer), then
@@ -157,6 +161,22 @@ SCENARIO_CDF = ("flash_crowd", "churn_heavy")
 SCENARIO_FIXED_REPLICAS = {"churn": "replica 1", "cotenant_shock": "replicas 0-1",
                            "grey_failure": "replicas 0-1"}
 SCENARIO_MIN_RHO = {"null": 0.9}
+# [policies]: the eight policies of core.policies. (a) one engine call per
+# policy on the card and on the CPU (same key, μ̂ on a 2^-8 grid so both
+# devices build the same CDF), unmasked and with POLICY_OFFLINE of the
+# replicas offline, workers and q_after equal, timed at POLICY_SHAPES (n,
+# B): the reference throughput benchmark's headline shape, the scheduler
+# cell's batch and [scan e]'s; the alias policies draw through a table
+# built on each device outside the timed region, and PPoT-SQ(2) runs the
+# CDF stream too (K2 unmasked, K3 masked). The sequential oracle
+# (fold_chunks = B) is timed once per policy at the first shape. (b) the
+# scheduler cell per policy: the null scenario at N_REPLICAS, LOAD and
+# BATCH with async_mu=False, run_scenario's host loop and one-program loop
+# on a SequentialPool, equal bit for bit; cut to POLICY_HORIZON seconds
+# (~309 turns) so the phase stays near 45 s
+POLICY_SHAPES = ((64, 4096), (1024, 128), (2048, 2048))
+POLICY_OFFLINE = 0.25
+POLICY_HORIZON = 180.0
 # exact parity on the card: the reference test's shape (n=4) and n=1024 at
 # a load where neither loop overflows a capacity
 EXACT_N4 = dict(arrival_rate=3.0, horizon=150.0, seed=0, arrival_batch=16)
@@ -955,7 +975,8 @@ def scan_launches(K, CK, info) -> dict:
     return {w: eager.get(w, 0) + info["replays"] * per_replay[w] for w in PROFILE_NAMES}
 
 
-def scenario_host(torch, tr, tenv, K, chk, scn, dev, *, use_alias, sequential, wl=None):
+def scenario_host(torch, tr, tenv, K, chk, scn, dev, *, use_alias, sequential, wl=None,
+                  policy="ppot_sq2"):
     """The host loop over ``scn`` on the card, its kernels held to their
     plain versions every CHECK_EVERY calls: through ``run_scenario`` when
     ``wl`` is None, else ``run_workload`` on ``wl``. Returns the run, its
@@ -963,7 +984,8 @@ def scenario_host(torch, tr, tenv, K, chk, scn, dev, *, use_alias, sequential, w
     flush and the most in flight, x1.25 to a power of two)."""
     speeds0 = np.asarray(scn.speeds, float)
     router = scenario_router_class(tr)(scn.n, float(speeds0.sum()), seed=SEED,
-                                        use_alias=use_alias, async_mu=False, device=dev)
+                                        policy=policy, use_alias=use_alias, async_mu=False,
+                                        device=dev)
     router.speeds = speeds0
     pool = counting_pool((tr.SequentialPool if sequential else tr.SimulatedPool)(speeds0))
     router.pool = pool
@@ -1165,6 +1187,167 @@ def phase_scenarios(torch, tr, tsl, tenv, K, CK, chk, met, speeds, dev, card):
     print(f"[scenarios] {len(cells)} scenarios, {len(exact)} exact pairs in {secs:.1f} s; "
           f"launches {json.dumps(total)}")
     return dict(cells=cells, exact=exact, seconds=secs), total
+
+
+# ---------------------------------------------------------------------------
+# the eight policies: the engine on the card, the scheduler cell per policy
+# ---------------------------------------------------------------------------
+
+
+def policy_case(n: int, B: int, masked: bool, seed: int = SEED):
+    """μ̂ and μ on a 2^-8 grid (every prefix sum exact in f32, so the CPU and
+    the card build the same CDF), a queue, and POLICY_OFFLINE of the
+    replicas offline when ``masked``."""
+    rng = np.random.RandomState(seed + n + B + masked)
+    mu = (rng.randint(0, 1024, n) / 256.0).astype(np.float32)
+    mu_true = (rng.randint(1, 1024, n) / 256.0).astype(np.float32)
+    q = rng.randint(0, 20, n).astype(np.int32)
+    mask = None
+    if masked:
+        mask = np.ones(n, bool)
+        mask[rng.permutation(n)[:int(n * POLICY_OFFLINE)]] = False
+    return mu, mu_true, q, mask
+
+
+def policy_engine(torch, D, P, prng, K, dev) -> tuple[dict, dict]:
+    """(a): every policy's engine call on the card against the CPU, then its
+    time; returns the records and the launches of the checked calls."""
+    cfg = P.default_policy_config()
+    launches = {w: 0 for w in REPLACES}
+    rows = [(p, p in D.ALIAS_POLICIES) for p in P.ALL_POLICIES] + [("ppot_sq2", False)]
+    recs = {}
+    for policy, use_table in rows:
+        for masked in (False, True):
+            for n, B in POLICY_SHAPES:
+                mu, mu_true, q, mask = policy_case(n, B, masked)
+                key = prng.PRNGKey(n + B)
+                args = {}
+                before = K.launch_counts()  # the card's table build and engine call
+                for d in ("cpu", dev):
+                    t = lambda a: None if a is None else torch.from_numpy(a).to(d)  # noqa: E731
+                    tab = D.build_alias_table(t(mu), t(mask)) if use_table else None
+                    args[str(d)] = (t(q), t(mu), t(mu_true), tab, t(mask))
+
+                def call(d, fold_chunks=1):
+                    q_, mu_, mt_, tab, m_ = args[str(d)]
+                    return D.dispatch(policy, key, q_, mu_, mt_, cfg, B, table=tab, mask=m_,
+                                      fold_chunks=fold_chunks)
+                label = policy if use_table or policy not in D.ALIAS_POLICIES else f"{policy} icdf"
+                tag = f"[policies] {label} (n={n}, B={B}{', 25% offline' if masked else ''})"
+                want = call("cpu")
+                got = call(dev)
+                torch.cuda.synchronize()
+                for w, c in K.launch_counts().items():
+                    launches[w] += c - before[w]
+                need(torch.equal(got.workers.cpu(), want.workers)
+                     and torch.equal(got.q_after.cpu(), want.q_after),
+                     f"{tag}: the card's placements differ from the CPU's")
+                if mask is not None:
+                    need(mask[want.workers.numpy()].all(), f"{tag}: placed on an offline replica")
+                ms = graph_call_ms(torch, lambda: call(dev))
+                host_ms = host_median_ms(torch, lambda: call(dev))
+                rec = dict(graph_ms=ms, host_ms=host_ms, decisions_per_s=B / (host_ms / 1e3),
+                           graph_decisions_per_s=B / (ms / 1e3))
+                if (n, B) == POLICY_SHAPES[0] and not masked and policy != "sparrow":
+                    want_s = call("cpu", fold_chunks=B)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got_s = call(dev, fold_chunks=B)
+                    torch.cuda.synchronize()
+                    rec["sequential_ms"] = (time.perf_counter() - t0) * 1e3
+                    need(torch.equal(got_s.workers.cpu(), want_s.workers)
+                         and torch.equal(got_s.q_after.cpu(), want_s.q_after),
+                         f"{tag}: the card's sequential oracle differs from the CPU's")
+                    rec["batched_over_sequential"] = rec["sequential_ms"] / host_ms
+                recs[f"{label} {n} {B}{' masked' if masked else ''}"] = rec
+                print(f"{tag}: equal on the card and the CPU; {host_ms:.6f} ms a call on the "
+                      f"host clock, {rec['decisions_per_s']:.1f} decisions/s; {ms:.6f} ms a "
+                      f"call replayed as a graph (event pairs), "
+                      f"{rec['graph_decisions_per_s']:.1f} decisions/s"
+                      + (f"; sequential oracle {rec['sequential_ms']:.3f} ms "
+                         f"({rec['batched_over_sequential']:.1f}x the batched call)"
+                         if "sequential_ms" in rec else ""))
+    return recs, launches
+
+
+def policy_cell(torch, tr, tenv, K, CK, chk, met, scn, speeds, dev, policy) -> dict:
+    """(b): the null scenario at the scheduler cell under ``policy``, host
+    loop and one-program loop on a SequentialPool, equal bit for bit."""
+    h, wall_h, host_launches, caps = scenario_host(torch, tr, tenv, K, chk, scn, dev,
+                                                   use_alias=True, sequential=True,
+                                                   policy=policy)
+    router = tr.RosellaRouter(scn.n, float(speeds.sum()), policy=policy, seed=SEED,
+                              use_alias=True, async_mu=False, device=dev)
+    K.reset_launches()
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_scan=True,
+                          sequential_pool=True, router=router, pend_cap=caps["pend_cap"],
+                          comp_cap=caps["comp_cap"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = s["info"]
+    launches = scan_launches(K, CK, info)
+    tag = f"[policies] {policy} cell"
+    T = s["workload"].turns
+    need(info["replays"] == info["turns"] == T, f"{tag}: the turns were not graph replays")
+    need(info["flush_overflow"] == 0 and info["pend_overflow"] == 0, f"{tag}: {info}")
+    for part, ok in (("responses", np.array_equal(h["responses"], s["responses"])),
+                     ("mu trace", np.array_equal(h["mu_trace"], s["mu_trace"])),
+                     ("free_at", np.array_equal(h["pool"].free_at, s["pool"].free_at))):
+        need(ok, f"{tag}: the scan's {part} differ from the host loop's")
+    resp = s["responses"]
+    need(np.isfinite(resp).all() and (resp > 0).all() and resp.shape == (T * BATCH,),
+         f"{tag}: bad responses")
+    summ = met.serve_summary(resp)
+    run_s = wall - (info["capture_s"] or 0.0)
+    rec = dict(turns=T, requests=int(resp.size), turns_per_s=T / run_s,
+               decisions_per_s=resp.size / run_s, host_turns_per_s=T / wall_h,
+               capture_s=info["capture_s"], graph_nodes=info["graph_nodes"],
+               launches_per_replay=sum(info["graph_kernels"].values()),
+               p50=summ["p50"], p99=summ["p99"], mean=summ["mean"],
+               rho=spearman(router.mu_hat, speeds), use_alias=router.use_alias,
+               longest_chain=info["longest_chain"], host_launches=host_launches,
+               launches=launches, **caps)
+    return rec
+
+
+def phase_policies(torch, tr, tenv, D, P, prng, K, CK, chk, met, speeds, dev, card):
+    """All eight policies on the card: (a) the engine, (b) the scheduler
+    cell; returns the records and the phase's launches by wrapper."""
+    t0 = time.perf_counter()
+    print(f"[policies] {card}; engine at (n, B) in {list(POLICY_SHAPES)}, unmasked and "
+          f"{POLICY_OFFLINE:.0%} offline; cell n={N_REPLICAS} batch={BATCH} load {LOAD} "
+          f"horizon {POLICY_HORIZON} s, async_mu=False, seed {SEED}")
+    engine, launches = policy_engine(torch, D, P, prng, K, dev)
+    launches["pool_chain"] = 0
+    rate = LOAD * float(speeds.sum())
+    scn = tenv.make("null", speeds=tuple(speeds), rate=rate, horizon=POLICY_HORIZON)
+    cells = {}
+    for policy in P.ALL_POLICIES:
+        rec = cells[policy] = policy_cell(torch, tr, tenv, K, CK, chk, met, scn, speeds,
+                                          dev, policy)
+        for w in launches:
+            launches[w] += rec["host_launches"].get(w, 0) + rec["launches"].get(w, 0)
+    sq2 = cells["ppot_sq2"]
+    for policy, rec in cells.items():
+        print(f"[policies] {policy} cell: {rec['turns']} turns, {rec['requests']} requests, "
+              f"host loop and scan equal bit for bit, overflows 0 at pend_cap "
+              f"{rec['pend_cap']} comp_cap {rec['comp_cap']}; scan {rec['turns_per_s']:.2f} "
+              f"turns/s {rec['decisions_per_s']:.1f} decisions/s (host loop, checked, "
+              f"{rec['host_turns_per_s']:.2f} turns/s), capture {rec['capture_s']} s, "
+              f"graph nodes {rec['graph_nodes']} ({rec['launches_per_replay']} kernels); "
+              f"p50 {rec['p50']:.6f} p99 {rec['p99']:.6f} (ppot_sq2 {sq2['p50']:.6f} / "
+              f"{sq2['p99']:.6f}); spearman(mu_hat, speeds) {rec['rho']:.4f}; use_alias "
+              f"{rec['use_alias']}; longest chain {rec['longest_chain']}")
+    for w in ("ppot_dispatch_fused_alias", "ppot_dispatch_fused", "ppot_dispatch",
+              "alias_table", "pool_chain"):
+        need(launches[w] > 0, f"[policies] {w} was never launched")
+    secs = time.perf_counter() - t0
+    print(f"[policies] {len(engine)} engine cases, {len(cells)} cells in {secs:.1f} s; "
+          f"launches {json.dumps(launches)}")
+    return dict(engine=engine, cells=cells, seconds=secs), launches
 
 
 # ---------------------------------------------------------------------------
@@ -1879,6 +2062,26 @@ def event_median_ms(torch, launch, reps: int = 200) -> float:
     return float(np.median([e0.elapsed_time(e1) for e0, e1 in evs]))
 
 
+def graph_call_ms(torch, launch, reps: int = 50) -> float:
+    """Median device time of one call of many small launches, as the
+    one-program loop runs it: the call captured once as a CUDA graph, then
+    an event pair around each of ``reps`` replays queued behind a spin, so
+    that the pairs time the device and not the host. (Queued as separate
+    launches, a call of hundreds of kernels fills the stream's launch queue
+    and the pairs would time the host.)"""
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            launch()
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    return event_median_ms(torch, graph.replay, reps)
+
+
 def host_median_ms(torch, fn, reps: int = 20) -> float:
     ts = []
     for _ in range(reps):
@@ -2208,6 +2411,7 @@ def main() -> int:
     try:
         from repro_torch.configs.rosella_sim import tpch_speed_set
         from repro_torch.core import dispatch as D
+        from repro_torch.core import policies as P
         from repro_torch import env as tenv
         from repro_torch.core import metrics as met
         from repro_torch.kernels import _nvcc
@@ -2227,6 +2431,7 @@ def main() -> int:
         from repro_torch.kernels.ssd_scan import ref as SR
         from repro_torch.serving import router as tr
         from repro_torch.serving import scanloop as tsl
+        from repro_torch.utils import prng
     except ImportError as e:
         raise SmokeFailure(f"the port is not next to this script ({e})") from e
     dev = torch.device("cuda")
@@ -2257,6 +2462,8 @@ def main() -> int:
                                                               tpch_speed_set, dev)
     scenarios, scenario_launches = phase_scenarios(torch, tr, tsl, tenv, K, CK, chk, met,
                                                    speeds, dev, card)
+    policies, policy_launches = phase_policies(torch, tr, tenv, D, P, prng, K, CK, chk, met,
+                                               speeds, dev, card)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
@@ -2303,7 +2510,7 @@ def main() -> int:
     ssd_times = phase_ssd_times(torch, SK, SO, SR, dev)
 
     total = {name: sum(r["launches"][name] for r in main_runs.values())
-             + scenario_launches[name] for name in REPLACES}
+             + scenario_launches[name] + policy_launches[name] for name in REPLACES}
     kernels = []
     for name in REPLACES:
         t = times[(name, 1024, BATCH)]
@@ -2319,7 +2526,7 @@ def main() -> int:
     kernels.append(dict(
         name="pool_chain", route="cuda", source=POOL_SOURCE, replaces=POOL_REPLACES,
         launches=sum(c["launches"]["pool_chain"] for c in scan_cells.values())
-        + scenario_launches["pool_chain"],
+        + scenario_launches["pool_chain"] + policy_launches["pool_chain"],
         max_abs_err=pool_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None,
         real_turn_ms=pool_turn_times[("a", W)]["ms"]))
@@ -2342,6 +2549,7 @@ def main() -> int:
     print(f"[summary] scan exact {json.dumps(scan_exact)}")
     print(f"[summary] scan {json.dumps(scan_cells)}")
     print(f"[summary] scenarios {json.dumps(scenarios)}")
+    print(f"[summary] policies {json.dumps(policies)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")
     print(f"[summary] profile prefill {json.dumps(prof_prefill)} decode "

@@ -1,29 +1,34 @@
-"""Batched dispatch engine, PPoT-SQ(2) path.
+"""Batched dispatch engine: every policy of ``core/policies.py`` places a
+batch here.
 
 One engine call places a batch of B tasks against a queue snapshot and
-returns ``(workers[B], q_after[n])``: every probe is drawn up front from a
-counter-hash stream that never depends on the queue, every task selects
-against the same snapshot (SQ(2): the shorter of two μ̂-proportional
-probes), and the batch's own placements fold back into the view.
+returns ``(workers[B], q_after[n])``. Every random quantity is drawn up
+front and never depends on the queue (``_draws``): threefry ``randint`` /
+``uniform`` for the uniform and η draws, inverse-CDF (``#{cdf <= u}``)
+for the μ̂- (Halo: μ-) proportional ones, or, given an amortised
+``AliasTable`` built once per μ̂ refresh, Walker alias draws for the
+policies in ``ALIAS_POLICIES``. PPoT's probe uniforms come from the
+counter-hash stream. Every task then selects against the same snapshot
+(``_select``: SQ(2), LL(2), η-greedy, or the probe itself), and the
+batch's own placements fold back into the view. Sparrow water-fills its
+d·B probes instead (``sparrow_select``). ``fold_chunks=C`` re-snapshots
+the queue between C sub-chunks; ``C = B`` is per-task sequential placement,
+kept as the oracle ``dispatch_sequential``. ``mask`` (bool[n]) restricts
+every draw to active workers.
 
-Probe draws are inverse-CDF (``#{cdf <= u}``) or, given an amortised
-``AliasTable`` built once per μ̂ refresh, Walker alias draws (two gathers
-and a compare). ``fold_chunks=C`` re-snapshots the queue between C
-sub-chunks; ``C = B`` is per-task sequential placement, kept as the oracle
-``dispatch_sequential``. ``mask`` (bool[n]) restricts every draw to active
-workers.
-
-Kernels: every C = 1 batch goes through a kernel wrapper, which launches
-the kernel on CUDA tensors and runs its plain version only on CPU tensors.
+Kernels: every C = 1 PPoT-SQ(2) batch goes through a kernel wrapper,
+which launches the kernel on CUDA tensors and runs its plain version only
+on CPU tensors.
 A batch with an alias table runs the fused alias kernel (a masked table
 gives inactive workers no mass, so the kernel serves masked batches too);
 a CDF batch runs the fused CDF kernel or, under a slot or membership mask,
 the select kernel. Inactive slots are folded out here. A table build is
 the scaling as tensor ops, then one single-block kernel for the stack
 order, the pairing walk and the mask pass. C > 1 chunks select with tensor
-ops, as the reference's chunk scan does.
-
-Only PPoT-SQ(2) is ported; the engine raises for the other policies.
+ops, as the reference's chunk scan does, and so do the other policies,
+whose draws, selections and water-filling are plain tensor ops in the
+reference too. Nothing here reads a device value on the host, so a turn
+that dispatches can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -39,6 +44,11 @@ from repro_torch.utils import prng
 class DispatchResult(NamedTuple):
     workers: torch.Tensor  # i32[B] chosen worker per task; -1 at inactive slots
     q_after: torch.Tensor  # i32[n] queue view with the batch folded back
+
+
+#: Policies whose μ̂-proportional probes can draw through an ``AliasTable``
+#: (Halo samples from μ_true, never from the table's μ̂).
+ALIAS_POLICIES = (pol.PSS, pol.PPOT_SQ2, pol.PPOT_LL2, pol.BANDIT)
 
 
 class AliasTable(NamedTuple):
@@ -121,6 +131,15 @@ def fold_counts(q: torch.Tensor, workers: torch.Tensor,
     return torch.zeros(n + 1, dtype=q.dtype, device=q.device).index_add_(0, w, ones)[:n]
 
 
+def within_batch_rank_ref(workers: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """O(B²) all-pairs form of ``within_batch_rank`` (tests only)."""
+    B = workers.shape[0]
+    idx = torch.arange(B, device=workers.device)
+    before = idx[None, :] < idx[:, None]
+    same = (workers[None, :] == workers[:, None]) & active[None, :] & before
+    return same.sum(1, dtype=torch.int32)
+
+
 def within_batch_rank(workers: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """rank[b] = #{a < b : active[a] and workers[a] == workers[b]}.
 
@@ -143,27 +162,162 @@ def _chunking(B: int, fold_chunks: int) -> tuple[int, int]:
     return C, -(-B // C) * C
 
 
-def _draws(key, B: int, mu_hat, table: AliasTable | None,
-           mask: torch.Tensor | None) -> dict:
-    """PPoT-SQ(2)'s uniforms for B tasks: the alias (u, v) stream with a
-    table, else the inverse-CDF u stream and the (masked) CDF."""
+def _draws(policy: str, key, B: int, n: int, cfg: pol.PolicyConfig, mu_hat, mu_true,
+           *, need_j: bool = True, table: AliasTable | None = None,
+           mask: torch.Tensor | None = None) -> dict:
+    """Every random quantity the policy needs for B tasks, each [B] with the
+    batch axis leading (so the chunked path re-chunks it without drawing
+    again). The key use is the reference's, draw for draw.
+
+    A ``table`` is used only by ``ALIAS_POLICIES`` and ignored by the
+    others; it must already carry ``mask``. Under ``mask`` uniform draws map
+    through the active workers (``active_choice``) and proportional draws
+    sample a masked CDF. PPoT-SQ(2) keeps its uniforms (and the CDF) for
+    the kernels unless ``need_j``."""
     dev = mu_hat.device
-    if table is not None:
-        return dict(zip(("u1", "u2", "v1", "v2"), prng.uniform_quad(key, B, dev)))
-    cdf = ref.make_cdf(mu_hat) if mask is None else masked_cdf(mu_hat, mask)
-    u1, u2 = prng.uniform_pair(key, B, dev)
-    return dict(cdf=cdf, u1=u1, u2=u2)
+    d: dict[str, torch.Tensor] = {}
+    if table is not None and policy not in ALIAS_POLICIES:
+        table = None
+
+    def cdf_of(mu):
+        return ref.make_cdf(mu) if mask is None else masked_cdf(mu, mask)
+
+    def uni_workers(k, shape):
+        if mask is None:
+            return prng.randint(k, shape, 0, n, dev)
+        return active_choice(mask, prng.uniform(k, shape, dev))
+
+    def one_probe(k, mu):  # PSS and Halo: one proportional probe, threefry u
+        if table is not None:
+            u, _, v, _ = prng.uniform_quad(k, B, dev)
+            return alias_sample(table, u, v)
+        return inverse_cdf_sample(cdf_of(mu), prng.uniform(k, B, dev))
+
+    def two_probes(k):  # the PPoT pair, counter-hash u
+        if table is not None:
+            u1, u2, v1, v2 = prng.uniform_quad(k, B, dev)
+            return alias_sample(table, u1, v1), alias_sample(table, u2, v2)
+        cdf = cdf_of(mu_hat)
+        u1, u2 = prng.uniform_pair(k, B, dev)
+        return inverse_cdf_sample(cdf, u1), inverse_cdf_sample(cdf, u2)
+
+    if policy == pol.UNIFORM:
+        d["j_uni"] = uni_workers(key, (B,))
+    elif policy == pol.POT:
+        d["j1"], d["j2"] = uni_workers(key, (2, B))
+    elif policy == pol.PSS:
+        d["j1"] = one_probe(key, mu_hat)
+    elif policy == pol.HALO:
+        d["j1"] = one_probe(key, mu_true)
+    elif policy == pol.PPOT_SQ2 and not need_j:
+        if table is not None:
+            d.update(zip(("u1", "u2", "v1", "v2"), prng.uniform_quad(key, B, dev)))
+        else:
+            d["cdf"] = cdf_of(mu_hat)
+            d["u1"], d["u2"] = prng.uniform_pair(key, B, dev)
+    elif policy in (pol.PPOT_SQ2, pol.PPOT_LL2):
+        d["j1"], d["j2"] = two_probes(key)
+    elif policy == pol.BANDIT:
+        k1, k3, k4 = prng.split(key, 3)
+        d["j1"], d["j2"] = two_probes(k1)
+        d["explore"] = prng.uniform(k3, B, dev) < pol.eta_f32(cfg)
+        d["j_uni"] = uni_workers(k4, (B,))
+    elif policy == pol.SPARROW:
+        d["probes"] = uni_workers(key, (max(int(cfg.sparrow_d) * B, B),))
+    else:
+        raise ValueError(f"unknown policy {policy!r}; choose from {pol.ALL_POLICIES}")
+    return d
 
 
-def _probes(d: dict, table: AliasTable | None):
-    """The two probed workers of every task, from ``_draws``' uniforms."""
-    if table is not None:
-        return alias_sample(table, d["u1"], d["v1"]), alias_sample(table, d["u2"], d["v2"])
-    return inverse_cdf_sample(d["cdf"], d["u1"]), inverse_cdf_sample(d["cdf"], d["u2"])
-
-
-def _select(q_view, j1, j2):
+def _shorter(q_view, j1, j2):
     return torch.where(q_view[j1.long()] <= q_view[j2.long()], j1, j2)
+
+
+def _select(policy: str, q_view, d: dict, mu_hat) -> torch.Tensor:
+    """One worker per task of the (sub-)batch against ``q_view``."""
+    if policy == pol.UNIFORM:
+        return d["j_uni"]
+    if policy in (pol.PSS, pol.HALO):
+        return d["j1"]
+    if policy in (pol.POT, pol.PPOT_SQ2):
+        return _shorter(q_view, d["j1"], d["j2"])
+    if policy == pol.PPOT_LL2:
+        j1, j2 = d["j1"].long(), d["j2"].long()
+        return torch.where(pol.ll2_wait(q_view, mu_hat, j1)
+                           <= pol.ll2_wait(q_view, mu_hat, j2), d["j1"], d["j2"])
+    if policy == pol.BANDIT:
+        return torch.where(d["explore"], d["j_uni"], _shorter(q_view, d["j1"], d["j2"]))
+    raise ValueError(f"no snapshot selection for policy {policy!r}")
+
+
+#: A load above any queue: unprobed workers, and Sparrow's padding slots.
+_INF = 2**30
+
+
+def repeat_to(values: torch.Tensor, repeats: torch.Tensor, total: int) -> torch.Tensor:
+    """``jnp.repeat(values, repeats, total_repeat_length=total)``: each value
+    ``repeats`` times; slots past the repeats' sum take the LAST value
+    (even one repeated 0 times), and a sum above ``total`` is cut. Slot i
+    takes value ``min(#{k : cumsum(repeats)[k] <= i}, len - 1)``."""
+    ends = torch.cumsum(repeats, 0, dtype=torch.int64)
+    i = torch.arange(total, dtype=torch.int64, device=values.device)
+    return values[torch.searchsorted(ends, i, right=True).clamp(max=values.shape[0] - 1)]
+
+
+def _lexsort2(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
+    """``jnp.lexsort((minor, major))``: order by major, ties by minor, ties
+    of both by index (two stable sorts)."""
+    by_minor = torch.sort(minor, stable=True).indices
+    return by_minor[torch.sort(major[by_minor], stable=True).indices]
+
+
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor, as a gather: indexing with a 0-d tensor
+    would read it on the host."""
+    return x.gather(0, i.reshape(1).long()).reshape(())
+
+
+def sparrow_select(q_view: torch.Tensor, probes: torch.Tensor, B: int,
+                   m: torch.Tensor | None = None) -> torch.Tensor:
+    """Sparrow batch sampling with late binding, in closed form.
+
+    The semantics is the greedy loop: ``m`` times, place a task on the
+    least-loaded probed worker (ties to the earliest probe position) and
+    fold it back. Greedy water-fills: the probed workers sorted by (load,
+    first probe) join the fill while levelling the earlier ones up to their
+    load fits in m (k* of them, at level λ0); the rest of m splits into
+    full rounds and a remainder to the earliest-probed participants; the
+    placements sorted by (load at placement, first probe) are the greedy
+    order, slot for slot. ``m`` (i32 0-d tensor, at most B) stays on the
+    device; slots from m on are padding. Returns i32[B]."""
+    n, P = q_view.shape[0], probes.shape[0]
+    dev = q_view.device
+    i32 = torch.int32
+    if m is None:
+        m = torch.full((), B, dtype=i32, device=dev)
+    fp = torch.full((n,), P, dtype=i32, device=dev).scatter_reduce(
+        0, probes.long(), torch.arange(P, dtype=i32, device=dev), "amin")
+    loads = torch.where(fp < P, q_view.to(i32), _INF)
+    order = _lexsort2(fp, loads)
+    s, ws, fps = loads[order], order.to(i32), fp[order]
+    s_fin = torch.where(s < _INF, s, 0)
+    Sx = torch.cat([s_fin.new_zeros(1), torch.cumsum(s_fin, 0, dtype=i32)])
+    k_idx = torch.arange(1, n, dtype=i32, device=dev)
+    joins = (s[1:] < _INF) & (k_idx * s_fin[1:] - Sx[1:n] <= m)
+    k_star = 1 + joins.sum(dtype=i32)
+    lam0 = _at(s_fin, k_star - 1)
+    spent = k_star * lam0 - _at(Sx, k_star)
+    full = torch.div(m - spent, k_star, rounding_mode="floor")
+    rem = (m - spent) - full * k_star
+    part = torch.arange(n, device=dev) < k_star
+    fp_rank = torch.argsort(torch.argsort(torch.where(part, fps, _INF), stable=True),
+                            stable=True)
+    alloc = torch.where(part, (lam0 - s_fin) + full + (fp_rank < rem).to(i32), 0).to(i32)
+    astart = torch.cumsum(alloc, 0, dtype=i32) - alloc
+    wexp, sexp, fpexp, stexp = (repeat_to(a, alloc, B) for a in (ws, s_fin, fps, astart))
+    slot = torch.arange(B, dtype=i32, device=dev)
+    v = torch.where(slot < m, sexp + (slot - stexp), _INF)  # load at placement
+    return wexp[_lexsort2(fpexp, v)]
 
 
 def dispatch(
@@ -171,7 +325,7 @@ def dispatch(
     key: prng.Key,
     q: torch.Tensor,  # i32[n] queue snapshot
     mu_hat: torch.Tensor,  # f32[n] learner estimates
-    mu_true: torch.Tensor,  # f32[n] ground truth (read by no ported policy)
+    mu_true: torch.Tensor,  # f32[n] ground truth (only Halo reads it)
     cfg: pol.PolicyConfig,
     B: int,
     *,
@@ -180,33 +334,44 @@ def dispatch(
     table: AliasTable | None = None,  # alias table built from THIS mu_hat
     mask: torch.Tensor | None = None,  # bool[n] membership
 ) -> DispatchResult:
-    """Place ``B`` tasks in one engine call; see the module docstring."""
-    del mu_true, cfg
-    if policy != pol.PPOT_SQ2:
-        raise NotImplementedError(f"policy {policy!r} is not ported yet")
+    """Place ``B`` tasks in one engine call; see the module docstring.
+    Sparrow ignores ``fold_chunks`` (water-filling already folds every
+    placement back) and ``table``."""
+    n = q.shape[0]
+    if policy == pol.SPARROW:
+        act = torch.ones(B, dtype=torch.bool, device=q.device) if active is None else active
+        probes = _draws(policy, key, B, n, cfg, mu_hat, mu_true, mask=mask)["probes"]
+        seq = sparrow_select(q, probes, B, act.sum(dtype=torch.int32))
+        slot_rank = torch.cumsum(act.to(torch.int32), 0, dtype=torch.int32) - 1
+        return _fold(q, seq[slot_rank.clamp(0, B - 1).long()], act)
     C, Bp = _chunking(B, fold_chunks)
-    if C == 1:
-        return _dispatch_batch(key, B, q, mu_hat, active, table, mask)
+    if C == 1 and policy == pol.PPOT_SQ2:
+        return _dispatch_batch(key, B, q, mu_hat, active, table, mask, cfg)
     act = active
     if Bp != B:
         pad = torch.zeros(Bp - B, dtype=torch.bool, device=q.device)
         head = torch.ones(B, dtype=torch.bool, device=q.device) if act is None else act
         act = torch.cat([head, pad])
-    j1, j2 = (j.view(C, -1) for j in _probes(_draws(key, Bp, mu_hat, table, mask), table))
+    d = _draws(policy, key, Bp, n, cfg, mu_hat, mu_true, table=table, mask=mask)
+    if C == 1:
+        return _fold(q, _select(policy, q, d, mu_hat), act)
+    chunks = {name: v.view(C, -1) for name, v in d.items()}
     acts = (torch.ones(Bp, dtype=torch.bool, device=q.device)
             if act is None else act).view(C, -1)
     qv, ws = q, []
     for c in range(C):  # re-snapshot the queue after every chunk
-        w = _select(qv, j1[c], j2[c])
+        w = _select(policy, qv, {name: v[c] for name, v in chunks.items()}, mu_hat)
         qv = qv + fold_counts(qv, w, acts[c])
         ws.append(w)
     workers = torch.cat(ws)[:B].to(torch.int32)
     return _fold(q, workers, None if act is None else act[:B])
 
 
-def _dispatch_batch(key, B: int, q, mu_hat, active, table, mask) -> DispatchResult:
-    """C = 1: one snapshot for the whole batch, through the kernel wrappers."""
-    d = _draws(key, B, mu_hat, table, mask)
+def _dispatch_batch(key, B: int, q, mu_hat, active, table, mask, cfg) -> DispatchResult:
+    """PPoT-SQ(2) at C = 1: one snapshot for the whole batch, through the
+    kernel wrappers."""
+    d = _draws(pol.PPOT_SQ2, key, B, q.shape[0], cfg, mu_hat, mu_hat, need_j=False,
+               table=table, mask=mask)
     if table is not None:
         workers, q_after = kernel.ppot_dispatch_fused_alias(
             table.prob, table.alias, q, d["u1"], d["v1"], d["u2"], d["v2"])
@@ -222,6 +387,7 @@ def _dispatch_batch(key, B: int, q, mu_hat, active, table, mask) -> DispatchResu
 def _fold(q, workers, act) -> DispatchResult:
     """The batch's placements folded into q; inactive slots place nothing
     and report worker -1."""
+    workers = workers.to(torch.int32)
     q_after = q + fold_counts(q, workers, act)
     if act is not None:
         workers = torch.where(act, workers, -1)
@@ -231,6 +397,6 @@ def _fold(q, workers, act) -> DispatchResult:
 def dispatch_sequential(policy: str, key, q, mu_hat, mu_true, cfg, B: int, *,
                         active=None, table: AliasTable | None = None,
                         mask: torch.Tensor | None = None) -> DispatchResult:
-    """Oracle: the same probe stream, folded back after every task."""
+    """Oracle: the same draws, folded back after every task."""
     return dispatch(policy, key, q, mu_hat, mu_true, cfg, B, active=active,
                     fold_chunks=B, table=table, mask=mask)

@@ -1,6 +1,10 @@
-"""Arrival-rate estimator (paper §3.3), the EMA form the serving router uses.
+"""Arrival-rate estimator (paper §3.3).
 
-λ̂ is the reciprocal of an EMA of inter-arrival gaps. The state is three
+Two forms. The exact sliding-window estimator (``ArrivalEstimatorState``,
+``observe_arrival``): λ̂ from the mean inter-arrival time of the last S
+arrivals, held in a ring of timestamps on the caller's device. The EMA
+form the serving router uses: λ̂ is the reciprocal of an EMA of
+inter-arrival gaps. The state is three
 scalars. The host loop keeps them as numpy float32 values (and a Python
 int count): every operation is one IEEE f32 operation, as on the device,
 and reading λ̂ costs no device synchronisation. The device-resident turn
@@ -21,6 +25,42 @@ import torch
 from repro_torch.utils import scalars
 
 f32 = np.float32
+
+@dataclasses.dataclass(frozen=True)
+class ArrivalEstimatorState:
+    times: torch.Tensor  # f32[S] ring of arrival timestamps
+    idx: torch.Tensor  # i32 0-d, the next write slot
+    count: torch.Tensor  # i32 0-d, arrivals seen
+    lam_hat: torch.Tensor  # f32 0-d, the current estimate
+
+
+def init_arrival_estimator(window: int, lam_init: float = 0.0,
+                           device="cpu") -> ArrivalEstimatorState:
+    z = lambda v, dt: torch.full((), v, dtype=dt, device=device)  # noqa: E731
+    return ArrivalEstimatorState(
+        times=torch.zeros(window, dtype=torch.float32, device=device),
+        idx=z(0, torch.int32), count=z(0, torch.int32), lam_hat=z(lam_init, torch.float32))
+
+
+def observe_arrival(state: ArrivalEstimatorState, now) -> ArrivalEstimatorState:
+    """Record one arrival at ``now`` (taken to f32) and refresh λ̂ =
+    (k - 1) / (t_newest - t_oldest) over the last k = min(count, S)
+    arrivals; λ̂ keeps its value until two arrivals span a positive time."""
+    S = state.times.shape[0]
+    dev = state.times.device
+    now = torch.as_tensor(now, dtype=torch.float32, device=dev)
+    times = state.times.index_put((state.idx.reshape(1).long(),), now.reshape(1))
+    idx = (state.idx + 1) % S
+    count = state.count + 1
+    k = torch.minimum(count, torch.full_like(count, S))
+    # the oldest retained arrival: slot idx once the ring wrapped, else slot 0
+    oldest = torch.where(count >= S, times.gather(0, (idx % S).reshape(1).long())[0],
+                         times[0])
+    span = now - oldest
+    lam = torch.where((k >= 2) & (span > 0), (k - 1).to(torch.float32) / span,
+                      state.lam_hat)
+    return ArrivalEstimatorState(times=times, idx=idx, count=count, lam_hat=lam)
+
 
 #: EMA window (decay 1/S) of every λ̂-EMA consumer.
 EMA_ARR_WINDOW = 64

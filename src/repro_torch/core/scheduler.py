@@ -1,5 +1,12 @@
-"""Rosella runtime scheduler (paper Fig. 1): arrival estimator + PPoT-SQ(2)
-placement + performance learner, driven by the caller.
+"""Rosella runtime scheduler (paper Fig. 1): arrival estimator + a
+scheduling policy (PPoT-SQ(2) by default) + performance learner, driven by
+the caller.
+
+``RosellaState`` with ``schedule`` / ``report_completions`` / ``refresh`` /
+``fake_jobs_due`` is the plain state machine, and ``RosellaScheduler`` its
+host-side wrapper: every batch of m jobs is one engine call, and a
+completion batch is folded as its completions one at a time (the batched
+ring write is the same).
 
 The serving turn ``serve_step`` does three things: it flushes the due
 completions into the learner, draws benchmark ("fake") jobs, and places
@@ -26,6 +33,8 @@ the route (``_draw_and_route``).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -36,6 +45,95 @@ from repro_torch.core import policies as pol
 from repro_torch.utils import prng, scalars
 
 f32 = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class RosellaState:
+    q_view: torch.Tensor  # i32[n] the scheduler's view of outstanding work
+    arr: est.EmaArrivalState  # host form
+    learner: lrn.LearnerState
+    last_fake_time: np.float32  # the fake-job clock
+
+    def replace(self, **kw) -> "RosellaState":
+        return dataclasses.replace(self, **kw)
+
+
+def init_rosella(n: int, lcfg: lrn.LearnerConfig, mu_init: float = 1.0,
+                 device=None) -> RosellaState:
+    learner = lrn.init_learner(n, lcfg, mu_init, device)
+    return RosellaState(
+        q_view=torch.zeros(n, dtype=torch.int32, device=learner.mu_hat.device),
+        arr=est.init_ema_arrival(), learner=learner, last_fake_time=f32(0.0))
+
+
+def schedule(state: RosellaState, key, now, m: int, policy: str = pol.PPOT_SQ2,
+             table: dsp.AliasTable | None = None) -> tuple[torch.Tensor, RosellaState]:
+    """Place ``m`` jobs arriving at ``now`` in one engine call against the
+    queue view; the batch folds back into it. The runtime has no oracle
+    speeds, so Halo's μ is μ̂. Returns (workers[m], state')."""
+    workers, q_view, arr = route_view(state.q_view, state.arr, state.learner.mu_hat, key,
+                                      f32(now), m, policy, table)
+    return workers, state.replace(q_view=q_view, arr=arr)
+
+
+def report_completions(state: RosellaState, workers, service_times, now) -> RosellaState:
+    """Feed a completion batch (workers -1 = padding) into the learner's
+    rings and drain it from the queue view (clamped at 0 once, at the
+    end)."""
+    w, ts = _to_device(workers, service_times, state.q_view.device)
+    learner = lrn.record_completions(state.learner, w, ts, f32(now))
+    return state.replace(learner=learner, q_view=absorb_completions(state.q_view, w))
+
+
+def refresh(state: RosellaState, lcfg: lrn.LearnerConfig, now) -> RosellaState:
+    return state.replace(learner=lrn.refresh_estimates(
+        state.learner, lcfg, est.lam_hat_ema(state.arr), f32(now)))
+
+
+def fake_jobs_due(state: RosellaState, lcfg: lrn.LearnerConfig, key, now,
+                  max_fake: int = 8) -> tuple[torch.Tensor, RosellaState]:
+    """LEARNER-DISPATCHER tick: Poisson(ν·Δt) benchmark jobs since the last
+    tick, each at a uniform worker. Returns (workers[max_fake] padded with
+    -1, state')."""
+    now = f32(now)
+    js = fake_jobs_from(lcfg, key, est.lam_hat_ema(state.arr), now - state.last_fake_time,
+                        max_fake, state.q_view.shape[0], device=state.q_view.device)
+    return js, state.replace(last_fake_time=now)
+
+
+class RosellaScheduler:
+    """Host-side wrapper holding (state, config, key). ``device=None`` is
+    the CUDA card and raises without one."""
+
+    def __init__(self, n: int, mu_bar: float, *, c0: float = 0.1, c_window: float = 10.0,
+                 window_mode: str = "practical", mu_init: float = 1.0, seed: int = 0,
+                 device=None):
+        self.n = n
+        self.lcfg = lrn.default_learner_config(mu_bar, c0=c0, c_window=c_window,
+                                               window_mode=window_mode)
+        self.state = init_rosella(n, self.lcfg, mu_init, device)
+        self.key = prng.PRNGKey(seed)
+
+    def _next_key(self):
+        self.key, k = prng.split(self.key)
+        return k
+
+    def schedule(self, now: float, m: int, policy: str = pol.PPOT_SQ2) -> torch.Tensor:
+        workers, self.state = schedule(self.state, self._next_key(), now, m, policy)
+        return workers
+
+    def report(self, workers, service_times, now: float) -> None:
+        self.state = report_completions(self.state, workers, service_times, now)
+        self.state = refresh(self.state, self.lcfg, now)
+
+    def fake_jobs(self, now: float, max_fake: int = 8) -> torch.Tensor:
+        js, self.state = fake_jobs_due(self.state, self.lcfg, self._next_key(), now,
+                                       max_fake)
+        return js
+
+    @property
+    def mu_hat(self) -> torch.Tensor:
+        return self.state.learner.mu_hat
 
 
 def absorb_completions(q_view: torch.Tensor, workers: torch.Tensor) -> torch.Tensor:

@@ -24,8 +24,8 @@ adaptation-time metric, ``core.metrics.adaptation_report``).
 
 Not ported yet, and refused by name: fault scenarios and ``recovery``
 (failure semantics, ROADMAP queue A, A4), ``observe`` and ``decisions``
-(telemetry, A5), ``n_frontends > 1`` (the frontend fleet, A6); a policy
-other than PPoT-SQ(2) is refused by ``RosellaRouter`` (A3).
+(telemetry, A5), ``n_frontends > 1`` (the frontend fleet, A6). Every
+policy of ``core.policies.ALL_POLICIES`` runs through both loops.
 """
 from __future__ import annotations
 

@@ -154,8 +154,7 @@ def main(argv=None):
     ap.add_argument("--arrival-batch", type=int, default=1)
     ap.add_argument("--executor", default="replica", choices=("replica", "engine"))
     ap.add_argument("--slots", type=int, default=4)
-    # the router takes PPoT-SQ(2) only until the other policies are ported
-    ap.add_argument("--policy", default=pol.PPOT_SQ2, choices=[pol.PPOT_SQ2])
+    ap.add_argument("--policy", default=pol.PPOT_SQ2, choices=list(pol.ALL_POLICIES))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

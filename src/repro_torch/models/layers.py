@@ -268,7 +268,8 @@ def attention_apply(cfg: ModelConfig, p: nn.Module, x, *, positions,
     new_cache = None
     if cache is not None:
         if "k" not in cache:
-            raise NotImplementedError("the int8 kv_quant cache is not ported yet")
+            raise NotImplementedError("the int8 kv_quant cache is not ported yet "
+                                      "(ROADMAP queue A, A10)")
         idx = cache["len"]
         Smax = cache["k"].shape[1]
         rows = torch.arange(B, device=x.device)[:, None]

@@ -113,7 +113,8 @@ def forward(cfg: ModelConfig, model: nn.Module, tokens):
 
 def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     if cfg.kv_quant:
-        raise NotImplementedError("the int8 kv_quant cache is not ported yet")
+        raise NotImplementedError("the int8 kv_quant cache is not ported yet "
+                                  "(ROADMAP queue A, A10)")
     shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=L._dtype(cfg), device=device),
             "v": torch.zeros(shape, dtype=L._dtype(cfg), device=device),

@@ -17,10 +17,18 @@ fresh μ̂ of every flush instead, the deterministic mode.
 Poisson arrivals, one ``serve_turn``, replica execution in
 ``SimulatedPool.submit_batch`` and completion flushing, with one μ̂ sample
 per batch.
+
+``ReferenceRouter`` + ``run_simulation_reference`` are the per-request
+baseline: Python ``Request``/``Completion`` objects, a heap of pending
+events, every call synchronous through ``core.scheduler.RosellaScheduler``.
+They draw the same streams as ``RosellaRouter`` + ``run_simulation`` in the
+deterministic mode (``async_mu=False, use_alias=False``), so on a
+``SequentialPool`` the two give the same responses.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 
 import numpy as np
 import torch
@@ -32,6 +40,15 @@ from repro_torch.core import policies as pol
 from repro_torch.core import scheduler as rs
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    arrival: float
+    tokens: np.ndarray | None = None
+    n_decode: int = 8  # decode steps the request needs
+    fake: bool = False
 
 
 @dataclasses.dataclass
@@ -54,6 +71,13 @@ class SimulatedPool:
     def __init__(self, speeds):
         self.speeds = np.asarray(speeds, float)
         self.free_at = np.zeros(len(speeds))
+
+    def submit(self, replica: int, req: Request, now: float, cost: float) -> Completion:
+        """One request: ``start = max(now, free_at); done = start + cost/speed``."""
+        start = max(now, self.free_at[replica])
+        done = start + cost / self.speeds[replica]
+        self.free_at[replica] = done
+        return Completion(req.rid, replica, start, done, fake=req.fake)
 
     def submit_batch(self, replicas, arrivals, costs):
         """(t_start[k], t_done[k]) for a request batch.
@@ -113,20 +137,19 @@ class RosellaRouter:
     """Host-side router over a device-resident scheduler state.
 
     ``device=None`` is the CUDA card and raises without one; pass
-    ``device="cpu"`` to run on the CPU.
+    ``device="cpu"`` to run on the CPU. ``use_alias`` holds only for the
+    policies that draw through an alias table (``dsp.ALIAS_POLICIES``);
+    the others never build one.
     """
 
     def __init__(self, n_replicas: int, mu_bar: float, *, policy: str = pol.PPOT_SQ2,
                  c0: float = 0.1, c_window: float = 10.0, seed: int = 0,
                  async_mu: bool = True, use_alias: bool = True, device=None):
-        if policy != pol.PPOT_SQ2:
-            raise NotImplementedError(f"policy {policy!r} is not ported yet: only "
-                                      f"{pol.PPOT_SQ2!r} is (ROADMAP queue A, A3)")
         self.device = resolve_device(device)
         self.n = n_replicas
         self.policy = policy
         self.async_mu = async_mu
-        self.use_alias = use_alias
+        self.use_alias = use_alias and policy in dsp.ALIAS_POLICIES
         self.lcfg = lrn.default_learner_config(mu_bar, c0=c0, c_window=c_window)
         self.q_view = torch.zeros(n_replicas, dtype=torch.int32, device=self.device)
         self.arr = est.init_ema_arrival()
@@ -258,6 +281,93 @@ class RosellaRouter:
     def mu_hat(self) -> np.ndarray:
         """Latest learner estimates (a device-to-host copy)."""
         return self.learner.mu_hat.cpu().numpy()
+
+
+class ReferenceRouter:
+    """The per-request baseline router: every call runs synchronously
+    through ``RosellaScheduler`` (a completion batch is reported, then μ̂
+    refreshed, before the next route), on the inverse-CDF stream."""
+
+    def __init__(self, n_replicas: int, mu_bar: float, *, policy: str = pol.PPOT_SQ2,
+                 c0: float = 0.1, c_window: float = 10.0, seed: int = 0, device=None):
+        self.sched = rs.RosellaScheduler(n_replicas, mu_bar, c0=c0, c_window=c_window,
+                                         seed=seed, device=device)
+        self.policy = policy
+        self.n = n_replicas
+
+    def route(self, now: float, k: int = 1) -> np.ndarray:
+        return self.sched.schedule(now, k, policy=self.policy).cpu().numpy()
+
+    def complete(self, completions: "list[Completion]"):
+        if not completions:
+            return
+        workers = np.array([c.replica for c in completions], np.int32)
+        times = np.array([c.service_time for c in completions], np.float32)
+        now = max(c.t_done for c in completions)
+        self.sched.report(workers, times, now)
+
+    def benchmark_requests(self, now: float) -> np.ndarray:
+        js = self.sched.fake_jobs(now).cpu().numpy()
+        return js[js >= 0]
+
+    @property
+    def mu_hat(self) -> np.ndarray:
+        return self.sched.mu_hat.cpu().numpy()
+
+
+def run_simulation_reference(
+    router: ReferenceRouter,
+    pool: SimulatedPool,
+    *,
+    arrival_rate: float,
+    horizon: float,
+    request_cost: float = 1.0,
+    speed_schedule: "list[tuple[float, np.ndarray]] | None" = None,
+    seed: int = 0,
+    arrival_batch: int = 1,
+):
+    """The per-request event loop: ``Request``/``Completion`` objects, a
+    heap of pending events, one ``pool.submit`` and one μ̂ copy per
+    request. It draws ``run_simulation``'s streams (arrivals, costs, keys);
+    completions flush oldest first, fakes before the batch's requests.
+    Returns (response_times[R], mu_trace[R, n])."""
+    rng = np.random.RandomState(seed)
+    t, rid, seq = 0.0, 0, 0
+    responses = []
+    mu_trace = []
+    pending: list = []  # (t_done, seq, Completion)
+    sched_i = 0
+
+    while t < horizon:
+        gaps = rng.exponential(1.0 / arrival_rate, size=arrival_batch)
+        times = t + np.cumsum(gaps)
+        t = float(times[-1])
+        if speed_schedule is not None:
+            while sched_i < len(speed_schedule) and speed_schedule[sched_i][0] <= t:
+                pool.set_speeds(speed_schedule[sched_i][1])
+                sched_i += 1
+        done_now = []
+        while pending and pending[0][0] <= t:
+            done_now.append(heapq.heappop(pending)[2])
+        router.complete(done_now)
+
+        for j in router.benchmark_requests(t):
+            comp = pool.submit(int(j), Request(rid=-1, arrival=t, fake=True), t,
+                               request_cost * 0.25)
+            heapq.heappush(pending, (comp.t_done, seq, comp))
+            seq += 1
+
+        js = router.route(t, arrival_batch)
+        for ti, j in zip(times, js):
+            req = Request(rid=rid, arrival=float(ti))
+            rid += 1
+            comp = pool.submit(int(j), req, float(ti), request_cost * rng.exponential(1.0))
+            heapq.heappush(pending, (comp.t_done, seq, comp))
+            seq += 1
+            responses.append(comp.t_done - float(ti))
+            mu_trace.append(router.mu_hat.copy())
+
+    return np.asarray(responses), np.asarray(mu_trace)
 
 
 def run_simulation(

@@ -30,6 +30,10 @@ host-to-device copy of its rows, one replay per turn and one copy back;
 the carry stays on the device across chunks, so a chunked run is the
 composition of its turns, bit-equal to an unchunked one.
 
+The turn places with the router's policy, any of ``core.policies``; the
+configuration (and so the captured graph) is one per policy, as the
+reference compiles one program per policy.
+
 The numpy side of the workload is drawn up front with the same
 ``RandomState`` call sequence as ``run_simulation``; the key stream and
 the f32 math are the host loop's (``serve_step_device`` shares them with

@@ -13,7 +13,17 @@ releases):
   * ``fold_in(k, d)`` is ``threefry2x32(k, (0, d))``;
   * ``random_bits(k, shape)`` is ``x0 ^ x1`` of ``threefry2x32(k, (hi(i), lo(i)))``
     over the flat index ``i``, and ``uniform`` maps those bits into [1, 2)
-    and subtracts 1.
+    and subtracts 1;
+  * ``randint(k, shape, lo, hi)`` splits ``k`` in two, draws 32 bits from
+    each half and folds the pair into ``[lo, hi)`` by JAX's modulus rule;
+  * ``gumbel`` is JAX's default ("low") mode, ``-log(-log(u))`` of a
+    uniform on ``[tiny, 1)``, and ``categorical`` the argmax of Gumbel noise
+    plus the logits.
+
+Everything but ``gumbel`` and ``categorical`` is integer work and
+matches JAX bit for bit. Their ``log`` is torch's, which may differ from
+XLA's in the last bit, so a categorical draw can differ where the two
+largest scores lie within a few ulps of each other.
 
 ``uniform_pair``/``uniform_quad`` are the dispatch engine's counter-hash
 uniforms (a Weyl sequence seeded by the key words, mixed by the murmur3
@@ -24,6 +34,8 @@ bits after every step. A product of two 32-bit words does not fit in int64,
 so ``_mul32`` splits the constant into 16-bit halves.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -102,17 +114,77 @@ def _rotl_t(v: torch.Tensor, r: int) -> torch.Tensor:
     return ((v << r) & M32) | (v >> (32 - r))
 
 
-def random_bits(key: Key, n: int, device=None) -> torch.Tensor:
-    """u32 bits (as int64) of ``jax.random.bits(key, (n,))``."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    x0, x1 = _threefry_rounds(key[0], key[1], i >> 32, i & M32, _add_int, _rotl_t)
+def _shape(shape) -> tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(int(d) for d in shape)
+
+
+def _device(key: Key, device):
+    return key.device if device is None and isinstance(key, torch.Tensor) else device
+
+
+def _bits(k0, k1, shape: tuple[int, ...], device) -> torch.Tensor:
+    """``x0 ^ x1`` of threefry2x32 over the flat index, under the key words
+    (k0, k1): ints, 0-d tensors, or [K, 1] columns that draw K rows at once."""
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    x0, x1 = _threefry_rounds(k0, k1, i >> 32, i & M32, _add_int, _rotl_t)
     return x0 ^ x1
 
 
-def uniform(key: Key, n: int, device=None) -> torch.Tensor:
-    """f32[n] in [0, 1): ``jax.random.uniform(key, (n,))``."""
-    bits = (random_bits(key, n, device) >> 9) | 0x3F800000  # 1.0f's exponent
+def random_bits(key: Key, shape, device=None) -> torch.Tensor:
+    """u32 bits (as int64) of ``jax.random.bits(key, shape)``; ``shape`` an
+    int or a tuple. A device key draws on its own device."""
+    shape = _shape(shape)
+    return _bits(key[0], key[1], shape, _device(key, device)).view(shape)
+
+
+def uniform(key: Key, shape, device=None) -> torch.Tensor:
+    """f32 in [0, 1): ``jax.random.uniform(key, shape)``."""
+    bits = (random_bits(key, shape, device) >> 9) | 0x3F800000  # 1.0f's exponent
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(key: Key, shape, lo: int, hi: int, device=None) -> torch.Tensor:
+    """i32 in [lo, hi): ``jax.random.randint(key, shape, lo, hi)``.
+
+    Two 32-bit draws (one from each half of ``split(key)``) fold into the
+    span as ``(hi_bits * 2**32 + lo_bits) mod span``, computed as JAX does
+    in u32: ``multiplier = (2**16 mod span)**2 mod span`` and
+    ``((hi_bits mod span) * multiplier + lo_bits mod span) mod span``,
+    where every product and sum wraps at 2**32 (so a span above 2**16 has
+    multiplier 0)."""
+    span = int(hi) - int(lo) if int(hi) > int(lo) else 1
+    shape, dev = _shape(shape), _device(key, device)
+    halves = split(key)  # both halves' bits in one pass, as two rows
+    if isinstance(halves, torch.Tensor):
+        k0, k1 = halves[:, :1], halves[:, 1:]
+    else:
+        first = torch.arange(2, device=dev)[:, None] == 0
+        k0 = torch.where(first, halves[0][0], halves[1][0])
+        k1 = torch.where(first, halves[0][1], halves[1][1])
+    hi_bits, lo_bits = _bits(k0, k1, shape, dev).view(2, *shape)
+    mult = (((65536 % span) ** 2) & M32) % span
+    off = ((((hi_bits % span) * mult) & M32) + lo_bits % span) & M32
+    return (off % span + int(lo)).to(torch.int32)
+
+
+#: float32's smallest normal number, Gumbel's lower bound on u
+F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: Key, shape, device=None) -> torch.Tensor:
+    """f32 Gumbel noise, ``jax.random.gumbel(key, shape)`` in its default
+    "low" mode: ``-log(-log(u))`` with u uniform on [tiny, 1). The span
+    1 - tiny rounds to 1.0 in f32, so u is ``max(tiny, uniform + tiny)``."""
+    u = (uniform(key, shape, device) + F32_TINY).clamp(min=F32_TINY)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """One draw per row of ``logits`` (last axis): the argmax of Gumbel
+    noise plus the logits, the first index on a tie, as
+    ``jax.random.categorical``. i32 of the batch shape."""
+    g = gumbel(key, logits.shape, logits.device)
+    return torch.argmax(g + logits, dim=-1).to(torch.int32)
 
 
 def _mul32(x, c: int):

@@ -757,3 +757,80 @@ def test_scenario_scan_on_the_card_equals_the_host_loop(dev, name, use_alias):
     if wl.active is not None:
         assert (~wl.active).any()
         assert torch.equal(h["router"].active, s["router"].active)
+
+
+def _policy_case(n, B, masked, seed=0):
+    """Grid μ̂ and μ (exact prefix sums, so both devices build the same
+    CDF), a queue, and a mask with 25% of the workers offline."""
+    rng = np.random.RandomState(seed + n + B)
+    mu = (rng.randint(0, 1024, n) / 256.0).astype(np.float32)
+    mu_true = (rng.randint(1, 1024, n) / 256.0).astype(np.float32)
+    q = rng.randint(0, 20, n).astype(np.int32)
+    mask = None
+    if masked:
+        mask = np.ones(n, bool)
+        mask[rng.permutation(n)[:n // 4]] = False
+    return mu, mu_true, q, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("policy", ["uniform", "pot", "pss", "ppot_sq2", "ppot_ll2", "bandit",
+                                    "halo", "sparrow"])
+def test_engine_on_the_card_equals_the_cpu_for_every_policy(dev, policy, masked):
+    """One engine call per policy on the card and on the CPU, same key and
+    inputs, at (n, B) = (1024, 128) and (64, 4096), one chunk and seven:
+    workers and q_after equal; the alias policies take a table built on
+    each device (equal too)."""
+    from repro_torch.core import policies as tpol
+    from repro_torch.utils import prng
+
+    cfg = tpol.default_policy_config()
+    for n, B in ((1024, 128), (64, 4096)):
+        mu, mu_true, q, mask = _policy_case(n, B, masked)
+        out = {}
+        for d in ("cpu", dev):
+            t = lambda a: None if a is None else torch.from_numpy(a).to(d)  # noqa: E731
+            tab = (tdsp.build_alias_table(t(mu), t(mask))
+                   if policy in tdsp.ALIAS_POLICIES else None)
+            out[str(d)] = [tab] + [tdsp.dispatch(policy, prng.PRNGKey(n + B), t(q), t(mu),
+                                                  t(mu_true), cfg, B, table=tab,
+                                                  mask=t(mask), fold_chunks=C)
+                                   for C in (1, 7)]
+        torch.cuda.synchronize()
+        (tab_c, *cpu), (tab_d, *card) = out["cpu"], out[str(dev)]
+        if tab_c is not None:
+            assert torch.equal(tab_c.prob, tab_d.prob.cpu())
+            assert torch.equal(tab_c.alias, tab_d.alias.cpu())
+        for a, b in zip(cpu, card):
+            assert b.workers.device.type == "cuda"
+            assert torch.equal(a.workers, b.workers.cpu())
+            assert torch.equal(a.q_after, b.q_after.cpu())
+            if mask is not None:
+                assert mask[a.workers.numpy()].all()
+
+
+@pytest.mark.parametrize("policy", ["uniform", "pot", "pss", "ppot_sq2", "ppot_ll2", "bandit",
+                                    "halo", "sparrow"])
+def test_scan_on_the_card_equals_the_host_loop_for_every_policy(dev, policy):
+    """Each policy's turn captured as a CUDA graph and replayed, against the
+    host loop on the card at n = 64 (the §6.1 speed grid, arrivals at
+    0.7·Σ speeds, batches of 32, ~150 turns), SequentialPool,
+    async_mu=False: responses, μ̂ trace and replica clocks equal."""
+    from repro_torch.configs.rosella_sim import tpch_speed_set
+    from repro_torch.serving import router as tr
+    from repro_torch.serving import scanloop as tsl
+
+    speeds = tpch_speed_set(64, 0)
+    rate = 0.7 * float(speeds.sum())
+    kw = dict(arrival_rate=rate, horizon=150 * 32 / rate, seed=0, arrival_batch=32)
+    mk = lambda: tr.RosellaRouter(64, float(speeds.sum()), policy=policy, seed=0,  # noqa: E731
+                                  async_mu=False, device=dev)
+    ra, pa = mk(), tr.SequentialPool(speeds)
+    rh, mh = tr.run_simulation(ra, pa, **kw)
+    rb, pb = mk(), tr.SequentialPool(speeds)
+    rs, ms, info = tsl.run_simulation_scan(rb, pb, pend_cap=None, **kw)
+    assert info["graph_nodes"] is not None and info["pend_overflow"] == 0
+    assert info["replays"] == info["turns"] == len(mh) > 100
+    np.testing.assert_array_equal(rh, rs)
+    np.testing.assert_array_equal(mh, ms)
+    np.testing.assert_array_equal(pa.free_at, pb.free_at)

@@ -117,9 +117,15 @@ def test_dispatch_sequential_matches_reference():
 
 
 def test_other_policies_are_not_ported_yet():
+    """Kept under its first name: every policy now places through the engine
+    (tests/test_torch_policies.py holds each to the reference) and only an
+    unknown name is refused, as the reference refuses it."""
     mu, q, _ = _case(8, 0)
-    with pytest.raises(NotImplementedError):
-        tdsp.dispatch(tpol.POT, prng.PRNGKey(0), _t(q), _t(mu), _t(mu), TCFG, 4)
+    for policy in tpol.ALL_POLICIES:
+        res = tdsp.dispatch(policy, prng.PRNGKey(0), _t(q), _t(mu), _t(mu), TCFG, 4)
+        assert (res.workers >= 0).all() and int(res.q_after.sum()) == int(q.sum()) + 4
+    with pytest.raises(ValueError, match="unknown policy"):
+        tdsp.dispatch("nope", prng.PRNGKey(0), _t(q), _t(mu), _t(mu), TCFG, 4)
 
 
 @pytest.mark.parametrize("B", [1, 17, 512])
@@ -285,7 +291,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                   "repro_torch.kernels.pool_chain.ref",
                   "repro_torch.kernels.pool_chain.build", "repro_torch.utils.scalars",
                   "repro_torch.env", "repro_torch.env.processes", "repro_torch.env.scenario",
-                  "repro_torch.env.serving", "repro_torch.core.metrics"):
+                  "repro_torch.env.serving", "repro_torch.core.metrics",
+                  "repro_torch.core.policies", "repro_torch.core.scheduler",
+                  "repro_torch.core.estimator", "repro_torch.serving.router"):
             assert m in sys.modules, m
         print("clean")
     """)

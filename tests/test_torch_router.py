@@ -239,8 +239,15 @@ def test_router_without_a_device_raises_without_a_card(monkeypatch):
 
 
 def test_router_rejects_policies_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tr.RosellaRouter(N, MU_BAR, policy=tr.pol.PSS, device="cpu")
+    """Kept under its first name: the router takes every policy now, and
+    only an unknown name is refused, at its first route, as the
+    reference's router refuses it."""
+    for policy in tr.pol.ALL_POLICIES:
+        router = tr.RosellaRouter(N, MU_BAR, policy=policy, device="cpu")
+        assert len(router.route(0.5, 4)) == 4
+    router = tr.RosellaRouter(N, MU_BAR, policy="nope", device="cpu")
+    with pytest.raises(ValueError, match="unknown policy"):
+        router.route(0.5, 4)
 
 
 def test_serve_summary_matches_reference():

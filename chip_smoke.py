@@ -161,6 +161,24 @@ SCENARIO_CDF = ("flash_crowd", "churn_heavy")
 SCENARIO_FIXED_REPLICAS = {"churn": "replica 1", "cotenant_shock": "replicas 0-1",
                            "grey_failure": "replicas 0-1"}
 SCENARIO_MIN_RHO = {"null": 0.9}
+# [faults]: the failure semantics (serving.recovery, the faulty turn of
+# serving.scanloop) at the scheduler cell, each fault scenario of the
+# registry on its own clock as the [scenario] cells build theirs: the host
+# recovery loop and the faulty one-program loop on a SequentialPool, equal
+# bit for bit (responses with NaN for a lost task, μ̂ trace, free_at, every
+# ledger entry) and conserved, recovery armed as tests/test_faults.py arms
+# it; crash_storm also on the inverse-CDF stream (masked and slotted: K3).
+# Then the null scenario with the inert config through the faulty turn,
+# equal bit for bit to the plain turn. FAULT_HORIZON cuts depth only
+FAULT_SCENARIOS = ("crash_storm", "blackout", "grey_failure")
+FAULT_CDF = ("crash_storm",)
+FAULT_RECOVERY = dict(timeout_mult=8.0, retry_budget=2, retry_cap=4, spec_cap=2,
+                      spec_ratio=3.0)
+FAULT_HORIZON = 360.0
+# the capacities of the comparison run without recovery, which has no host
+# loop to size them: the auto-sizing bound's cap, and a flush four times the
+# armed cells' largest (every completion is clean there)
+BARE_PEND_CAP, BARE_COMP_CAP = 65536, 1024
 # [policies]: the eight policies of core.policies. (a) one engine call per
 # policy on the card and on the CPU (same key, μ̂ on a 2^-8 grid so both
 # devices build the same CDF), unmasked and with POLICY_OFFLINE of the
@@ -1187,6 +1205,238 @@ def phase_scenarios(torch, tr, tsl, tenv, K, CK, chk, met, speeds, dev, card):
     print(f"[scenarios] {len(cells)} scenarios, {len(exact)} exact pairs in {secs:.1f} s; "
           f"launches {json.dumps(total)}")
     return dict(cells=cells, exact=exact, seconds=secs), total
+
+
+# ---------------------------------------------------------------------------
+# failure semantics: the host recovery loop and the faulty one-program loop
+# ---------------------------------------------------------------------------
+
+
+def fault_host(torch, tenv, K, chk, scn, dev, router, recovery):
+    """``run_scenario``'s host recovery loop over ``scn`` on the card, its
+    kernels held to their plain versions every CHECK_EVERY calls. Returns
+    the run, its wall clock and its launches by wrapper."""
+    saved = {name: getattr(K, name) for name in REPLACES}
+    for name in REPLACES:
+        setattr(K, name, chk.wrap(name, CHECK_EVERY))
+    try:
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, sequential_pool=True,
+                                router=router, recovery=recovery, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name, fn)
+    return out, wall, launches
+
+
+def fault_cell(torch, tr, tsl, tenv, K, CK, chk, met, scn, dev, use_alias: bool,
+               recovery, inert) -> dict:
+    """One fault scenario with recovery armed: the host recovery loop, then
+    the faulty one-program loop with capacities from the host loop's peak
+    pending set and largest clean flush (x1.25 to a power of two); equal bit
+    for bit, conserved, overflows 0; 50 replays profiled. Then the scan
+    under the ``inert`` config (the faults alone, nothing recovered) for
+    the same fault report without recovery."""
+    stream = "alias" if use_alias else "icdf"
+    tag = f"[faults {scn.name} {stream}]"
+
+    def router():
+        return tr.RosellaRouter(scn.n, float(np.sum(scn.speeds)), seed=SEED,
+                                use_alias=use_alias, async_mu=False, device=dev)
+
+    h, wall_h, host_launches = fault_host(torch, tenv, K, chk, scn, dev, router(), recovery)
+    hi = h["info"]
+    caps = dict(pend_cap=_pow2_at_least(1.25 * max(hi["most_in_flight"], 1)),
+                comp_cap=_pow2_at_least(1.25 * max(hi["largest_flush"], 1)),
+                most_in_flight=hi["most_in_flight"], largest_flush=hi["largest_flush"])
+    K.reset_launches()
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_scan=True,
+                          sequential_pool=True, router=router(), recovery=recovery,
+                          pend_cap=caps["pend_cap"], comp_cap=caps["comp_cap"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info, wl = s["info"], s["workload"]
+    launches = scan_launches(K, CK, info)
+    T = wl.turns
+    need(info["replays"] == info["turns"] == T and info["graph_nodes"] is not None,
+         f"{tag} the turns were not graph replays ({info})")
+    need(info["flush_overflow"] == 0 and info["pend_overflow"] == 0, f"{tag} {info}")
+    for part, ok in (
+            ("responses", np.array_equal(h["responses"], s["responses"], equal_nan=True)),
+            ("mu trace", np.array_equal(h["mu_trace"], s["mu_trace"])),
+            ("free_at", np.array_equal(h["pool"].free_at, s["pool"].free_at)),
+            ("ledger", hi["ledger"] == info["ledger"])):
+        need(ok, f"{tag} the scan's {part} differ from the host recovery loop's")
+    led = info["ledger"]
+    ok, residuals = met.check_conservation(led)
+    need(ok and led["conserved"], f"{tag} the ledger does not conserve: {residuals}")
+    resp = s["responses"]
+    need(resp.shape == (T * BATCH,) and s["mu_trace"].shape == (T, scn.n)
+         and (resp[np.isfinite(resp)] > 0).all()
+         and np.isfinite(resp).sum() == led["completed_tasks"],
+         f"{tag} bad responses or trace")
+    need(led["n_retries"] > 0 and led["n_spec"] > 0 and led["n_timeouts"] > 0,
+         f"{tag} recovery never acted: {led}")
+    rep = met.fault_report(resp, led, horizon=FAULT_HORIZON)
+    # the first SCAN_PROFILE_TURNS turns again from a fresh router's state,
+    # under the profiler: device busy time and idle share a replay
+    cfg = tsl.scan_config(router(), BATCH, churn=wl.active is not None,
+                          burst_cap=wl.burst.shape[1] if wl.active is not None else 0,
+                          fake_cost=scn.request_cost * 0.25, pend_cap=caps["pend_cap"],
+                          comp_cap=caps["comp_cap"], recovery=recovery, task_cap=T * BATCH)
+    run = tsl.runner(cfg, str(dev), T)
+    need(run.replays > 0, f"{tag} the profiled runner is not the run's")
+    run.load(router(), tr.SequentialPool(np.asarray(scn.speeds, float)))
+    W = SCAN_PROFILE_TURNS
+    cols = dict(times=wl.times[:W], costs=wl.costs[:W], speeds=wl.speeds[:W],
+                kill=wl.kill_at[:W] if wl.kill_at is not None else np.full((W, scn.n), np.inf),
+                stall=(wl.stall_at[:W] if wl.stall_at is not None
+                       else np.full((W, scn.n), np.inf)),
+                stall_dur=wl.stall_dur[:W] if wl.stall_dur is not None else np.zeros((W, scn.n)))
+    if wl.active is not None:
+        cols.update(active=wl.active[:W], rejoin=wl.rejoin[:W], burst=wl.burst[:W])
+    prof = device_profile(torch, lambda: run.run_chunk(cols))
+    in_replay = {w: 0.0 for w in PROFILE_NAMES}
+    for name, us in prof["us"].items():
+        if wrapper_of(name) is not None:
+            in_replay[wrapper_of(name)] += us / 1e3 / W
+    run_s = wall - info["capture_s"]
+    K.reset_launches()
+    CK.reset_launches()
+    bare = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_scan=True,
+                             sequential_pool=True, router=router(), recovery=inert,
+                             pend_cap=BARE_PEND_CAP, comp_cap=BARE_COMP_CAP, device=dev)
+    bare_launches = scan_launches(K, CK, bare["info"])
+    need(met.check_conservation(bare["info"]["ledger"])[0], f"{tag} the bare run's ledger "
+         f"does not conserve")
+    rep_bare = met.fault_report(bare["responses"], bare["info"]["ledger"],
+                                horizon=FAULT_HORIZON)
+    res = dict(turns=T, requests=int(resp.size), turns_per_s=T / run_s,
+               host_turns_per_s=T / wall_h, capture_s=info["capture_s"],
+               graph_nodes=info["graph_nodes"],
+               launches_per_replay=sum(info["graph_kernels"].values()),
+               busy_ms_per_turn=prof["busy_us"] / 1e3 / W, idle=prof["idle"],
+               in_replay_ms=in_replay, longest_chain=info["longest_chain"],
+               report={k: rep[k] for k in ("completed", "lost", "loss_rate", "timeouts",
+                                           "retries", "speculative", "killed_copies",
+                                           "retry_amplification", "p50", "p99", "p999",
+                                           "goodput", "throughput")},
+               ledger=led, host_launches=host_launches, launches=launches,
+               bare={k: rep_bare[k] for k in ("completed", "lost", "loss_rate",
+                                              "killed_copies", "p50", "p99", "p999",
+                                              "goodput")},
+               bare_launches=bare_launches, **caps)
+    print(f"{tag} n={scn.n} batch={BATCH}: {T} turns, {resp.size} tasks; host recovery loop "
+          f"and faulty one-program loop on a SequentialPool equal (responses with NaN, mu "
+          f"trace, free_at, ledger), conserved, overflows 0; completed {rep['completed']} "
+          f"lost {rep['lost']} loss rate {rep['loss_rate']:.6f}, timeouts {rep['timeouts']} "
+          f"retries {rep['retries']} speculative {rep['speculative']} killed copies "
+          f"{rep['killed_copies']} stalled {led['n_stalled']}, retry amplification "
+          f"{rep['retry_amplification']:.6f}; p50 {rep['p50']:.6f} p99 {rep['p99']:.6f} p999 "
+          f"{rep['p999']:.6f} s, goodput {rep['goodput']:.3f}/s; scan {res['turns_per_s']:.2f} "
+          f"turns/s, host loop (checked) {res['host_turns_per_s']:.2f} turns/s; capture_s "
+          f"{info['capture_s']:.3f}, graph nodes {info['graph_nodes']}, launches per replay "
+          f"{res['launches_per_replay']}, {W} replays profiled: busy "
+          f"{res['busy_ms_per_turn']:.4f} ms a turn, idle share {prof['idle']:.4f}, device ms "
+          f"a replay by kernel "
+          + ", ".join(f"{w} {v:.6f}" for w, v in in_replay.items() if v)
+          + f"; pend_cap "
+          f"{caps['pend_cap']} comp_cap {caps['comp_cap']} (host loop: most in flight "
+          f"{caps['most_in_flight']}, largest clean flush {caps['largest_flush']}); longest "
+          f"chain {info['longest_chain']}; launches host {json.dumps(host_launches)}, scan "
+          f"{json.dumps(launches)}")
+    print(f"{tag} without recovery (the faults alone, scan): completed {rep_bare['completed']} "
+          f"lost {rep_bare['lost']} loss rate {rep_bare['loss_rate']:.6f}, killed copies "
+          f"{rep_bare['killed_copies']}; p50 {rep_bare['p50']:.6f} p99 {rep_bare['p99']:.6f} "
+          f"p999 {rep_bare['p999']:.6f} s, goodput {rep_bare['goodput']:.3f}/s")
+    return res
+
+
+def fault_inert(torch, tr, tenv, K, CK, scn, dev, recovery) -> dict:
+    """The null scenario through the plain turn and through the faulty turn
+    with the inert config: responses, μ̂ trace and free_at equal bit for
+    bit; nothing lost."""
+    out = {}
+    for label, rc in (("plain", None), ("inert", recovery)):
+        router = tr.RosellaRouter(scn.n, float(np.sum(scn.speeds)), seed=SEED, use_alias=True,
+                                  async_mu=False, device=dev)
+        K.reset_launches()
+        CK.reset_launches()
+        t0 = time.perf_counter()
+        out[label] = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_scan=True,
+                                       sequential_pool=True, router=router, recovery=rc,
+                                       device=dev)
+        torch.cuda.synchronize()
+        out[label]["wall"] = time.perf_counter() - t0
+        out[label]["launches"] = scan_launches(K, CK, out[label]["info"])
+    a, b = out["plain"], out["inert"]
+    for part, ok in (("responses", np.array_equal(a["responses"], b["responses"])),
+                     ("mu trace", np.array_equal(a["mu_trace"], b["mu_trace"])),
+                     ("free_at", np.array_equal(a["pool"].free_at, b["pool"].free_at))):
+        need(ok, f"[faults null inert] the faulty turn's {part} differ from the plain turn's")
+    led = b["info"]["ledger"]
+    need(led["lost_tasks"] == 0 and led["conserved"], f"[faults null inert] {led}")
+    res = {label: dict(turns=r["info"]["turns"], graph_nodes=r["info"]["graph_nodes"],
+                       launches_per_replay=sum(r["info"]["graph_kernels"].values()),
+                       turns_per_s=r["info"]["turns"] / (r["wall"] - r["info"]["capture_s"]),
+                       launches=r["launches"])
+           for label, r in out.items()}
+    print(f"[faults null inert] n={scn.n}: the faulty turn with INERT_RECOVERY equals the plain "
+          f"turn bit for bit over {res['plain']['turns']} turns (responses, mu trace, "
+          f"free_at), nothing lost; graph nodes {res['plain']['graph_nodes']} plain / "
+          f"{res['inert']['graph_nodes']} inert, launches per replay "
+          f"{res['plain']['launches_per_replay']} / {res['inert']['launches_per_replay']}, "
+          f"{res['plain']['turns_per_s']:.2f} / {res['inert']['turns_per_s']:.2f} turns/s")
+    return res
+
+
+def phase_faults(torch, tr, tsl, tenv, trcv, K, CK, chk, met, speeds, dev, card):
+    """The fault scenarios at the scheduler cell through both serving loops
+    with recovery armed, and the inert config against the plain turn;
+    returns the records and the phase's launches by wrapper."""
+    t0 = time.perf_counter()
+    rate = LOAD * float(speeds.sum())
+    recovery = trcv.RecoveryConfig(**FAULT_RECOVERY)
+    print(f"[faults] {card}; n={N_REPLICAS} (tpch_speed_set, sum {speeds.sum():.2f}), rate "
+          f"{rate:.3f}/s, batches of {BATCH}, async_mu=False, seed {SEED}, horizon "
+          f"{FAULT_HORIZON} s; recovery {json.dumps(FAULT_RECOVERY)}")
+    cells, total = {}, {w: 0 for w in PROFILE_NAMES}
+    for name in FAULT_SCENARIOS:
+        scn = tenv.make(name, speeds=tuple(speeds), rate=rate, horizon=FAULT_HORIZON)
+        for use_alias in (True, False):
+            if use_alias or name in FAULT_CDF:
+                key = f"{name} {'alias' if use_alias else 'icdf'}"
+                cells[key] = fault_cell(torch, tr, tsl, tenv, K, CK, chk, met, scn, dev,
+                                        use_alias, recovery, trcv.INERT_RECOVERY)
+    scn = tenv.make("null", speeds=tuple(speeds), rate=rate, horizon=FAULT_HORIZON)
+    inert = fault_inert(torch, tr, tenv, K, CK, scn, dev, trcv.INERT_RECOVERY)
+    for rec in cells.values():
+        for w in PROFILE_NAMES:
+            total[w] += (rec["host_launches"].get(w, 0) + rec["launches"][w]
+                         + rec["bare_launches"][w])
+    for rec in inert.values():
+        for w in PROFILE_NAMES:
+            total[w] += rec["launches"][w]
+    for key, names in (("crash_storm alias", ("ppot_dispatch_fused_alias", "alias_table")),
+                       ("crash_storm icdf", ("ppot_dispatch",))):
+        for w in names:
+            need(cells[key]["host_launches"][w] > 0 and cells[key]["launches"][w] > 0,
+                 f"[faults {key}] {w} was not launched by both loops")
+    for key, rec in cells.items():
+        need(rec["launches"]["pool_chain"] > 0, f"[faults {key}] the scan never launched "
+             f"pool_chain")
+    secs = time.perf_counter() - t0
+    print(f"[faults] {len(cells)} fault cells and the inert pair in {secs:.1f} s; launches "
+          f"{json.dumps(total)}")
+    return dict(cells=cells, inert=inert, seconds=secs), total
 
 
 # ---------------------------------------------------------------------------
@@ -2429,6 +2679,7 @@ def main() -> int:
         from repro_torch.kernels.ssd_scan import kernel as SK
         from repro_torch.kernels.ssd_scan import ops as SO
         from repro_torch.kernels.ssd_scan import ref as SR
+        from repro_torch.serving import recovery as trcv
         from repro_torch.serving import router as tr
         from repro_torch.serving import scanloop as tsl
         from repro_torch.utils import prng
@@ -2462,6 +2713,8 @@ def main() -> int:
                                                               tpch_speed_set, dev)
     scenarios, scenario_launches = phase_scenarios(torch, tr, tsl, tenv, K, CK, chk, met,
                                                    speeds, dev, card)
+    faults, fault_launches = phase_faults(torch, tr, tsl, tenv, trcv, K, CK, chk, met,
+                                          speeds, dev, card)
     policies, policy_launches = phase_policies(torch, tr, tenv, D, P, prng, K, CK, chk, met,
                                                speeds, dev, card)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
@@ -2510,7 +2763,8 @@ def main() -> int:
     ssd_times = phase_ssd_times(torch, SK, SO, SR, dev)
 
     total = {name: sum(r["launches"][name] for r in main_runs.values())
-             + scenario_launches[name] + policy_launches[name] for name in REPLACES}
+             + scenario_launches[name] + fault_launches[name] + policy_launches[name]
+             for name in REPLACES}
     kernels = []
     for name in REPLACES:
         t = times[(name, 1024, BATCH)]
@@ -2526,7 +2780,8 @@ def main() -> int:
     kernels.append(dict(
         name="pool_chain", route="cuda", source=POOL_SOURCE, replaces=POOL_REPLACES,
         launches=sum(c["launches"]["pool_chain"] for c in scan_cells.values())
-        + scenario_launches["pool_chain"] + policy_launches["pool_chain"],
+        + scenario_launches["pool_chain"] + fault_launches["pool_chain"]
+        + policy_launches["pool_chain"],
         max_abs_err=pool_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None,
         real_turn_ms=pool_turn_times[("a", W)]["ms"]))
@@ -2549,6 +2804,7 @@ def main() -> int:
     print(f"[summary] scan exact {json.dumps(scan_exact)}")
     print(f"[summary] scan {json.dumps(scan_cells)}")
     print(f"[summary] scenarios {json.dumps(scenarios)}")
+    print(f"[summary] faults {json.dumps(faults)}")
     print(f"[summary] policies {json.dumps(policies)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")

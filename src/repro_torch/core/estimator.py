@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.utils import scalars
+from repro_torch.utils.device import resolve_device
 
 f32 = np.float32
 
@@ -35,7 +36,10 @@ class ArrivalEstimatorState:
 
 
 def init_arrival_estimator(window: int, lam_init: float = 0.0,
-                           device="cpu") -> ArrivalEstimatorState:
+                           device=None) -> ArrivalEstimatorState:
+    """An empty ring of ``window`` timestamps on ``device`` (``None`` is the
+    CUDA card and raises without one)."""
+    device = resolve_device(device)
     z = lambda v, dt: torch.full((), v, dtype=dt, device=device)  # noqa: E731
     return ArrivalEstimatorState(
         times=torch.zeros(window, dtype=torch.float32, device=device),

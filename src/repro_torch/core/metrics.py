@@ -1,6 +1,7 @@
-"""Summaries of serving runs (numpy, host side): response-time summaries
-and the adaptation-time metric of the environment engine (``repro_torch.env``),
-copied from the JAX package's ``core/metrics.py``."""
+"""Summaries of serving runs (numpy, host side): response-time summaries,
+the adaptation-time metric of the environment engine (``repro_torch.env``)
+and the fault-run ledger checks of the recovery layer
+(``serving.recovery``), copied from the JAX package's ``core/metrics.py``."""
 from __future__ import annotations
 
 import numpy as np
@@ -134,3 +135,74 @@ def adaptation_report(
         "mean": float(vals.mean()) if vals.size else float("nan"),
         "max": float(vals.max()) if vals.size else float("nan"),
     }
+
+
+def check_conservation(ledger: dict) -> tuple[bool, dict]:
+    """The task-conservation invariant over a fault-run ledger
+    (``info["ledger"]`` from the serving loops): every arrived task is
+    completed or lost, every launched real COPY (original + retries +
+    speculative) is completed or killed, and every fake/burst probe is
+    completed or killed. Returns (ok, residuals) — residuals are the
+    per-identity imbalances, all zero when the ledger conserves."""
+    res = {
+        "tasks": ledger["n_tasks"]
+        - ledger["completed_tasks"] - ledger["lost_tasks"],
+        "real_copies": ledger["copies_real_launched"]
+        - ledger["copies_real_completed"] - ledger["copies_real_killed"],
+        "fakes": ledger["fake_launched"]
+        - ledger["fake_completed"] - ledger["fake_killed"],
+    }
+    return all(v == 0 for v in res.values()), res
+
+
+def fault_report(responses, ledger: dict, *, horizon: float | None = None) -> dict:
+    """Robustness metrics for a fault run — the failure-side companion of
+    ``adaptation_report``. ``responses`` is the task-indexed response
+    array of the fault-aware serving loops (NaN = lost task); ``ledger``
+    is their ``info["ledger"]`` conservation ledger.
+
+    Reports goodput (distinct tasks completed per unit time) vs
+    throughput (real copies completed per unit time — retries and
+    speculation inflate this above goodput), the retry amplification
+    factor (real copies launched per arrived task; 1.0 = no recovery
+    overhead), loss rate, and latency percentiles including p999 over
+    the completed tasks."""
+    r = np.asarray(responses, np.float64)
+    done = r[np.isfinite(r)]
+    n_tasks = int(ledger["n_tasks"])
+    completed = int(ledger["completed_tasks"])
+    lost = int(ledger["lost_tasks"])
+    ok, residuals = check_conservation(ledger)
+    out: dict = {
+        "n_tasks": n_tasks,
+        "completed": completed,
+        "lost": lost,
+        "loss_rate": lost / max(n_tasks, 1),
+        "timeouts": int(ledger.get("n_timeouts", 0)),
+        "retries": int(ledger.get("n_retries", 0)),
+        "speculative": int(ledger.get("n_spec", 0)),
+        "killed_copies": int(ledger.get("copies_real_killed", 0)),
+        "dirty_completions": int(ledger.get("n_dirty_completions", 0)),
+        "retry_amplification": (
+            int(ledger["copies_real_launched"]) / max(n_tasks, 1)
+        ),
+        "dup_completions": (
+            int(ledger["copies_real_completed"]) - completed
+        ),
+        "conserved": ok,
+        "conservation_residuals": residuals,
+    }
+    if done.size:
+        out.update(
+            mean=float(done.mean()),
+            p50=float(np.percentile(done, 50)),
+            p99=float(np.percentile(done, 99)),
+            p999=float(np.percentile(done, 99.9)),
+        )
+    else:
+        out.update(mean=float("nan"), p50=float("nan"),
+                   p99=float("nan"), p999=float("nan"))
+    if horizon:
+        out["goodput"] = completed / horizon
+        out["throughput"] = int(ledger["copies_real_completed"]) / horizon
+    return out

@@ -202,18 +202,22 @@ def fake_jobs_from(lcfg: lrn.LearnerConfig, key, lam_hat, dt, max_fake: int,
 
 
 def _draw_and_route(q1, arr, lam0, lcfg, key, now, last_fake, m: int, policy: str,
-                    max_fake: int, mu_route, tbl, mask):
+                    max_fake: int, mu_route, tbl, mask, m_route: int | None = None,
+                    slots: torch.Tensor | None = None):
     """The turn after the completion fold: the key splits in the
     reference's order (``key1, k_fake = split(key)``, then ``key2, k_route
-    = split(key1)``), the benchmark draw, the λ̂ EMA and the route.
-    Returns (fake_js, workers, q_view', arr', key')."""
+    = split(key1)``), the benchmark draw, the λ̂ EMA and the route of
+    ``m`` slots, or of ``m_route`` gated by ``slots`` (the λ̂ EMA still
+    observes ``m`` arrivals). Returns (fake_js, workers, q_view', arr',
+    key')."""
     key1, k_fake = prng.split(key)
     key2, k_route = prng.split(key1)
     fake_js = fake_jobs_from(lcfg, k_fake, lam0, now - last_fake, max_fake,
                              q1.shape[0], mask=mask, device=q1.device)
     arr2 = est.observe_arrivals_ema(arr, now, m, window=est.EMA_ARR_WINDOW)
     res = dsp.dispatch(policy, k_route, q1, mu_route, mu_route,
-                       pol.default_policy_config(), m, table=tbl, mask=mask)
+                       pol.default_policy_config(), m if m_route is None else m_route,
+                       active=slots, table=tbl, mask=mask)
     return fake_js, res.workers, res.q_after, arr2, key2
 
 
@@ -221,7 +225,8 @@ def serve_step(q_view, learner, arr, mu_hat, lcfg, key,
                comp_workers: np.ndarray, comp_times: np.ndarray, scalars,
                m: int, policy: str = pol.PPOT_SQ2, max_fake: int = 8,
                use_fresh_mu: bool = False, table: dsp.AliasTable | None = None,
-               use_alias: bool = False, mask: torch.Tensor | None = None):
+               use_alias: bool = False, mask: torch.Tensor | None = None,
+               m_route: int | None = None, slots: torch.Tensor | None = None):
     """One whole serving turn: flush the due completion batch (host arrays
     padded with -1), draw benchmark requests, route the arrival batch.
 
@@ -229,7 +234,15 @@ def serve_step(q_view, learner, arr, mu_hat, lcfg, key,
     reference's order: ``key1, k_fake = split(key)``, then
     ``key2, k_route = split(key1)``.
 
-    Returns (fake_js[max_fake], workers[m], q_view', learner', arr', key').
+    ``m_route``/``slots`` are the recovery layer's widened dispatch (the
+    reference's ``serve_step_recovery``): one engine call routes ``m_route
+    >= m`` slots, the first ``m`` the arrival batch and the tail the turn's
+    retry quota, gated by ``slots`` bool[m_route] (an inactive slot places
+    nothing and returns worker -1). λ̂ still observes ``m`` arrivals.
+    ``m_route=None`` is the plain turn.
+
+    Returns (fake_js[max_fake], workers[m or m_route], q_view', learner',
+    arr', key').
     """
     now, last_fake, comp_now = (f32(s) for s in scalars)
     dev = q_view.device
@@ -248,23 +261,26 @@ def serve_step(q_view, learner, arr, mu_hat, lcfg, key,
         mu_route = mu_hat
         tbl = table if use_alias else None
     fake_js, workers, q2, arr2, key2 = _draw_and_route(
-        q1, arr, lam0, lcfg, key, now, last_fake, m, policy, max_fake, mu_route, tbl, mask)
+        q1, arr, lam0, lcfg, key, now, last_fake, m, policy, max_fake, mu_route, tbl, mask,
+        m_route=m_route, slots=slots)
     return fake_js, workers, q2, learner2, arr2, key2
 
 
 def serve_step_device(q_view, learner, arr, lcfg, key, comp_workers: torch.Tensor,
                       comp_times: torch.Tensor, clock, m: int,
                       policy: str = pol.PPOT_SQ2, max_fake: int = 8,
-                      use_alias: bool = False, mask: torch.Tensor | None = None):
+                      use_alias: bool = False, mask: torch.Tensor | None = None,
+                      m_route: int | None = None, slots: torch.Tensor | None = None):
     """``serve_step`` with the whole turn on the device and fresh-μ̂
     routing: ``key`` an int64 tensor [2], ``arr`` the device estimator,
     ``clock`` = (now, last_fake_time, comp_now) as f32 0-d tensors, the
-    completion batch i32/f32 tensors padded with -1.
+    completion batch i32/f32 tensors padded with -1; ``m_route``/``slots``
+    as in ``serve_step``.
 
     The fold runs every turn and is selected only where the batch has a
     completion: over an all-padding batch it is not a no-op
     (``refresh_estimates`` moves μ̂ through the dead-worker cut-off).
-    Returns (fake_js[max_fake], workers[m], q_view', learner', arr', key').
+    Returns (fake_js[max_fake], workers, q_view', learner', arr', key').
     """
     now, last_fake, comp_now = clock
     q1 = absorb_completions(q_view, comp_workers)
@@ -274,5 +290,5 @@ def serve_step_device(q_view, learner, arr, lcfg, key, comp_workers: torch.Tenso
     tbl = dsp.build_alias_table(learner2.mu_hat, mask) if use_alias else None
     fake_js, workers, q2, arr2, key2 = _draw_and_route(
         q1, arr, lam0, lcfg, key, now, last_fake, m, policy, max_fake, learner2.mu_hat,
-        tbl, mask)
+        tbl, mask, m_route=m_route, slots=slots)
     return fake_js, workers, q2, learner2, arr2, key2

@@ -22,10 +22,16 @@ host loop or the one-program loop and returns responses, μ̂ trace and
 the workload (whose speed and membership trajectories feed the
 adaptation-time metric, ``core.metrics.adaptation_report``).
 
-Not ported yet, and refused by name: fault scenarios and ``recovery``
-(failure semantics, ROADMAP queue A, A4), ``observe`` and ``decisions``
-(telemetry, A5), ``n_frontends > 1`` (the frontend fleet, A6). Every
-policy of ``core.policies.ALL_POLICIES`` runs through both loops.
+A fault scenario (crash kills, blackout stalls) or a ``recovery`` config
+(timeouts, retries, speculative copies) runs the failure-semantics loops:
+``serving.recovery.run_workload_recovery`` on the host and the faulty turn
+of the one-program loop, equal float for float, responses task-indexed
+with NaN for a lost task and ``info["ledger"]`` the conservation ledger.
+
+Not ported yet, and refused by name: ``observe`` and ``decisions``
+(telemetry, ROADMAP queue A, A5), ``n_frontends > 1`` (the frontend fleet,
+A6). Every policy of ``core.policies.ALL_POLICIES`` runs through both
+loops.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import numpy as np
 
 from repro_torch.core import policies as pol
 from repro_torch.env.scenario import Scenario, ServingWorkload
+from repro_torch.serving import recovery as rcv
 from repro_torch.serving import router as rt
 from repro_torch.serving import scanloop
 
@@ -65,8 +72,12 @@ def run_workload(
     scan-only concern, reported as zeros here for symmetry).
     """
     if wl.has_faults or recovery is not None:
-        raise _not_ported("run_workload on a fault scenario or with recovery: the "
-                          "failure-semantics loop", "A4")
+        # the failure-semantics loop subsumes this one (fault-free with
+        # inert recovery it is bit-equal); the plain loop stays the fast
+        # path of the fault-free case
+        return rcv.run_workload_recovery(
+            router, pool, wl, fake_cost=fake_cost, burst_cost=burst_cost,
+            recovery=recovery, observe=observe, decisions=decisions)
     if observe is not None:
         raise _not_ported("run_workload(observe=...): telemetry", "A5")
     if decisions is not None:

@@ -20,6 +20,9 @@ _SIGNATURES = {
     # burst_cost, n, mf, bc, k, start, done, sub_w, act, free_out, resp,
     # chain_max, stream
     "pool_turn": (_P,) * 7 + (_D, _D) + (_I,) * 4 + (_P,) * 8,
+    # as pool_turn, with tail_w, tail_cost, tail_gate after costs and R
+    # after k
+    "pool_turn_tail": (_P,) * 10 + (_D, _D) + (_I,) * 5 + (_P,) * 8,
 }
 
 LIBRARY = _nvcc.CudaLibrary(SRC, _SIGNATURES, "pool_chain_error_string")

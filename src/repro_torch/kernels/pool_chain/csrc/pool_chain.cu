@@ -9,7 +9,7 @@
 //   done[i]  = start[i] + cost[i] / speed[w[i]]
 //   free_at[w[i]] = done[i]                  (only where active[i])
 //
-// in f64 with the reference's rounding. Two entry points run one kernel:
+// in f64 with the reference's rounding. Three entry points run one kernel:
 // pool_chain takes the steps as arrays; pool_turn takes a turn's three
 // groups as the turn holds them (benchmark replicas, -1 inactive; burst
 // targets, -1 a pad; the batch's replicas, arrival times and costs),
@@ -17,7 +17,11 @@
 // turn's time, the batch's last arrival, at its fixed cost; a negative
 // replica is inactive and submits to replica 0) and also writes the
 // assembled replicas and active flags and the batch's responses
-// done - arrival.
+// done - arrival. pool_turn_tail adds a fourth group after the batch, the
+// faulty turn's retry and speculative copies (the reference's faulty
+// pstep, src/repro/serving/scanloop.py:501-530): R replicas, costs and
+// gates, each arriving at the turn's time, active where its gate is set
+// and its replica is not negative; pool_turn is pool_turn_tail with R = 0.
 //
 // Only steps on the same replica depend on each other: the recurrence is
 // one chain per replica, in submission order. So one block, a thread for
@@ -50,8 +54,9 @@
 // of each distinct replica (free_at in and out; a step's w, arrival, cost,
 // active, start and done); pool_turn in place moves 24 bytes for each
 // distinct replica (its clock in and out, its speed) and 4 + 21 bytes a
-// step (replica in; start, done, sub_w, act out) and 24 a batch step
-// (arrival, cost, response): a few ns at 3.35 TB/s. What bounds it is the
+// step (replica in; start, done, sub_w, act out), 24 a batch step
+// (arrival, cost, response) and 9 a tail step (cost, gate): a few ns at
+// 3.35 TB/s. What bounds it is the
 // longest chain of these inputs: L dependent steps of a max and an f64 add,
 // 8 cycles each, L * 8 cycles at the SM clock. The least time is the larger
 // of the two.
@@ -96,8 +101,11 @@ struct Params {
   const int* fake_js;     // [mf]
   const int* burst;       // [bc]
   const double* times;    // [k]
+  const int* tail_w;      // [R] (pool_turn_tail)
+  const double* tail_cost;  // [R]
+  const unsigned char* tail_gate;  // [R]
   double fake_cost, burst_cost;
-  int n, M, mf, bc;
+  int n, M, mf, bc, k;
   double* start;          // [M]
   double* done;           // [M]
   double* free_out;       // [n]
@@ -121,10 +129,11 @@ __global__ void __launch_bounds__(kThreads) pool_chain_kernel(Params p) {
   unsigned char* act = reinterpret_cast<unsigned char*>(nxt + M);  // [M]
   unsigned char* flag = act + M;  // [M] kFirst | kLast in its tile, then head
   const int mb = p.mf + p.bc;  // the batch's first step (pool_turn)
+  const int mt = mb + p.k;     // the tail's first step (pool_turn)
 
   // 1. stage
   for (int r = threadIdx.x; r < n; r += nt) last[r] = -1;
-  const double t = kTurn ? __ldg(p.times + M - mb - 1) : 0.0;
+  const double t = kTurn ? __ldg(p.times + p.k - 1) : 0.0;
   for (int i = threadIdx.x; i < M; i += nt) {
     int wi;
     double a, c;
@@ -140,11 +149,17 @@ __global__ void __launch_bounds__(kThreads) pool_chain_kernel(Params p) {
       c = i < p.mf ? p.fake_cost : p.burst_cost;
       on = wi >= 0;
       wi = on ? wi : 0;
-    } else {
+    } else if (i < mt) {
       wi = __ldg(p.workers + i - mb);
       a = __ldg(p.times + i - mb);
       c = __ldg(p.costs + i - mb);
       on = true;
+    } else {
+      wi = __ldg(p.tail_w + i - mt);
+      a = t;
+      c = __ldg(p.tail_cost + i - mt);
+      on = __ldg(p.tail_gate + i - mt) && wi >= 0;
+      wi = wi >= 0 ? wi : 0;
     }
     ws[i] = wi;
     arr[i] = a;
@@ -228,7 +243,7 @@ __global__ void __launch_bounds__(kThreads) pool_chain_kernel(Params p) {
       const double d = __dadd_rn(s, du);
       p.start[i] = s;
       p.done[i] = d;
-      if (kTurn && i >= mb) p.resp[i - mb] = __dsub_rn(d, a);
+      if (kTurn && i >= mb && i < mt) p.resp[i - mb] = __dsub_rn(d, a);
       if (on) clk = d;
       ++len;
       if (next < 0) break;
@@ -283,15 +298,17 @@ int pool_chain(const double* free_at, const double* speeds, const int* workers,
   return launch<false>(p, stream);
 }
 
-// A turn's groups: M = mf + bc + k steps, k >= 1. free_out may alias
-// free_at; chain_max (an int, or null) is raised to the longest chain.
-int pool_turn(const double* free_at, const double* speeds, const int* fake_js,
-              const int* burst, const int* workers, const double* times,
-              const double* costs, double fake_cost, double burst_cost, int n,
-              int mf, int bc, int k, double* start, double* done, int* sub_w,
-              unsigned char* act, double* free_out, double* resp, int* chain_max,
-              cudaStream_t stream) {
-  if (mf < 0 || bc < 0 || k < 1) return (int)cudaErrorInvalidValue;
+// A turn's groups and its tail: M = mf + bc + k + R steps, k >= 1, R >= 0
+// (the tail's arrays may be null when R = 0). free_out may alias free_at;
+// chain_max (an int, or null) is raised to the longest chain.
+int pool_turn_tail(const double* free_at, const double* speeds, const int* fake_js,
+                   const int* burst, const int* workers, const double* times,
+                   const double* costs, const int* tail_w, const double* tail_cost,
+                   const unsigned char* tail_gate, double fake_cost, double burst_cost,
+                   int n, int mf, int bc, int k, int R, double* start, double* done,
+                   int* sub_w, unsigned char* act, double* free_out, double* resp,
+                   int* chain_max, cudaStream_t stream) {
+  if (mf < 0 || bc < 0 || k < 1 || R < 0) return (int)cudaErrorInvalidValue;
   Params p{};
   p.free_at = free_at;
   p.speeds = speeds;
@@ -300,12 +317,16 @@ int pool_turn(const double* free_at, const double* speeds, const int* fake_js,
   p.workers = workers;
   p.times = times;
   p.costs = costs;
+  p.tail_w = tail_w;
+  p.tail_cost = tail_cost;
+  p.tail_gate = tail_gate;
   p.fake_cost = fake_cost;
   p.burst_cost = burst_cost;
   p.n = n;
-  p.M = mf + bc + k;
+  p.M = mf + bc + k + R;
   p.mf = mf;
   p.bc = bc;
+  p.k = k;
   p.start = start;
   p.done = done;
   p.sub_w = sub_w;
@@ -314,6 +335,18 @@ int pool_turn(const double* free_at, const double* speeds, const int* fake_js,
   p.resp = resp;
   p.chain_max = chain_max;
   return launch<true>(p, stream);
+}
+
+// A turn's three groups: pool_turn_tail with no tail.
+int pool_turn(const double* free_at, const double* speeds, const int* fake_js,
+              const int* burst, const int* workers, const double* times,
+              const double* costs, double fake_cost, double burst_cost, int n,
+              int mf, int bc, int k, double* start, double* done, int* sub_w,
+              unsigned char* act, double* free_out, double* resp, int* chain_max,
+              cudaStream_t stream) {
+  return pool_turn_tail(free_at, speeds, fake_js, burst, workers, times, costs, nullptr,
+                        nullptr, nullptr, fake_cost, burst_cost, n, mf, bc, k, 0, start,
+                        done, sub_w, act, free_out, resp, chain_max, stream);
 }
 
 const char* pool_chain_error_string(int err) {

@@ -1,7 +1,8 @@
 """Wrappers of the hand-written pool-chain kernel (``csrc/pool_chain.cu``).
 
 ``pool_chain`` takes the steps as arrays; ``pool_turn`` takes a serving
-turn's three groups and assembles the steps in the same launch. Each
+turn's three groups, and the faulty turn's tail of retry and speculative
+copies, and assembles the steps in the same launch. Each
 checks device, dtype, shape and contiguity. Given CPU tensors it runs its
 plain version from ``ref.py``; given CUDA tensors it launches the kernel on
 the current stream or raises. There is no fallback from a failed build or
@@ -84,24 +85,39 @@ def pool_chain(free_at, speeds, workers, arrivals, costs, active):
 
 
 def pool_turn(free_at, speeds, fake_js, burst, workers, times, costs, fake_cost: float,
-              burst_cost: float, *, free_out=None, chain_max=None):
+              burst_cost: float, *, tail_w=None, tail_cost=None, tail_gate=None,
+              free_out=None, chain_max=None):
     """A serving turn's replica chain from its groups: benchmark replicas
     fake_js i32[mf] (-1 inactive), probe-burst targets burst i32[bc] (-1 a
     pad), the batch's replicas workers i32[k], arrival times f64[k] and
-    costs f64[k], k >= 1, on free_at f64[n] and speeds f64[n].
+    costs f64[k], k >= 1, on free_at f64[n] and speeds f64[n]; and
+    optionally a tail after the batch (the faulty turn's retry and
+    speculative copies): replicas tail_w i32[R], costs tail_cost f64[R] and
+    gates tail_gate bool[R], arriving at the turn's time, active where the
+    gate is set and the replica is not negative. No tail is the plain
+    turn.
 
     Returns (start f64[M], done f64[M], sub_w i32[M], act bool[M], free_at'
-    f64[n], resp f64[k]), M = mf + bc + k, as ``ref.pool_turn_ref``. With
-    ``free_out`` (f64[n], may be ``free_at`` itself) the new clocks are
-    written there; ``chain_max`` (an i32 scalar) is raised to the longest
-    chain of this turn. Replicas must lie in [0, n)."""
+    f64[n], resp f64[k]), M = mf + bc + k + R, as ``ref.pool_turn_ref``.
+    With ``free_out`` (f64[n], may be ``free_at`` itself) the new clocks
+    are written there; ``chain_max`` (an i32 scalar) is raised to the
+    longest chain of this turn. Replicas must lie in [0, n) (negative ones
+    where inactive)."""
     n, mf, bc, k = free_at.shape[0], fake_js.shape[0], burst.shape[0], workers.shape[0]
     if k < 1:
         raise ValueError("pool_turn: the batch is empty")
+    tail = (tail_w, tail_cost, tail_gate)
+    if any(t is None for t in tail) and any(t is not None for t in tail):
+        raise ValueError("pool_turn: give tail_w, tail_cost and tail_gate together")
+    R = 0 if tail_w is None else tail_w.shape[0]
     checks = [(free_at, "free_at", torch.float64, (n,)), (speeds, "speeds", torch.float64, (n,)),
               (fake_js, "fake_js", torch.int32, (mf,)), (burst, "burst", torch.int32, (bc,)),
               (workers, "workers", torch.int32, (k,)), (times, "times", torch.float64, (k,)),
               (costs, "costs", torch.float64, (k,))]
+    if tail_w is not None:
+        checks += [(tail_w, "tail_w", torch.int32, (R,)),
+                   (tail_cost, "tail_cost", torch.float64, (R,)),
+                   (tail_gate, "tail_gate", torch.bool, (R,))]
     if free_out is not None:
         checks.append((free_out, "free_out", torch.float64, (n,)))
     if chain_max is not None:
@@ -111,13 +127,13 @@ def pool_turn(free_at, speeds, fake_js, burst, workers, times, costs, fake_cost:
     dev = _device([c[0] for c in checks])
     if dev.type == "cpu":
         *out, fa, resp = ref.pool_turn_ref(free_at, speeds, fake_js, burst, workers, times,
-                                           costs, fake_cost, burst_cost)
+                                           costs, fake_cost, burst_cost, *tail)
         if chain_max is not None:
             chain_max.clamp_(min=ref.longest_chain(out[2], n))
         if free_out is not None:
             fa = free_out.copy_(fa)
         return (*out, fa, resp)
-    M = mf + bc + k
+    M = mf + bc + k + R
     _fits(n, M)
     f64 = dict(dtype=torch.float64, device=dev)
     start, done, resp = torch.empty(M, **f64), torch.empty(M, **f64), torch.empty(k, **f64)
@@ -125,13 +141,13 @@ def pool_turn(free_at, speeds, fake_js, burst, workers, times, costs, fake_cost:
     act = torch.empty(M, dtype=torch.bool, device=dev)
     if free_out is None:
         free_out = torch.empty(n, **f64)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
-        err = build.load().pool_turn(
+        err = build.load().pool_turn_tail(
             *(t.data_ptr() for t in (free_at, speeds, fake_js, burst, workers, times, costs)),
-            float(fake_cost), float(burst_cost), n, mf, bc, k,
+            *(ptr(t) for t in tail), float(fake_cost), float(burst_cost), n, mf, bc, k, R,
             *(t.data_ptr() for t in (start, done, sub_w, act, free_out, resp)),
-            None if chain_max is None else chain_max.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            ptr(chain_max), torch.cuda.current_stream(dev).cuda_stream)
     build.LIBRARY.raise_on(err, "pool_turn")
     _counted()
     return start, done, sub_w, act, free_out, resp

@@ -13,7 +13,8 @@ version here rounds as the kernel does (a zero speed gives inf, as there).
 * ``pool_chain_linked`` is the kernel's decomposition in torch: link each
   step to the next step on its replica (``chain_links``), then walk every
   replica's chain, all chains a step at a time.
-* ``turn_submissions`` assembles a turn's steps from its three groups, and
+* ``turn_submissions`` assembles a turn's steps from its three groups and
+  an optional tail (the faulty turn's retries and speculative copies), and
   ``pool_turn_ref`` (the assembly, then ``pool_chain_ref``) is the CPU path
   of ``kernel.pool_turn``.
 """
@@ -93,32 +94,44 @@ def pool_chain_linked(free_at, speeds, workers, arrivals, costs, active):
     return start, done, free_out
 
 
-def turn_submissions(fake_js, burst, workers, times, costs, fake_cost, burst_cost):
-    """A turn's steps in submit order, benchmark jobs, probe bursts, then
-    the batch: (sub_w i32[M], arrivals f64[M], costs f64[M], act bool[M]).
-    A benchmark job or burst arrives at the turn's time (the batch's last
-    arrival) at its fixed cost; a negative replica is inactive and submits
-    to replica 0."""
+def turn_submissions(fake_js, burst, workers, times, costs, fake_cost, burst_cost,
+                     tail_w=None, tail_cost=None, tail_gate=None):
+    """A turn's steps in submit order, benchmark jobs, probe bursts, the
+    batch, then the tail (the faulty turn's retry and speculative copies):
+    (sub_w i32[M], arrivals f64[M], costs f64[M], act bool[M]). A benchmark
+    job, burst or tail step arrives at the turn's time (the batch's last
+    arrival), a benchmark job or burst at its fixed cost; a negative
+    replica is inactive and submits to replica 0, and a tail step is
+    active only where its gate is set."""
     mf, bc, k = fake_js.shape[0], burst.shape[0], workers.shape[0]
-    f64 = dict(dtype=torch.float64, device=times.device)
-    act = torch.cat([fake_js >= 0, burst >= 0,
-                     torch.ones(k, dtype=torch.bool, device=times.device)])
-    sub_w = torch.cat([fake_js.clamp(min=0), burst.clamp(min=0), workers])
-    sub_arr = torch.cat([times[-1].expand(mf + bc), times])
+    dev = times.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    if tail_w is None:
+        tail_w = torch.zeros(0, dtype=torch.int32, device=dev)
+        tail_cost = torch.zeros(0, **f64)
+        tail_gate = torch.zeros(0, dtype=torch.bool, device=dev)
+    R = tail_w.shape[0]
+    act = torch.cat([fake_js >= 0, burst >= 0, torch.ones(k, dtype=torch.bool, device=dev),
+                     tail_gate & (tail_w >= 0)])
+    sub_w = torch.cat([fake_js.clamp(min=0), burst.clamp(min=0), workers,
+                       tail_w.clamp(min=0)])
+    sub_arr = torch.cat([times[-1].expand(mf + bc), times, times[-1].expand(R)])
     sub_cost = torch.cat([torch.full((mf,), fake_cost, **f64),
-                          torch.full((bc,), burst_cost, **f64), costs])
+                          torch.full((bc,), burst_cost, **f64), costs, tail_cost])
     return sub_w, sub_arr, sub_cost, act
 
 
 def pool_turn_ref(free_at, speeds, fake_js, burst, workers, times, costs, fake_cost,
-                  burst_cost):
+                  burst_cost, tail_w=None, tail_cost=None, tail_gate=None):
     """-> (start f64[M], done f64[M], sub_w i32[M], act bool[M], free_at'
     f64[n], resp f64[k]): the assembly, then ``pool_chain_ref``; resp is
     the batch's done - arrival."""
     sub_w, sub_arr, sub_cost, act = turn_submissions(
-        fake_js, burst, workers, times, costs, fake_cost, burst_cost)
+        fake_js, burst, workers, times, costs, fake_cost, burst_cost, tail_w, tail_cost,
+        tail_gate)
     start, done, free_out = pool_chain_ref(free_at, speeds, sub_w, sub_arr, sub_cost, act)
-    resp = done[fake_js.shape[0] + burst.shape[0]:] - times
+    b = fake_js.shape[0] + burst.shape[0]
+    resp = done[b:b + workers.shape[0]] - times
     return start, done, sub_w, act, free_out, resp
 
 

@@ -224,10 +224,28 @@ class RosellaRouter:
                    comp_now: float | None = None) -> tuple[np.ndarray, np.ndarray]:
         """One serving turn: completion flush + benchmark draw + batch route
         (``scheduler.serve_step``). Returns (fake_workers, workers[k])."""
+        return self._serve(now, k, comp_workers, comp_times, comp_now)
+
+    def serve_turn_recovery(self, now: float, k: int, comp_workers=None, comp_times=None,
+                            comp_now: float | None = None, retry_cap: int = 0,
+                            retry_slots=None) -> tuple[np.ndarray, np.ndarray]:
+        """``serve_turn`` widened by the recovery layer's retry quota: one
+        engine call routes the ``k`` arrivals and ``retry_cap`` retry slots,
+        gated by ``retry_slots`` bool[retry_cap] (an inactive slot returns
+        worker -1); λ̂ observes ``k`` arrivals. With ``retry_cap=0`` use
+        ``serve_turn``. Returns (fake_workers, workers[k + retry_cap])."""
+        slots = np.ones(k + retry_cap, bool)
+        slots[k:] = np.asarray(retry_slots, bool) if retry_slots is not None else False
+        return self._serve(now, k, comp_workers, comp_times, comp_now, k + retry_cap,
+                           torch.from_numpy(slots).to(self.device))
+
+    def _serve(self, now, k, comp_workers, comp_times, comp_now, m_route=None, slots=None):
         self._flip_mu()
         comp_now = now if comp_now is None else comp_now
         nw = 0 if comp_workers is None else len(comp_workers)
         if nw > SERVE_COMP_CAP:
+            # fold the oldest overflow first: the refresh reads only the
+            # final rings, so the state is the same
             cut = nw - SERVE_COMP_CAP
             self.complete_arrays(comp_workers[:cut], comp_times[:cut], comp_now)
             comp_workers, comp_times = comp_workers[cut:], comp_times[cut:]
@@ -241,13 +259,28 @@ class RosellaRouter:
             self.q_view, self.learner, self.arr, self.mu_front, self.lcfg,
             self.key, w, ts, (now, self.last_fake_time, comp_now), k,
             self.policy, MAX_FAKE, not self.async_mu, self.table_front,
-            self.use_alias, self.active)
+            self.use_alias, self.active, m_route, slots)
         self.last_fake_time = float(now)
         if nw:
             self._set_pending()
         out = torch.cat([fake_js, workers]).cpu().numpy()  # one device sync
         fake_js = out[:MAX_FAKE]
         return fake_js[fake_js >= 0], out[MAX_FAKE:]
+
+    def drain_queue(self, counts):
+        """The recovery layer's queue-view drain: copies that left a replica
+        without a clean completion (killed, or a dirty completion the
+        learner does not see) still leave its queue, with the saturating
+        subtract of the clean flush."""
+        c = torch.from_numpy(np.asarray(counts, np.int32)).to(self.device)
+        self.q_view = (self.q_view - c).clamp(min=0)
+
+    def add_queue(self, counts):
+        """The recovery layer's queue-view load: speculative copies are
+        placed outside the engine (the straggler planner's fill), so their
+        occupancy is added here."""
+        self.q_view = self.q_view + torch.from_numpy(np.asarray(counts, np.int32)).to(
+            self.device)
 
     def complete(self, completions: "list[Completion]"):
         """Fold a list of completions (``complete_arrays`` on their

@@ -644,6 +644,91 @@ def test_pool_turn_kernel_matches_plain_version(dev, n, mf, bc, k):
     assert torch.equal(got[4], want[4]) and torch.equal(t[0], torch.from_numpy(fa).to(dev))
 
 
+@pytest.mark.parametrize("case", ["gated", "one replica", "empty"])
+@pytest.mark.parametrize("n,k", [(64, 32), (1024, 128)])
+def test_pool_turn_tail_kernel_matches_plain_version(dev, n, k, case):
+    """The faulty turn's chain: the batch, then a tail of retry and
+    speculative copies (gated slots, a -1 under an open gate, every tail
+    step on one replica, or no tail), against the plain version; an empty
+    tail gives the tail-less kernel's output bit for bit."""
+    from repro_torch.kernels.pool_chain import kernel as ck
+    from repro_torch.kernels.pool_chain import ref as cr
+
+    rng = np.random.RandomState(n + k)
+    fa, sp = rng.rand(n) * 3, rng.rand(n) + 0.05
+    fake = rng.randint(0, n, 8).astype(np.int32)
+    fake[::3] = -1
+    burst = rng.randint(0, n, 3).astype(np.int32)
+    workers = rng.randint(0, n, k).astype(np.int32)
+    workers[:7] = 5
+    times, costs = np.sort(rng.rand(k) * 3), rng.exponential(1.0, k)
+    R = 0 if case == "empty" else 6
+    tw = rng.randint(0, n, R).astype(np.int32)
+    gate = rng.rand(R) < 0.7
+    if case == "gated":
+        tw[1], gate[1], gate[2] = -1, True, False
+    elif case == "one replica":
+        tw[:], gate[:] = 5, True
+    t = [torch.from_numpy(x).to(dev) for x in (fa, sp, fake, burst, workers, times, costs)]
+    tail = [torch.from_numpy(x).to(dev) for x in (tw, rng.exponential(1.0, R), gate)]
+    want = cr.pool_turn_ref(*t, 0.25, 1.0, *tail)
+    cm = torch.zeros((), dtype=torch.int32, device=dev)
+    free = t[0].clone()
+    ck.reset_launches()
+    got = ck.pool_turn(free, *t[1:], 0.25, 1.0, tail_w=tail[0], tail_cost=tail[1],
+                       tail_gate=tail[2], free_out=free, chain_max=cm)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["pool_chain"] == 1 and got[4] is free
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # replica 5 takes 7 of the batch, and every tail step in "one replica"
+    assert int(cm) == cr.longest_chain(want[2], n) >= (13 if case == "one replica" else 7)
+    if case == "empty":
+        plain = ck.pool_turn(*t, 0.25, 1.0)
+        for g, w in zip(got, plain):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name,use_alias", [("crash_storm", True), ("crash_storm", False),
+                                            ("blackout", True), ("grey_failure", True)])
+def test_faulty_scan_on_the_card_equals_the_cpu_and_the_host_loop(dev, name, use_alias):
+    """The faulty turn captured and replayed at n = 64 (the §6.1 speed grid,
+    0.7·Σ speeds, batches of 32, recovery armed as tests/test_faults.py arms
+    it): equal bit for bit to the host recovery loop on the card (responses
+    with NaN, μ̂ trace, free_at, ledger, learner); against the same scan run
+    eagerly on the CPU, responses and ledger equal and μ̂ within 8 ulps (the
+    learner's f32 sums reduce in another order on the card). Conserved,
+    overflows 0, one pool_chain node a replay."""
+    from repro_torch import env as tenv
+    from repro_torch.configs.rosella_sim import tpch_speed_set
+    from repro_torch.serving import recovery as trcv
+
+    rc = trcv.RecoveryConfig(timeout_mult=8.0, retry_budget=2, retry_cap=4, spec_cap=2,
+                             spec_ratio=3.0)
+    speeds = tpch_speed_set(64, 0)
+    scn = tenv.make(name, speeds=tuple(speeds), rate=0.7 * float(speeds.sum()))
+    kw = dict(seed=0, arrival_batch=32, use_alias=use_alias, sequential_pool=True,
+              recovery=rc)
+    g = tenv.run_scenario(scn, use_scan=True, device=dev, **kw)
+    h = tenv.run_scenario(scn, device=dev, **kw)
+    c = tenv.run_scenario(scn, use_scan=True, device="cpu", **kw)
+    info = g["info"]
+    assert info["flush_overflow"] == info["pend_overflow"] == 0
+    assert info["replays"] == info["turns"] == len(h["mu_trace"]) > 100
+    assert sum(v for nm, v in info["graph_kernels"].items() if "pool_chain_kernel" in nm) == 1
+    np.testing.assert_array_equal(g["mu_trace"], h["mu_trace"])
+    np.testing.assert_array_equal(g["pool"].free_at, h["pool"].free_at)
+    assert torch.equal(g["router"].learner.mu_hat, h["router"].learner.mu_hat)
+    for other in (h, c):
+        np.testing.assert_array_equal(g["responses"], other["responses"])
+        assert g["info"]["ledger"] == other["info"]["ledger"]
+    ia = g["mu_trace"].view(np.int32).astype(np.int64)
+    ib = c["mu_trace"].view(np.int32).astype(np.int64)
+    assert np.abs(ia - ib).max() <= 8
+    led = info["ledger"]
+    assert led["conserved"] and led["n_retries"] > 0 and led["n_timeouts"] > 0
+
+
 def test_pool_chain_refuses_what_one_block_cannot_hold(dev):
     from repro_torch.kernels.pool_chain import kernel as ck
 

@@ -293,7 +293,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                   "repro_torch.env", "repro_torch.env.processes", "repro_torch.env.scenario",
                   "repro_torch.env.serving", "repro_torch.core.metrics",
                   "repro_torch.core.policies", "repro_torch.core.scheduler",
-                  "repro_torch.core.estimator", "repro_torch.serving.router"):
+                  "repro_torch.core.estimator", "repro_torch.serving.router",
+                  "repro_torch.serving.recovery", "repro_torch.dist.straggler"):
             assert m in sys.modules, m
         print("clean")
     """)

@@ -17,7 +17,8 @@ responses equal on every turn, μ̂ exact until the measured turn at which
 the learner's float sum parts the two (``EXACT_MU_TURNS``) and within
 ``MU_ULPS`` after, the bars of tests/test_torch_router.py;
 (iv) the adaptation metrics equal to the reference's;
-(v) what is not ported yet raises and names its ROADMAP queue A item.
+(v) what is not ported yet raises and names its ROADMAP queue A item (the
+items ported since, A3 and A4, now run).
 """
 import dataclasses
 
@@ -347,6 +348,26 @@ def test_what_is_not_ported_raises_naming_its_item(case):
         out = tenv.run_scenario(tenv.make("null", horizon=20.0), policy="pss", device="cpu")
         assert np.isfinite(out["responses"]).all() and out["info"]["turns"] > 0
         assert out["router"].policy == "pss"
+        return
+    if item == "A4":  # failure semantics run since A4; the cases stay, inverted
+        from repro_torch.core import metrics as tmet
+        from repro_torch.serving import recovery as trcv
+
+        if case in ("crash_storm", "blackout"):
+            wl = tenv.make(case).compile_serving(seed=0, arrival_batch=K)
+            assert wl.has_faults
+            resp, _, info = tenv.run_workload(_router(), tr.SimulatedPool(tenv.BASE_SPEEDS),
+                                              wl, fake_cost=0.25)
+        elif case == "scan_faults":
+            out = tenv.run_scenario(tenv.make("crash_storm"), use_scan=True, device="cpu")
+            resp, info = out["responses"], out["info"]
+        else:
+            resp, _, info = tenv.run_workload(_router(), tr.SimulatedPool(tenv.BASE_SPEEDS),
+                                              _null_wl(), fake_cost=0.25,
+                                              recovery=trcv.INERT_RECOVERY)
+            assert np.isfinite(resp).all()
+        assert tmet.check_conservation(info["ledger"])[0]
+        assert np.isfinite(resp).sum() == info["ledger"]["completed_tasks"] > 0
         return
     with pytest.raises(NotImplementedError, match=f"not ported yet.*{item}"):
         if case in ("crash_storm", "blackout"):

@@ -451,7 +451,7 @@ def test_sliding_window_estimator_matches_reference(window):
     of 0 keeps λ̂): ring, slot, count and λ̂ equal."""
     rng = np.random.RandomState(window)
     r = rest.init_arrival_estimator(window, 0.5)
-    t = test_.init_arrival_estimator(window, 0.5)
+    t = test_.init_arrival_estimator(window, 0.5, device="cpu")
     now = 0.0
     for _ in range(80):
         now += float(rng.exponential(0.3)) * (rng.rand() < 0.85)
@@ -460,6 +460,14 @@ def test_sliding_window_estimator_matches_reference(window):
         np.testing.assert_array_equal(t.times.numpy(), np.asarray(r.times))
         assert (int(t.idx), int(t.count)) == (int(r.idx), int(r.count))
         assert t.lam_hat.numpy() == np.asarray(r.lam_hat)
+
+
+def test_sliding_window_estimator_without_a_device_raises_without_a_card(monkeypatch):
+    """``device=None`` is the card, as for every other constructor."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        test_.init_arrival_estimator(8, 0.5)
+    assert test_.init_arrival_estimator(8, 0.5, device="cpu").times.device.type == "cpu"
 
 
 @pytest.mark.parametrize("policy", tpol.ALL_POLICIES)

@@ -235,3 +235,82 @@ def test_pool_turn_checks_its_inputs():
         CK.pool_turn(*t, 0.25, 1.0, chain_max=torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="empty"):
         CK.pool_turn(*t[:4], t[4][:0], t[5][:0], t[6][:0], 0.25, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# (iv) the faulty turn's tail: retries, then speculative copies
+# ---------------------------------------------------------------------------
+
+
+def _jax_faulty_turn(fa, sp, fake_js, burst, workers, times, costs, fake_cost, burst_cost,
+                     rw, okR, r_cost, spec_w, okS, s_cost):
+    """The reference's faulty turn around ``pstep`` (serving/scanloop.py,
+    ``_build_scan_faulty`` step 13): fakes, bursts, the batch, retries
+    (gated by okR and a placed worker), then speculative copies (okS)."""
+    with jax.enable_x64(True):
+        mf, bc, k = len(fake_js), len(burst), len(workers)
+        R = len(rw) + len(spec_w)
+        fake_js, burst, rw = jnp.asarray(fake_js), jnp.asarray(burst), jnp.asarray(rw)
+        times64 = jnp.asarray(times, jnp.float64)
+        act = jnp.concatenate([fake_js >= 0, burst >= 0, jnp.ones((k,), bool),
+                               jnp.asarray(okR) & (rw >= 0), jnp.asarray(okS)])
+        sub_w = jnp.concatenate([jnp.maximum(fake_js, 0), jnp.maximum(burst, 0),
+                                 jnp.asarray(workers), jnp.maximum(rw, 0),
+                                 jnp.asarray(spec_w)])
+        sub_arr = jnp.concatenate([jnp.full((mf + bc,), times64[-1]), times64,
+                                   jnp.full((R,), times64[-1])])
+        sub_cost = jnp.concatenate([jnp.full((mf,), fake_cost), jnp.full((bc,), burst_cost),
+                                    jnp.asarray(costs, jnp.float64),
+                                    jnp.asarray(r_cost, jnp.float64),
+                                    jnp.asarray(s_cost, jnp.float64)])
+        s, d, f = _jax_pstep(fa, sp, sub_w, sub_arr, sub_cost, act)
+        return (s, d, np.asarray(sub_w), np.asarray(act), f,
+                d[mf + bc:mf + bc + k] - np.asarray(times))
+
+
+def _tail(case, n=32, seed=9):
+    """Retry slots (worker -1 where the engine placed nothing) and spec
+    slots, each gated: ``gated`` some gates off and a -1 under an open
+    gate; ``one replica`` every tail step on the batch's busiest replica;
+    ``empty`` no slot."""
+    rng = np.random.RandomState(seed)
+    if case == "empty":
+        return (np.zeros(0, np.int32), np.zeros(0, bool), np.zeros(0)) * 2
+    rw = rng.randint(0, n, 4).astype(np.int32)
+    okR = np.array([True, True, False, True])
+    rw[1] = -1  # an open gate the engine placed nothing behind
+    spec_w = rng.randint(0, n, 2).astype(np.int32)
+    okS = np.array([True, False])
+    if case == "one replica":
+        rw[:], spec_w[:], okR[:], okS[:] = 4, 4, True, True
+    return rw, okR, rng.exponential(1.0, 4), spec_w, okS, rng.exponential(1.0, 2)
+
+
+@pytest.mark.parametrize("case", ["gated", "one replica", "empty"])
+def test_pool_turn_tail_equals_the_reference_faulty_pstep(case):
+    """``pool_turn_ref`` and the wrapper's CPU path with a tail (retries then
+    specs as one group) against the reference's five-group pstep, bit for
+    bit; an empty tail gives the plain turn's output."""
+    t = _turn_args()
+    t[4][:6] = 4  # replica 4 takes six of the batch
+    rw, okR, rc, sw, okS, sc = _tail(case)
+    want = _jax_faulty_turn(*(x.numpy() for x in t), 0.25, 1.0, rw, okR, rc, sw, okS, sc)
+    tail = (torch.from_numpy(np.concatenate([rw, sw]).astype(np.int32)),
+            torch.from_numpy(np.concatenate([rc, sc]).astype(np.float64)),
+            torch.from_numpy(np.concatenate([okR, okS]).astype(bool)))
+    _same(CR.pool_turn_ref(*t, 0.25, 1.0, *tail), want)
+    cm = torch.tensor(0, dtype=torch.int32)
+    fa = t[0].clone()
+    out = CK.pool_turn(fa, *t[1:], 0.25, 1.0, tail_w=tail[0], tail_cost=tail[1],
+                       tail_gate=tail[2], free_out=fa, chain_max=cm)
+    _same(out, want)
+    assert int(cm) == CR.longest_chain(out[2], len(fa))
+    if case == "one replica":
+        assert int(cm) >= 12
+    if case == "empty":
+        _same(CR.pool_turn_ref(*t, 0.25, 1.0), want)
+    with pytest.raises(ValueError, match="together"):
+        CK.pool_turn(*t, 0.25, 1.0, tail_w=tail[0])
+    with pytest.raises(ValueError, match="tail_gate"):
+        CK.pool_turn(*t, 0.25, 1.0, tail_w=tail[0], tail_cost=tail[1],
+                     tail_gate=tail[2].to(torch.uint8))

@@ -323,10 +323,18 @@ def test_scan_options_not_ported_raise():
     x = np.zeros((2, 4))
     with pytest.raises(NotImplementedError, match="A5"):
         tsl.run_simulation_scan(r, p, arrival_rate=3.0, horizon=5.0, observe=object())
-    with pytest.raises(NotImplementedError, match="A4"):
-        tsl.run_workload_scan(r, p, x, x, np.ones((2, 4)), kill_np=np.full((2, 4), np.inf))
-    with pytest.raises(NotImplementedError, match="A4"):
-        tsl.run_workload_scan(r, p, x, x, np.ones((2, 4)), recovery=object())
+    with pytest.raises(NotImplementedError, match="A5"):
+        tsl.run_workload_scan(r, p, x, x, np.ones((2, 4)), obs_sink=print)
+    # the failure semantics (A4) run since they were ported: fault columns
+    # or a recovery config take the faulty turn and close a ledger
+    from repro_torch.serving import recovery as trcv
+
+    times, costs = np.arange(1, 9, dtype=np.float64).reshape(2, 4) / 10, np.ones((2, 4))
+    for kw in ({"kill_np": np.full((2, 4), np.inf)}, {"recovery": trcv.INERT_RECOVERY}):
+        resp, _, info = tsl.run_workload_scan(_router(tr, True), tr.SimulatedPool(SPEEDS),
+                                              times, costs, np.ones((2, 4)), **kw)
+        assert info["ledger"]["conserved"] and resp.shape == (8,)
+        assert np.isfinite(resp).sum() == info["ledger"]["completed_tasks"]
 
 
 def test_scan_raises_without_a_card(monkeypatch):
@@ -484,8 +492,8 @@ def test_churn_placements_only_on_active_replicas(monkeypatch, use_alias):
     seen = []
     inner = tsch._draw_and_route
 
-    def spy(*args):
-        out = inner(*args)
+    def spy(*args, **kw):  # kw: the recovery layer's m_route/slots
+        out = inner(*args, **kw)
         seen.append((out[0].clone(), out[1].clone(), args[-1].clone()))
         return out
 

@@ -24,6 +24,11 @@ on the card. Then it drives the port's two paths:
     ``run_workload_scan``), with the adaptation-time summary; four of them
     also through ``run_scenario`` on both loops with the exact pool chain,
     held equal bit for bit, two of those on the inverse-CDF stream too;
+  * telemetry (``repro_torch.obs``): the windowed fold and the regime
+    detector inside both loops at the thousand-replica cell (churn on the
+    plain turn, crash_storm on the faulty turn), four modes each, held
+    equal between the loops, to the runs without telemetry and across
+    chunks, and the reference's detection pins on the card's scan;
   * the eight scheduling policies (``core.policies``): each one's engine
     call on the card held to the CPU's and timed at three shapes, and the
     scheduler cell under each through ``run_scenario`` on both loops, held
@@ -195,6 +200,23 @@ BARE_PEND_CAP, BARE_COMP_CAP = 65536, 1024
 POLICY_SHAPES = ((64, 4096), (1024, 128), (2048, 2048))
 POLICY_OFFLINE = 0.25
 POLICY_HORIZON = 180.0
+# [obs]: the windowed telemetry fold and the CUSUM regime detector
+# (repro_torch.obs) inside both serving loops at the scheduler cell: churn
+# through the plain turn, crash_storm (recovery as [faults]) through the
+# faulty turn, on the [scenario]/[faults] clock, a SequentialPool and the
+# capacities of those cells. Four modes a cell: off, windows, stream-only
+# (no response or μ̂ rows) and windows + detector, each through the host
+# loop and the one-program loop: off = on (responses, μ̂, ledger), host =
+# scan (every record key), chunks of OBS_CHUNK = unchunked, stream-only =
+# windows with a JsonlSink line a window, crash_storm's windows against its
+# ledger. With observe=None the captured turns keep the node counts they had
+# at these cells before the telemetry fold (OBS_NODES_BEFORE, measured on the
+# H100). Then the reference's detection pins on
+# the card's scan at the scenario's own size (n = 5, batches of 8, 360 s)
+OBS_WINDOW = 16
+OBS_CHUNK = 37
+OBS_NODES_BEFORE = {"churn": 866, "crash_storm": 1355}
+OBS_PIN_BATCH = 8
 # exact parity on the card: the reference test's shape (n=4) and n=1024 at
 # a load where neither loop overflows a capacity
 EXACT_N4 = dict(arrival_rate=3.0, horizon=150.0, seed=0, arrival_batch=16)
@@ -1437,6 +1459,252 @@ def phase_faults(torch, tr, tsl, tenv, trcv, K, CK, chk, met, speeds, dev, card)
     print(f"[faults] {len(cells)} fault cells and the inert pair in {secs:.1f} s; launches "
           f"{json.dumps(total)}")
     return dict(cells=cells, inert=inert, seconds=secs), total
+
+
+# ---------------------------------------------------------------------------
+# telemetry: the window fold and the regime detector inside both loops
+# ---------------------------------------------------------------------------
+
+
+def obs_records_equal(tag, wa, wb) -> None:
+    """Two window streams equal in every key, NaN = NaN."""
+    need(len(wa) == len(wb), f"{tag} {len(wa)} windows against {len(wb)}")
+    for a, b in zip(wa, wb):
+        need(set(a) == set(b), f"{tag} window {a.get('window')}: keys differ")
+        for k in a:
+            va, vb = a[k], b[k]
+            if isinstance(va, float) and isinstance(vb, float) and va != va and vb != vb:
+                continue
+            need(va == vb, f"{tag} window {a['window']}: {k} {va!r} against {vb!r}")
+
+
+def obs_mode_run(torch, tr, tsl, tenv, K, CK, scn, wl, dev, rc, caps, ocfg, mode) -> dict:
+    """One telemetry mode of one [obs] cell: the host loop (unchecked: its
+    turns/s) and the one-program loop on the same workload, then 50 replays
+    of the mode's graph under the profiler."""
+    from repro_torch import obs
+
+    speeds0 = np.asarray(scn.speeds, float)
+
+    def router():
+        return tr.RosellaRouter(scn.n, float(speeds0.sum()), seed=SEED, use_alias=True,
+                                async_mu=False, device=dev)
+
+    fake = scn.request_cost * 0.25
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hr = router()
+    h = tenv.run_workload(hr, tr.SequentialPool(speeds0), wl, fake_cost=fake, recovery=rc,
+                          observe=ocfg)
+    torch.cuda.synchronize()
+    wall_h = time.perf_counter() - t0
+    host_launches = K.launch_counts()
+    faulty = rc is not None
+    cols = dict(active_np=wl.active, rejoin_np=wl.rejoin, burst_np=wl.burst, fake_cost=fake,
+                pend_cap=caps["pend_cap"], comp_cap=caps["comp_cap"], observe=ocfg)
+    if faulty:
+        cols.update(kill_np=wl.kill_at, stall_np=wl.stall_at, stall_dur_np=wl.stall_dur,
+                    recovery=rc)
+    K.reset_launches()
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool = tr.SequentialPool(speeds0)
+    resp, mu, info = tsl.run_workload_scan(router(), pool, wl.times, wl.costs, wl.speeds,
+                                           **cols)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = scan_launches(K, CK, info)
+    T = wl.turns
+    need(info["replays"] == info["turns"] == T, f"[obs {scn.name} {mode}] the turns were not "
+         f"graph replays ({info})")
+    need(info["flush_overflow"] == 0 and info["pend_overflow"] == 0,
+         f"[obs {scn.name} {mode}] {info}")
+    cfg = tsl.scan_config(router(), BATCH, churn=wl.active is not None,
+                          burst_cap=wl.burst.shape[1] if wl.active is not None else 0,
+                          fake_cost=fake, pend_cap=caps["pend_cap"], comp_cap=caps["comp_cap"],
+                          recovery=rc, task_cap=T * BATCH if faulty else 0, observe=ocfg)
+    run = tsl.runner(cfg, str(dev), T)
+    need(run.replays > 0, f"[obs {scn.name} {mode}] the profiled runner is not the run's")
+    run.load(router(), tr.SequentialPool(speeds0))
+    W = SCAN_PROFILE_TURNS
+    xs = dict(times=wl.times[:W], costs=wl.costs[:W], speeds=wl.speeds[:W])
+    if wl.active is not None:
+        xs.update(active=wl.active[:W], rejoin=wl.rejoin[:W], burst=wl.burst[:W])
+    if faulty:
+        n = scn.n
+        xs.update(kill=wl.kill_at[:W] if wl.kill_at is not None else np.full((W, n), np.inf),
+                  stall=wl.stall_at[:W] if wl.stall_at is not None else np.full((W, n), np.inf),
+                  stall_dur=(wl.stall_dur[:W] if wl.stall_dur is not None
+                             else np.zeros((W, n))))
+    prof = device_profile(torch, lambda: run.run_chunk(xs))
+    wins = info.get("windows", [])
+    return dict(host=h, scan=(resp, mu, info), pool=pool, host_launches=host_launches,
+                launches=launches, rec=dict(
+                    graph_nodes=info["graph_nodes"],
+                    launches_per_replay=sum(info["graph_kernels"].values()),
+                    turns_per_s=T / (wall - info["capture_s"]), host_turns_per_s=T / wall_h,
+                    busy_ms_per_turn=prof["busy_us"] / 1e3 / W, idle=prof["idle"],
+                    windows=len(wins), detections=len(obs.detections_from_records(wins)),
+                    capture_s=info["capture_s"]))
+
+
+def obs_cell(torch, tr, tsl, tenv, K, CK, scn, dev, rc, caps) -> dict:
+    """One [obs] cell: the four modes through both loops, and the checks."""
+    from repro_torch import obs
+
+    tag = f"[obs {scn.name}]"
+    wl = scn.compile_serving(seed=SEED, arrival_batch=BATCH)
+    modes = {"off": None, "windows": obs.ObserveConfig(window_turns=OBS_WINDOW),
+             "stream-only": obs.ObserveConfig(window_turns=OBS_WINDOW, emit_responses=False),
+             "windows + detect": obs.ObserveConfig(window_turns=OBS_WINDOW,
+                                                   detect=obs.DetectConfig())}
+    runs = {m: obs_mode_run(torch, tr, tsl, tenv, K, CK, scn, wl, dev, rc, caps, o, m)
+            for m, o in modes.items()}
+    off = runs["off"]
+    need(off["rec"]["graph_nodes"] == OBS_NODES_BEFORE[scn.name],
+         f"{tag} observe=None captured {off['rec']['graph_nodes']} nodes, not the "
+         f"{OBS_NODES_BEFORE[scn.name]} of the turn before the telemetry fold")
+    for m in ("windows", "windows + detect"):
+        r = runs[m]
+        for loop, a, b in (("host", r["host"], off["host"]), ("scan", r["scan"], off["scan"])):
+            need(np.array_equal(a[0], b[0], equal_nan=True) and np.array_equal(a[1], b[1])
+                 and a[2].get("ledger") == b[2].get("ledger"),
+                 f"{tag} {m}: the {loop} loop's responses, mu trace or ledger moved")
+        need(np.array_equal(r["pool"].free_at, off["pool"].free_at),
+             f"{tag} {m}: the replica clocks moved")
+        obs_records_equal(f"{tag} {m} host = scan", r["host"][2]["windows"],
+                          r["scan"][2]["windows"])
+        for name in ("ppot_dispatch_fused_alias", "alias_table"):
+            need(r["host_launches"][name] > 0 and r["launches"][name] > 0,
+                 f"{tag} {m}: {name} was not launched by both loops")
+        need(r["launches"]["pool_chain"] > 0, f"{tag} {m}: the scan never launched pool_chain")
+    det = runs["windows + detect"]
+    wins = det["scan"][2]["windows"]
+    need(len(wins) == -(-wl.turns // OBS_WINDOW), f"{tag} {len(wins)} windows for "
+         f"{wl.turns} turns")
+    # chunks, and stream-only through a JsonlSink
+    speeds0 = np.asarray(scn.speeds, float)
+    chunked = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_scan=True,
+                                sequential_pool=True, recovery=rc, observe=modes["windows + detect"],
+                                chunk_turns=OBS_CHUNK, pend_cap=caps["pend_cap"],
+                                comp_cap=caps["comp_cap"], device=dev)
+    obs_records_equal(f"{tag} chunks of {OBS_CHUNK}", chunked["info"]["windows"], wins)
+    so = runs["stream-only"]
+    obs_records_equal(f"{tag} stream-only", so["scan"][2]["windows"],
+                      runs["windows"]["scan"][2]["windows"])
+    need(so["scan"][1].shape == (0, scn.n) and (rc is not None or so["scan"][0].size == 0),
+         f"{tag} stream-only returned response or mu rows")
+    path = ROOT / "build" / f"obs_{scn.name}.jsonl"
+    path.unlink(missing_ok=True)
+    with obs.JsonlSink(str(path)) as sink:
+        streamed = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_scan=True,
+                                     sequential_pool=True, recovery=rc, observe=modes["stream-only"],
+                                     chunk_turns=OBS_CHUNK, obs_sink=sink,
+                                     pend_cap=caps["pend_cap"], comp_cap=caps["comp_cap"],
+                                     device=dev)
+    lines = [json.loads(ln) for ln in path.read_text().splitlines()]
+    path.unlink()
+    need(len(lines) == len(streamed["info"]["windows"]) == len(wins)
+         and [r["turn"] for r in lines] == [r["turn"] for r in wins],
+         f"{tag} the JsonlSink got {len(lines)} lines for {len(wins)} windows")
+    ledger = None
+    if rc is not None:
+        ledger = det["scan"][2]["ledger"]
+        killed = sum(r["killed"] for r in wins)
+        comp = sum(r["completed"] + r["dirty"] for r in wins)
+        need(killed == ledger["copies_real_killed"] and 0 < comp
+             <= ledger["copies_real_completed"], f"{tag} windows killed {killed}, completed "
+             f"{comp} against the ledger {ledger}")
+    recs = {m: r["rec"] for m, r in runs.items()}
+    for m, r in recs.items():
+        print(f"{tag} {m}: graph nodes {r['graph_nodes']}, kernels a replay "
+              f"{r['launches_per_replay']}; scan {r['turns_per_s']:.2f} turns/s (host clock, "
+              f"capture {r['capture_s']:.3f} s apart), 50 replays profiled: busy "
+              f"{r['busy_ms_per_turn']:.4f} ms a replay, idle {r['idle']:.4f}; host loop "
+              f"{r['host_turns_per_s']:.2f} turns/s; {r['windows']} windows, "
+              f"{r['detections']} detections")
+    dets = obs.detections_from_records(wins)
+    print(f"{tag} n={scn.n} batch={BATCH}: {wl.turns} turns, {len(wins)} windows of "
+          f"{OBS_WINDOW} turns; off = on (responses, mu trace, free_at"
+          + (", ledger" if rc is not None else "") + ") on both loops, host = scan in every "
+          f"key, chunks of {OBS_CHUNK} and stream-only (JsonlSink, {len(lines)} lines) equal"
+          + (f", windows killed {sum(r['killed'] for r in wins)} = ledger, completed + dirty "
+             f"{sum(r['completed'] + r['dirty'] for r in wins)} <= "
+             f"{ledger['copies_real_completed']}" if ledger else "")
+          + f"; detections {[(round(d['t'], 3), d['label']) for d in dets]}; p99 of the last "
+          f"window {wins[-1]['p99']:.6f} s")
+    total = {w: 0 for w in PROFILE_NAMES}
+    for r in runs.values():
+        for w in PROFILE_NAMES:
+            total[w] += r["host_launches"].get(w, 0) + r["launches"][w]
+    return dict(modes=recs, detections=[(d["t"], d["label"]) for d in dets]), total
+
+
+def obs_pins(torch, tenv, dev) -> dict:
+    """The reference's detection pins (tests/test_detect.py) on the card's
+    scan at the scenario's own size: null never fires; churn's lost worker
+    (t = 120) reads as a membership_shift within 15 s and the report joins
+    it with no false alarm."""
+    from repro_torch import obs
+
+    out = {}
+    for name, warm, wturns in (("null", 8, 2), ("churn", 12, 2)):
+        scn = tenv.make(name, horizon=360.0)
+        ocfg = obs.ObserveConfig(window_turns=wturns,
+                                 detect=obs.DetectConfig(warmup_windows=warm))
+        run = tenv.run_scenario(scn, use_scan=True, sequential_pool=True,
+                                arrival_batch=OBS_PIN_BATCH, seed=SEED, observe=ocfg, device=dev)
+        need(run["info"]["replays"] == run["info"]["turns"], f"[obs pin {name}] not replays")
+        recs = run["info"]["windows"]
+        dets = obs.detections_from_records(recs)
+        rep = obs.detection_report(recs, shift_events=scn.shift_events(SEED),
+                                   drifting=scn.drifting)
+        if name == "null":
+            need(not dets and recs[-1]["det_count"] == 0, f"[obs pin null] alarms {dets}")
+        else:
+            memb = [d["t"] for d in dets if d["label"] == "membership_shift" and d["t"] >= 120.0]
+            need(memb and 120.0 <= min(memb) <= 135.0, f"[obs pin churn] detections {dets}")
+            need(rep["false_alarms"] == 0 and rep["per_shift"]["120.000"]["kind_match"],
+                 f"[obs pin churn] {rep}")
+        out[name] = dict(windows=len(recs), detections=[(d["t"], d["label"]) for d in dets],
+                         false_alarms=rep["false_alarms"])
+        print(f"[obs pin {name}] n={scn.n} batch={OBS_PIN_BATCH}, {run['info']['turns']} "
+              f"turns, windows of {wturns} turns, warm-up {warm} windows: {len(recs)} windows, "
+              f"detections {[(round(t, 3), lb) for t, lb in out[name]['detections']]}, false "
+              f"alarms {rep['false_alarms']}")
+    return out
+
+
+def phase_obs(torch, tr, tsl, tenv, trcv, K, CK, speeds, dev, card, scenarios, faults):
+    """The [obs] cells and pins; returns the records and the phase's launches
+    by wrapper."""
+    t0 = time.perf_counter()
+    rate = LOAD * float(speeds.sum())
+    print(f"[obs] {card}; n={N_REPLICAS} (tpch_speed_set, sum {speeds.sum():.2f}), rate "
+          f"{rate:.3f}/s, batches of {BATCH}, alias, async_mu=False, seed {SEED}, windows of "
+          f"{OBS_WINDOW} turns, SequentialPool; crash_storm with recovery "
+          f"{json.dumps(FAULT_RECOVERY)}")
+    cells, total = {}, {w: 0 for w in PROFILE_NAMES}
+    for name, rc, src in (("churn", None, scenarios["cells"]["churn"]),
+                          ("crash_storm", trcv.RecoveryConfig(**FAULT_RECOVERY),
+                           faults["cells"]["crash_storm alias"])):
+        scn = tenv.make(name, speeds=tuple(speeds), rate=rate,
+                        **({"horizon": FAULT_HORIZON} if rc is not None else {}))
+        caps = dict(pend_cap=src["pend_cap"], comp_cap=src["comp_cap"])
+        need(src["graph_nodes"] == OBS_NODES_BEFORE[name], f"[obs {name}] the "
+             f"{'[faults]' if rc else '[scenario]'} cell captured {src['graph_nodes']} nodes, "
+             f"not the {OBS_NODES_BEFORE[name]} of the turn before the telemetry fold")
+        cells[name], launches = obs_cell(torch, tr, tsl, tenv, K, CK, scn, dev, rc, caps)
+        for w in PROFILE_NAMES:
+            total[w] += launches[w]
+    pins = obs_pins(torch, tenv, dev)
+    for w in ("ppot_dispatch_fused_alias", "alias_table", "pool_chain"):
+        need(total[w] > 0, f"[obs] {w} was never launched")
+    secs = time.perf_counter() - t0
+    print(f"[obs] 2 cells x 4 modes and 2 pins in {secs:.1f} s; launches {json.dumps(total)}")
+    return dict(cells=cells, pins=pins, seconds=secs), total
 
 
 # ---------------------------------------------------------------------------
@@ -2715,6 +2983,8 @@ def main() -> int:
                                                    speeds, dev, card)
     faults, fault_launches = phase_faults(torch, tr, tsl, tenv, trcv, K, CK, chk, met,
                                           speeds, dev, card)
+    obs_res, obs_launches = phase_obs(torch, tr, tsl, tenv, trcv, K, CK, speeds, dev, card,
+                                      scenarios, faults)
     policies, policy_launches = phase_policies(torch, tr, tenv, D, P, prng, K, CK, chk, met,
                                                speeds, dev, card)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
@@ -2764,7 +3034,7 @@ def main() -> int:
 
     total = {name: sum(r["launches"][name] for r in main_runs.values())
              + scenario_launches[name] + fault_launches[name] + policy_launches[name]
-             for name in REPLACES}
+             + obs_launches[name] for name in REPLACES}
     kernels = []
     for name in REPLACES:
         t = times[(name, 1024, BATCH)]
@@ -2781,7 +3051,7 @@ def main() -> int:
         name="pool_chain", route="cuda", source=POOL_SOURCE, replaces=POOL_REPLACES,
         launches=sum(c["launches"]["pool_chain"] for c in scan_cells.values())
         + scenario_launches["pool_chain"] + fault_launches["pool_chain"]
-        + policy_launches["pool_chain"],
+        + policy_launches["pool_chain"] + obs_launches["pool_chain"],
         max_abs_err=pool_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None,
         real_turn_ms=pool_turn_times[("a", W)]["ms"]))
@@ -2805,6 +3075,7 @@ def main() -> int:
     print(f"[summary] scan {json.dumps(scan_cells)}")
     print(f"[summary] scenarios {json.dumps(scenarios)}")
     print(f"[summary] faults {json.dumps(faults)}")
+    print(f"[summary] obs {json.dumps(obs_res)}")
     print(f"[summary] policies {json.dumps(policies)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")

@@ -28,17 +28,26 @@ A fault scenario (crash kills, blackout stalls) or a ``recovery`` config
 of the one-program loop, equal float for float, responses task-indexed
 with NaN for a lost task and ``info["ledger"]`` the conservation ledger.
 
-Not ported yet, and refused by name: ``observe`` and ``decisions``
-(telemetry, ROADMAP queue A, A5), ``n_frontends > 1`` (the frontend fleet,
-A6). Every policy of ``core.policies.ALL_POLICIES`` runs through both
-loops.
+Telemetry (``observe``, an ``obs.ObserveConfig``) folds the windowed
+metrics, and with ``detect`` the regime detector, once per turn in both
+loops: the host loops call ``obs.windows.observe_turn`` eagerly on the
+router's device, the one-program loop captures the same function in its
+turn, so the window records (``info["windows"]``) are equal float for
+float; ``obs_sink`` takes each new record, ``decisions`` (an
+``obs.DecisionTrace``) the per-task lifecycle events.
+
+Not ported yet, and refused by name: ``n_frontends > 1`` (the frontend
+fleet, ROADMAP queue A, A6). Every policy of ``core.policies.ALL_POLICIES``
+runs through both loops.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core import estimator as est
 from repro_torch.core import policies as pol
 from repro_torch.env.scenario import Scenario, ServingWorkload
+from repro_torch.obs import windows as obw
 from repro_torch.serving import recovery as rcv
 from repro_torch.serving import router as rt
 from repro_torch.serving import scanloop
@@ -56,8 +65,9 @@ def run_workload(
     fake_cost: float,
     burst_cost: float | None = None,
     recovery=None,
-    observe=None,
+    observe: obw.ObserveConfig | None = None,
     decisions=None,
+    obs_sink=None,
 ):
     """Drive the host serving loop over a compiled workload.
 
@@ -66,6 +76,13 @@ def run_workload(
     sample ring, so they must be cost-calibrated with real traffic —
     cheap fake-cost probes would rebuild its μ̂ ~4× high and herd the
     router onto the worker that just came back.
+
+    ``observe`` folds the windowed telemetry each turn
+    (``obs.windows.observe_turn`` on the router's device, the function the
+    one-program loop captures) into ``info["windows"]``, each record also
+    handed to ``obs_sink``; ``decisions`` (an ``obs.DecisionTrace``)
+    records per-task lifecycle events (arrive → place → complete) into the
+    bounded ring.
 
     Returns ``(response_times, mu_trace, info)`` — the scan loop's
     contract (``info`` carries the turn count; overflow accounting is a
@@ -77,11 +94,7 @@ def run_workload(
         # path of the fault-free case
         return rcv.run_workload_recovery(
             router, pool, wl, fake_cost=fake_cost, burst_cost=burst_cost,
-            recovery=recovery, observe=observe, decisions=decisions)
-    if observe is not None:
-        raise _not_ported("run_workload(observe=...): telemetry", "A5")
-    if decisions is not None:
-        raise _not_ported("run_workload(decisions=...): the decision trace", "A5")
+            recovery=recovery, observe=observe, decisions=decisions, obs_sink=obs_sink)
     if burst_cost is None:
         burst_cost = 4.0 * fake_cost
     T = wl.turns
@@ -91,6 +104,8 @@ def run_workload(
     p_done = np.empty(0)
     p_rep = np.empty(0, np.int32)
     p_start = np.empty(0)
+    tc = obw.init_carry(observe, router.device) if observe is not None else None
+    windows: list = []
 
     for turn in range(T):
         times = wl.times[turn]
@@ -141,8 +156,35 @@ def run_workload(
         p_start = np.concatenate([p_start, ss])
         mu_trace.append(router.mu_front.cpu().numpy())
 
+        if decisions is not None:
+            for i in range(k):
+                task = turn * k + i
+                decisions.arrive(times[i], task)
+                decisions.place(times[i], task, int(js[i]))
+                decisions.complete(dd[i], task, int(js[i]))
+        if observe is not None:
+            tob = obw.plain_turn_obs(
+                observe, t=np.float32(times[-1]), resp=dd - times, arrivals_k=k,
+                q_view=router.q_view,
+                lam_hat=est.lam_hat_ema(est.to_device(router.arr, router.device)),
+                mu_hat=router.learner.mu_hat, mu_true=wl.speeds[turn],
+                active=None if wl.active is None else wl.active[turn])
+            tc, row, flag = obw.observe_turn(observe, tc, tob)
+            if bool(flag):
+                rec = obw.record_from_state(observe, row)
+                windows.append(rec)
+                if obs_sink is not None:
+                    obs_sink([rec])
+
     resp = np.concatenate(responses) if responses else np.empty(0)
     info = {"turns": T, "flush_overflow": 0, "pend_overflow": 0}
+    if observe is not None:
+        tail = obw.final_partial_record(observe, tc)
+        if tail is not None:
+            windows.append(tail)
+            if obs_sink is not None:
+                obs_sink([tail])
+        info["windows"] = windows
     return resp, np.asarray(mu_trace), info
 
 
@@ -184,6 +226,8 @@ def run_scenario(
     scenario runs are reproducible; pass ``sequential_pool=True`` for the
     exact-parity pool chain.
 
+    ``observe``, ``obs_sink`` and ``decisions`` go to the loop that runs
+    (``run_workload``, ``run_workload_recovery`` or ``run_workload_scan``).
     ``n_frontends > 1`` (the frontend fleet, with ``sync_every``,
     ``herd_correction`` and ``frozen_mu``) is not ported yet and raises.
     """
@@ -208,12 +252,12 @@ def run_scenario(
             fake_cost=fake_cost, kill_np=wl.kill_at, stall_np=wl.stall_at,
             stall_dur_np=wl.stall_dur, recovery=recovery,
             chunk_turns=chunk_turns, pend_cap=pend_cap, comp_cap=comp_cap,
-            observe=observe, obs_sink=obs_sink,
+            observe=observe, obs_sink=obs_sink, decisions=decisions,
         )
     else:
         resp, mu_trace, info = run_workload(
             router, pool, wl, fake_cost=fake_cost, recovery=recovery,
-            observe=observe, decisions=decisions,
+            observe=observe, decisions=decisions, obs_sink=obs_sink,
         )
     return {
         "responses": resp,

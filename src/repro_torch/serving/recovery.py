@@ -46,7 +46,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import estimator as est
 from repro_torch.dist import straggler as strg
+from repro_torch.obs import windows as obw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +180,7 @@ def run_workload_recovery(
     recovery: RecoveryConfig | None = None,
     observe=None,
     decisions=None,
+    obs_sink=None,
 ):
     """The host serving loop with failure semantics — ``run_workload``
     extended by the copy lifecycle in the module docstring. Per turn, in
@@ -197,19 +200,18 @@ def run_workload_recovery(
       for the new copies; 13. pool submission chain fakes → burst →
       reals → retries → specs; 14. pending append.
 
-    ``observe`` and ``decisions`` (telemetry, ROADMAP queue A, A5) are
-    not ported yet and raise.
+    ``observe`` (an ``obs.ObserveConfig``) folds the windowed telemetry
+    each turn (``obs.windows.observe_turn`` on the router's device, over
+    the clean flush's copy latencies and the turn's counter deltas) into
+    ``info["windows"]``, each record also handed to ``obs_sink``;
+    ``decisions`` (an ``obs.DecisionTrace``) records kills, timeouts,
+    completions, retries, arrivals and placements.
 
     Returns ``(responses[n_tasks] (NaN = lost), mu_trace, info)`` with
     ``info["ledger"]`` the conservation ledger, and the most copies in
     flight after a turn's append and the largest clean flush
     (``most_in_flight``, ``largest_flush``: what the one-program loop's
     ``pend_cap`` and ``comp_cap`` must hold)."""
-    for name, v in (("observe", observe), ("decisions", decisions)):
-        if v is not None:
-            raise NotImplementedError(
-                f"run_workload_recovery({name}=...): telemetry is not ported yet "
-                f"(ROADMAP queue A, A5)")
     rc = recovery if recovery is not None else INERT_RECOVERY
     if burst_cost is None:
         burst_cost = 4.0 * fake_cost
@@ -242,12 +244,16 @@ def run_workload_recovery(
         # identical op order to the scan body: f64 throughout
         return t + (mult * lut[att]) * cost / np.maximum(mu64[w], rc.mu_floor)
 
+    tc = obw.init_carry(observe, router.device) if observe is not None else None
+    windows: list = []
+
     for turn in range(T):
         times = wl.times[turn]
         t = float(times[-1])
         pool.set_speeds(wl.speeds[turn])
         drain = np.zeros(n, np.int64)
         real = cols["task"] >= 0
+        ctr_in = ctr.copy()  # the window ledger deltas: end-of-turn ctr - ctr_in
 
         # (2) blackout stall: in-flight copies past the stall instant take
         # the outage on their clock; their completions go dirty. The
@@ -278,6 +284,10 @@ def run_workload_recovery(
                              & (cols["att"] < rc.retry_budget) & retry_on)
                     ctr[CTR["kill_real"]] += int((killed & real).sum())
                     ctr[CTR["kill_fake"]] += int((killed & ~real).sum())
+                    if decisions is not None:
+                        for i in np.nonzero(killed & real)[0]:
+                            decisions.kill(t, int(cols["task"][i]), int(cols["rep"][i]),
+                                           attempt=int(cols["att"][i]))
                     cols["learn"] &= ~killed
                     cols["done"] = np.where(ghost, np.inf, cols["done"])
                     cols["retry"] |= ghost
@@ -297,6 +307,10 @@ def run_workload_recovery(
                     cols["retry"] |= (newly & ~cols["dup"]
                                       & (cols["att"] < rc.retry_budget))
                 ctr[CTR["timeout"]] += int(newly.sum())
+                if decisions is not None:
+                    for i in np.nonzero(newly)[0]:
+                        decisions.timeout(t, int(cols["task"][i]), int(cols["rep"][i]),
+                                          attempt=int(cols["att"][i]))
 
         # (5) flush due completions: clean → learner fold, dirty → drain
         # only; every real completion min-folds its task's response.
@@ -320,6 +334,12 @@ def run_workload_recovery(
         if dr.any():
             np.minimum.at(resp, cols["task"][dr],
                           cols["done"][dr] - cols["arrv"][dr])
+        if observe is not None:
+            lat_obs = (cols["done"] - cols["arrv"])[dr]
+        if decisions is not None:
+            for i in np.nonzero(dr)[0]:
+                decisions.complete(float(cols["done"][i]), int(cols["task"][i]),
+                                   int(cols["rep"][i]), attempt=int(cols["att"][i]))
         ctr[CTR["comp_real"]] += int(dr.sum())
         ctr[CTR["comp_fake"]] += int((due & ~real).sum())
         cols = _keep(cols, ~due)
@@ -399,6 +419,9 @@ def run_workload_recovery(
         else:
             fake_js, js = router.serve_turn(t, k, comp_w, comp_t, comp_now)
             rw = np.empty(0, np.int64)
+        if decisions is not None and retry_on:
+            for i in np.nonzero(r_act & (np.asarray(rw) >= 0))[0]:
+                decisions.retry(t, int(r_task[i]), int(rw[i]), attempt=int(r_att[i]))
 
         # (11) speculative re-execution on the post-serve μ̂: duplicate the
         # slowest suspected stragglers via the planner's greedy fill.
@@ -469,6 +492,11 @@ def run_workload_recovery(
                 seq_ctr += m_
                 ctr[CTR["launch_fake"]] += m_
         ss, dd = pool.submit_batch(js, times, costs_r)
+        if decisions is not None:
+            for i in range(k):
+                task = turn * k + i
+                decisions.arrive(times[i], task)
+                decisions.place(times[i], task, int(js[i]))
         cols = _append(
             cols, done=dd, start=ss, rep=js,
             seq=seq_ctr + np.arange(k),
@@ -498,9 +526,32 @@ def run_workload_recovery(
         most_in_flight = max(most_in_flight, len(cols["done"]))
         mu_trace.append(router.mu_front.cpu().numpy())
 
+        if observe is not None:
+            # no padding: the reference pads the latencies to a power of two
+            # to bound its jit retraces; torch runs any length eagerly
+            tob = obw.faulty_turn_obs(
+                observe, t=np.float32(times[-1]), resp=lat_obs,
+                resp_ok=np.ones(len(lat_obs), bool), arrivals_k=k, q_view=router.q_view,
+                lam_hat=est.lam_hat_ema(est.to_device(router.arr, router.device)),
+                mu_hat=router.learner.mu_hat, mu_true=wl.speeds[turn],
+                active=None if wl.active is None else wl.active[turn], dctr=ctr - ctr_in)
+            tc, row, flag = obw.observe_turn(observe, tc, tob)
+            if bool(flag):
+                rec = obw.record_from_state(observe, row)
+                windows.append(rec)
+                if obs_sink is not None:
+                    obs_sink([rec])
+
     drain_pending(resp, ctr, cols["done"], cols["task"], cols["arrv"])
     resp_out, ledger = build_ledger(resp[:n_tasks], ctr, n_tasks, max_clean)
     info = {"turns": T, "flush_overflow": 0, "pend_overflow": 0,
             "ledger": ledger, "most_in_flight": most_in_flight,
             "largest_flush": largest_flush}
+    if observe is not None:
+        tail = obw.final_partial_record(observe, tc)
+        if tail is not None:
+            windows.append(tail)
+            if obs_sink is not None:
+                obs_sink([tail])
+        info["windows"] = windows
     return resp_out, np.asarray(mu_trace), info

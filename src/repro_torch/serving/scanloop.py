@@ -47,6 +47,14 @@ launch, the append). It is captured in a graph of its own; an inert
 configuration is the plain turn's arithmetic. Its responses are the
 min-fold, closed on the final carry with the host loop's epilogue.
 
+With an ``obs.ObserveConfig`` either turn folds the windowed telemetry
+(``obs.windows.observe_turn``, with the regime detector when configured)
+after its serve step, inside the same graph: the telemetry state rides the
+carry in four packed tensors, each turn's row gains the post-fold window
+state and the boundary flag, and ``_drive_scan`` turns a chunk's boundary
+rows into records after its one copy back. ``observe=None`` captures the
+turn node for node as without telemetry.
+
 The numpy side of the workload is drawn up front with the same
 ``RandomState`` call sequence as ``run_simulation``; the key stream and
 the f32 math are the host loop's (``serve_step_device`` shares them with
@@ -89,6 +97,9 @@ from repro_torch.core import learner as lrn
 from repro_torch.core import scheduler as rs
 from repro_torch.dist import straggler as strg
 from repro_torch.kernels.pool_chain import kernel as pool_kernel
+from repro_torch.obs import detect as obd
+from repro_torch.obs import tracing as obt
+from repro_torch.obs import windows as obw
 from repro_torch.serving import recovery as rcv
 from repro_torch.serving import router as rt
 from repro_torch.utils import prng
@@ -106,6 +117,14 @@ _LEARNER = tuple(f.name for f in dataclasses.fields(lrn.LearnerState))
 #: the in-flight columns of the faulty turn's carry, in its compaction order
 _PEND = ("p_done", "p_start", "p_rep", "p_seq", "p_valid", "p_task", "p_arrv", "p_cost",
          "p_dead", "p_att", "p_dup", "p_learn", "p_to", "p_retry")
+#: the telemetry carry (``obs.windows.TelemetryCarry``) packed in four
+#: device tensors, so a turn stacks and copies four groups, not 31 fields:
+#: the histogram, the f32 scalars, the detector's f32[NSIG] vectors, and the
+#: i32 scalars (with the boundary flag appended in a turn's row)
+_TC_F32 = ("q_sum", "mu_err_sum", "lam_hat", "t_start", "t_last")
+_TC_DET = ("det_mean", "det_scale", "det_pos", "det_neg")
+_TC_I32 = tuple(f for f in obw.TelemetryCarry._fields
+                if f not in ("hist",) + _TC_F32 + _TC_DET)
 
 
 def _precompute_workload(arrival_rate, horizon, request_cost, speed_schedule,
@@ -173,6 +192,12 @@ class ScanConfig:
     #: (fault columns, copy lifecycle, ledger); None is the plain turn
     recovery: rcv.RecoveryConfig | None = None
     task_cap: int = 0  # faulty: the tasks the response min-fold holds
+    #: the windowed telemetry folded every turn (``obs.ObserveConfig``); None
+    #: captures the turn without it, node for node
+    observe: obw.ObserveConfig | None = None
+    #: each turn's placements of its arrival batch as a result row (the
+    #: decision trace's source)
+    emit_workers: bool = False
 
 
 def _lexsort(keys):
@@ -188,9 +213,11 @@ def _lexsort(keys):
 def _turn(cfg: ScanConfig, c: dict, x: dict):
     """One serving turn on the carry ``c`` and the workload row ``x``, as
     the reference's scan body. Returns (new carry, resp f64[k], μ̂ sample
-    f32[n]). The pool chain writes the carry's ``free_at`` and
-    ``chain_max`` in place; the new carry holds everything else, and
-    nothing else of the inputs is written."""
+    f32[n], extra): ``extra`` holds the turn's ``obs.TurnObs`` under
+    ``"tob"`` when the configuration observes, and the batch's placements
+    under ``"workers"`` when it emits them. The pool chain writes the
+    carry's ``free_at`` and ``chain_max`` in place; the new carry holds
+    everything else, and nothing else of the inputs is written."""
     times64, costs64, speeds64 = x["times"], x["costs"], x["speeds"]
     dev = times64.device
     P, C, k, mf = cfg.pend_cap, cfg.comp_cap, cfg.k, cfg.max_fake
@@ -262,7 +289,17 @@ def _turn(cfg: ScanConfig, c: dict, x: dict):
         over_flush=over_flush,
         over_pend=c["over_pend"] + (act & (slot >= P)).sum(dtype=torch.int32),
         **{f: getattr(learner, f) for f in _LEARNER})
-    return new, resp, mu_tr
+    extra = {}
+    if cfg.observe is not None:
+        # the fold reads the post-serve state: the queue view, λ̂ and the μ̂
+        # after this turn's flush (mu_tr, the μ̂ sample, is the one entering)
+        extra["tob"] = obw.plain_turn_obs(
+            cfg.observe, t=t32, resp=resp, arrivals_k=k, q_view=q_view,
+            lam_hat=est.lam_hat_ema(arr), mu_hat=learner.mu_hat, mu_true=speeds64,
+            active=active_t)
+    if cfg.emit_workers:
+        extra["workers"] = workers
+    return new, resp, mu_tr, extra
 
 
 
@@ -288,8 +325,10 @@ def _turn_faulty(cfg: ScanConfig, c: dict, x: dict):
     keeps the host loop's operand order. Retries, timeouts and
     speculation are Python branches on the configuration, so an inert one
     runs the plain turn's arithmetic. Returns (new carry, μ̂ sample
-    f32[n]); the chain writes ``free_at`` and ``chain_max`` in place and
-    the fold writes ``resp``, the response min-fold, in place."""
+    f32[n], extra), ``extra`` as ``_turn``'s (the ``obs.TurnObs`` reads the
+    clean flush's copy latencies and this turn's counter deltas); the chain
+    writes ``free_at`` and ``chain_max`` in place and the fold writes
+    ``resp``, the response min-fold, in place."""
     rc = cfg.recovery
     retry_cap, spec_cap = int(rc.retry_cap), int(rc.spec_cap)
     retry_on, timeout_on = retry_cap > 0, bool(np.isfinite(rc.timeout_mult))
@@ -365,8 +404,9 @@ def _turn_faulty(cfg: ScanConfig, c: dict, x: dict):
     drain.index_add_(0, rep, dirty.to(i32))
     d["comp_dirty"] = (dirty & is_real).sum()
     dr = due & is_real
+    lat = p_done - p_arrv  # a real completion's copy latency (telemetry reads it too)
     resp.scatter_reduce_(0, torch.where(dr, p_task, n_pad).long(),
-                         torch.where(dr, p_done - p_arrv, inf), "amin", include_self=True)
+                         torch.where(dr, lat, inf), "amin", include_self=True)
     d["comp_real"] = dr.sum()
     d["comp_fake"] = (due & ~is_real).sum()
     p_valid = p_valid & ~due
@@ -493,9 +533,10 @@ def _turn_faulty(cfg: ScanConfig, c: dict, x: dict):
     true, false = (torch.full((M,), b, dtype=torch.bool, device=dev) for b in (True, False))
     new_vals = (sub_done, sub_start, sub_w, c["seq_ctr"] + pos, true, sub_task, sub_arrv,
                 sub_cost, sub_dead, sub_att, sub_dup, true, false, false)
-    ctr = c["ctr"] + torch.stack([d[name] if name in d
-                                  else torch.zeros((), dtype=torch.int64, device=dev)
-                                  for name in rcv.CTR]).to(torch.int64)
+    dctr = torch.stack([d[name] if name in d
+                        else torch.zeros((), dtype=torch.int64, device=dev)
+                        for name in rcv.CTR]).to(torch.int64)
+    ctr = c["ctr"] + dctr
     new = dict(
         q_view=q_view, arr_last=arr.last_time, arr_gap=arr.mean_gap, arr_count=arr.count,
         key=key, last_fake=t32, seq_ctr=c["seq_ctr"] + act.sum(dtype=i32),
@@ -504,7 +545,15 @@ def _turn_faulty(cfg: ScanConfig, c: dict, x: dict):
         ctr=ctr, max_clean=max_clean, turn=c["turn"] + 1,
         **{f: append(a, v) for f, a, v in zip(_PEND, cols, new_vals)},
         **{f: getattr(learner, f) for f in _LEARNER})
-    return new, mu_tr
+    extra = {}
+    if cfg.observe is not None:
+        extra["tob"] = obw.faulty_turn_obs(
+            cfg.observe, t=t32, resp=lat, resp_ok=dr, arrivals_k=k, q_view=q_view,
+            lam_hat=est.lam_hat_ema(arr), mu_hat=learner.mu_hat, mu_true=speeds64,
+            active=active_t, dctr=dctr)
+    if cfg.emit_workers:
+        extra["workers"] = wk
+    return new, mu_tr, extra
 
 
 class _Rows:
@@ -592,6 +641,43 @@ def _graph_nodes(graph) -> tuple[int, dict[str, int]]:
     return int(count.value), kernels
 
 
+def _tc_view(c: dict) -> obw.TelemetryCarry:
+    """The telemetry carry as views into its four packed groups."""
+    i32, f32, det = c["tc_i32"], c["tc_f32"], c["tc_det"]
+    return obw.TelemetryCarry(
+        hist=c["tc_hist"], **{f: i32[j] for j, f in enumerate(_TC_I32)},
+        **{f: f32[j] for j, f in enumerate(_TC_F32)},
+        **{f: det[j] for j, f in enumerate(_TC_DET)})
+
+
+def _tc_pack(tc: obw.TelemetryCarry, detect: bool, flag=None) -> dict:
+    """A telemetry state as the packed groups (one stack a group), the
+    boundary ``flag`` appended to the i32 group of a row; the detector's
+    vectors only when the detector runs (else they never move)."""
+    ints = [getattr(tc, f) for f in _TC_I32]
+    if flag is not None:
+        ints.append(flag.to(torch.int32))
+    out = {"tc_hist": tc.hist, "tc_i32": torch.stack(ints),
+           "tc_f32": torch.stack([getattr(tc, f) for f in _TC_F32])}
+    if detect:
+        out["tc_det"] = torch.stack([getattr(tc, f) for f in _TC_DET])
+    return out
+
+
+def _tc_rows(ys: np.ndarray, detect: bool):
+    """Result rows [T] → (TelemetryCarry of numpy [T, ...] fields, bool[T]
+    boundary flags)."""
+    i32, f32 = ys["tc_i32"], ys["tc_f32"]
+    T = len(ys)
+    det = (ys["tc_det"] if detect
+           else np.zeros((T, len(_TC_DET), obd.NSIG), np.float32))
+    rows = obw.TelemetryCarry(
+        hist=ys["tc_hist"], **{f: i32[:, j] for j, f in enumerate(_TC_I32)},
+        **{f: f32[:, j] for j, f in enumerate(_TC_F32)},
+        **{f: det[:, j] for j, f in enumerate(_TC_DET)})
+    return rows, i32[:, len(_TC_I32)] != 0
+
+
 class TurnRunner:
     """The carry, a chunk's workload and result rows as static device
     tensors, and the turn step on them. On CUDA the step is captured once
@@ -599,7 +685,10 @@ class TurnRunner:
     ``graph_nodes``: its node count; ``graph_kernels``: its kernel nodes
     by name, the launches of one replay) and every turn is a replay
     (``replays`` counts them); a capture error raises. On the CPU the step
-    runs eagerly."""
+    runs eagerly. With ``cfg.observe`` the carry holds the telemetry state
+    (packed, ``tc_*``) and each turn's row gains the post-fold window state
+    and the boundary flag; with ``emit_responses=False`` the rows hold
+    nothing else."""
 
     def __init__(self, cfg: ScanConfig, device, rows: int):
         self.cfg, self.device, self.rows = cfg, torch.device(device), rows
@@ -628,6 +717,10 @@ class TurnRunner:
                 resp=z((cfg.task_cap + 1,), f64, float("inf")),
                 ctr=z((rcv.NCTR,), torch.int64), max_clean=z((), f64), turn=z((), i32),
                 lut=torch.from_numpy(rcv.backoff_lut(cfg.recovery)).to(self.device))
+        ocfg = cfg.observe
+        self.detect = ocfg is not None and ocfg.detect is not None
+        if ocfg is not None:
+            self.carry.update(_tc_pack(obw.init_carry(ocfg, self.device), True))
         cols = {"times": (np.float64, (cfg.k,)), "costs": (np.float64, (cfg.k,)),
                 "speeds": (np.float64, (n,))}
         if cfg.churn:
@@ -643,9 +736,20 @@ class TurnRunner:
         if self.faulty:
             self.xs.col["kill"].fill_(float("inf"))
             self.xs.col["stall"].fill_(float("inf"))
-        ys = {"mu": (np.float32, (n,))}
-        if not self.faulty:  # the faulty turn's responses are the min-fold
-            ys["resp"] = (np.float64, (cfg.k,))
+        ys = {}
+        self.emit = ocfg is None or ocfg.emit_responses
+        if self.emit:
+            ys["mu"] = (np.float32, (n,))
+            if not self.faulty:  # the faulty turn's responses are the min-fold
+                ys["resp"] = (np.float64, (cfg.k,))
+        if ocfg is not None:
+            ys.update(tc_hist=(np.int32, (ocfg.hist_bins,)),
+                      tc_i32=(np.int32, (len(_TC_I32) + 1,)),
+                      tc_f32=(np.float32, (len(_TC_F32),)))
+            if self.detect:
+                ys["tc_det"] = (np.float32, (len(_TC_DET), obd.NSIG))
+        if cfg.emit_workers:
+            ys["workers"] = (np.int32, (cfg.k,))
         self.ys = _Rows(ys, rows, self.device)
         self.turn = z((), torch.int64)
         self.graph = None
@@ -659,15 +763,29 @@ class TurnRunner:
     def step(self) -> None:
         """One turn: read row ``turn`` of the workload, write row ``turn`` of
         the results, update the carry in place, advance ``turn``."""
+        cfg = self.cfg
         idx = self.turn.view(1)
         x = {name: v.index_select(0, idx)[0] for name, v in self.xs.col.items()}
+        row = {}
         if self.faulty:
-            new, mu = _turn_faulty(self.cfg, self.carry, x)
+            new, mu, extra = _turn_faulty(cfg, self.carry, x)
         else:
-            new, resp, mu = _turn(self.cfg, self.carry, x)
-            self.ys.col["resp"].index_copy_(0, idx, resp[None])
-        # the results first: the μ̂ sample may be a carry tensor itself
-        self.ys.col["mu"].index_copy_(0, idx, mu[None])
+            new, resp, mu, extra = _turn(cfg, self.carry, x)
+            if self.emit:
+                row["resp"] = resp
+        if self.emit:
+            row["mu"] = mu
+        if cfg.observe is not None:
+            tc_next, obs_row, flag = obw.observe_turn(cfg.observe, _tc_view(self.carry),
+                                                      extra["tob"])
+            row.update(_tc_pack(obs_row, self.detect, flag))
+            new.update(_tc_pack(tc_next, self.detect))
+        if cfg.emit_workers:
+            row["workers"] = extra["workers"].to(torch.int32)
+        # the results first: the μ̂ sample (and a telemetry row) may be a
+        # carry tensor itself
+        for name, v in row.items():
+            self.ys.col[name].index_copy_(0, idx, v[None])
         for name, t in new.items():
             self.carry[name].copy_(t)
         self.turn.add_(1)
@@ -714,11 +832,14 @@ class TurnRunner:
             for f in ("p_arrv", "p_att", "p_dup", "p_to", "p_retry", "ctr", "max_clean",
                       "turn"):
                 c[f].zero_()
+        if self.cfg.observe is not None:
+            for f, v in _tc_pack(obw.init_carry(self.cfg.observe, self.device), True).items():
+                c[f].copy_(v)
 
-    def run_chunk(self, columns: dict):
+    def run_rows(self, columns: dict) -> np.ndarray:
         """Run the chunk's turns (numpy columns [T, ...], T <= rows) from the
-        carry; returns (resp f64[T, k], μ̂ trace f32[T, n]), resp None for
-        the faulty turn (its responses are the carry's min-fold)."""
+        carry; returns the T result rows as a numpy record array (one copy
+        back)."""
         T = len(columns["times"])
         if not 0 < T <= self.rows:
             raise ValueError(f"a chunk of {T} turns for {self.rows} rows")
@@ -730,7 +851,15 @@ class TurnRunner:
             else:
                 self.graph.replay()
                 self.replays += 1
-        ys = self.ys.get(T)
+        return self.ys.get(T)
+
+    def run_chunk(self, columns: dict):
+        """``run_rows``, as (resp f64[T, k], μ̂ trace f32[T, n]): resp None for
+        the faulty turn (its responses are the carry's min-fold), both None
+        in stream-only mode."""
+        ys = self.run_rows(columns)
+        if not self.emit:
+            return None, None
         return (None if self.faulty else ys["resp"].copy()), ys["mu"].copy()
 
 
@@ -745,11 +874,14 @@ def scan_config(router: rt.RosellaRouter, k: int, *, churn: bool = False,
                 burst_cap: int = 0, fake_cost: float = 0.25,
                 burst_cost: float | None = None, pend_cap: int = PEND_CAP,
                 comp_cap: int | None = None, recovery=None,
-                task_cap: int = 0) -> ScanConfig:
+                task_cap: int = 0, observe: obw.ObserveConfig | None = None,
+                emit_workers: bool = False) -> ScanConfig:
     """The configuration a run of ``router`` at batch ``k`` captures:
     ``comp_cap`` None is min(SERVE_COMP_CAP, pend_cap), the host loop's
     padding, and is never above ``pend_cap``; a ``recovery`` config (the
-    resolved one) is the faulty turn over ``task_cap`` tasks."""
+    resolved one) is the faulty turn over ``task_cap`` tasks; ``observe``
+    folds the windowed telemetry every turn; ``emit_workers`` writes each
+    turn's placements to its row."""
     comp_cap = (min(rt.SERVE_COMP_CAP, pend_cap) if comp_cap is None
                 else min(int(comp_cap), pend_cap))
     return ScanConfig(
@@ -758,7 +890,8 @@ def scan_config(router: rt.RosellaRouter, k: int, *, churn: bool = False,
         churn=churn, burst_cap=burst_cap,
         burst_cost=float(4.0 * fake_cost if burst_cost is None else burst_cost),
         lcfg=router.lcfg, recovery=recovery,
-        task_cap=int(task_cap) if recovery is not None else 0)
+        task_cap=int(task_cap) if recovery is not None else 0, observe=observe,
+        emit_workers=bool(emit_workers))
 
 
 def run_simulation_scan(
@@ -778,8 +911,9 @@ def run_simulation_scan(
     stall_np: np.ndarray | None = None,
     stall_dur_np: np.ndarray | None = None,
     recovery: rcv.RecoveryConfig | None = None,
-    observe=None,
+    observe: obw.ObserveConfig | None = None,
     obs_sink=None,
+    decisions=None,
 ):
     """Drop-in for ``run_simulation`` with every turn on the device.
 
@@ -794,9 +928,9 @@ def run_simulation_scan(
     the graph was captured by an earlier run), the graph's node count, its
     kernel nodes by name and the replays this run issued. Fault columns
     (f64[T, n] over the precomputed turns) or ``recovery`` run the faulty
-    turn, as in ``run_workload_scan``.
+    turn, as in ``run_workload_scan``; so do ``observe``, ``obs_sink`` and
+    ``decisions``.
     """
-    _not_ported(observe=observe, obs_sink=obs_sink)
     wl = _precompute_workload(arrival_rate, horizon, request_cost, speed_schedule,
                               seed, arrival_batch, pool.speeds)
     if wl is None:
@@ -806,15 +940,8 @@ def run_simulation_scan(
     return run_workload_scan(
         router, pool, times_np, costs_np, speeds_np, fake_cost=request_cost * 0.25,
         pend_cap=pend_cap, strict_overflow=strict_overflow, chunk_turns=chunk_turns,
-        kill_np=kill_np, stall_np=stall_np, stall_dur_np=stall_dur_np, recovery=recovery)
-
-
-def _not_ported(**kw) -> None:
-    """The reference's telemetry options: not ported yet."""
-    for name, v in kw.items():
-        if v is not None:
-            raise NotImplementedError(
-                f"{name}: the scan loop's telemetry is not ported yet (ROADMAP queue A, A5)")
+        kill_np=kill_np, stall_np=stall_np, stall_dur_np=stall_dur_np, recovery=recovery,
+        observe=observe, obs_sink=obs_sink, decisions=decisions)
 
 
 def run_workload_scan(
@@ -840,8 +967,12 @@ def run_workload_scan(
     chunk_turns: int | None = None,  # None: ``auto_chunk_turns``
     chunk_max_bytes: int | None = None,
     comp_cap: int | None = None,  # None: min(SERVE_COMP_CAP, pend_cap)
-    observe=None,
-    obs_sink=None,
+    observe: obw.ObserveConfig | None = None,  # in-loop telemetry: the window
+    # fold every turn (read-only to the routing math: responses stay
+    # bit-equal to observe=None), records in info["windows"]
+    obs_sink=None,  # callable(list[record]), called once per chunk with the
+    # chunk's new window records (e.g. obs.JsonlSink), and with the tail
+    decisions=None,  # obs.DecisionTrace: arrivals, placements, completions
 ):
     """Run a pre-materialised workload with every turn on the device: the
     environment engine's entry point, as the reference's.
@@ -859,8 +990,18 @@ def run_workload_scan(
     ``env.run_workload`` with the same config. Its responses are
     task-indexed with NaN for a lost task, and ``info["ledger"]`` is the
     conservation ledger. Returns ``(response_times, mu_trace, info)`` as
-    ``run_simulation_scan``."""
-    _not_ported(observe=observe, obs_sink=obs_sink)
+    ``run_simulation_scan``.
+
+    ``observe`` (an ``obs.ObserveConfig``) folds the windowed telemetry
+    inside every turn, float for float the host loops' fold, and returns
+    the window records in ``info["windows"]`` (streamed to ``obs_sink`` per
+    chunk); ``emit_responses=False`` drops the response and μ̂ rows from
+    the turn, so only window rows come back (the faulty turn's responses,
+    a carry min-fold, still return). ``decisions`` records each task's
+    arrival and placement from a row of placements the turn then writes,
+    and its completion at arrival + response (the faulty turn's kills,
+    timeouts and retries stay inside the turn: the host loops record
+    those)."""
     T, k = times_np.shape
     n = router.n
     faulty = kill_np is not None or stall_np is not None or recovery is not None
@@ -905,50 +1046,91 @@ def run_workload_scan(
                        burst_cap=burst_cap, fake_cost=fake_cost,
                        burst_cost=float(burst_cost), pend_cap=pend_cap,
                        comp_cap=comp_cap, strict_overflow=strict_overflow, recovery=rc,
-                       task_cap=T * k)
+                       task_cap=T * k, observe=observe, obs_sink=obs_sink,
+                       decisions=decisions)
+
+
+def _record_decisions(decisions, times, workers, task0: int, resp) -> None:
+    """A chunk's arrivals and placements (and, given the responses, the
+    completions at arrival + response) into the decision trace, in the host
+    loop's order."""
+    T, k = workers.shape
+    for r in range(T):
+        for i in range(k):
+            task, t, w = task0 + r * k + i, float(times[r, i]), int(workers[r, i])
+            decisions.arrive(t, task)
+            decisions.place(t, task, w)
+            if resp is not None:
+                decisions.complete(t + float(resp[r, i]), task, w)
 
 
 def _drive_scan(router: rt.RosellaRouter, pool: rt.SimulatedPool, chunks, *,
                 rows: int, k: int, churn: bool, burst_cap: int, fake_cost: float,
                 burst_cost: float, pend_cap: int, comp_cap: int | None,
-                strict_overflow: bool, recovery=None, task_cap: int = 0):
+                strict_overflow: bool, recovery=None, task_cap: int = 0,
+                observe: obw.ObserveConfig | None = None, obs_sink=None, decisions=None):
     """The chunk driver: load the carry from the router and the pool, run
     each chunk ({column: numpy [t, ...]}, t <= rows) from the carry left by
     the last, read the overflow counters once, and write the final state
     back to the router and the pool. With ``recovery`` (the resolved
     config) the faulty turn runs over at most ``task_cap`` tasks, and the
     books close on the final carry with the host loop's epilogue
-    (``drain_pending``, ``build_ledger``)."""
+    (``drain_pending``, ``build_ledger``). With ``observe`` each chunk's
+    boundary rows become window records after its one copy back (handed to
+    ``obs_sink``), and the trailing partial window closes the stream."""
     cfg = scan_config(router, k, churn=churn, burst_cap=burst_cap, fake_cost=fake_cost,
                       burst_cost=burst_cost, pend_cap=pend_cap, comp_cap=comp_cap,
-                      recovery=recovery, task_cap=task_cap)
+                      recovery=recovery, task_cap=task_cap, observe=observe,
+                      emit_workers=decisions is not None)
     run = runner(cfg, str(router.device), rows)
     replays0 = run.replays
     run.load(router, pool)
     resp_l, mu_l = [], []
+    windows: list = []
+    arrivals_l = []  # the decision trace's arrival times (faulty turn)
     active_last = None
     turns = 0
-    for chunk in chunks:
+    for ci, chunk in enumerate(chunks):
         c_turns = len(chunk["times"])
         if recovery is not None and (turns + c_turns) * k > task_cap:
             raise RuntimeError(
                 f"stream exceeded task_cap={task_cap}: a chunk would bring the launched-"
                 f"task count to {(turns + c_turns) * k}; size task_cap to the stream's "
                 f"total turns x k")
+        with obt.step_annotation("serve_scan_chunk", ci, router.device):
+            ys = run.run_rows(chunk)
+        if run.emit:
+            mu_l.append(ys["mu"].copy())
+            if recovery is None:
+                resp_l.append(ys["resp"].copy())
+        if observe is not None:
+            new = obw.records_from_rows(observe, *_tc_rows(ys, run.detect))
+            windows.extend(new)
+            if obs_sink is not None and new:
+                obs_sink(new)
+        if decisions is not None:
+            _record_decisions(decisions, chunk["times"], ys["workers"], turns * k,
+                              None if recovery is not None else ys["resp"])
+            arrivals_l.append(chunk["times"])
         turns += c_turns
-        resp, mu = run.run_chunk(chunk)
-        resp_l.append(resp)
-        mu_l.append(mu)
         if churn:
             active_last = chunk["active"][-1]
     c = run.carry
-    info = {"turns": sum(len(m) for m in mu_l),
+    if observe is not None and turns > 0:
+        tail = obw.final_partial_record(observe, _tc_view(c))
+        if tail is not None:
+            windows.append(tail)
+            if obs_sink is not None:
+                obs_sink([tail])
+    info = {"turns": turns,
             "flush_overflow": int(c["over_flush"].item()),
             "pend_overflow": int(c["over_pend"].item()),
             "longest_chain": int(c["chain_max"].item()),
             "capture_s": run.capture_s if replays0 == 0 else 0.0,
             "graph_nodes": run.graph_nodes,
             "graph_kernels": dict(run.graph_kernels), "replays": run.replays - replays0}
+    if observe is not None:
+        info["windows"] = windows
     mu_trace = np.concatenate(mu_l) if mu_l else np.zeros((0, router.n), np.float32)
     if recovery is not None:
         # the response min-fold rides the carry (a task's copies may finish
@@ -961,6 +1143,12 @@ def _drive_scan(router: rt.RosellaRouter, pool: rt.SimulatedPool, chunks, *,
                           c["p_task"].cpu().numpy()[valid], c["p_arrv"].cpu().numpy()[valid])
         resp, info["ledger"] = rcv.build_ledger(resp, ctr, n_tasks,
                                                 float(c["max_clean"].item()))
+        if decisions is not None:
+            # a completed task's first completion, worker unknown: the copy
+            # that finished first may be a retry or a speculative copy
+            arrv = np.concatenate(arrivals_l).reshape(-1) if arrivals_l else np.empty(0)
+            for task in np.nonzero(np.isfinite(resp))[0]:
+                decisions.complete(arrv[task] + resp[task], int(task), -1)
     else:
         resp = np.concatenate(resp_l).reshape(-1) if resp_l else np.empty(0)
 

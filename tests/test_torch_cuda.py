@@ -919,3 +919,74 @@ def test_scan_on_the_card_equals_the_host_loop_for_every_policy(dev, policy):
     np.testing.assert_array_equal(rh, rs)
     np.testing.assert_array_equal(mh, ms)
     np.testing.assert_array_equal(pa.free_at, pb.free_at)
+
+
+#: graph nodes of the turn captured with ``observe=None`` at n = 64 (the §6.1
+#: speed grid, 0.7·Σ speeds, batches of 32; crash_storm with recovery armed),
+#: as the tree before the telemetry fold captured them on the H100
+NODES_WITHOUT_TELEMETRY = {"null": 851, "churn": 901, "crash_storm": 1355}
+
+
+def _obs_scenario(name):
+    from repro_torch import env as tenv
+    from repro_torch.configs.rosella_sim import tpch_speed_set
+    from repro_torch.serving import recovery as trcv
+
+    speeds = tpch_speed_set(64, 0)
+    scn = tenv.make(name, speeds=tuple(speeds), rate=0.7 * float(speeds.sum()))
+    rc = (trcv.RecoveryConfig(timeout_mult=8.0, retry_budget=2, retry_cap=4, spec_cap=2,
+                              spec_ratio=3.0) if name == "crash_storm" else None)
+    return tenv, scn, dict(seed=0, arrival_batch=32, sequential_pool=True, recovery=rc)
+
+
+@pytest.mark.parametrize("name", ["null", "churn", "crash_storm"])
+def test_turn_without_telemetry_captures_the_same_graph(dev, name):
+    """``observe=None`` captures the turn node for node as before the fold."""
+    tenv, scn, kw = _obs_scenario(name)
+    s = tenv.run_scenario(scn, use_scan=True, device=dev, **kw)
+    assert s["info"]["graph_nodes"] == NODES_WITHOUT_TELEMETRY[name]
+
+
+@pytest.mark.parametrize("name", ["churn", "crash_storm"])
+def test_telemetry_graph_on_the_card(dev, name):
+    """The plain (churn) and the faulty (crash_storm) turn with the window
+    fold and the detector captured and replayed at n = 64: responses and μ̂
+    bit-equal to the turn without telemetry; window records equal in every
+    key to the host loop's on the card; against the same scan run eagerly
+    on the CPU, within tests/test_torch_obs.py's bars (the histogram at
+    twice the samples within 2 ulps of a bin edge, counted from the host
+    loop's decision trace: torch's ``log`` on the card and on the CPU may
+    part in the last bit; μ̂ parts by up to 8 ulps, as the faulty scan
+    test states, and with it ``mu_rel_err`` and the detector's float
+    state); stream-only rows give the same stream."""
+    from test_torch_obs import assert_records_equal, assert_windows_within_bars, \
+        copy_latencies, edge_count
+
+    from repro_torch import obs
+
+    tenv, scn, kw = _obs_scenario(name)
+    ocfg = obs.ObserveConfig(window_turns=16, detect=obs.DetectConfig())
+    trace = obs.DecisionTrace(cap=1 << 22)
+    g = tenv.run_scenario(scn, use_scan=True, device=dev, observe=ocfg, **kw)
+    off = tenv.run_scenario(scn, use_scan=True, device=dev, **kw)
+    h = tenv.run_scenario(scn, device=dev, observe=ocfg, decisions=trace, **kw)
+    c = tenv.run_scenario(scn, use_scan=True, device="cpu", observe=ocfg, **kw)
+    so = tenv.run_scenario(scn, use_scan=True, device=dev, chunk_turns=37,
+                           observe=obs.ObserveConfig(window_turns=16, detect=obs.DetectConfig(),
+                                                     emit_responses=False), **kw)
+    info = g["info"]
+    assert info["replays"] == info["turns"] == len(h["mu_trace"]) > 100
+    assert info["graph_nodes"] > off["info"]["graph_nodes"]
+    np.testing.assert_array_equal(g["responses"], off["responses"])
+    np.testing.assert_array_equal(g["mu_trace"], off["mu_trace"])
+    np.testing.assert_array_equal(g["responses"], h["responses"])
+    assert_records_equal(h["info"]["windows"], info["windows"])
+    assert_records_equal(so["info"]["windows"], info["windows"])
+    assert so["mu_trace"].shape == (0, 64)
+    assert trace.dropped == 0
+    samples = copy_latencies(trace)
+    assert len(samples) == sum(w["n_resp"] for w in h["info"]["windows"])
+    n_edge = edge_count(samples, ocfg)
+    d = assert_windows_within_bars(info["windows"], c["info"]["windows"], ocfg, n_edge)
+    print(f"{name}: {len(samples)} samples, {n_edge} within 2 ulps of an edge; card vs CPU "
+          f"{d}")

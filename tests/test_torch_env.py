@@ -18,7 +18,7 @@ the learner's float sum parts the two (``EXACT_MU_TURNS``) and within
 ``MU_ULPS`` after, the bars of tests/test_torch_router.py;
 (iv) the adaptation metrics equal to the reference's;
 (v) what is not ported yet raises and names its ROADMAP queue A item (the
-items ported since, A3 and A4, now run).
+items ported since, A3, A4 and A5, now run).
 """
 import dataclasses
 
@@ -369,6 +369,21 @@ def test_what_is_not_ported_raises_naming_its_item(case):
         assert tmet.check_conservation(info["ledger"])[0]
         assert np.isfinite(resp).sum() == info["ledger"]["completed_tasks"] > 0
         return
+    if item == "A5":  # telemetry runs since A5; the cases stay, inverted
+        from repro_torch import obs
+
+        off = tenv.run_workload(_router(), tr.SimulatedPool(tenv.BASE_SPEEDS), _null_wl(),
+                                fake_cost=0.25)
+        kw = ({"observe": obs.ObserveConfig(window_turns=4)} if case == "observe"
+              else {"decisions": obs.DecisionTrace()})
+        resp, _, info = tenv.run_workload(_router(), tr.SimulatedPool(tenv.BASE_SPEEDS),
+                                          _null_wl(), fake_cost=0.25, **kw)
+        np.testing.assert_array_equal(resp, off[0])
+        if case == "observe":
+            assert len(info["windows"]) == -(-info["turns"] // 4)
+        else:
+            assert sum(e[0] == "complete" for e in kw["decisions"].ring) == resp.size
+        return
     with pytest.raises(NotImplementedError, match=f"not ported yet.*{item}"):
         if case in ("crash_storm", "blackout"):
             wl = tenv.make(case).compile_serving(seed=0, arrival_batch=K)
@@ -380,11 +395,8 @@ def test_what_is_not_ported_raises_naming_its_item(case):
         elif case == "n_frontends":
             tenv.run_scenario(tenv.make("null", horizon=20.0), n_frontends=2,
                               use_scan=True, device="cpu")
-        elif case == "to_sim":
-            tenv.make("churn").to_sim("ppot_sq2")
         else:
-            tenv.run_workload(_router(), tr.SimulatedPool(tenv.BASE_SPEEDS), _null_wl(),
-                              fake_cost=0.25, **{case: object()})
+            tenv.make("churn").to_sim("ppot_sq2")
 
 
 def test_run_scenario_without_a_device_raises_without_a_card(monkeypatch):

@@ -299,14 +299,26 @@ def test_task_cap_and_telemetry_raise():
         tsl._drive_scan(router, pool, chunks, rows=8, k=4, churn=False, burst_cap=0,
                         fake_cost=0.25, burst_cost=1.0, pend_cap=1024, comp_cap=None,
                         strict_overflow=True, recovery=RECOVERY, task_cap=16)
+    # telemetry runs since A5 (the cases stay, inverted): the recovery loop
+    # folds windows and records the lifecycle, the faulty scan streams windows
+    from repro_torch import obs
+
     wl = tenv.make("crash_storm", horizon=20.0).compile_serving(seed=0, arrival_batch=K)
-    for kw in ({"observe": object()}, {"decisions": object()}):
-        with pytest.raises(NotImplementedError, match="not ported yet.*A5"):
-            trcv.run_workload_recovery(_tiny_router(5), tr.SequentialPool(np.ones(5)), wl,
-                                       fake_cost=0.25, recovery=RECOVERY, **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet.*A5"):
-        tsl.run_workload_scan(router, pool, times, costs, speeds, recovery=RECOVERY,
-                              obs_sink=print)
+    off = trcv.run_workload_recovery(_tiny_router(5), tr.SequentialPool(np.ones(5)), wl,
+                                     fake_cost=0.25, recovery=RECOVERY)
+    trace, seen = obs.DecisionTrace(), []
+    resp, _, info = trcv.run_workload_recovery(
+        _tiny_router(5), tr.SequentialPool(np.ones(5)), wl, fake_cost=0.25, recovery=RECOVERY,
+        observe=obs.ObserveConfig(window_turns=4), decisions=trace, obs_sink=seen.extend)
+    np.testing.assert_array_equal(resp, off[0])
+    assert info["ledger"] == off[2]["ledger"] and seen == info["windows"]
+    assert sum(r["killed"] for r in seen) == info["ledger"]["copies_real_killed"]
+    assert sum(e[0] == "complete" for e in trace.ring) == sum(r["n_resp"] for r in seen)
+    seen = []
+    _, _, sinfo = tsl.run_workload_scan(_tiny_router(n), tr.SequentialPool(np.ones(n)), times,
+                                        costs, speeds, recovery=RECOVERY, obs_sink=seen.extend,
+                                        observe=obs.ObserveConfig(window_turns=3))
+    assert seen == sinfo["windows"] and len(seen) == 3
 
 
 # ---------------------------------------------------------------------------

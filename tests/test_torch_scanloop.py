@@ -319,12 +319,23 @@ def test_scan_empty_horizon():
 
 
 def test_scan_options_not_ported_raise():
+    # telemetry (A5) runs since it was ported: the windows come back, and a
+    # sink without an observe config is never called
+    from repro_torch import obs
+
+    kw = dict(arrival_rate=3.0, horizon=5.0, seed=0, arrival_batch=4)
     r, p = _router(tr, True), tr.SimulatedPool(SPEEDS)
-    x = np.zeros((2, 4))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tsl.run_simulation_scan(r, p, arrival_rate=3.0, horizon=5.0, observe=object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        tsl.run_workload_scan(r, p, x, x, np.ones((2, 4)), obs_sink=print)
+    off = tsl.run_simulation_scan(r, p, **kw)
+    r, p = _router(tr, True), tr.SimulatedPool(SPEEDS)
+    resp, _, info = tsl.run_simulation_scan(r, p, observe=obs.ObserveConfig(window_turns=2),
+                                            **kw)
+    np.testing.assert_array_equal(resp, off[0])
+    assert len(info["windows"]) == -(-info["turns"] // 2)
+    x = np.arange(1, 9, dtype=np.float64).reshape(2, 4) / 10
+    resp, _, info = tsl.run_workload_scan(_router(tr, True), tr.SimulatedPool(SPEEDS), x,
+                                          np.ones((2, 4)), np.ones((2, 4)),
+                                          obs_sink=pytest.fail)
+    assert "windows" not in info and resp.shape == (8,)
     # the failure semantics (A4) run since they were ported: fault columns
     # or a recovery config take the faulty turn and close a ledger
     from repro_torch.serving import recovery as trcv

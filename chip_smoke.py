@@ -29,6 +29,13 @@ on the card. Then it drives the port's two paths:
     plain turn, crash_storm on the faulty turn), four modes each, held
     equal between the loops, to the runs without telemetry and across
     chunks, and the reference's detection pins on the card's scan;
+  * the frontend fleet (``serving.router.FleetRouter``, the fleet turn of
+    ``serving.scanloop``): four frontends over the thousand-replica cell,
+    the host fleet loop and the one-program fleet held equal bit for bit
+    on both probe streams and two sync cadences, the fleet at one frontend
+    equal to the single-frontend scan, and three scenarios (frozen μ̂
+    views, heavy churn, crash storms with the loss ledger) and telemetry
+    through ``run_scenario(n_frontends=4)``;
   * the eight scheduling policies (``core.policies``): each one's engine
     call on the card held to the CPU's and timed at three shapes, and the
     scheduler cell under each through ``run_scenario`` on both loops, held
@@ -217,6 +224,22 @@ OBS_WINDOW = 16
 OBS_CHUNK = 37
 OBS_NODES_BEFORE = {"churn": 866, "crash_storm": 1355}
 OBS_PIN_BATCH = 8
+# [fleet]: the frontend fleet (serving.router.FleetRouter, run_fleet_simulation,
+# the one-program fleet turn) at the scheduler cell with the batch of BATCH
+# split over FLEET_S frontends (the reference's benchmarks/fleet_scale.py
+# setting), async_mu=False. (a) FLEET_TURNS turns through the host fleet loop
+# and the fleet scan on a SequentialPool, equal bit for bit, for each
+# (use_alias, sync_every) of FLEET_EXACT; (b) the same cell at S = 1 equal to
+# the single-frontend scan; (c) run_scenario(n_frontends=FLEET_S) on the
+# [scenario] clocks for FLEET_ENV (the reference benchmark's frozen-μ̂ setting
+# on cotenant_shock; churn_heavy, no placement on an inactive replica;
+# crash_storm without recovery, the ledger conserved); (d) churn with windows
+# of FLEET_WINDOW turns, telemetry on = off. FLEET_TURNS cuts depth only
+FLEET_S, FLEET_TURNS, FLEET_WINDOW = 4, 300, 16
+FLEET_EXACT = ((True, 1), (True, 8), (False, 8))
+FLEET_ENV = (("cotenant_shock", dict(sync_every=4, frozen_mu=True)), ("churn_heavy", {}),
+             ("crash_storm", {}))
+FLEET_PEND_CAP, FLEET_ENV_PEND_CAP = 16384, 32768
 # exact parity on the card: the reference test's shape (n=4) and n=1024 at
 # a load where neither loop overflows a capacity
 EXACT_N4 = dict(arrival_rate=3.0, horizon=150.0, seed=0, arrival_batch=16)
@@ -1869,6 +1892,355 @@ def phase_policies(torch, tr, tenv, D, P, prng, K, CK, chk, met, speeds, dev, ca
 
 
 # ---------------------------------------------------------------------------
+# the frontend fleet: S frontends over one pool, host loop and one program
+# ---------------------------------------------------------------------------
+
+
+def fleet_router(tr, speeds, S, dev, use_alias=True, **kw):
+    return tr.FleetRouter(S, len(speeds), float(speeds.sum()), seed=SEED, async_mu=False,
+                          use_alias=use_alias, device=dev, **kw)
+
+
+def fleet_launches(K, CK, info) -> dict:
+    """A fleet scan run's launches by wrapper: the eager warm-up turns of its
+    captures (the wrappers' counts) and each pattern's kernel nodes times
+    the replays of that pattern."""
+    eager = {**K.launch_counts(), **CK.launch_counts()}
+    graphs = by_wrapper(info["graph_launches"])
+    return {w: eager.get(w, 0) + graphs[w] for w in PROFILE_NAMES}
+
+
+def fleet_profile(torch, tsl, cfg, rows: int, router, pool, cols: dict, dev) -> dict:
+    """Turns 1 to SCAN_PROFILE_TURNS of a fleet run again, from the fresh
+    ``router`` and ``pool`` (turn 0 replayed before the profiler starts), on
+    the runner (and graphs) the run captured: device busy ms and idle share
+    a turn, launches a turn by wrapper, held to the graphs' kernel nodes for
+    the patterns the window replays (a session that misses a record is run
+    again)."""
+    run = tsl.fleet_runner(cfg, str(dev), rows)
+    W = SCAN_PROFILE_TURNS
+    first = {name: a[:1] for name, a in cols.items()}
+    window = {name: a[1:W + 1] for name, a in cols.items()}
+    changed = window.get("changed", np.zeros(W, bool))
+    want = {w: 0 for w in PROFILE_NAMES}
+    for t in range(W):
+        for w, c in by_wrapper(run.graph_kernels[run.pattern(1 + t, changed[t])]).items():
+            want[w] += c
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        run.load(router(), pool())
+        run.run_rows(first, 0)
+        prof = device_profile(torch, lambda: run.run_rows(window, 1))
+        seen = by_wrapper(prof["count"])
+        if seen == want:
+            break
+        print(f"[fleet] profiler session {attempt}: {seen} in {W} replays, the graphs hold "
+              f"{want}")
+    need(seen == want, f"[fleet] {W} profiled replays launched {seen}, the graphs hold {want} "
+         f"({PROFILE_ATTEMPTS} profiler sessions)")
+    return dict(busy_ms=prof["busy_us"] / 1e3 / W, idle=prof["idle"],
+                launches_per_turn=prof["launches"] / W, copies_per_turn=prof["copies"] / W,
+                kernel_per_turn={w: c / W for w, c in seen.items()})
+
+
+def fleet_summary_of(met, info, S: int, lam_true: float) -> dict:
+    s = met.fleet_summary(info["frontends"], info["workers"], info["epochs"], n_frontends=S,
+                          lam_hat_frontends=info["lam_hats"], lam_true=lam_true,
+                          view_gaps=info["sync_gaps"], ledger=info.get("ledger"))
+    return dict(collision_rate=s["collision_rate"], contested_cells=s["contested_cells"],
+                gap_mean=s.get("staleness", {}).get("gap_mean", 0.0),
+                gap_max=s.get("staleness", {}).get("gap_max", 0.0),
+                lam_fleet_rel_err=s["lam_fleet_rel_err"])
+
+
+def fleet_scan_record(tag, info, wall, T, requests, prof, launches, summ) -> dict:
+    run_s = wall - info["capture_s"]
+    nodes = {label: g["nodes"] for label, g in info["graphs"].items()}
+    rec = dict(turns=T, turns_per_s=T / run_s, decisions_per_s=requests / run_s,
+               capture_s=info["capture_s"], graph_nodes=nodes,
+               graph_replays={label: g["replays"] for label, g in info["graphs"].items()},
+               busy_ms_per_turn=prof["busy_ms"], idle=prof["idle"],
+               launches_per_turn_profiled=prof["launches_per_turn"],
+               kernel_per_turn=prof["kernel_per_turn"], launches=launches,
+               longest_chain=info["longest_chain"], **summ)
+    print(f"[fleet {tag}] {T} turns, {requests} requests: {rec['turns_per_s']:.2f} turns/s, "
+          f"{rec['decisions_per_s']:.1f} decisions/s; capture {info['capture_s']:.3f} s, graph "
+          f"nodes {json.dumps(nodes)} (replays {json.dumps(rec['graph_replays'])}); "
+          f"{SCAN_PROFILE_TURNS} replays profiled: busy {prof['busy_ms']:.4f} ms a turn, idle "
+          f"share {prof['idle']:.4f}, {prof['launches_per_turn']:.2f} launches a turn, by "
+          f"kernel {json.dumps({k: round(v, 3) for k, v in prof['kernel_per_turn'].items()})}; "
+          f"fleet_summary: collision rate {summ['collision_rate']:.6f}, view gaps mean "
+          f"{summ['gap_mean']:.3f} max {summ['gap_max']:.0f}, λ̂ fleet error "
+          f"{summ['lam_fleet_rel_err']:.6f}; launches of the run {json.dumps(launches)}")
+    return rec
+
+
+def fleet_exact(torch, tr, tsl, K, CK, met, speeds, dev, use_alias: bool,
+                sync_every: int) -> tuple[dict, dict]:
+    """(a) One cell through the host fleet loop and the fleet scan, both on
+    the card, on a SequentialPool: equal bit for bit in responses, μ̂ trace,
+    free_at, the agreed snapshot, each frontend's queue view and μ̂ (front
+    and learner), the placement log and the sync gaps."""
+    S, rate = FLEET_S, LOAD * float(speeds.sum())
+    kw = dict(arrival_rate=rate, horizon=FLEET_TURNS * BATCH / rate, seed=SEED,
+              arrival_batch=BATCH, sync_every=sync_every)
+    tag = f"{'alias' if use_alias else 'icdf'} sync_every={sync_every}"
+    rh, ph = fleet_router(tr, speeds, S, dev, use_alias), tr.SequentialPool(speeds)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    resp_h, mu_h, ih = tr.run_fleet_simulation(rh, ph, **kw)
+    torch.cuda.synchronize()
+    wall_h = time.perf_counter() - t0
+    host_launches = K.launch_counts()
+    T = ih["turns"]
+    rs, ps = fleet_router(tr, speeds, S, dev, use_alias), tr.SequentialPool(speeds)
+    K.reset_launches()
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp_s, mu_s, info = tsl.run_fleet_simulation_scan(rs, ps, pend_cap=FLEET_PEND_CAP,
+                                                       chunk_turns=T, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fleet_launches(K, CK, info)
+    need(info["replays"] == info["turns"] == T >= FLEET_TURNS - 20,
+         f"[fleet {tag}] the turns were not graph replays ({info['replays']} of {T})")
+    need(info["flush_overflow"] == info["pend_overflow"] == 0, f"[fleet {tag}] overflow")
+    for part, ok in (
+            ("responses", np.array_equal(resp_h, resp_s)),
+            ("mu trace", np.array_equal(mu_h, mu_s)),
+            ("free_at", np.array_equal(ph.free_at, ps.free_at)),
+            ("snapshot", np.array_equal(rh._snap, rs._snap)),
+            ("q_view", all(bool((a.q_view == b.q_view).all())
+                           for a, b in zip(rh.frontends, rs.frontends))),
+            ("mu_front", all(bool((a.mu_front == b.mu_front).all())
+                             for a, b in zip(rh.frontends, rs.frontends))),
+            ("learner mu_hat", all(bool((a.learner.mu_hat == b.learner.mu_hat).all())
+                                   for a, b in zip(rh.frontends, rs.frontends))),
+            ("placements", np.array_equal(ih["workers"], info["workers"])),
+            ("sync gaps", np.array_equal(ih["sync_gaps"], info["sync_gaps"]))):
+        need(ok, f"[fleet {tag}] the scan's {part} differ from the host fleet loop's")
+    need(np.isfinite(resp_s).all() and (resp_s > 0).all(), f"[fleet {tag}] bad responses")
+    cfg = tsl.fleet_scan_config(rs, BATCH, pend_cap=FLEET_PEND_CAP, sync_every=sync_every)
+    cols = dict(zip(("times", "costs", "speeds"), tsl._precompute_workload(
+        rate, kw["horizon"], 1.0, None, SEED, BATCH, speeds)))
+    prof = fleet_profile(torch, tsl, cfg, T,
+                         lambda: fleet_router(tr, speeds, S, dev, use_alias),
+                         lambda: tr.SequentialPool(speeds), cols, dev)
+    summ = fleet_summary_of(met, info, S, rate)
+    print(f"[fleet exact {tag}] host fleet loop and fleet scan on the card, SequentialPool, "
+          f"S={S}: responses, mu trace, free_at, snapshot, every frontend's q_view, mu_front "
+          f"and learner mu_hat, placements and sync gaps equal over {T} turns; host fleet loop "
+          f"{T / wall_h:.2f} turns/s ({len(resp_h) / wall_h:.1f} decisions/s), launches "
+          f"{json.dumps(host_launches)}")
+    rec = fleet_scan_record(f"exact {tag}", info, wall, T, len(resp_s), prof, launches, summ)
+    rec.update(host_turns_per_s=T / wall_h, host_decisions_per_s=len(resp_h) / wall_h,
+               host_launches=host_launches)
+    return rec, {w: launches[w] + host_launches.get(w, 0) for w in PROFILE_NAMES}
+
+
+def fleet_s1(torch, tr, tsl, K, CK, met, speeds, dev) -> dict:
+    """(b) The (a) cell at S = 1 against the single-frontend scan, bit for
+    bit (alias stream, sync every turn)."""
+    rate = LOAD * float(speeds.sum())
+    kw = dict(arrival_rate=rate, horizon=FLEET_TURNS * BATCH / rate, seed=SEED,
+              arrival_batch=BATCH)
+    cols = dict(zip(("times", "costs", "speeds"), tsl._precompute_workload(
+        rate, kw["horizon"], 1.0, None, SEED, BATCH, speeds)))
+    T = len(cols["times"])
+    ra = tr.RosellaRouter(len(speeds), float(speeds.sum()), seed=SEED, async_mu=False,
+                          device=dev)
+    pa = tr.SequentialPool(speeds)
+    K.reset_launches()
+    CK.reset_launches()
+    resp_a, mu_a, ia = tsl.run_simulation_scan(ra, pa, pend_cap=FLEET_PEND_CAP, **kw)
+    single = scan_launches(K, CK, ia)
+    rb, pb = fleet_router(tr, speeds, 1, dev), tr.SequentialPool(speeds)
+    K.reset_launches()
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp_b, mu_b, ib = tsl.run_fleet_simulation_scan(rb, pb, pend_cap=FLEET_PEND_CAP,
+                                                     chunk_turns=T, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fleet = fleet_launches(K, CK, ib)
+    fr = rb.frontends[0]
+    for part, ok in (("responses", np.array_equal(resp_a, resp_b)),
+                     ("mu trace", np.array_equal(mu_a, mu_b)),
+                     ("free_at", np.array_equal(pa.free_at, pb.free_at)),
+                     ("q_view", bool((ra.q_view == fr.q_view).all())),
+                     ("learner mu_hat", bool((ra.learner.mu_hat == fr.learner.mu_hat).all())),
+                     ("key", ra.key == fr.key)):
+        need(ok, f"[fleet S=1] the fleet scan's {part} differ from the single scan's")
+    print(f"[fleet S=1] {ib['turns']} turns at S=1: responses, mu trace, free_at, q_view, "
+          f"learner mu_hat and key equal to the single-frontend scan ({ia['graph_nodes']} "
+          f"nodes)")
+    prof = fleet_profile(torch, tsl, tsl.fleet_scan_config(rb, BATCH, pend_cap=FLEET_PEND_CAP),
+                         T, lambda: fleet_router(tr, speeds, 1, dev),
+                         lambda: tr.SequentialPool(speeds), cols, dev)
+    rec = fleet_scan_record("S=1", ib, wall, T, len(resp_b), prof, fleet,
+                            fleet_summary_of(met, ib, 1, rate))
+    rec.update(single_nodes=ia["graph_nodes"],
+               launches={w: single[w] + fleet[w] for w in PROFILE_NAMES})
+    return rec
+
+
+def fleet_scenario_run(torch, tr, tsl, tenv, K, CK, met, speeds, dev, tag, scn, opts,
+                       observe=None):
+    """``run_scenario(n_frontends = S, use_scan=True)`` of ``scn`` at the
+    scheduler cell in one chunk, timed, with its launches, and its first
+    turns profiled. Returns (run, record)."""
+    wl = scn.compile_serving(seed=SEED, arrival_batch=BATCH)
+    T = wl.turns
+    K.reset_launches()
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_scan=True,
+                            n_frontends=FLEET_S, pend_cap=FLEET_ENV_PEND_CAP, chunk_turns=T,
+                            observe=observe, device=dev, **opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = out["info"]
+    launches = fleet_launches(K, CK, info)
+    need(info["replays"] == info["turns"] == T, f"[fleet {tag}] the turns were not replays")
+    need(info["flush_overflow"] == info["pend_overflow"] == 0, f"[fleet {tag}] overflow")
+    churn = wl.active is not None
+    cfg = tsl.fleet_scan_config(
+        out["router"], BATCH, churn=churn, burst_cap=wl.burst.shape[1] if churn else 0,
+        fake_cost=scn.request_cost * 0.25, pend_cap=FLEET_ENV_PEND_CAP, faulty=wl.has_faults,
+        task_cap=T * BATCH, sync_every=opts.get("sync_every", 1),
+        frozen_mu=opts.get("frozen_mu", False), observe=observe)
+    cols = dict(times=wl.times, costs=wl.costs, speeds=wl.speeds)
+    if churn:
+        changed = np.r_[True, (wl.active[1:] != wl.active[:-1]).any(1)]
+        cols.update(active=wl.active, rejoin=wl.rejoin, changed=changed, burst=wl.burst)
+    if wl.has_faults:
+        cols.update(kill=wl.kill_at, stall=wl.stall_at, stall_dur=wl.stall_dur)
+    prof = fleet_profile(torch, tsl, cfg, T, lambda: fleet_router(tr, speeds, FLEET_S, dev),
+                         lambda: tr.SimulatedPool(np.asarray(scn.speeds)), cols, dev)
+    rate = LOAD * float(speeds.sum())
+    resp = out["responses"]
+    rec = fleet_scan_record(tag, info, wall, T, int(resp.size), prof, launches,
+                            fleet_summary_of(met, info, FLEET_S, rate))
+    return out, rec
+
+
+def fleet_env(torch, tr, tsl, tenv, K, CK, met, speeds, dev, name, opts) -> dict:
+    """(c) A scenario at the scheduler cell through ``run_scenario(n_frontends
+    = S, use_scan=True)``: churn never places on a replica inactive that
+    turn; a fault scenario's ledger conserves."""
+    scn = tenv.make(name, speeds=tuple(speeds), rate=LOAD * float(speeds.sum()))
+    tag = f"{name} {' '.join(f'{k}={v}' for k, v in opts.items())}".strip()
+    out, rec = fleet_scenario_run(torch, tr, tsl, tenv, K, CK, met, speeds, dev, tag, scn,
+                                  opts)
+    info, wl = out["info"], out["workload"]
+    resp = out["responses"]
+    if wl.has_faults:
+        led = info["ledger"]
+        need(met.check_conservation(led)[0] and led["conserved"],
+             f"[fleet {tag}] the ledger does not conserve: {led}")
+        need(led["copies_real_killed"] > 0, f"[fleet {tag}] no copy was killed")
+        done = int(np.isfinite(resp).sum())
+        need(done == led["completed_tasks"], f"[fleet {tag}] {done} finite responses, ledger "
+             f"{led['completed_tasks']}")
+        rec["ledger"] = {k: led[k] for k in ("lost_tasks", "copies_real_killed",
+                                             "completed_tasks", "conserved")}
+    else:
+        need(np.isfinite(resp).all() and (resp > 0).all(), f"[fleet {tag}] bad responses")
+    if wl.active is not None:
+        placed = info["workers"].reshape(wl.turns, -1)
+        bad = sum(int((~wl.active[t][placed[t]]).sum()) for t in range(wl.turns))
+        need(bad == 0, f"[fleet {tag}] {bad} placements on replicas inactive that turn")
+    s = met.serve_summary(resp[np.isfinite(resp)])
+    rec.update(p50=s["p50"], p99=s["p99"])
+    print(f"[fleet {tag}] p50 {s['p50']:.6f} p99 {s['p99']:.6f}"
+          + (f"; ledger {json.dumps(rec['ledger'])}" if wl.has_faults else "")
+          + ("; no placement on an inactive replica" if wl.active is not None else ""))
+    return rec
+
+
+def fleet_obs(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev) -> dict:
+    """(d) Churn at S = 4 with windows of FLEET_WINDOW turns: telemetry on
+    and off give equal responses and placements; the fleet-aggregate and
+    per-frontend records."""
+    scn = tenv.make("churn", speeds=tuple(speeds), rate=LOAD * float(speeds.sum()))
+    off = tenv.run_scenario(scn, seed=SEED, arrival_batch=BATCH, use_scan=True,
+                            n_frontends=FLEET_S, pend_cap=FLEET_ENV_PEND_CAP, device=dev)
+    on, rec = fleet_scenario_run(torch, tr, tsl, tenv, K, CK, met, speeds, dev,
+                                 f"obs churn windows={FLEET_WINDOW}", scn, {},
+                                 observe=obs.ObserveConfig(window_turns=FLEET_WINDOW))
+    info = on["info"]
+    for part, ok in (("responses", np.array_equal(on["responses"], off["responses"])),
+                     ("mu trace", np.array_equal(on["mu_trace"], off["mu_trace"])),
+                     ("placements", np.array_equal(info["workers"], off["info"]["workers"]))):
+        need(ok, f"[fleet obs] telemetry on changed the {part}")
+    T = info["turns"]
+    wins, per = info["windows"], info["windows_frontends"]
+    need(len(wins) == len(per) == -(-T // FLEET_WINDOW) and all(len(w) == FLEET_S for w in per),
+         f"[fleet obs] {len(wins)} windows for {T} turns")
+    need(sum(w["n_resp"] for w in wins) == on["responses"].size, "[fleet obs] the windows "
+         "do not hold every response")
+    nodes_off = {label: g["nodes"] for label, g in off["info"]["graphs"].items()}
+    mid = len(wins) // 2
+    show = ("p50", "p99", "throughput", "lam_hat", "q_mean", "collisions", "collision_rate",
+            "mu_rel_err", "n_active")
+    print(f"[fleet obs] churn, S={FLEET_S}, windows of {FLEET_WINDOW}: {len(wins)} windows, "
+          f"responses, mu trace and placements equal to telemetry off (graph nodes off "
+          f"{json.dumps(nodes_off)}); window {mid} aggregate "
+          f"{json.dumps({k: wins[mid][k] for k in show})}; per frontend "
+          + "; ".join(json.dumps({"frontend": r["frontend"], **{k: r[k] for k in show}})
+                      for r in per[mid]))
+    rec.update(windows=len(wins), nodes_off=nodes_off)
+    return rec
+
+
+def phase_fleet(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev, card):
+    """The [fleet] cells; returns the records and the phase's launches by
+    wrapper."""
+    t0 = time.perf_counter()
+    rate = LOAD * float(speeds.sum())
+    print(f"[fleet] {card}; n={N_REPLICAS} (tpch_speed_set, sum {speeds.sum():.2f}), rate "
+          f"{rate:.3f}/s, batches of {BATCH} over S={FLEET_S} frontends "
+          f"({BATCH // FLEET_S} each), async_mu=False, seed {SEED}")
+    total = {w: 0 for w in PROFILE_NAMES}
+    exact = {}
+    for use_alias, sync_every in FLEET_EXACT:
+        t1 = time.perf_counter()
+        rec, launches = fleet_exact(torch, tr, tsl, K, CK, met, speeds, dev, use_alias,
+                                    sync_every)
+        rec["seconds"] = time.perf_counter() - t1
+        exact[f"{'alias' if use_alias else 'icdf'} sync_every={sync_every}"] = rec
+        for w in PROFILE_NAMES:
+            total[w] += launches[w]
+    t1 = time.perf_counter()
+    s1 = fleet_s1(torch, tr, tsl, K, CK, met, speeds, dev)
+    s1["seconds"] = time.perf_counter() - t1
+    env_cells = {}
+    for name, opts in FLEET_ENV:
+        t1 = time.perf_counter()
+        env_cells[name] = fleet_env(torch, tr, tsl, tenv, K, CK, met, speeds, dev, name, opts)
+        env_cells[name]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tele = fleet_obs(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev)
+    tele["seconds"] = time.perf_counter() - t1
+    for r in [s1, tele, *env_cells.values()]:
+        for w in PROFILE_NAMES:
+            total[w] += r["launches"][w]
+    need(exact["icdf sync_every=8"]["launches"]["ppot_dispatch_fused"] > 0,
+         "[fleet] the CDF cell never launched K2")
+    for w in ("ppot_dispatch_fused_alias", "ppot_dispatch_fused", "alias_table", "pool_chain"):
+        need(total[w] > 0, f"[fleet] {w} was never launched")
+    secs = time.perf_counter() - t0
+    cell_s = {**{f"exact {k}": r["seconds"] for k, r in exact.items()}, "S=1": s1["seconds"],
+              **{k: r["seconds"] for k, r in env_cells.items()}, "obs": tele["seconds"]}
+    cell_s = {k: round(v, 1) for k, v in cell_s.items()}
+    print(f"[fleet] {len(exact)} exact cells, S=1, {len(env_cells)} scenario cells and "
+          f"telemetry in {secs:.1f} s ({json.dumps(cell_s)}); launches {json.dumps(total)}")
+    return dict(exact=exact, s1=s1, env=env_cells, obs=tele, seconds=secs), total
+
+
+# ---------------------------------------------------------------------------
 # model serving: flash attention, prefill, engines behind the router
 # ---------------------------------------------------------------------------
 
@@ -2931,6 +3303,7 @@ def main() -> int:
         from repro_torch.core import dispatch as D
         from repro_torch.core import policies as P
         from repro_torch import env as tenv
+        from repro_torch import obs
         from repro_torch.core import metrics as met
         from repro_torch.kernels import _nvcc
         from repro_torch.kernels.flash_attention import build as flash_build
@@ -2987,6 +3360,8 @@ def main() -> int:
                                       scenarios, faults)
     policies, policy_launches = phase_policies(torch, tr, tenv, D, P, prng, K, CK, chk, met,
                                                speeds, dev, card)
+    fleet, fleet_launches_ = phase_fleet(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev,
+                                         card)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
@@ -3034,7 +3409,7 @@ def main() -> int:
 
     total = {name: sum(r["launches"][name] for r in main_runs.values())
              + scenario_launches[name] + fault_launches[name] + policy_launches[name]
-             + obs_launches[name] for name in REPLACES}
+             + obs_launches[name] + fleet_launches_[name] for name in REPLACES}
     kernels = []
     for name in REPLACES:
         t = times[(name, 1024, BATCH)]
@@ -3051,7 +3426,8 @@ def main() -> int:
         name="pool_chain", route="cuda", source=POOL_SOURCE, replaces=POOL_REPLACES,
         launches=sum(c["launches"]["pool_chain"] for c in scan_cells.values())
         + scenario_launches["pool_chain"] + fault_launches["pool_chain"]
-        + policy_launches["pool_chain"] + obs_launches["pool_chain"],
+        + policy_launches["pool_chain"] + obs_launches["pool_chain"]
+        + fleet_launches_["pool_chain"],
         max_abs_err=pool_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None,
         real_turn_ms=pool_turn_times[("a", W)]["ms"]))
@@ -3077,6 +3453,7 @@ def main() -> int:
     print(f"[summary] faults {json.dumps(faults)}")
     print(f"[summary] obs {json.dumps(obs_res)}")
     print(f"[summary] policies {json.dumps(policies)}")
+    print(f"[summary] fleet {json.dumps(fleet)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")
     print(f"[summary] profile prefill {json.dumps(prof_prefill)} decode "

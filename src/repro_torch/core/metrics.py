@@ -1,7 +1,8 @@
 """Summaries of serving runs (numpy, host side): response-time summaries,
-the adaptation-time metric of the environment engine (``repro_torch.env``)
-and the fault-run ledger checks of the recovery layer
-(``serving.recovery``), copied from the JAX package's ``core/metrics.py``."""
+the adaptation-time metric of the environment engine (``repro_torch.env``),
+the fault-run ledger checks of the recovery layer (``serving.recovery``)
+and the frontend fleet's health summary (``fleet_summary``), copied from
+the JAX package's ``core/metrics.py``."""
 from __future__ import annotations
 
 import numpy as np
@@ -205,4 +206,93 @@ def fault_report(responses, ledger: dict, *, horizon: float | None = None) -> di
     if horizon:
         out["goodput"] = completed / horizon
         out["throughput"] = int(ledger["copies_real_completed"]) / horizon
+    return out
+
+
+def fleet_summary(
+    frontends: np.ndarray,  # frontend id per placement
+    workers: np.ndarray,  # worker id per placement
+    epochs: np.ndarray,  # sync-window index per placement
+    *,
+    n_frontends: int,
+    lam_hat_frontends: np.ndarray | None = None,  # f32[S] per-frontend λ̂
+    lam_true: float | None = None,  # true TOTAL arrival rate λ
+    view_gaps: np.ndarray | None = None,  # staleness |view − truth| samples
+    sync_ages: np.ndarray | None = None,  # time-since-last-sync samples
+    ledger: dict | None = None,  # recovery.build_ledger conservation books
+) -> dict:
+    """Fleet health metrics shared by the benchmark and the tests:
+    per-frontend λ̂ calibration error (each frontend sees ~λ/S), the sync
+    staleness histogram (view-gap and age distributions), the herd-collision
+    rate (``fleet.conflict.collision_stats``), and arrival-share balance.
+
+    ``ledger`` (the faulty runs' ``info["ledger"]``) folds the fault /
+    recovery counters into the summary: the full conservation books under
+    ``"ledger"`` plus derived ``"fault"`` rates (loss_rate, kill_rate,
+    retry_rate over the real copies launched).
+
+    Serving callers pass ``run_fleet_simulation``'s (or the fleet scan's)
+    info fields directly; the chain simulator's trace form
+    (``fleet_summary_from_trace``) is ROADMAP queue A, A8.
+    """
+    from repro_torch.fleet import conflict as cfl
+
+    S = int(n_frontends)
+    frontends = np.asarray(frontends, np.int64)
+    workers = np.asarray(workers, np.int64)
+    epochs = np.asarray(epochs, np.int64)
+    out: dict = {"n_frontends": S}
+    out.update(cfl.collision_stats(frontends, workers, epochs))
+
+    share = np.bincount(frontends, minlength=S).astype(np.float64)
+    tot = max(share.sum(), 1.0)
+    out["arrival_share"] = (share / tot).tolist()
+    out["share_imbalance"] = float(np.abs(share / tot - 1.0 / S).max() * S)
+
+    if lam_hat_frontends is not None:
+        lam_f = np.asarray(lam_hat_frontends, np.float64)
+        out["lam_hat_frontends"] = [round(float(x), 4) for x in lam_f]
+        out["lam_hat_fleet"] = float(lam_f.sum())
+        if lam_true is not None:
+            target = lam_true / S
+            rel = np.abs(lam_f - target) / max(target, 1e-9)
+            out["lam_calibration_rel_err"] = {
+                "per_frontend": [round(float(x), 4) for x in rel],
+                "mean": float(rel.mean()),
+                "max": float(rel.max()),
+            }
+            out["lam_fleet_rel_err"] = float(
+                abs(lam_f.sum() - lam_true) / max(lam_true, 1e-9)
+            )
+
+    if view_gaps is not None and np.asarray(view_gaps).size:
+        g = np.asarray(view_gaps, np.float64).ravel()
+        hist = np.bincount(np.minimum(g.astype(np.int64), 64), minlength=65)
+        out["staleness"] = {
+            "gap_mean": float(g.mean()),
+            "gap_p95": float(np.percentile(g, 95)),
+            "gap_max": float(g.max()),
+            "gap_hist_capped64": hist.tolist(),
+        }
+    if sync_ages is not None and np.asarray(sync_ages).size:
+        a = np.asarray(sync_ages, np.float64).ravel()
+        out["sync_age"] = {
+            "mean": float(a.mean()),
+            "p95": float(np.percentile(a, 95)),
+            "max": float(a.max()),
+        }
+    if ledger is not None:
+        out["ledger"] = dict(ledger)
+        n_tasks = max(int(ledger.get("n_tasks", 0)), 1)
+        launched = max(int(ledger.get("copies_real_launched", 0)), 1)
+        out["fault"] = {
+            "loss_rate": int(ledger.get("lost_tasks", 0)) / n_tasks,
+            "kill_rate": int(ledger.get("copies_real_killed", 0)) / launched,
+            "retry_rate": int(ledger.get("n_retries", 0)) / launched,
+            "dirty_rate": (
+                int(ledger.get("n_dirty_completions", 0)) / launched
+            ),
+            "timeout_rate": int(ledger.get("n_timeouts", 0)) / launched,
+            "conserved": bool(ledger.get("conserved", True)),
+        }
     return out

@@ -28,8 +28,11 @@ completion batch a padded tensor), for the device-resident loop
 (``serving.scanloop``), the counterpart of the reference's
 ``_serve_step_math``. It makes no host decision: the completion fold
 always runs and its result is selected, as ``lax.cond`` does. It routes
-on the fresh μ̂ (``use_fresh_mu=True``). Both forms share the draws and
-the route (``_draw_and_route``).
+on the fresh μ̂ (``use_fresh_mu=True``), or on a given snapshot and its
+table, the frozen views of the one-program fleet. Both forms share the
+choice of μ̂ (``_route_mu``), the draws and the route (``_draw_and_route``).
+The fleet's S serving turns (the reference's ``serve_step_fleet``, a vmap
+that is bit-identical per row to S calls) are S calls of either form.
 """
 from __future__ import annotations
 
@@ -221,6 +224,17 @@ def _draw_and_route(q1, arr, lam0, lcfg, key, now, last_fake, m: int, policy: st
     return fake_js, res.workers, res.q_after, arr2, key2
 
 
+def _route_mu(learner2: lrn.LearnerState, mu_hat, table, use_alias: bool, mask):
+    """The μ̂ and alias table a turn routes on: with ``mu_hat`` None, this
+    flush's refreshed μ̂, whose table is rebuilt from it (the front table
+    would be stale; once per flush); else the given snapshot and its
+    table."""
+    if mu_hat is None:
+        mu_route = learner2.mu_hat
+        return mu_route, (dsp.build_alias_table(mu_route, mask) if use_alias else None)
+    return mu_hat, (table if use_alias else None)
+
+
 def serve_step(q_view, learner, arr, mu_hat, lcfg, key,
                comp_workers: np.ndarray, comp_times: np.ndarray, scalars,
                m: int, policy: str = pol.PPOT_SQ2, max_fake: int = 8,
@@ -252,14 +266,8 @@ def serve_step(q_view, learner, arr, mu_hat, lcfg, key,
     learner2 = learner
     if (np.asarray(comp_workers) >= 0).any():
         learner2 = fold_telemetry(learner, lcfg, cw, ct, lam0, comp_now)
-    if use_fresh_mu:
-        # route on THIS flush's μ̂: the front table would be stale, so the
-        # table is rebuilt from the fresh estimates (once per flush)
-        mu_route = learner2.mu_hat
-        tbl = dsp.build_alias_table(mu_route, mask) if use_alias else None
-    else:
-        mu_route = mu_hat
-        tbl = table if use_alias else None
+    mu_route, tbl = _route_mu(learner2, None if use_fresh_mu else mu_hat, table, use_alias,
+                              mask)
     fake_js, workers, q2, arr2, key2 = _draw_and_route(
         q1, arr, lam0, lcfg, key, now, last_fake, m, policy, max_fake, mu_route, tbl, mask,
         m_route=m_route, slots=slots)
@@ -270,12 +278,16 @@ def serve_step_device(q_view, learner, arr, lcfg, key, comp_workers: torch.Tenso
                       comp_times: torch.Tensor, clock, m: int,
                       policy: str = pol.PPOT_SQ2, max_fake: int = 8,
                       use_alias: bool = False, mask: torch.Tensor | None = None,
-                      m_route: int | None = None, slots: torch.Tensor | None = None):
-    """``serve_step`` with the whole turn on the device and fresh-μ̂
-    routing: ``key`` an int64 tensor [2], ``arr`` the device estimator,
-    ``clock`` = (now, last_fake_time, comp_now) as f32 0-d tensors, the
-    completion batch i32/f32 tensors padded with -1; ``m_route``/``slots``
-    as in ``serve_step``.
+                      m_route: int | None = None, slots: torch.Tensor | None = None,
+                      mu_hat: torch.Tensor | None = None,
+                      table: dsp.AliasTable | None = None):
+    """``serve_step`` with the whole turn on the device: ``key`` an int64
+    tensor [2], ``arr`` the device estimator, ``clock`` = (now,
+    last_fake_time, comp_now) as f32 0-d tensors, the completion batch
+    i32/f32 tensors padded with -1; ``m_route``/``slots`` as in
+    ``serve_step``. It routes on the fresh μ̂ (``use_fresh_mu=True``), or,
+    given ``mu_hat``, on that snapshot and its alias ``table`` (the frozen
+    views of the one-program fleet, ``use_fresh_mu=False``).
 
     The fold runs every turn and is selected only where the batch has a
     completion: over an all-padding batch it is not a no-op
@@ -287,8 +299,8 @@ def serve_step_device(q_view, learner, arr, lcfg, key, comp_workers: torch.Tenso
     lam0 = est.lam_hat_ema(arr)
     folded = fold_telemetry(learner, lcfg, comp_workers, comp_times, lam0, comp_now)
     learner2 = lrn.select((comp_workers >= 0).any(), folded, learner)
-    tbl = dsp.build_alias_table(learner2.mu_hat, mask) if use_alias else None
+    mu_route, tbl = _route_mu(learner2, mu_hat, table, use_alias, mask)
     fake_js, workers, q2, arr2, key2 = _draw_and_route(
-        q1, arr, lam0, lcfg, key, now, last_fake, m, policy, max_fake, learner2.mu_hat,
+        q1, arr, lam0, lcfg, key, now, last_fake, m, policy, max_fake, mu_route,
         tbl, mask, m_route=m_route, slots=slots)
     return fake_js, workers, q2, learner2, arr2, key2

@@ -36,9 +36,12 @@ turn, so the window records (``info["windows"]``) are equal float for
 float; ``obs_sink`` takes each new record, ``decisions`` (an
 ``obs.DecisionTrace``) the per-task lifecycle events.
 
-Not ported yet, and refused by name: ``n_frontends > 1`` (the frontend
-fleet, ROADMAP queue A, A6). Every policy of ``core.policies.ALL_POLICIES``
-runs through both loops.
+``n_frontends > 1`` runs the frontend fleet on the one-program loop
+(``scanloop.run_fleet_workload_scan``): S frontends with stale views, the
+sync cadence ``sync_every``, per-frontend ``herd_correction`` gains and the
+frozen μ̂ views (``frozen_mu``), with churn, the fault subset (kill and
+stall with the ledger) and telemetry. Every policy of
+``core.policies.ALL_POLICIES`` runs through both loops.
 """
 from __future__ import annotations
 
@@ -51,10 +54,6 @@ from repro_torch.obs import windows as obw
 from repro_torch.serving import recovery as rcv
 from repro_torch.serving import router as rt
 from repro_torch.serving import scanloop
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A, {item})")
 
 
 def run_workload(
@@ -228,14 +227,47 @@ def run_scenario(
 
     ``observe``, ``obs_sink`` and ``decisions`` go to the loop that runs
     (``run_workload``, ``run_workload_recovery`` or ``run_workload_scan``).
-    ``n_frontends > 1`` (the frontend fleet, with ``sync_every``,
-    ``herd_correction`` and ``frozen_mu``) is not ported yet and raises.
+
+    ``n_frontends > 1`` composes the scenario with the frontend fleet on
+    the one-program loop (``scanloop.run_fleet_workload_scan``): a
+    ``serving.router.FleetRouter`` of S frontends (built here, or passed as
+    ``router``), the sync cadence ``sync_every`` (in turns), per-frontend
+    ``herd_correction`` gains and the frozen μ̂ views (``frozen_mu``). It
+    needs ``use_scan=True`` (the fleet × environment composition is a
+    one-program loop; the host fleet loop has no environment hooks), S |
+    ``arrival_batch``, and no ``recovery`` (the fleet carries the loss
+    ledger, not re-dispatch); ``decisions`` and ``comp_cap`` are
+    single-frontend (the fleet flushes ``min(SERVE_COMP_CAP, pend_cap)``).
     """
-    if n_frontends > 1:
-        raise _not_ported(f"run_scenario(n_frontends={n_frontends}): the frontend "
-                          f"fleet", "A6")
-    del sync_every, herd_correction, frozen_mu  # the fleet's options
     speeds0 = np.asarray(scn.speeds, float)
+    if n_frontends > 1:
+        if recovery is not None:
+            raise ValueError("recovery (timeout/retry/speculation) is single-frontend only: "
+                             "the fleet scan carries the fault loss ledger but no "
+                             "re-dispatch")
+        if not use_scan:
+            raise ValueError("n_frontends > 1 requires use_scan=True: the fleet x environment "
+                             "composition runs on the one-program loop")
+        if router is not None and not isinstance(router, rt.FleetRouter):
+            raise ValueError("n_frontends > 1 needs a FleetRouter")
+        if router is None:
+            router = rt.FleetRouter(
+                n_frontends, scn.n, mu_bar=float(speeds0.sum()), policy=policy, seed=seed,
+                async_mu=async_mu, use_alias=use_alias, c_window=c_window,
+                herd_correction=herd_correction, device=device)
+        if pool is None:
+            pool = (rt.SequentialPool if sequential_pool else rt.SimulatedPool)(speeds0)
+        wl = scn.compile_serving(seed=seed, arrival_batch=arrival_batch)
+        wl.partition(n_frontends)  # the S | k split, checked up front
+        resp, mu_trace, info = scanloop.run_fleet_workload_scan(
+            router, pool, wl.times, wl.costs, wl.speeds,
+            active_np=wl.active, rejoin_np=wl.rejoin, burst_np=wl.burst,
+            fake_cost=scn.request_cost * 0.25, sync_every=sync_every, frozen_mu=frozen_mu,
+            kill_np=wl.kill_at, stall_np=wl.stall_at, stall_dur_np=wl.stall_dur,
+            chunk_turns=chunk_turns, observe=observe, obs_sink=obs_sink,
+            **({} if pend_cap is None else {"pend_cap": pend_cap}))
+        return {"responses": resp, "mu_trace": mu_trace, "info": info, "workload": wl,
+                "router": router, "pool": pool}
     if router is None:
         router = rt.RosellaRouter(
             scn.n, mu_bar=float(speeds0.sum()), policy=policy, seed=seed,

@@ -18,6 +18,12 @@ Poisson arrivals, one ``serve_turn``, replica execution in
 ``SimulatedPool.submit_batch`` and completion flushing, with one μ̂ sample
 per batch.
 
+``FleetRouter`` runs S such routers over one replica pool, each routing its
+share of the arrivals against its own stale queue view, reconciled every
+``sync_every`` turns (``sync``: views rebuilt from per-frontend deltas, μ̂
+merged, λ̂ streams summed); ``run_fleet_simulation`` is its closed loop,
+bit-equal to ``run_simulation`` at S = 1 with ``async_mu=False``.
+
 ``ReferenceRouter`` + ``run_simulation_reference`` are the per-request
 baseline: Python ``Request``/``Completion`` objects, a heap of pending
 events, every call synchronous through ``core.scheduler.RosellaScheduler``.
@@ -38,6 +44,7 @@ from repro_torch.core import estimator as est
 from repro_torch.core import learner as lrn
 from repro_torch.core import policies as pol
 from repro_torch.core import scheduler as rs
+from repro_torch.fleet import conflict as cfl
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
@@ -196,6 +203,18 @@ class RosellaRouter:
         masked table is rebuilt here, so no later route reaches an offline
         replica.
         """
+        rj_ids = self._apply_membership(active, now, rejoin)
+        self.mu_front = self.learner.mu_hat
+        self._mu_pending = None
+        if self.use_alias:
+            self.table_front = dsp.build_alias_table(self.mu_front, self.active)
+        return rj_ids
+
+    def _apply_membership(self, active, now: float, rejoin=None) -> np.ndarray:
+        """The membership change without its flip: the mask adopted and the
+        rejoined workers cold-started in the learner (their ids returned).
+        ``set_membership`` adds the flip; ``FleetRouter.sync`` runs this on
+        every frontend and flips them all to one merged table."""
         act = np.asarray(active, bool)
         prev = None if self.active is None else self.active.cpu().numpy()
         if rejoin is None:
@@ -206,10 +225,6 @@ class RosellaRouter:
             self.learner = lrn.reset_workers(
                 self.learner, torch.from_numpy(rj).to(self.device), now, act_t)
         self.active = act_t
-        self.mu_front = self.learner.mu_hat
-        self._mu_pending = None
-        if self.use_alias:
-            self.table_front = dsp.build_alias_table(self.mu_front, self.active)
         return np.nonzero(rj)[0]
 
     def route(self, now: float, k: int = 1) -> np.ndarray:
@@ -466,3 +481,240 @@ def run_simulation(
 
     resp = np.concatenate(responses) if responses else np.empty(0)
     return resp, np.asarray(mu_trace)
+
+
+class FleetRouter:
+    """S logical Rosella routers over one replica pool: the serving form of
+    the frontend fleet (``repro_torch.fleet``).
+
+    Each frontend is a full ``RosellaRouter`` that sees only its own share
+    of the arrivals and its own completions: its ``q_view`` is exact about
+    its own in-flight work and blind to the other S−1 frontends' between
+    syncs. ``sync`` is the bounded-staleness layer: the agreed global view
+    is rebuilt from per-frontend deltas (own view − snapshot at the last
+    agreement, summed), every frontend adopts it, the learners' μ̂ merge
+    into one front buffer with one alias table, and the per-frontend λ̂
+    streams sum into the fleet's arrival-rate estimate. ``herd_correction``
+    inflates each frontend's view by the expected peer placements since
+    its last sync (``fleet.conflict``): a bool (1.0 or 0.0 fleet-wide), a
+    float (fleet-wide) or a length-S sequence of per-frontend gains.
+
+    Frontend f is seeded ``seed + 7919·f``, so with S = 1 and
+    ``async_mu=False`` every sync is a numeric no-op and ``serve_turn``
+    delegates verbatim: bit-equal to a lone ``RosellaRouter``.
+    ``device=None`` is the CUDA card and raises without one.
+    """
+
+    def __init__(self, n_frontends: int, n_replicas: int, mu_bar: float, *,
+                 policy: str = pol.PPOT_SQ2, c0: float = 0.1, c_window: float = 10.0,
+                 seed: int = 0, async_mu: bool = True, herd_correction=False,
+                 use_alias: bool = True, device=None):
+        self.S = n_frontends
+        self.n = n_replicas
+        hs = np.asarray(herd_correction, np.float32)
+        if hs.ndim == 0:
+            hs = np.full((n_frontends,), float(hs), np.float32)
+        if hs.shape != (n_frontends,):
+            raise ValueError(f"herd_correction: expected a scalar or a length-{n_frontends} "
+                             f"sequence, got shape {hs.shape}")
+        self.herd_scale = hs
+        self.herd_correction = bool(hs.any())
+        self.frontends = [
+            RosellaRouter(n_replicas, mu_bar, policy=policy, c0=c0, c_window=c_window,
+                          seed=seed + 7919 * f, async_mu=async_mu, use_alias=use_alias,
+                          device=device)
+            for f in range(n_frontends)]
+        self.device = self.frontends[0].device
+        self._snap = np.zeros((n_replicas,), np.int64)  # the agreed view at the last sync
+        self._herd_applied = np.zeros((n_frontends, n_replicas), np.int64)
+        self.t_sync = 0.0
+        self.lam_global = 0.0
+
+    def serve_turn(self, f: int, now: float, k: int, comp_workers=None, comp_times=None,
+                   comp_now: float | None = None):
+        """Frontend ``f``'s serving turn (completion flush, benchmark draw,
+        batch route) against its own stale view. With herd correction the
+        view first takes the increment of the current expected peer
+        placements (times this frontend's gain) over what it already holds;
+        the next sync discards the whole correction."""
+        fr = self.frontends[f]
+        if self.herd_scale[f] and self.S > 1:
+            extra = cfl.expected_peer_placements(est.lam_hat_ema(fr.arr), now - self.t_sync,
+                                                 fr.mu_front, self.S)
+            want = np.round(self.herd_scale[f] * extra.cpu().numpy()).astype(np.int64)
+            delta = want - self._herd_applied[f]
+            if delta.any():
+                fr.q_view = fr.q_view + torch.from_numpy(delta.astype(np.int32)).to(fr.device)
+                self._herd_applied[f] = want
+        return fr.serve_turn(now, k, comp_workers, comp_times, comp_now)
+
+    def sync(self, now: float, active=None) -> dict:
+        """Reconcile the fleet: the global queue view rebuilt from
+        per-frontend deltas and shared, μ̂ merged (``learner.sync_estimates``)
+        with one alias table every frontend adopts, the λ̂ streams summed.
+        ``active`` (bool[n]) applies a membership mask fleet-wide: rejoining
+        workers cold-start in every frontend's learner and the merged table
+        is masked. Returns the pre-sync per-frontend view gaps
+        (``view_gaps``), the λ̂s, the global view and the rejoined worker
+        ids (``rejoined``), which the caller targets with a probe burst."""
+        rejoined = np.empty(0, np.int64)
+        if active is not None:
+            for fr in self.frontends:
+                rejoined = np.union1d(rejoined, fr._apply_membership(active, now))
+        qs = np.stack([fr.q_view.cpu().numpy() for fr in self.frontends]).astype(np.int64)
+        qs -= self._herd_applied  # corrections are a routing bias, not state
+        self._herd_applied[:] = 0
+        deltas = qs - self._snap[None, :]
+        global_q = np.maximum(self._snap + deltas.sum(axis=0), 0)
+        gaps = np.abs(qs - global_q[None, :]).sum(axis=1)
+        shared = torch.from_numpy(global_q.astype(np.int32)).to(self.device)
+        mu_merged = lrn.sync_estimates(torch.stack([fr.learner.mu_hat for fr in self.frontends]))
+        lam_f = self.lam_hats
+        # one table a sync, shared by every frontend (a sync is the flip)
+        table = (dsp.build_alias_table(mu_merged, self.frontends[0].active)
+                 if any(fr.use_alias for fr in self.frontends) else None)
+        for fr in self.frontends:
+            fr.q_view = shared.clone()
+            fr.mu_front = mu_merged
+            if fr.use_alias:
+                fr.table_front = table
+            fr._mu_pending = fr._mu_event = None
+        self._snap = global_q
+        self.lam_global = float(lam_f.sum())
+        self.t_sync = float(now)
+        return {"view_gaps": gaps, "lam_f": lam_f, "global_q": global_q, "rejoined": rejoined}
+
+    @property
+    def lam_hats(self) -> np.ndarray:
+        """Per-frontend λ̂ estimates (host values; no device read)."""
+        return np.array([float(est.lam_hat_ema(fr.arr)) for fr in self.frontends])
+
+    @property
+    def mu_hat(self) -> np.ndarray:
+        """The learners' estimates averaged over the fleet."""
+        return np.stack([fr.learner.mu_hat.cpu().numpy() for fr in self.frontends]).mean(axis=0)
+
+
+def run_fleet_simulation(
+    router: FleetRouter,
+    pool: SimulatedPool,
+    *,
+    arrival_rate: float,
+    horizon: float,
+    request_cost: float = 1.0,
+    speed_schedule: "list[tuple[float, np.ndarray]] | None" = None,
+    seed: int = 0,
+    arrival_batch: int = 1,
+    sync_every: int = 1,
+):
+    """Closed-loop serving simulation with S concurrent frontends.
+
+    ``run_simulation``'s numpy streams (the same arrival gaps and request
+    costs): each arrival batch splits into S contiguous chunks, every
+    frontend routes its chunk against its own stale view in its own engine
+    call, completions return to the frontend that placed them, and the
+    fleet reconciles every ``sync_every`` turns (the staleness bound, in
+    arrival batches). With S = 1 and ``async_mu=False`` the responses are
+    bit-equal to ``run_simulation``'s at any ``sync_every``.
+
+    Returns ``(response_times, mu_trace, info)``: ``info`` holds the
+    placement log (``frontends``, ``workers``, ``epochs``: frontend, worker
+    and sync epoch per request), the pre-sync view gaps of every sync
+    (``sync_gaps``, S > 1), the final per-frontend λ̂s (``lam_hats``) and
+    the turn count, for ``core.metrics.fleet_summary``.
+    """
+    S = router.S
+    if arrival_batch < S:
+        raise ValueError(f"arrival_batch={arrival_batch} must be >= S={S}")
+    base, rem = divmod(arrival_batch, S)
+    chunks = [base + (f < rem) for f in range(S)]
+    offs = np.concatenate([[0], np.cumsum(chunks)])
+    every = max(sync_every, 1)
+
+    rng = np.random.RandomState(seed)
+    t = 0.0
+    turn = 0
+    responses: list[np.ndarray] = []
+    mu_trace: list[np.ndarray] = []
+    log_fr: list[np.ndarray] = []
+    log_w: list[np.ndarray] = []
+    log_ep: list[np.ndarray] = []
+    sync_gaps: list[np.ndarray] = []
+    p_done = np.empty(0)
+    p_rep = np.empty(0, np.int32)
+    p_start = np.empty(0)
+    p_fr = np.empty(0, np.int32)
+    sched_i = 0
+
+    while t < horizon:
+        gaps = rng.exponential(1.0 / arrival_rate, size=arrival_batch)
+        times = t + np.cumsum(gaps)
+        t = float(times[-1])
+        if speed_schedule is not None:
+            while sched_i < len(speed_schedule) and speed_schedule[sched_i][0] <= t:
+                pool.set_speeds(speed_schedule[sched_i][1])
+                sched_i += 1
+
+        # bounded-staleness sync (a numeric no-op at S = 1)
+        if turn % every == 0:
+            info = router.sync(t)
+            if S > 1:
+                sync_gaps.append(info["view_gaps"])
+
+        # completions flush back to the frontend that placed them
+        due = p_done <= t
+        comp: list[tuple] = [(None, None, t)] * S
+        if due.any():
+            for f in range(S):
+                m = due & (p_fr == f)
+                if not m.any():
+                    continue
+                order = np.argsort(p_done[m], kind="stable")
+                comp[f] = (p_rep[m][order], (p_done - p_start)[m][order],
+                           float(p_done[m].max()))
+            keep = ~due
+            p_done, p_rep, p_start, p_fr = p_done[keep], p_rep[keep], p_start[keep], p_fr[keep]
+
+        # every frontend routes its chunk in its own engine call
+        workers = np.empty(arrival_batch, np.int64)
+        fakes: list[tuple[int, np.ndarray]] = []
+        for f in range(S):
+            cw, ct, cn = comp[f]
+            fake_js, ws = router.serve_turn(f, t, chunks[f], cw, ct, cn)
+            workers[offs[f]:offs[f + 1]] = ws
+            if len(fake_js):
+                fakes.append((f, fake_js))
+
+        for f, fake_js in fakes:
+            fs, fd = pool.submit_batch(fake_js, np.full(len(fake_js), t),
+                                       np.full(len(fake_js), request_cost * 0.25))
+            p_done = np.concatenate([p_done, fd])
+            p_rep = np.concatenate([p_rep, fake_js.astype(np.int32)])
+            p_start = np.concatenate([p_start, fs])
+            p_fr = np.concatenate([p_fr, np.full(len(fake_js), f, np.int32)])
+
+        costs = request_cost * rng.exponential(1.0, size=arrival_batch)
+        ss, dd = pool.submit_batch(workers, times, costs)
+        responses.append(dd - times)
+        req_fr = np.repeat(np.arange(S, dtype=np.int32), chunks)
+        p_done = np.concatenate([p_done, dd])
+        p_rep = np.concatenate([p_rep, workers.astype(np.int32)])
+        p_start = np.concatenate([p_start, ss])
+        p_fr = np.concatenate([p_fr, req_fr])
+
+        log_fr.append(req_fr.astype(np.int64))
+        log_w.append(workers.copy())
+        log_ep.append(np.full(arrival_batch, turn // every, np.int64))
+        mu_trace.append(router.frontends[0].mu_front.cpu().numpy())
+        turn += 1
+
+    resp = np.concatenate(responses) if responses else np.empty(0)
+    info = {
+        "frontends": np.concatenate(log_fr) if log_fr else np.empty(0, np.int64),
+        "workers": np.concatenate(log_w) if log_w else np.empty(0, np.int64),
+        "epochs": np.concatenate(log_ep) if log_ep else np.empty(0, np.int64),
+        "sync_gaps": np.stack(sync_gaps) if sync_gaps else np.zeros((0, S)),
+        "lam_hats": router.lam_hats,
+        "turns": turn,
+    }
+    return resp, np.asarray(mu_trace), info

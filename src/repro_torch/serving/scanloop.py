@@ -55,6 +55,17 @@ state and the boundary flag, and ``_drive_scan`` turns a chunk's boundary
 rows into records after its one copy back. ``observe=None`` captures the
 turn node for node as without telemetry.
 
+The frontend fleet (``run_fleet_workload_scan``, ``run_fleet_simulation_scan``,
+the reference's one-program fleet with ``mesh=None``) runs ``_fleet_turn``:
+S frontends, each a full router state on a leading axis of the carry, own
+contiguous k / S slices of each batch and reconcile every ``sync_every``
+turns; their submissions share one pending set (tagged with the placing
+frontend, to which each completion returns) and one replica chain. The
+reference's conditionals (the sync round, a membership change that rebuilds
+frozen alias tables) are known on the host before each turn, so each
+pattern is captured as a graph of its own (``FleetRunner``) and the turn
+replays the graph of its pattern.
+
 The numpy side of the workload is drawn up front with the same
 ``RandomState`` call sequence as ``run_simulation``; the key stream and
 the f32 math are the host loop's (``serve_step_device`` shares them with
@@ -96,6 +107,8 @@ from repro_torch.core import estimator as est
 from repro_torch.core import learner as lrn
 from repro_torch.core import scheduler as rs
 from repro_torch.dist import straggler as strg
+from repro_torch.fleet import conflict as cfl
+from repro_torch.fleet import state as fst
 from repro_torch.kernels.pool_chain import kernel as pool_kernel
 from repro_torch.obs import detect as obd
 from repro_torch.obs import tracing as obt
@@ -198,6 +211,14 @@ class ScanConfig:
     #: each turn's placements of its arrival batch as a result row (the
     #: decision trace's source)
     emit_workers: bool = False
+    #: the fleet turn (``_fleet_turn``) of S frontends, each owning k / S of
+    #: the batch; 0 is the single router's turn
+    S: int = 0
+    sync_every: int = 1  # the fleet's sync cadence, in turns
+    #: the fleet routes on its carried μ̂ views and alias tables, rebuilt
+    #: only at syncs and membership changes (else on each flush's fresh μ̂)
+    frozen_mu: bool = False
+    herd: bool = False  # some frontend's herd-correction gain is nonzero (S > 1)
 
 
 def _lexsort(keys):
@@ -642,12 +663,13 @@ def _graph_nodes(graph) -> tuple[int, dict[str, int]]:
 
 
 def _tc_view(c: dict) -> obw.TelemetryCarry:
-    """The telemetry carry as views into its four packed groups."""
+    """The telemetry carry as views into its four packed groups (a field of
+    the fleet's carry keeps its leading frontend axis)."""
     i32, f32, det = c["tc_i32"], c["tc_f32"], c["tc_det"]
     return obw.TelemetryCarry(
-        hist=c["tc_hist"], **{f: i32[j] for j, f in enumerate(_TC_I32)},
-        **{f: f32[j] for j, f in enumerate(_TC_F32)},
-        **{f: det[j] for j, f in enumerate(_TC_DET)})
+        hist=c["tc_hist"], **{f: i32[..., j] for j, f in enumerate(_TC_I32)},
+        **{f: f32[..., j] for j, f in enumerate(_TC_F32)},
+        **{f: det[..., j, :] for j, f in enumerate(_TC_DET)})
 
 
 def _tc_pack(tc: obw.TelemetryCarry, detect: bool, flag=None) -> dict:
@@ -666,16 +688,17 @@ def _tc_pack(tc: obw.TelemetryCarry, detect: bool, flag=None) -> dict:
 
 def _tc_rows(ys: np.ndarray, detect: bool):
     """Result rows [T] → (TelemetryCarry of numpy [T, ...] fields, bool[T]
-    boundary flags)."""
+    boundary flags); a fleet's rows keep their frontend axis ([T, S, ...])
+    and take the flag of frontend 0 (every frontend folds the same turns)."""
     i32, f32 = ys["tc_i32"], ys["tc_f32"]
-    T = len(ys)
     det = (ys["tc_det"] if detect
-           else np.zeros((T, len(_TC_DET), obd.NSIG), np.float32))
+           else np.zeros(i32.shape[:-1] + (len(_TC_DET), obd.NSIG), np.float32))
     rows = obw.TelemetryCarry(
-        hist=ys["tc_hist"], **{f: i32[:, j] for j, f in enumerate(_TC_I32)},
-        **{f: f32[:, j] for j, f in enumerate(_TC_F32)},
-        **{f: det[:, j] for j, f in enumerate(_TC_DET)})
-    return rows, i32[:, len(_TC_I32)] != 0
+        hist=ys["tc_hist"], **{f: i32[..., j] for j, f in enumerate(_TC_I32)},
+        **{f: f32[..., j] for j, f in enumerate(_TC_F32)},
+        **{f: det[..., j, :] for j, f in enumerate(_TC_DET)})
+    flags = i32[..., len(_TC_I32)] != 0
+    return rows, flags if flags.ndim == 1 else flags[:, 0]
 
 
 class TurnRunner:
@@ -1173,3 +1196,730 @@ def _drive_scan(router: rt.RosellaRouter, pool: rt.SimulatedPool, chunks, *,
             f"total-submission bound) or pass strict_overflow=False to inspect the "
             f"counters.")
     return resp, mu_trace, info
+
+
+# ---------------------------------------------------------------------------
+# The one-program fleet: S frontends, the environment and the pool in one turn
+# ---------------------------------------------------------------------------
+
+def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
+    """One turn of the S-frontend fleet on the carry ``c`` and the workload
+    row ``x``: the reference's fleet scan body (``mesh=None``), in its
+    order: the fault subset (stall, kill), the membership transition, the
+    sync round, each frontend's flush from the shared pending set, the herd
+    correction, the μ̂ front-buffer flips, the S serving turns, the shared
+    replica chain, the pending append with each submission's frontend.
+
+    The reference's three conditionals are host decisions here, known
+    before the turn: ``sync`` (the turn index is a multiple of
+    ``sync_every``) and ``rebuild`` (a membership change under frozen
+    tables rebuilds every frontend's table), so each pattern is a graph of
+    its own with the reference's work and no other; a rejoin's cold start
+    is the identity without one, so it always runs. Returns (new carry,
+    resp f64[k], μ̂ sample f32[n], extra): ``extra`` holds the placements
+    i32[k] (``"workers"``), the sync's view gaps i32[S] (``"gaps"``) and,
+    when the configuration observes, the per-frontend ``obs.TurnObs``
+    (``"tobs"``). The chain writes ``free_at`` and ``chain_max`` in place,
+    the faulty turn's fold writes ``resp``."""
+    S, n, k, P, C, mf = cfg.S, cfg.n, cfg.k, cfg.pend_cap, cfg.comp_cap, cfg.max_fake
+    kf = k // S
+    faulty = cfg.recovery is not None
+    frozen_tables = cfg.frozen_mu and cfg.use_alias
+    i32, inf = torch.int32, float("inf")
+    times64, costs64, speeds64 = x["times"], x["costs"], x["speeds"]
+    dev = times64.device
+    t64 = times64[-1]
+    t32 = t64.float()
+    fr_ids = obw._const(tuple(range(S)), i32, dev)
+    p_done, p_start, p_rep, p_seq, p_fr, p_valid = (
+        c[f] for f in ("p_done", "p_start", "p_rep", "p_seq", "p_fr", "p_valid"))
+    free_at = c["free_at"]
+    rep = p_rep.long()
+    d = {}  # the faulty turn's counter deltas
+
+    # -- the fault subset: blackout stalls and crash kills with the loss
+    #    ledger (no retry, timeout or speculation), the queue drain kept per
+    #    (frontend, worker)
+    if faulty:
+        kill_t, stall_t, stall_d = x["kill"], x["stall"], x["stall_dur"]
+        p_task, p_arrv, p_learn, resp_acc = c["p_task"], c["p_arrv"], c["p_learn"], c["resp"]
+        is_real = p_task >= 0
+        n_pad = resp_acc.shape[0] - 1
+        cell = p_fr.long() * n + rep
+        drain = torch.zeros(S * n, dtype=i32, device=dev)
+        aff = p_valid & torch.isfinite(p_done) & (p_done > stall_t[rep])
+        p_done = torch.where(aff, p_done + stall_d[rep], p_done)
+        p_learn = p_learn & ~aff
+        d["stalled"] = (aff & is_real).sum()
+        free_at = torch.where(free_at > stall_t, free_at + stall_d, free_at)
+        killed = p_valid & torch.isfinite(p_done) & (p_done > kill_t[rep])
+        drain.index_add_(0, cell, killed.to(i32))
+        d["kill_real"] = (killed & is_real).sum()
+        d["kill_fake"] = (killed & ~is_real).sum()
+        p_learn = p_learn & ~killed
+        p_valid = p_valid & ~killed
+        free_at = torch.where(free_at > kill_t, kill_t, free_at)
+
+    # -- membership: every frontend cold-starts the rejoined workers, and a
+    #    change turn flips every μ̂ front buffer (and, under frozen tables,
+    #    rebuilds each masked table): no frontend can route offline after
+    learners = [lrn.LearnerState(**{f: c[f][s] for f in _LEARNER}) for s in range(S)]
+    mu_front, mu_pend = c["mu_front"], c["mu_pend"]
+    tab_p, tab_a = (c["tab_p"], c["tab_a"]) if frozen_tables else (None, None)
+    if cfg.churn:
+        active_t, burst_t, changed = x["active"], x["burst"], x["changed"]
+        learners = [lrn.reset_workers(lf, x["rejoin"], t32, active_t) for lf in learners]
+        mu_now = torch.stack([lf.mu_hat for lf in learners])
+        mu_front = torch.where(changed, mu_now, mu_front)
+        mu_pend = mu_pend & ~changed
+        if rebuild:
+            tbs = [dsp.build_alias_table(mu_front[s], active_t) for s in range(S)]
+            tab_p, tab_a = torch.stack([t.prob for t in tbs]), torch.stack([t.alias for t in tbs])
+    else:
+        active_t, burst_t = None, torch.empty(0, dtype=i32, device=dev)
+        mu_now = torch.stack([lf.mu_hat for lf in learners])
+
+    # -- the sync round: herd corrections unwind, per-frontend deltas sum
+    #    onto the agreed snapshot, μ̂ merges, the λ̂ streams sum (a numeric
+    #    no-op on the views at S = 1)
+    arr = est.EmaArrivalState(c["arr_last"], c["arr_gap"], c["arr_count"])
+    lam_f = est.lam_hat_ema(arr)  # f32[S], before the serve, as the host loop reads it
+    q_view, herd_applied, q_snap = c["q_view"], c["herd_applied"], c["q_snap"]
+    t_sync, lam_global = c["t_sync"], c["lam_global"]
+    gaps = None
+    if sync:
+        qs = q_view - herd_applied
+        global_q = (q_snap + (qs - q_snap[None]).sum(0, dtype=i32)).clamp(min=0)
+        gaps = (qs - global_q[None]).abs().sum(1, dtype=i32)
+        mu_merged = lrn.sync_estimates(mu_now)
+        q_view, q_snap = global_q[None].expand(S, n), global_q
+        herd_applied = torch.zeros_like(herd_applied)
+        mu_front = mu_merged[None].expand(S, n)
+        mu_pend = torch.zeros_like(mu_pend)
+        if frozen_tables:
+            tb = dsp.build_alias_table(mu_merged, active_t)
+            tab_p, tab_a = tb.prob[None].expand(S, n), tb.alias[None].expand(S, n)
+        t_sync, lam_global = t32, lam_f.sum()
+
+    # -- each frontend flushes its own due completions from the shared
+    #    pending set: oldest done first, ties in insertion order, all S
+    #    partitions in one stable sort along the rows
+    due = p_valid & (p_done <= t64)
+    clean = due & p_learn if faulty else due
+    fmask = clean[None, :] & (p_fr[None, :] == fr_ids[:, None])  # [S, P]
+    n_due_f = fmask.sum(1, dtype=i32)
+    by_seq = torch.sort(p_seq, stable=True).indices
+    keyd = torch.where(fmask, p_done[None, :], inf)[:, by_seq]
+    sel = by_seq[torch.sort(keyd, dim=1, stable=True).indices[:, :C]]  # [S, C]
+    rank_ok = torch.arange(C, device=dev)[None, :] < n_due_f[:, None]
+    comp_w = torch.where(rank_ok, p_rep[sel], -1)
+    comp_t = torch.where(rank_ok, (p_done[sel] - p_start[sel]).float(), 0.0)
+    comp_now64 = torch.where(rank_ok, p_done[sel], -inf).amax(1)
+    comp_now32 = torch.where(n_due_f > 0, comp_now64, t64).float()
+    over_flush = c["over_flush"] + (n_due_f - C).clamp(min=0).sum(dtype=i32)
+    tobs_f = {}
+    if faulty:
+        # dirty completions drain their frontend's view only; every real
+        # completion min-folds its task's response
+        max_clean = torch.maximum(c["max_clean"],
+                                  torch.where(clean, p_done - p_start, -inf).max())
+        dirty = due & ~p_learn
+        drain.index_add_(0, cell, dirty.to(i32))
+        d["comp_dirty"] = (dirty & is_real).sum()
+        dr = due & is_real
+        lat = p_done - p_arrv
+        resp_acc.scatter_reduce_(0, torch.where(dr, p_task, n_pad).long(),
+                                 torch.where(dr, lat, inf), "amin", include_self=True)
+        d["comp_real"] = dr.sum()
+        d["comp_fake"] = (due & ~is_real).sum()
+        if cfg.observe is not None:
+            fr_l = p_fr.long()
+
+            def per_frontend(mask):
+                return torch.zeros(S, dtype=i32, device=dev).index_add_(0, fr_l, mask.to(i32))
+
+            tobs_f = dict(killed=per_frontend(killed & is_real),
+                          dirty=per_frontend(dirty & is_real),
+                          completed=per_frontend(clean & is_real), lat=lat,
+                          ok=dr[None, :] & (p_fr[None, :] == fr_ids[:, None]))
+        p_valid = p_valid & ~due
+        q_view = (q_view - drain.view(S, n)).clamp(min=0)
+    else:
+        flushed = torch.zeros((S, P), dtype=torch.bool, device=dev).scatter(1, sel, rank_ok)
+        p_valid = p_valid & ~flushed.any(0)
+
+    # -- herd correction on the pre-flip μ̂: each view carries the expected
+    #    peer placements since its last sync, as an increment over what it
+    #    already holds (0 where a gain is 0)
+    if cfg.herd:
+        dt = t32 - t_sync
+        extra = torch.stack([cfl.expected_peer_placements(lam_f[s], dt, mu_front[s], S)
+                             for s in range(S)])
+        want = torch.round(c["herd_scale"][:, None] * extra).to(i32)
+        q_view = q_view + (want - herd_applied)
+        herd_applied = want
+
+    # -- each frontend's μ̂ front-buffer flip (a pending refresh is always
+    #    its own learner's μ̂), then its serving turn
+    mu_front = torch.where(mu_pend[:, None], mu_now, mu_front)
+    outs = [rs.serve_step_device(
+        q_view[s], learners[s], est.EmaArrivalState(arr.last_time[s], arr.mean_gap[s],
+                                                    arr.count[s]),
+        cfg.lcfg, c["key"][s], comp_w[s], comp_t[s], (t32, c["last_fake"][s], comp_now32[s]),
+        kf, cfg.policy, mf, cfg.use_alias, active_t,
+        mu_hat=mu_front[s] if cfg.frozen_mu else None,
+        table=dsp.AliasTable(tab_p[s], tab_a[s]) if frozen_tables else None)
+        for s in range(S)]
+    fake_js, workers, q_view = (torch.stack([o[j] for o in outs]) for j in range(3))
+    learner = {f: torch.stack([getattr(o[3], f) for o in outs]) for f in _LEARNER}
+    arr2 = [o[4] for o in outs]
+    key = torch.stack([o[5] for o in outs])
+
+    # -- the shared replica chain: every frontend's fakes (frontend order),
+    #    the probe burst, then all reals in global arrival order
+    sub_start, sub_done, sub_w, act, _, resp = pool_kernel.pool_turn(
+        free_at, speeds64, fake_js.reshape(-1), burst_t, workers.reshape(-1), times64,
+        costs64, cfg.fake_cost, cfg.burst_cost, free_out=c["free_at"], chain_max=c["chain_max"])
+    bc = burst_t.shape[0]
+    sub_fr = obw._const(tuple(np.concatenate([
+        np.repeat(np.arange(S), mf), np.arange(bc) % S, np.repeat(np.arange(S), kf)]).tolist()),
+        i32, dev)
+
+    # -- the pending append, as the single turn's, with the frontend tag
+    perm = torch.sort(torch.where(p_valid, p_seq, _INT32_MAX), stable=True).indices
+    names = ["p_done", "p_start", "p_rep", "p_seq", "p_fr", "p_valid"]
+    cols = [p_done, p_start, p_rep, p_seq, p_fr, p_valid]
+    nfb = S * mf + bc
+    M = act.shape[0]
+    true = torch.ones(M, dtype=torch.bool, device=dev)
+    vals = [sub_done, sub_start, sub_w, None, sub_fr, true]
+    if faulty:
+        names += ["p_task", "p_arrv", "p_learn"]
+        cols += [p_task, p_arrv, p_learn]
+        vals += [torch.cat([torch.full((nfb,), -1, dtype=i32, device=dev),
+                            c["turn"] * k + torch.arange(k, dtype=i32, device=dev)]),
+                 torch.cat([t64.expand(nfb), times64]), true]
+        d["launch_fake"] = act[:nfb].sum()
+    nv = p_valid.sum(dtype=i32)
+    pos = torch.cumsum(act, 0, dtype=i32) - 1
+    vals[3] = c["seq_ctr"] + pos
+    slot = torch.where(act, nv + pos, P)
+    put = slot.clamp(max=P).long()
+
+    def append(a, v):
+        ext = torch.cat([a[perm], a.new_zeros(1)])
+        ext.index_put_((put,), v.to(a.dtype))
+        return ext[:P]
+
+    new = dict(
+        q_view=q_view, key=key, mu_front=mu_front, mu_pend=n_due_f > 0,
+        herd_applied=herd_applied, last_fake=t32.expand(S), q_snap=q_snap, t_sync=t_sync,
+        lam_global=lam_global, arr_last=torch.stack([a.last_time for a in arr2]),
+        arr_gap=torch.stack([a.mean_gap for a in arr2]),
+        arr_count=torch.stack([a.count for a in arr2]),
+        seq_ctr=c["seq_ctr"] + act.sum(dtype=i32), over_flush=over_flush,
+        over_pend=c["over_pend"] + (act & (slot >= P)).sum(dtype=i32),
+        **{f: append(a, v) for f, a, v in zip(names, cols, vals)}, **learner)
+    if frozen_tables and (sync or rebuild):
+        new.update(tab_p=tab_p, tab_a=tab_a)
+    if faulty:
+        dctr = torch.stack([d[name] if name in d
+                            else torch.zeros((), dtype=torch.int64, device=dev)
+                            for name in rcv.CTR]).to(torch.int64)
+        new.update(ctr=c["ctr"] + dctr, max_clean=max_clean, turn=c["turn"] + 1)
+    extra = {"workers": workers.reshape(-1), "gaps": gaps}
+    if cfg.observe is not None:
+        lam_post = est.lam_hat_ema(est.EmaArrivalState(
+            new["arr_last"], new["arr_gap"], new["arr_count"]))
+        coll = obw.fleet_collisions(workers, n)
+        if faulty:
+            kf_t = obw._const(kf, i32, dev)
+            z = obw._const(0, i32, dev)
+            lat32, mu_true = tobs_f["lat"].float(), speeds64.float()
+            extra["tobs"] = [obw.TurnObs(
+                t=t32, resp=lat32, resp_ok=tobs_f["ok"][s], arrivals=kf_t,
+                q_view=q_view[s], lam_hat=lam_post[s], mu_hat=learner["mu_hat"][s],
+                mu_true=mu_true, active=active_t, launched=kf_t,
+                completed=tobs_f["completed"][s], dirty=tobs_f["dirty"][s],
+                killed=tobs_f["killed"][s], retried=z, collisions=coll[s]) for s in range(S)]
+        else:
+            extra["tobs"] = [obw.plain_turn_obs(
+                cfg.observe, t=t32, resp=resp.view(S, kf)[s], arrivals_k=kf,
+                q_view=q_view[s], lam_hat=lam_post[s], mu_hat=learner["mu_hat"][s],
+                mu_true=speeds64, active=active_t, collisions=coll[s]) for s in range(S)]
+    return new, resp, mu_front[0], extra
+
+
+def _stack_packs(packs: list[dict]) -> dict:
+    return {name: torch.stack([p[name] for p in packs]) for name in packs[0]}
+
+
+class FleetRunner:
+    """``TurnRunner`` for the fleet turn: the carry (each frontend's fields
+    with a leading axis S, the fleet's sync agreement, the shared pool and
+    pending set), a chunk's workload and result rows as static device
+    tensors, and the turn step on them. The turn has up to four patterns
+    (sync or not, and under frozen tables with churn a membership rebuild
+    or not), each captured on CUDA as a graph of its own; every turn
+    replays the graph of its pattern, chosen on the host from the turn
+    index and the membership column (``replays`` by pattern; ``graphs``:
+    each pattern's node count and kernel nodes by name). On the CPU the
+    step runs eagerly."""
+
+    def __init__(self, cfg: ScanConfig, device, rows: int):
+        self.cfg, self.device, self.rows = cfg, torch.device(device), rows
+        S, n, P, cap = cfg.S, cfg.n, cfg.pend_cap, cfg.lcfg.ring_cap
+        f32, f64, i32, b = torch.float32, torch.float64, torch.int32, torch.bool
+
+        def z(shape, dt, fill=0):
+            return torch.full(shape, fill, dtype=dt, device=self.device)
+
+        self.frozen_tables = cfg.frozen_mu and cfg.use_alias
+        self.faulty = cfg.recovery is not None
+        self.carry = dict(
+            q_view=z((S, n), i32), samples=z((S, n, cap), f32), stamps=z((S, n, cap), f32),
+            widx=z((S, n), i32), count=z((S, n), i32), epoch_start=z((S, n), f32),
+            mu_hat=z((S, n), f32, 1.0), arr_last=z((S,), f32), arr_gap=z((S,), f32),
+            arr_count=z((S,), i32), key=z((S, 2), torch.int64), mu_front=z((S, n), f32, 1.0),
+            mu_pend=z((S,), b), herd_scale=z((S,), f32), herd_applied=z((S, n), i32),
+            last_fake=z((S,), f32), q_snap=z((n,), i32), t_sync=z((), f32),
+            lam_global=z((), f32), free_at=z((n,), f64), chain_max=z((), i32),
+            p_done=z((P,), f64, float("inf")), p_start=z((P,), f64), p_rep=z((P,), i32),
+            p_seq=z((P,), i32), p_fr=z((P,), i32), p_valid=z((P,), b), seq_ctr=z((), i32),
+            over_flush=z((), i32), over_pend=z((), i32))
+        if self.frozen_tables:
+            self.carry.update(tab_p=z((S, n), f32, 1.0), tab_a=z((S, n), i32))
+        if self.faulty:
+            self.carry.update(
+                p_task=z((P,), i32, -1), p_arrv=z((P,), f64), p_learn=z((P,), b, True),
+                resp=z((cfg.task_cap + 1,), f64, float("inf")), ctr=z((rcv.NCTR,), torch.int64),
+                max_clean=z((), f64), turn=z((), i32))
+        ocfg = cfg.observe
+        self.detect = ocfg is not None and ocfg.detect is not None
+        if ocfg is not None:
+            self.carry.update(_stack_packs(
+                [_tc_pack(obw.init_carry(ocfg, self.device), True)] * S))
+        cols = {"times": (np.float64, (cfg.k,)), "costs": (np.float64, (cfg.k,)),
+                "speeds": (np.float64, (n,))}
+        if cfg.churn:
+            cols.update(active=(np.bool_, (n,)), rejoin=(np.bool_, (n,)),
+                        changed=(np.bool_, ()), burst=(np.int32, (cfg.burst_cap,)))
+        if self.faulty:
+            cols.update(kill=(np.float64, (n,)), stall=(np.float64, (n,)),
+                        stall_dur=(np.float64, (n,)))
+        self.xs = _Rows(cols, rows, self.device)
+        self.xs.col["speeds"].fill_(1.0)
+        if cfg.churn:
+            self.xs.col["active"].fill_(True)
+        if self.faulty:
+            self.xs.col["kill"].fill_(float("inf"))
+            self.xs.col["stall"].fill_(float("inf"))
+        ys = {}
+        self.emit = ocfg is None or ocfg.emit_responses
+        if self.emit:
+            ys.update(mu=(np.float32, (n,)), workers=(np.int32, (cfg.k,)),
+                      gaps=(np.int32, (S,)))
+            if not self.faulty:
+                ys["resp"] = (np.float64, (cfg.k,))
+        if ocfg is not None:
+            ys.update(tc_hist=(np.int32, (S, ocfg.hist_bins)),
+                      tc_i32=(np.int32, (S, len(_TC_I32) + 1)),
+                      tc_f32=(np.float32, (S, len(_TC_F32))))
+            if self.detect:
+                ys["tc_det"] = (np.float32, (S, len(_TC_DET), obd.NSIG))
+        self.ys = _Rows(ys, rows, self.device)
+        self.turn = z((), torch.int64)
+        syncs = (True,) if cfg.sync_every == 1 else (True, False)
+        rebuilds = (False, True) if self.frozen_tables and cfg.churn else (False,)
+        self.patterns = [(sy, rb) for sy in syncs for rb in rebuilds]
+        self.graphs: dict = {}
+        self.graph_nodes: dict = {}
+        self.graph_kernels: dict = {}
+        self.replays = {p: 0 for p in self.patterns}
+        self.capture_s = None
+        if self.device.type == "cuda":
+            self._capture()
+
+    def step(self, pattern) -> None:
+        """One turn of ``pattern`` (sync, rebuild): read row ``turn`` of the
+        workload, write row ``turn`` of the results, update the carry in
+        place, advance ``turn``."""
+        cfg = self.cfg
+        idx = self.turn.view(1)
+        x = {name: v.index_select(0, idx)[0] for name, v in self.xs.col.items()}
+        new, resp, mu, extra = _fleet_turn(cfg, self.carry, x, *pattern)
+        row = {}
+        if self.emit:
+            row.update(mu=mu, workers=extra["workers"])
+            if extra["gaps"] is not None:
+                row["gaps"] = extra["gaps"]
+            if not self.faulty:
+                row["resp"] = resp
+        if cfg.observe is not None:
+            nxt, rows = [], []
+            for s, tob in enumerate(extra["tobs"]):
+                tc_view = _tc_view({g: self.carry[g][s] for g in ("tc_hist", "tc_i32", "tc_f32",
+                                                                   "tc_det")})
+                tc_next, obs_row, flag = obw.observe_turn(cfg.observe, tc_view, tob)
+                rows.append(_tc_pack(obs_row, self.detect, flag))
+                nxt.append(_tc_pack(tc_next, self.detect))
+            row.update(_stack_packs(rows))
+            new.update(_stack_packs(nxt))
+        # the results first: the μ̂ sample may be a carry tensor itself; a
+        # field the turn left as it was is not copied onto itself
+        for name, v in row.items():
+            self.ys.col[name].index_copy_(0, idx, v[None])
+        for name, t in new.items():
+            if t is not self.carry[name]:
+                self.carry[name].copy_(t)
+        self.turn.add_(1)
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        for pattern in self.patterns:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_TURNS):
+                    self.step(pattern)
+                    self.turn.zero_()
+            cur.wait_stream(side)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph):
+                self.step(pattern)
+            graph.instantiate()
+            torch.cuda.synchronize(self.device)
+            self.graphs[pattern] = graph
+            self.graph_nodes[pattern], self.graph_kernels[pattern] = _graph_nodes(graph)
+        self.capture_s = time.perf_counter() - t0
+
+    def load(self, router, pool: rt.SimulatedPool) -> None:
+        """Copy a ``FleetRouter``'s and the pool's state into the carry."""
+        c = self.carry
+        fc = fst.fleet_serve_carry(router, self.device, self.frozen_tables)
+        for f in _LEARNER:
+            c[f].copy_(getattr(fc.learner, f))
+        for f in ("q_view", "key", "mu_front", "mu_pend", "herd_scale", "herd_applied",
+                  "last_fake", "q_snap", "t_sync", "lam_global"):
+            c[f].copy_(getattr(fc, f))
+        c["arr_last"].copy_(fc.arr.last_time)
+        c["arr_gap"].copy_(fc.arr.mean_gap)
+        c["arr_count"].copy_(fc.arr.count)
+        if self.frozen_tables:
+            c["tab_p"].copy_(fc.tables.prob)
+            c["tab_a"].copy_(fc.tables.alias)
+        c["free_at"].copy_(torch.from_numpy(np.asarray(pool.free_at, np.float64)))
+        c["p_done"].fill_(float("inf"))
+        for f in ("chain_max", "p_start", "p_rep", "p_seq", "p_fr", "p_valid", "seq_ctr",
+                  "over_flush", "over_pend"):
+            c[f].zero_()
+        if self.faulty:
+            for f, v in (("p_task", -1), ("p_learn", True), ("resp", float("inf"))):
+                c[f].fill_(v)
+            for f in ("p_arrv", "ctr", "max_clean", "turn"):
+                c[f].zero_()
+        if self.cfg.observe is not None:
+            init = _tc_pack(obw.init_carry(self.cfg.observe, self.device), True)
+            for f, v in init.items():
+                c[f].copy_(v[None].expand(c[f].shape))
+
+    def pattern(self, turn: int, changed: bool):
+        """The pattern of global turn ``turn``: whether it syncs, and
+        whether a membership change rebuilds frozen tables."""
+        return (turn % self.cfg.sync_every == 0,
+                bool(changed) and self.frozen_tables and self.cfg.churn)
+
+    def run_rows(self, columns: dict, turn0: int) -> np.ndarray:
+        """Run the chunk's turns (numpy columns [T, ...], T <= rows; its first
+        turn is global turn ``turn0``) from the carry; returns the T result
+        rows as a numpy record array (one copy back)."""
+        T = len(columns["times"])
+        if not 0 < T <= self.rows:
+            raise ValueError(f"a chunk of {T} turns for {self.rows} rows")
+        self.xs.put(columns)
+        self.turn.zero_()
+        changed = columns.get("changed", np.zeros(T, bool))
+        for r in range(T):
+            pattern = self.pattern(turn0 + r, changed[r])
+            if self.graphs:
+                self.graphs[pattern].replay()
+                self.replays[pattern] += 1
+            else:
+                self.step(pattern)
+        return self.ys.get(T)
+
+
+@functools.lru_cache(maxsize=8)
+def fleet_runner(cfg: ScanConfig, device: str, rows: int) -> FleetRunner:
+    """One fleet runner (its patterns' graphs on CUDA) per configuration,
+    device and chunk size."""
+    return FleetRunner(cfg, device, rows)
+
+
+def fleet_scan_config(router, k: int, *, churn: bool = False, burst_cap: int = 0,
+                      fake_cost: float = 0.25, burst_cost: float | None = None,
+                      pend_cap: int = PEND_CAP, faulty: bool = False, task_cap: int = 0,
+                      sync_every: int = 1, frozen_mu: bool = False,
+                      observe: obw.ObserveConfig | None = None) -> ScanConfig:
+    """The configuration a fleet run of the ``FleetRouter`` ``router`` at
+    batch ``k`` (S | k) captures: as ``scan_config`` for its frontends, plus
+    S, the sync cadence, ``frozen_mu``, whether a herd gain is on, and the
+    fault subset (kill and stall with the ledger, over ``task_cap`` tasks)."""
+    fr = router.frontends[0]
+    cfg = scan_config(fr, k, churn=churn, burst_cap=burst_cap, fake_cost=fake_cost,
+                      burst_cost=burst_cost, pend_cap=pend_cap,
+                      recovery=rcv.INERT_RECOVERY if faulty else None, task_cap=task_cap,
+                      observe=observe)
+    return dataclasses.replace(
+        cfg, S=router.S, sync_every=max(int(sync_every), 1), frozen_mu=bool(frozen_mu),
+        herd=bool(router.herd_scale.any()) and router.S > 1)
+
+
+def run_fleet_workload_scan(
+    router: rt.FleetRouter,
+    pool: rt.SimulatedPool,
+    times_np: np.ndarray,  # f64[T, k] per-turn arrival times, in global order
+    costs_np: np.ndarray,  # f64[T, k]
+    speeds_np: np.ndarray,  # f64[T, n]
+    *,
+    active_np: np.ndarray | None = None,  # bool[T, n] membership per turn
+    rejoin_np: np.ndarray | None = None,  # bool[T, n] offline→online edges
+    burst_np: np.ndarray | None = None,  # i32[T, Bc] probe-burst targets (-1 pad)
+    fake_cost: float = 0.25,
+    burst_cost: float | None = None,
+    pend_cap: int = PEND_CAP,  # comp_cap is min(SERVE_COMP_CAP, pend_cap)
+    sync_every: int = 1,
+    frozen_mu: bool = False,
+    chunk_turns: int | None = None,  # None: ``auto_chunk_turns``
+    mesh=None,
+    kill_np: np.ndarray | None = None,  # f64[T, n] crash instants (+inf none)
+    stall_np: np.ndarray | None = None,  # f64[T, n] blackout instants (+inf none)
+    stall_dur_np: np.ndarray | None = None,  # f64[T, n] blackout durations
+    strict_overflow: bool = True,
+    observe: obw.ObserveConfig | None = None,
+    obs_sink=None,  # callable(list[record]), the fleet-aggregate records per chunk
+):
+    """The one-program fleet over a pre-materialised workload: S frontends,
+    the environment and the shared pool, every turn on the device (one
+    graph replay a turn on CUDA), chunked as ``run_workload_scan``.
+
+    Frontend f owns the contiguous chunk ``[:, f·k/S, (f+1)·k/S)`` of each
+    turn, so S must divide k. The kill/stall columns run the fleet's fault
+    subset (crash and blackout with the loss ledger, ``info["ledger"]``;
+    no timeout, retry or speculation: those are single-frontend). Under
+    churn every frontend's draws are masked, rejoins cold-start every
+    learner, and a change turn flips every μ̂ front buffer.
+
+    ``frozen_mu=False`` routes each frontend on its own flush's fresh μ̂,
+    as a deterministic (``async_mu=False``) ``RosellaRouter``: with a
+    ``SequentialPool`` the run equals ``run_fleet_simulation`` float for
+    float at any sync cadence, and at S = 1 the single-frontend scan bit
+    for bit. ``frozen_mu=True`` routes on the carried μ̂ views and alias
+    tables, rebuilt only at syncs and membership changes.
+
+    ``observe`` folds each frontend's windowed telemetry every turn:
+    fleet-aggregate records in ``info["windows"]`` (streamed to
+    ``obs_sink``), per-frontend ones in ``info["windows_frontends"]``;
+    ``emit_responses=False`` returns the window streams only. ``mesh``, the
+    collective form over several devices, is ROADMAP queue A, A6b, and
+    raises.
+
+    Returns ``(response_times, mu_trace, info)`` with ``run_fleet_simulation``'s
+    info keys, the overflow counters and the graphs' records."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_fleet_workload_scan(mesh=...): the collective fleet over several devices "
+            "is not ported yet (ROADMAP queue A, A6b)")
+    T, k = times_np.shape
+    n, S = router.n, router.S
+    if k % S != 0:
+        raise ValueError(f"arrival_batch={k} must divide evenly over S={S} frontends on the "
+                         "scan path")
+    kf = k // S
+    frs = router.frontends
+    if active_np is None and frs[0].active is not None:
+        active_np = np.broadcast_to(frs[0].active.cpu().numpy(), (T, n)).copy()
+    churn = active_np is not None
+    burst_cap = int(burst_np.shape[1]) if churn and burst_np is not None else 0
+    if burst_cost is None:
+        burst_cost = 4.0 * fake_cost
+    sync_every = max(int(sync_every), 1)
+    faulty = kill_np is not None or stall_np is not None
+    cols = dict(times=np.asarray(times_np, np.float64), costs=np.asarray(costs_np, np.float64),
+                speeds=np.asarray(speeds_np, np.float64))
+    if churn:
+        changed = np.zeros(T, bool)
+        if T:
+            changed[0] = True
+            changed[1:] = np.any(active_np[1:] != active_np[:-1], axis=1)
+        cols.update(active=np.asarray(active_np, bool),
+                    rejoin=(np.zeros((T, n), bool) if rejoin_np is None
+                            else np.asarray(rejoin_np, bool)),
+                    changed=changed,
+                    burst=(np.zeros((T, 0), np.int32) if burst_np is None
+                           else np.asarray(burst_np, np.int32)))
+    if faulty:
+        cols.update(
+            kill=np.full((T, n), np.inf) if kill_np is None else np.asarray(kill_np, np.float64),
+            stall=(np.full((T, n), np.inf) if stall_np is None
+                   else np.asarray(stall_np, np.float64)),
+            stall_dur=(np.zeros((T, n)) if stall_dur_np is None
+                       else np.asarray(stall_dur_np, np.float64)))
+    n_tasks = T * k
+    windows: list = []
+    windows_f: list = []
+    resp_l, mu_l, w_l, gaps_l = [], [], [], []
+    synced = (np.arange(T) % sync_every) == 0
+    run = None
+    if T:
+        cfg = fleet_scan_config(router, k, churn=churn, burst_cap=burst_cap, fake_cost=fake_cost,
+                                burst_cost=burst_cost, pend_cap=pend_cap, faulty=faulty,
+                                task_cap=n_tasks, sync_every=sync_every, frozen_mu=frozen_mu,
+                                observe=observe)
+        if chunk_turns is None:
+            chunk_turns = auto_chunk_turns(T, k, n, churn=churn, burst_cap=burst_cap,
+                                           faulty=faulty, pend_cap=pend_cap)
+        step = max(int(chunk_turns), 1)
+        run = fleet_runner(cfg, str(router.device), min(step, T))
+        replays0 = dict(run.replays)
+        run.load(router, pool)
+        for ci, s in enumerate(range(0, T, step)):
+            chunk = {name: a[s:s + step] for name, a in cols.items()}
+            with obt.step_annotation("fleet_scan_chunk", ci, router.device):
+                ys = run.run_rows(chunk, s)
+            if run.emit:
+                mu_l.append(ys["mu"].copy())
+                w_l.append(ys["workers"].copy())
+                gaps_l.append(ys["gaps"][synced[s:s + step]].copy())
+                if not faulty:
+                    resp_l.append(ys["resp"].copy())
+            if observe is not None:
+                new, new_f = obw.fleet_records_from_rows(observe, *_tc_rows(ys, run.detect))
+                windows.extend(new)
+                windows_f.extend(new_f)
+                if obs_sink is not None and new:
+                    obs_sink(new)
+    resp = np.concatenate(resp_l).reshape(-1) if resp_l else np.empty(0)
+    mu_trace = np.concatenate(mu_l) if mu_l else np.zeros((0, n), np.float32)
+    workers_log = np.concatenate(w_l) if w_l else np.zeros((0, k), np.int32)
+    gaps = np.concatenate(gaps_l) if gaps_l else np.zeros((0, S), np.int32)
+    info = {"turns": T, "flush_overflow": 0, "pend_overflow": 0, "longest_chain": 0,
+            "frontends": np.tile(np.repeat(np.arange(S, dtype=np.int64), kf), T),
+            "workers": workers_log.reshape(-1).astype(np.int64),
+            "epochs": np.repeat(np.arange(T, dtype=np.int64) // sync_every, k),
+            "sync_gaps": gaps.astype(np.int64) if S > 1 else np.zeros((0, S))}
+    if run is not None:
+        c = run.carry
+        info.update(flush_overflow=int(c["over_flush"].item()),
+                    pend_overflow=int(c["over_pend"].item()),
+                    longest_chain=int(c["chain_max"].item()))
+        replays = {p: run.replays[p] - replays0[p] for p in run.patterns}
+        info.update(
+            capture_s=run.capture_s if not any(replays0.values()) else 0.0,
+            replays=sum(replays.values()),
+            graphs={_pattern_label(p): dict(nodes=run.graph_nodes.get(p),
+                                            kernels=dict(run.graph_kernels.get(p, {})),
+                                            replays=replays[p]) for p in run.patterns})
+        launches: dict[str, int] = {}
+        for p in run.patterns:
+            for name, cnt in run.graph_kernels.get(p, {}).items():
+                launches[name] = launches.get(name, 0) + cnt * replays[p]
+        info["graph_launches"] = launches
+        if faulty:
+            # the books close on the final carry with the host loop's epilogue
+            valid = c["p_valid"].cpu().numpy()
+            resp_acc = c["resp"].cpu().numpy()[:n_tasks].copy()
+            ctr = c["ctr"].cpu().numpy().copy()
+            rcv.drain_pending(resp_acc, ctr, c["p_done"].cpu().numpy()[valid],
+                              c["p_task"].cpu().numpy()[valid], c["p_arrv"].cpu().numpy()[valid])
+            resp, info["ledger"] = rcv.build_ledger(resp_acc, ctr, n_tasks,
+                                                    float(c["max_clean"].item()))
+        if observe is not None:
+            tail, tail_f = obw.fleet_final_partial(observe, _tc_view(c))
+            if tail is not None:
+                windows.append(tail)
+                windows_f.append(tail_f)
+                if obs_sink is not None:
+                    obs_sink([tail])
+        _write_back_fleet(router, pool, run, active_np[-1] if churn else None)
+    info["lam_hats"] = router.lam_hats
+    if observe is not None:
+        info["windows"] = windows
+        info["windows_frontends"] = windows_f
+    if strict_overflow and (info["flush_overflow"] or info["pend_overflow"]):
+        raise RuntimeError(
+            f"fleet scan capacities overflowed (flush_overflow={info['flush_overflow']}, "
+            f"pend_overflow={info['pend_overflow']}) with pend_cap={pend_cap}: results "
+            f"silently dropped work. Raise pend_cap or pass strict_overflow=False.")
+    return resp, mu_trace, info
+
+
+def _pattern_label(pattern) -> str:
+    sync, rebuild = pattern
+    return ("sync" if sync else "no sync") + (" + rebuild" if rebuild else "")
+
+
+def _write_back_fleet(router: rt.FleetRouter, pool: rt.SimulatedPool, run: FleetRunner,
+                      active_last) -> None:
+    """The final carry back into the ``FleetRouter``'s frontends and the pool."""
+    c = run.carry
+    mu_pend = c["mu_pend"].cpu().numpy()
+    for s, fr in enumerate(router.frontends):
+        fr.q_view = c["q_view"][s].clone()
+        fr.learner = lrn.LearnerState(**{f: c[f][s].clone() for f in _LEARNER})
+        fr.arr = est.to_host(est.EmaArrivalState(c["arr_last"][s], c["arr_gap"][s],
+                                                 c["arr_count"][s]))
+        fr.key = prng.host_key(c["key"][s])
+        fr.last_fake_time = float(c["last_fake"][s].item())
+        fr.mu_front = c["mu_front"][s].clone()
+        fr._mu_pending = fr.learner.mu_hat if bool(mu_pend[s]) else None
+        fr._mu_event = None
+        if active_last is not None:
+            fr.active = torch.from_numpy(np.array(active_last, bool)).to(fr.device)
+        if fr.use_alias:
+            fr.table_front = dsp.build_alias_table(fr.mu_front, fr.active)
+    router._snap = c["q_snap"].cpu().numpy().astype(np.int64)
+    router._herd_applied = c["herd_applied"].cpu().numpy().astype(np.int64)
+    router.t_sync = float(c["t_sync"].item())
+    router.lam_global = float(c["lam_global"].item())
+    pool.free_at = c["free_at"].cpu().numpy().copy()
+
+
+def run_fleet_simulation_scan(
+    router: rt.FleetRouter,
+    pool: rt.SimulatedPool,
+    *,
+    arrival_rate: float,
+    horizon: float,
+    request_cost: float = 1.0,
+    speed_schedule: "list[tuple[float, np.ndarray]] | None" = None,
+    seed: int = 0,
+    arrival_batch: int = 1,
+    sync_every: int = 1,
+    pend_cap: int = PEND_CAP,
+    frozen_mu: bool = False,
+    chunk_turns: int | None = None,
+    mesh=None,
+):
+    """Drop-in for ``run_fleet_simulation`` with every turn on the device
+    (the same workload draws, so host and scan fleets see the same
+    arrivals); ``arrival_batch`` a multiple of S. Returns
+    ``(response_times, mu_trace, info)``."""
+    wl = _precompute_workload(arrival_rate, horizon, request_cost, speed_schedule, seed,
+                              arrival_batch, pool.speeds)
+    if wl is None:
+        if mesh is not None:
+            raise NotImplementedError("run_fleet_simulation_scan(mesh=...): ROADMAP queue A, "
+                                      "A6b")
+        S = router.S
+        return np.empty(0), np.zeros((0, router.n)), {
+            "turns": 0, "flush_overflow": 0, "pend_overflow": 0,
+            "frontends": np.empty(0, np.int64), "workers": np.empty(0, np.int64),
+            "epochs": np.empty(0, np.int64), "sync_gaps": np.zeros((0, S)),
+            "lam_hats": np.zeros(S)}
+    times_np, costs_np, speeds_np = wl
+    return run_fleet_workload_scan(
+        router, pool, times_np, costs_np, speeds_np, fake_cost=request_cost * 0.25,
+        pend_cap=pend_cap, sync_every=sync_every, frozen_mu=frozen_mu,
+        chunk_turns=chunk_turns, mesh=mesh)

@@ -990,3 +990,72 @@ def test_telemetry_graph_on_the_card(dev, name):
     d = assert_windows_within_bars(info["windows"], c["info"]["windows"], ocfg, n_edge)
     print(f"{name}: {len(samples)} samples, {n_edge} within 2 ulps of an edge; card vs CPU "
           f"{d}")
+
+
+def _fleet_case(mode):
+    """n = 64 (the §6.1 speed grid), arrivals at 0.7·Σ speeds, batches of 32
+    over S = 4 frontends, SequentialPool: the plain and frozen-μ̂ cells on
+    150 turns of Poisson arrivals; churn (churn_heavy) and faults
+    (crash_storm, no recovery) on the registry's clock."""
+    from repro_torch import env as tenv
+    from repro_torch.configs.rosella_sim import tpch_speed_set
+
+    speeds = tpch_speed_set(64, 0)
+    rate = 0.7 * float(speeds.sum())
+    name = {"churn": "churn_heavy", "faulty": "crash_storm"}.get(mode, "null")
+    scn = tenv.make(name, speeds=tuple(speeds), rate=rate,
+                    **({} if mode in ("churn", "faulty") else {"horizon": 150 * 32 / rate}))
+    return tenv, scn, dict(seed=0, arrival_batch=32, sequential_pool=True, use_scan=True,
+                           n_frontends=4, sync_every=4, frozen_mu=mode == "frozen_mu",
+                           pend_cap=16384)
+
+
+@pytest.mark.parametrize("mode", ["plain", "frozen_mu", "churn", "faulty"])
+def test_fleet_scan_on_the_card_equals_the_cpu_and_the_host_fleet_loop(dev, mode):
+    """The fleet turn captured (one graph per pattern: sync or not) and
+    replayed at n = 64, S = 4, sync every 4 turns: against the same fleet
+    scan run eagerly on the CPU, responses, placements, sync gaps and ledger
+    equal and μ̂ within 8 ulps (the learners' f32 sums reduce in another
+    order on the card); the plain cell also bit for bit against the host
+    fleet loop on the card (run_fleet_simulation). No placement on a replica
+    inactive that turn; the ledger conserved; overflows 0; each replay
+    launches one pool_chain and one K1 per frontend."""
+    from repro_torch.serving import router as tr
+
+    tenv, scn, kw = _fleet_case(mode)
+    g = tenv.run_scenario(scn, device=dev, **kw)
+    c = tenv.run_scenario(scn, device="cpu", **kw)
+    info, wl = g["info"], g["workload"]
+    assert info["flush_overflow"] == info["pend_overflow"] == 0
+    assert info["replays"] == info["turns"] == wl.turns > 100
+    assert set(info["graphs"]) == {"sync", "no sync"}
+    for graph in info["graphs"].values():
+        assert sum(v for nm, v in graph["kernels"].items() if "pool_chain_kernel" in nm) == 1
+        assert sum(v for nm, v in graph["kernels"].items() if "ppot_kernel" in nm) == 4
+    np.testing.assert_array_equal(g["responses"], c["responses"])
+    for key in ("workers", "sync_gaps", "epochs"):
+        np.testing.assert_array_equal(info[key], c["info"][key], err_msg=key)
+    assert info.get("ledger") == c["info"].get("ledger")
+    ia = g["mu_trace"].view(np.int32).astype(np.int64)
+    ib = c["mu_trace"].view(np.int32).astype(np.int64)
+    assert np.abs(ia - ib).max() <= 8
+    if wl.active is not None:
+        placed = info["workers"].reshape(wl.turns, -1)
+        assert all(wl.active[t][placed[t]].all() for t in range(wl.turns))
+    if mode == "faulty":
+        assert info["ledger"]["conserved"] and info["ledger"]["copies_real_killed"] > 0
+    if mode == "plain":
+        speeds = np.asarray(scn.speeds)
+        rh = tr.FleetRouter(4, 64, float(speeds.sum()), seed=0, async_mu=False, device=dev)
+        ph = tr.SequentialPool(speeds)
+        # the null scenario's workload is run_simulation's draws
+        resp_h, mu_h, ih = tr.run_fleet_simulation(
+            rh, ph, arrival_rate=scn.rate, horizon=scn.horizon, seed=0, arrival_batch=32,
+            sync_every=4)
+        np.testing.assert_array_equal(resp_h, g["responses"])
+        np.testing.assert_array_equal(mu_h, g["mu_trace"])
+        np.testing.assert_array_equal(ph.free_at, g["pool"].free_at)
+        np.testing.assert_array_equal(ih["sync_gaps"], info["sync_gaps"])
+        for a, b in zip(rh.frontends, g["router"].frontends):
+            assert torch.equal(a.q_view, b.q_view) and torch.equal(a.learner.mu_hat,
+                                                                   b.learner.mu_hat)

@@ -296,7 +296,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                   "repro_torch.core.estimator", "repro_torch.serving.router",
                   "repro_torch.serving.recovery", "repro_torch.dist.straggler",
                   "repro_torch.obs", "repro_torch.obs.windows", "repro_torch.obs.detect",
-                  "repro_torch.obs.slo", "repro_torch.obs.export", "repro_torch.obs.tracing"):
+                  "repro_torch.obs.slo", "repro_torch.obs.export", "repro_torch.obs.tracing",
+                  "repro_torch.fleet", "repro_torch.fleet.conflict", "repro_torch.fleet.state",
+                  "repro_torch.fleet.sync"):
             assert m in sys.modules, m
         print("clean")
     """)

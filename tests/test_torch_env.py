@@ -18,7 +18,7 @@ the learner's float sum parts the two (``EXACT_MU_TURNS``) and within
 ``MU_ULPS`` after, the bars of tests/test_torch_router.py;
 (iv) the adaptation metrics equal to the reference's;
 (v) what is not ported yet raises and names its ROADMAP queue A item (the
-items ported since, A3, A4 and A5, now run).
+items ported since, A3, A4, A5 and A6, now run).
 """
 import dataclasses
 
@@ -369,6 +369,13 @@ def test_what_is_not_ported_raises_naming_its_item(case):
         assert tmet.check_conservation(info["ledger"])[0]
         assert np.isfinite(resp).sum() == info["ledger"]["completed_tasks"] > 0
         return
+    if item == "A6":  # the fleet runs since A6; the case stays, inverted
+        out = tenv.run_scenario(tenv.make("null", horizon=20.0), n_frontends=2,
+                                use_scan=True, device="cpu")
+        assert isinstance(out["router"], tr.FleetRouter) and out["router"].S == 2
+        assert np.isfinite(out["responses"]).all() and out["info"]["turns"] > 0
+        assert out["info"]["flush_overflow"] == out["info"]["pend_overflow"] == 0
+        return
     if item == "A5":  # telemetry runs since A5; the cases stay, inverted
         from repro_torch import obs
 
@@ -392,9 +399,6 @@ def test_what_is_not_ported_raises_naming_its_item(case):
                               fake_cost=0.25)
         elif case == "scan_faults":
             tenv.run_scenario(tenv.make("crash_storm"), use_scan=True, device="cpu")
-        elif case == "n_frontends":
-            tenv.run_scenario(tenv.make("null", horizon=20.0), n_frontends=2,
-                              use_scan=True, device="cpu")
         else:
             tenv.make("churn").to_sim("ppot_sq2")
 

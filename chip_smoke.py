@@ -36,6 +36,14 @@ on the card. Then it drives the port's two paths:
     equal to the single-frontend scan, and three scenarios (frozen μ̂
     views, heavy churn, crash storms with the loss ledger) and telemetry
     through ``run_scenario(n_frontends=4)``;
+  * the streaming load harness (``repro_torch.load``): about a million
+    requests of an Azure-shaped generated trace streamed through the
+    one-program loop at 64 workers (``ScenarioStream``,
+    ``run_stream_scan``), a chunk at a time, with stream-only telemetry,
+    decisions/s per chunk, RSS per chunk and the whole-horizon latency
+    and λ̂ calibration; chunked held equal bit for bit to the monolithic
+    loop on both probe streams, and on a crash_storm fault stream at the
+    thousand-replica cell with its ledger;
   * the eight scheduling policies (``core.policies``): each one's engine
     call on the card held to the CPU's and timed at three shapes, and the
     scheduler cell under each through ``run_scenario`` on both loops, held
@@ -236,10 +244,34 @@ OBS_PIN_BATCH = 8
 # crash_storm without recovery, the ledger conserved); (d) churn with windows
 # of FLEET_WINDOW turns, telemetry on = off. FLEET_TURNS cuts depth only
 FLEET_S, FLEET_TURNS, FLEET_WINDOW = 4, 300, 16
+# replays a fleet cell profiles: a 50-replay session of a ~3,000-node fleet
+# graph is ~150,000 kernel records and 13-20 s of the profiler's own time,
+# so the fleet profiles fewer replays than the single turn's cells
+FLEET_PROFILE_TURNS = 10
 FLEET_EXACT = ((True, 1), (True, 8), (False, 8))
 FLEET_ENV = (("cotenant_shock", dict(sync_every=4, frozen_mu=True)), ("churn_heavy", {}),
              ("crash_storm", {}))
 FLEET_PEND_CAP, FLEET_ENV_PEND_CAP = 16384, 32768
+# [load]: the streaming load harness (repro_torch.load) at the shape of the
+# reference's benchmarks/loadtest.py:45-64, written out here: 64 workers (the
+# speed tile x 8, capacity 76), base rate 40 under its Azure-shaped stream
+# (diurnal x bursts, lognormal costs), batches of 128, chunks of 512 turns,
+# the pending set and flush it sizes, stream-only windows of 64 turns,
+# PPoT-SQ(2) on the alias stream, async_mu=False. (a) The full horizon, about
+# a million requests, through run_stream_scan, timed a chunk at a time, then
+# LOAD_PROFILE_TURNS replays of its graph under the profiler; (b) chunked =
+# monolithic at LOAD_CHECK_HORIZON on the alias and CDF streams (and
+# stream-only); (c) crash_storm at the [faults] cell's scaling cut to
+# LOAD_FAULT_HORIZON, as a stream in chunks of LOAD_FAULT_CHUNK (coprime with
+# windows of OBS_WINDOW), against the monolithic faulty scan
+LOAD_SPEED_TILE, LOAD_TILES = (2.0, 2.0, 1.0, 1.0, 0.5, 1.5, 1.0, 0.5), 8
+LOAD_RATE, LOAD_BATCH = 40.0, 128
+LOAD_TRACE = dict(period=3600.0, depth=0.4, burst_factor=3.0, dwell=(120.0, 15.0),
+                  cost_sigma=1.2)
+LOAD_HORIZON, LOAD_CHECK_HORIZON, LOAD_MIN_REQUESTS = 20_600.0, 2_060.0, 1_000_000
+LOAD_CHUNK, LOAD_PEND_CAP, LOAD_COMP_CAP, LOAD_WINDOW = 512, 8192, 512, 64
+LOAD_PROFILE_TURNS = 20
+LOAD_FAULT_HORIZON, LOAD_FAULT_CHUNK = 240.0, 37
 # exact parity on the card: the reference test's shape (n=4) and n=1024 at
 # a load where neither loop overflows a capacity
 EXACT_N4 = dict(arrival_rate=3.0, horizon=150.0, seed=0, arrival_batch=16)
@@ -330,6 +362,39 @@ def spearman(x, y) -> float:
     rx, ry = ranks(x), ranks(y)
     rx, ry = rx - rx.mean(), ry - ry.mean()
     return float((rx * ry).sum() / np.sqrt((rx * rx).sum() * (ry * ry).sum()))
+
+
+def sustained_series(chunks: "list[dict]", *, warmup: int = 1) -> dict:
+    """Sustained-throughput report from the chunk driver's per-chunk records
+    (``info["chunks"]`` of a ``timing=True`` run, the reference's
+    ``benchmarks/common.py:80``): decisions/s as a series, one point a chunk
+    (the first ``warmup`` chunks, which pay the capture, kept in the series
+    but left out of the sustained figure), and the RSS samples whose growth
+    after the warm-up says whether the stream ran in bounded memory."""
+    chunks = list(chunks)
+    out: dict = {"n_chunks": len(chunks),
+                 "warmup_chunks_excluded": min(warmup, max(len(chunks) - 1, 0))}
+    if not chunks:
+        return out
+    body = chunks[out["warmup_chunks_excluded"]:]
+    run_s = sum(c["run_s"] for c in body)
+    reqs = sum(c["requests"] for c in body)
+    decs = [c["requests"] / c["run_s"] for c in chunks if c["run_s"] > 0]
+    rss = [c["rss_mb"] for c in chunks]
+    out.update(
+        requests_total=int(sum(c["requests"] for c in chunks)),
+        turns_total=int(sum(c["turns"] for c in chunks)),
+        decs_series=decs,
+        decs_sustained=(reqs / run_s) if run_s > 0 else float("nan"),
+        decs_min=min(decs) if decs else float("nan"),
+        decs_max=max(decs) if decs else float("nan"),
+        wall_s_total=sum(c["gen_s"] + c["run_s"] for c in chunks),
+        gen_s_total=sum(c["gen_s"] for c in chunks),
+        run_s_total=sum(c["run_s"] for c in chunks),
+        rss_mb_series=rss,
+        rss_mb_peak=max(rss),
+        rss_mb_growth=(rss[-1] - rss[out["warmup_chunks_excluded"]] if len(rss) > 1 else 0.0))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1911,14 +1976,14 @@ def fleet_launches(K, CK, info) -> dict:
 
 
 def fleet_profile(torch, tsl, cfg, rows: int, router, pool, cols: dict, dev) -> dict:
-    """Turns 1 to SCAN_PROFILE_TURNS of a fleet run again, from the fresh
+    """Turns 1 to FLEET_PROFILE_TURNS of a fleet run again, from the fresh
     ``router`` and ``pool`` (turn 0 replayed before the profiler starts), on
     the runner (and graphs) the run captured: device busy ms and idle share
     a turn, launches a turn by wrapper, held to the graphs' kernel nodes for
     the patterns the window replays (a session that misses a record is run
     again)."""
     run = tsl.fleet_runner(cfg, str(dev), rows)
-    W = SCAN_PROFILE_TURNS
+    W = FLEET_PROFILE_TURNS
     first = {name: a[:1] for name, a in cols.items()}
     window = {name: a[1:W + 1] for name, a in cols.items()}
     changed = window.get("changed", np.zeros(W, bool))
@@ -1965,7 +2030,7 @@ def fleet_scan_record(tag, info, wall, T, requests, prof, launches, summ) -> dic
     print(f"[fleet {tag}] {T} turns, {requests} requests: {rec['turns_per_s']:.2f} turns/s, "
           f"{rec['decisions_per_s']:.1f} decisions/s; capture {info['capture_s']:.3f} s, graph "
           f"nodes {json.dumps(nodes)} (replays {json.dumps(rec['graph_replays'])}); "
-          f"{SCAN_PROFILE_TURNS} replays profiled: busy {prof['busy_ms']:.4f} ms a turn, idle "
+          f"{FLEET_PROFILE_TURNS} replays profiled: busy {prof['busy_ms']:.4f} ms a turn, idle "
           f"share {prof['idle']:.4f}, {prof['launches_per_turn']:.2f} launches a turn, by "
           f"kernel {json.dumps({k: round(v, 3) for k, v in prof['kernel_per_turn'].items()})}; "
           f"fleet_summary: collision rate {summ['collision_rate']:.6f}, view gaps mean "
@@ -2238,6 +2303,364 @@ def phase_fleet(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev, card):
     print(f"[fleet] {len(exact)} exact cells, S=1, {len(env_cells)} scenario cells and "
           f"telemetry in {secs:.1f} s ({json.dumps(cell_s)}); launches {json.dumps(total)}")
     return dict(exact=exact, s1=s1, env=env_cells, obs=tele, seconds=secs), total
+
+
+# ---------------------------------------------------------------------------
+# the streaming load harness: a million requests through the one-program loop
+# ---------------------------------------------------------------------------
+
+
+def load_scenario(Scenario, AzureLikeTrace, horizon: float):
+    """The [load] cell's scenario, cut to ``horizon`` seconds."""
+    return Scenario(name="azure_like_load",
+                    speeds=tuple(np.tile(np.asarray(LOAD_SPEED_TILE, float), LOAD_TILES)),
+                    rate=LOAD_RATE, horizon=horizon, arrivals=AzureLikeTrace(**LOAD_TRACE))
+
+
+def load_router(tr, speeds, dev, use_alias=True):
+    return tr.RosellaRouter(len(speeds), float(np.sum(speeds)), policy="ppot_sq2", seed=SEED,
+                            async_mu=False, use_alias=use_alias, c_window=10.0, device=dev)
+
+
+def graph_kernel_summary(graph_kernels: dict) -> dict:
+    """A captured graph's kernel nodes: the hand-written kernels by their
+    (mangled) names, and how many nodes and distinct kernels the rest
+    (PyTorch's own) are."""
+    rest = [c for name, c in graph_kernels.items() if wrapper_of(name) is None]
+    return dict(hand_written={name: c for name, c in graph_kernels.items()
+                              if wrapper_of(name) is not None},
+                other_nodes=sum(rest), other_kernels=len(rest))
+
+
+def same_final_state(torch, tag, ra, pa, rb, pb) -> None:
+    """need() the router and the pool as two runs left them equal bit for bit."""
+    def same(a, b):
+        return (a is None and b is None) or (a is not None and b is not None
+                                             and torch.equal(a, b))
+    arr = [(float(r.arr.last_time), float(r.arr.mean_gap), int(r.arr.count)) for r in (ra, rb)]
+    for part, ok in (("q_view", same(ra.q_view, rb.q_view)),
+                     *((f"learner {f}", same(getattr(ra.learner, f), getattr(rb.learner, f)))
+                       for f in ("samples", "stamps", "widx", "count", "epoch_start",
+                                 "mu_hat")),
+                     ("key", np.array_equal(np.asarray(ra.key), np.asarray(rb.key))),
+                     ("last_fake_time", ra.last_fake_time == rb.last_fake_time),
+                     ("arrival estimate", arr[0] == arr[1]), ("active", same(ra.active, rb.active)),
+                     ("free_at", np.array_equal(pa.free_at, pb.free_at))):
+        need(ok, f"{tag} the final {part} differs")
+
+
+def load_kernels(torch, chk, CK, CR, D, dev, mu, n_fault: int, bc: int, R: int) -> float:
+    """The [load] path's kernels on the card at its shapes, against their
+    plain versions: K1-K3 and the table at n = 64 on the full run's final μ̂
+    (unmasked and 20% masked) with batches of LOAD_BATCH; the replica chain
+    of a [load] turn (n = 64: 8 benchmark slots and the batch) and of the
+    fault stream's turn (n = ``n_fault``, the stream's fixed burst width
+    ``bc``, -1 but for three rejoins, and a tail of ``R``). Returns
+    pool_chain's largest error."""
+    K, Rf = chk.K, chk.R
+    n = mu.shape[0]
+    rng = np.random.RandomState(SEED)
+    q = torch.from_numpy(rng.randint(0, 50, n).astype(np.int32)).to(dev)
+    u1, u2, v1, v2 = (torch.from_numpy(rng.randint(0, 65536, LOAD_BATCH).astype(np.float32)
+                                       / 65536.0).to(dev) for _ in range(4))
+    for act in (None, torch.from_numpy(rng.rand(n) < 0.8).to(dev)):
+        p = D.scaled_weights(mu, act)
+        prob, alias = K.alias_table(p, act)
+        chk.compare("alias_table", (prob, alias), Rf.alias_table_ref(p, act))
+        chk.compare("ppot_dispatch_fused_alias",
+                    K.ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2),
+                    Rf.ppot_dispatch_fused_alias_ref(prob, alias, q, u1, v1, u2, v2))
+        cdf = Rf.make_cdf(mu) if act is None else D.masked_cdf(mu, act)
+        chk.compare("ppot_dispatch_fused", K.ppot_dispatch_fused(cdf, q, u1, u2),
+                    Rf.ppot_dispatch_fused_ref(cdf, q, u1, u2))
+        chk.compare("ppot_dispatch", K.ppot_dispatch(cdf, q, u1, u2),
+                    Rf.ppot_dispatch_ref(cdf, q, u1, u2))
+    err, shapes = 0.0, []
+    for nn, b, r in ((n, 0, 0), (n_fault, bc, R)):
+        fake = rng.randint(0, nn, 8).astype(np.int32)
+        fake[::3] = -1
+        burst = np.full(b, -1, np.int32)
+        burst[:12] = np.repeat(rng.randint(0, nn, 3), 4)[:b]
+        t = [torch.from_numpy(x).to(dev) for x in (
+            rng.rand(nn) * 3, rng.rand(nn) + 0.05, fake, burst,
+            rng.randint(0, nn, LOAD_BATCH).astype(np.int32), np.sort(rng.rand(LOAD_BATCH) * 3),
+            rng.exponential(1.0, LOAD_BATCH))]
+        tail = ([torch.from_numpy(x).to(dev) for x in (
+            rng.randint(0, nn, r).astype(np.int32), rng.exponential(1.0, r), rng.rand(r) < 0.7)]
+            if r else [None] * 3)
+        got = CK.pool_turn(*t, 0.25, 1.0, tail_w=tail[0], tail_cost=tail[1], tail_gate=tail[2])
+        want = CR.pool_turn_ref(*t, 0.25, 1.0, *[x for x in tail if x is not None])
+        torch.cuda.synchronize()
+        shapes.append(f"n={nn} M={8 + b + LOAD_BATCH + r}")
+        err = max(err, held_equal(torch, f"[load] pool_turn {shapes[-1]}",
+                                  ("start", "done", "sub_w", "act", "free_at", "resp"), got,
+                                  want))
+    print(f"[load] kernels at the path's shapes equal to their plain versions: K1, K2, K3 and "
+          f"alias_table at n={n} on the full run's final mu (unmasked and 20% masked), "
+          f"batches of {LOAD_BATCH}; pool_turn at {shapes[0]} and at {shapes[1]} (the fault "
+          f"stream's burst width {bc} and tail {R}; one launch holds up to "
+          f"{CK.max_steps(n_fault)} steps at n={n_fault})")
+    return err
+
+
+def load_full(torch, tr, tsl, tload, obs, K, CK, met, Scenario, dev, card) -> dict:
+    """(a) The full [load] run: LOAD_HORIZON seconds of the Azure-shaped
+    stream through ``run_stream_scan`` in stream-only telemetry, a timing
+    record a chunk; then LOAD_PROFILE_TURNS replays of its graph under the
+    profiler, from a fresh router on the stream's first turns."""
+    scn = load_scenario(Scenario, tload.AzureLikeTrace, LOAD_HORIZON)
+    speeds = np.asarray(scn.speeds, float)
+    router, pool = load_router(tr, speeds, dev), tr.SimulatedPool(speeds)
+    stream = tload.ScenarioStream(scn, seed=SEED, arrival_batch=LOAD_BATCH)
+    ocfg = obs.ObserveConfig(window_turns=LOAD_WINDOW, emit_responses=False)
+    sunk: list = []
+    tag = "[load]"
+    K.reset_launches()
+    CK.reset_launches()
+    t0 = time.perf_counter()
+    resp, mu, info = tload.run_stream_scan(
+        router, pool, stream, chunk_turns=LOAD_CHUNK, fake_cost=scn.request_cost * 0.25,
+        pend_cap=LOAD_PEND_CAP, comp_cap=LOAD_COMP_CAP, observe=ocfg, obs_sink=sunk.extend,
+        timing=True)
+    wall = time.perf_counter() - t0
+    launches = scan_launches(K, CK, info)
+    T, w = info["turns"], info["windows"]
+    sus = sustained_series(info["chunks"], warmup=1)
+    cal = met.calibration_report(ocfg, w, warmup_windows=2)
+    lam = cal.get("lam_calibration", {})
+    need(resp.size == 0 and mu.shape == (0, scn.n), f"{tag} stream-only returned rows")
+    need(info["replays"] == T and info["graph_nodes"], f"{tag} the turns were not replays")
+    need(info["flush_overflow"] == 0 and info["pend_overflow"] == 0,
+         f"{tag} overflow: flush {info['flush_overflow']} pend {info['pend_overflow']}")
+    need(sus["requests_total"] == T * LOAD_BATCH >= LOAD_MIN_REQUESTS,
+         f"{tag} {sus['requests_total']} requests streamed, fewer than {LOAD_MIN_REQUESTS}")
+    need(len(info["chunks"]) == -(-T // LOAD_CHUNK) and stream.turns_emitted == T,
+         f"{tag} {len(info['chunks'])} chunk records for {T} turns")
+    need([r["window"] for r in w] == list(range(len(w))) and sum(r["turns"] for r in w) == T
+         and all(not r["partial"] for r in w[:-1]) and sunk == w,
+         f"{tag} the window stream has gaps, or the sink missed a window")
+    need(cal["requests"] == T * LOAD_BATCH and 0 < cal["completed"] <= cal["requests"]
+         and 0 < cal["p50"] <= cal["p99"] <= cal["p999"] < math.inf
+         and math.isfinite(lam.get("mean", math.nan)), f"{tag} bad whole-horizon report {cal}")
+    per_replay = by_wrapper(info["graph_kernels"])
+    for name in ("ppot_dispatch_fused_alias", "alias_table", "pool_chain"):
+        need(per_replay[name] > 0 and launches[name] > 0, f"{tag} no {name} in the graph")
+    # the graph the run replayed, again from a fresh router on the first turns
+    cfg = tsl.scan_config(router, LOAD_BATCH, fake_cost=scn.request_cost * 0.25,
+                          pend_cap=LOAD_PEND_CAP, comp_cap=LOAD_COMP_CAP, observe=ocfg)
+    run = tsl.runner(cfg, str(dev), LOAD_CHUNK)
+    need(run.replays >= T, f"{tag} the profiled runner is not the run's")
+    first = next(tload.ScenarioStream(scn, seed=SEED, arrival_batch=LOAD_BATCH)
+                 .chunks(LOAD_PROFILE_TURNS))
+    run.load(load_router(tr, speeds, dev), tr.SimulatedPool(speeds))
+    W = LOAD_PROFILE_TURNS
+    prof = device_profile(torch, lambda: run.run_rows(
+        dict(times=first.times, costs=first.costs, speeds=first.speeds)))
+    in_replay = {wr: 0.0 for wr in PROFILE_NAMES}
+    for name, us in prof["us"].items():
+        if wrapper_of(name) is not None:
+            in_replay[wrapper_of(name)] += us / 1e3 / W
+    rec = dict(requests=sus["requests_total"], turns=T, chunks=sus["n_chunks"],
+               trace_dropped=info["trace_dropped"], wall_s=wall,
+               decs_series=sus["decs_series"], decs_sustained=sus["decs_sustained"],
+               decs_min=sus["decs_min"], decs_max=sus["decs_max"],
+               turns_per_s=(T - info["chunks"][0]["turns"]) / (
+                   sus["run_s_total"] - info["chunks"][0]["run_s"]),
+               gen_s_total=sus["gen_s_total"], run_s_total=sus["run_s_total"],
+               rss_mb_series=sus["rss_mb_series"], rss_mb_growth=sus["rss_mb_growth"],
+               rss_mb_peak=sus["rss_mb_peak"], windows=len(w),
+               p50=cal["p50"], p99=cal["p99"], p999=cal["p999"], mean_est=cal["mean_est"],
+               completed=cal["completed"], lam_calibration=lam, capture_s=info["capture_s"],
+               graph_nodes=info["graph_nodes"], graph_kernels=per_replay,
+               flush_overflow=info["flush_overflow"], pend_overflow=info["pend_overflow"],
+               busy_ms_per_turn=prof["busy_us"] / 1e3 / W, idle=prof["idle"],
+               launches_per_turn_profiled=prof["launches"] / W, in_replay_ms=in_replay,
+               launches=launches, longest_chain=info["longest_chain"])
+    print(f"{tag} {card}; full run: {rec['requests']} requests in {T} turns ({rec['chunks']} "
+          f"chunks of {LOAD_CHUNK}, partial tail batch of {rec['trace_dropped']} dropped), "
+          f"n={scn.n}, overflows flush {info['flush_overflow']} pend {info['pend_overflow']}; "
+          f"wall {wall:.3f} s, gen_s total {rec['gen_s_total']:.6f}, run_s total "
+          f"{rec['run_s_total']:.6f}")
+    print(f"{tag} decisions/s per chunk (chunk 0 first, out of the sustained figure): "
+          f"{json.dumps([round(d, 1) for d in sus['decs_series']])}; sustained "
+          f"{sus['decs_sustained']:.1f} decisions/s ({rec['turns_per_s']:.2f} turns/s), min "
+          f"{sus['decs_min']:.1f} max {sus['decs_max']:.1f}")
+    print(f"{tag} RSS MB per chunk {json.dumps([round(r, 2) for r in sus['rss_mb_series']])}: "
+          f"growth after chunk 1 {sus['rss_mb_growth']:.3f} MB, peak {sus['rss_mb_peak']:.2f}")
+    print(f"{tag} whole horizon from {len(w)} windows of {LOAD_WINDOW} turns: p50 "
+          f"{cal['p50']:.6f} p99 {cal['p99']:.6f} p999 {cal['p999']:.6f} s, mean "
+          f"{cal['mean_est']:.6f} s, completed {cal['completed']} of {cal['requests']}; lambda "
+          f"calibration {json.dumps({k: round(v, 6) for k, v in lam.items()})}")
+    print(f"{tag} capture {info['capture_s']:.3f} s, graph nodes {info['graph_nodes']}, kernel "
+          f"nodes {json.dumps(graph_kernel_summary(info['graph_kernels']))} (by wrapper "
+          f"{json.dumps(per_replay)}); longest chain {info['longest_chain']}; {W} replays "
+          f"profiled: busy {rec['busy_ms_per_turn']:.4f} ms a turn, idle share "
+          f"{prof['idle']:.4f}, {rec['launches_per_turn_profiled']:.2f} launches a turn, "
+          f"device ms a replay by kernel "
+          + ", ".join(f"{k} {v:.6f}" for k, v in in_replay.items() if v)
+          + f"; launches of the run {json.dumps(launches)}")
+    rec["mu_final"] = router.mu_front
+    return rec
+
+
+def load_parity(torch, tr, tsl, tload, obs, K, CK, Scenario, dev, use_alias: bool,
+                emit: bool) -> tuple[dict, dict]:
+    """(b) LOAD_CHECK_HORIZON seconds of the stream through run_stream_scan
+    in chunks of LOAD_CHUNK, and through run_workload_scan on the same chunks
+    concatenated (its own capture, one chunk): responses and μ̂ trace (when
+    ``emit``), window records and the final router and pool state equal bit
+    for bit."""
+    tag = f"[load {'alias' if use_alias else 'icdf'}{'' if emit else ' stream-only'}]"
+    scn = load_scenario(Scenario, tload.AzureLikeTrace, LOAD_CHECK_HORIZON)
+    speeds = np.asarray(scn.speeds, float)
+    ocfg = obs.ObserveConfig(window_turns=LOAD_WINDOW, emit_responses=emit)
+    kw = dict(fake_cost=scn.request_cost * 0.25, pend_cap=LOAD_PEND_CAP,
+              comp_cap=LOAD_COMP_CAP, observe=ocfg)
+    K.reset_launches()
+    CK.reset_launches()
+    r1, p1 = load_router(tr, speeds, dev, use_alias), tr.SimulatedPool(speeds)
+    got = tload.run_stream_scan(r1, p1, tload.ScenarioStream(scn, seed=SEED,
+                                                             arrival_batch=LOAD_BATCH),
+                                chunk_turns=LOAD_CHUNK, **kw)
+    launches = scan_launches(K, CK, got[2])
+    parts = list(tload.ScenarioStream(scn, seed=SEED, arrival_batch=LOAD_BATCH)
+                 .chunks(LOAD_CHUNK))
+    cols = {f: np.concatenate([getattr(c, f) for c in parts]) for f in ("times", "costs",
+                                                                         "speeds")}
+    K.reset_launches()
+    CK.reset_launches()
+    r0, p0 = load_router(tr, speeds, dev, use_alias), tr.SimulatedPool(speeds)
+    want = tsl.run_workload_scan(r0, p0, cols["times"], cols["costs"], cols["speeds"], **kw)
+    mono = scan_launches(K, CK, want[2])
+    T = len(cols["times"])
+    for part, ok in (("turns", got[2]["turns"] == want[2]["turns"] == T == got[2]["replays"]),
+                     ("responses", np.array_equal(got[0], want[0])),
+                     ("mu trace", np.array_equal(got[1], want[1])),
+                     ("overflow", got[2]["flush_overflow"] == got[2]["pend_overflow"] == 0)):
+        need(ok, f"{tag} chunked and monolithic differ: {part}")
+    need(got[0].shape == ((T * LOAD_BATCH,) if emit else (0,)), f"{tag} responses "
+         f"{got[0].shape}")
+    obs_records_equal(tag, got[2]["windows"], want[2]["windows"])
+    same_final_state(torch, tag, r1, p1, r0, p0)
+    per_replay = by_wrapper(got[2]["graph_kernels"])
+    k = "ppot_dispatch_fused_alias" if use_alias else "ppot_dispatch_fused"
+    need(per_replay[k] > 0 and launches[k] > 0, f"{tag} no {k} in the graph")
+    print(f"{tag} {T} turns, {T * LOAD_BATCH} requests in {len(parts)} chunks of {LOAD_CHUNK}: "
+          f"run_stream_scan equal to run_workload_scan over the chunks concatenated (its own "
+          f"capture of {T} rows){', responses and mu trace' if emit else ''}, "
+          f"{len(got[2]['windows'])} windows and the final router and pool state bit for bit; "
+          f"graph nodes {got[2]['graph_nodes']} / {want[2]['graph_nodes']}, kernels by wrapper "
+          f"{json.dumps(per_replay)}")
+    total = {wr: launches[wr] + mono[wr] for wr in PROFILE_NAMES}
+    return dict(turns=T, graph_nodes=got[2]["graph_nodes"], graph_kernels=per_replay,
+                launches=total), total
+
+
+def load_faults(torch, tr, tsl, tenv, tload, obs, trcv, K, CK, met, speeds, dev,
+                caps) -> tuple[dict, dict]:
+    """(c) crash_storm at the [faults] cell's scaling and capacities, recovery
+    as armed there, cut to LOAD_FAULT_HORIZON: a ScenarioStream in chunks of
+    LOAD_FAULT_CHUNK with windows of OBS_WINDOW (coprime) and the stream's
+    fixed burst width, against the monolithic faulty scan on the burst
+    padded to that width: responses (NaN = lost), μ̂ trace, windows,
+    ledger, free_at and the final state equal bit for bit; conserved."""
+    tag = "[load crash_storm stream]"
+    rate = LOAD * float(speeds.sum())
+    scn = tenv.make("crash_storm", speeds=tuple(speeds), rate=rate, horizon=LOAD_FAULT_HORIZON)
+    wl = scn.compile_serving(seed=SEED, arrival_batch=BATCH)
+    rc = trcv.RecoveryConfig(**FAULT_RECOVERY)
+    ocfg = obs.ObserveConfig(window_turns=OBS_WINDOW)
+    need(math.gcd(LOAD_FAULT_CHUNK, OBS_WINDOW) == 1, f"{tag} chunk and window not coprime")
+    kw = dict(fake_cost=scn.request_cost * 0.25, recovery=rc, observe=ocfg, **caps)
+    stream = tload.ScenarioStream(scn, seed=SEED, arrival_batch=BATCH)
+
+    def router():
+        return tr.RosellaRouter(scn.n, float(np.sum(scn.speeds)), seed=SEED, use_alias=True,
+                                async_mu=False, device=dev)
+    K.reset_launches()
+    CK.reset_launches()
+    r1, p1 = router(), tr.SequentialPool(np.asarray(scn.speeds, float))
+    t0 = time.perf_counter()
+    got = tload.run_stream_scan(r1, p1, stream, chunk_turns=LOAD_FAULT_CHUNK,
+                                task_cap=wl.turns * BATCH, **kw)
+    wall = time.perf_counter() - t0
+    launches = scan_launches(K, CK, got[2])
+    burst = np.full((wl.turns, stream.burst_cap), -1, np.int32)
+    burst[:, :wl.burst.shape[1]] = wl.burst
+    K.reset_launches()
+    CK.reset_launches()
+    r0, p0 = router(), tr.SequentialPool(np.asarray(scn.speeds, float))
+    want = tsl.run_workload_scan(r0, p0, wl.times, wl.costs, wl.speeds, active_np=wl.active,
+                                 rejoin_np=wl.rejoin, burst_np=burst, kill_np=wl.kill_at,
+                                 stall_np=wl.stall_at, stall_dur_np=wl.stall_dur, **kw)
+    mono = scan_launches(K, CK, want[2])
+    gi, led = got[2], got[2]["ledger"]
+    for part, ok in (("turns", gi["turns"] == want[2]["turns"] == wl.turns == gi["replays"]),
+                     ("responses", np.array_equal(got[0], want[0], equal_nan=True)),
+                     ("mu trace", np.array_equal(got[1], want[1])),
+                     ("ledger", led == want[2]["ledger"]),
+                     ("overflow", gi["flush_overflow"] == gi["pend_overflow"] == 0)):
+        need(ok, f"{tag} chunked and monolithic differ: {part}")
+    obs_records_equal(tag, gi["windows"], want[2]["windows"])
+    same_final_state(torch, tag, r1, p1, r0, p0)
+    ok, residuals = met.check_conservation(led)
+    need(ok and led["conserved"], f"{tag} the ledger does not conserve: {residuals}")
+    need(led["lost_tasks"] > 0 and led["n_retries"] > 0, f"{tag} nothing lost or retried")
+    per_replay = by_wrapper(gi["graph_kernels"])
+    for k in ("ppot_dispatch_fused_alias", "alias_table", "pool_chain"):
+        need(per_replay[k] > 0 and launches[k] > 0, f"{tag} no {k} in the graph")
+    rep = met.fault_report(got[0], led, horizon=LOAD_FAULT_HORIZON)
+    print(f"{tag} n={scn.n} batch={BATCH}, recovery {json.dumps(FAULT_RECOVERY)}, "
+          f"{wl.turns} turns in chunks of {LOAD_FAULT_CHUNK}, windows of {OBS_WINDOW}, burst "
+          f"width {stream.burst_cap} (the compile's {wl.burst.shape[1]}), task_cap "
+          f"{wl.turns * BATCH}, pend_cap {caps['pend_cap']} comp_cap {caps['comp_cap']}: "
+          f"equal to the monolithic faulty scan (responses with NaN, mu trace, "
+          f"{len(gi['windows'])} windows, ledger, free_at, final state), conserved; lost "
+          f"{led['lost_tasks']} (loss rate {rep['loss_rate']:.6f}), retries "
+          f"{led['n_retries']}, p99 {rep['p99']:.6f} s; {wall:.3f} s, capture "
+          f"{gi['capture_s']:.3f} s, graph nodes {gi['graph_nodes']}, kernel nodes "
+          f"{json.dumps(graph_kernel_summary(gi['graph_kernels']))} (by wrapper "
+          f"{json.dumps(per_replay)}), longest "
+          f"chain {gi['longest_chain']}")
+    total = {wr: launches[wr] + mono[wr] for wr in PROFILE_NAMES}
+    return dict(turns=wl.turns, seconds=wall, graph_nodes=gi["graph_nodes"],
+                graph_kernels=per_replay, burst_cap=stream.burst_cap, ledger=led,
+                loss_rate=rep["loss_rate"], launches=total), total
+
+
+def phase_load(torch, tr, tsl, tenv, tload, obs, trcv, chk, D, K, CK, CR, met, speeds, dev,
+               card, faults) -> tuple[dict, dict, float]:
+    """The [load] cells; returns the records, the phase's launches by wrapper
+    and pool_chain's largest error at the path's shapes."""
+    from repro_torch.env.scenario import Scenario
+
+    t0 = time.perf_counter()
+    print(f"[load] {card}; {LOAD_TILES} x {LOAD_SPEED_TILE} workers, base rate {LOAD_RATE}, "
+          f"AzureLikeTrace({json.dumps(LOAD_TRACE)}), horizon {LOAD_HORIZON} s, batches of "
+          f"{LOAD_BATCH}, chunk_turns {LOAD_CHUNK}, pend_cap {LOAD_PEND_CAP}, comp_cap "
+          f"{LOAD_COMP_CAP}, stream-only windows of {LOAD_WINDOW} turns, PPoT-SQ(2) alias, "
+          f"async_mu=False, seed {SEED}")
+    full = load_full(torch, tr, tsl, tload, obs, K, CK, met, Scenario, dev, card)
+    total = dict(full["launches"])
+    parity = {}
+    for use_alias, emit in ((True, True), (False, True), (True, False)):
+        key = f"{'alias' if use_alias else 'icdf'}{'' if emit else ' stream-only'}"
+        parity[key], launches = load_parity(torch, tr, tsl, tload, obs, K, CK, Scenario, dev,
+                                            use_alias, emit)
+        for w in PROFILE_NAMES:
+            total[w] += launches[w]
+    src = faults["cells"]["crash_storm alias"]
+    fault, launches = load_faults(torch, tr, tsl, tenv, tload, obs, trcv, K, CK, met, speeds,
+                                  dev, dict(pend_cap=src["pend_cap"], comp_cap=src["comp_cap"]))
+    for w in PROFILE_NAMES:
+        total[w] += launches[w]
+    rc = trcv.RecoveryConfig(**FAULT_RECOVERY)
+    err = load_kernels(torch, chk, CK, CR, D, dev, full.pop("mu_final"), len(speeds),
+                       fault["burst_cap"], rc.retry_cap + rc.spec_cap)
+    secs = time.perf_counter() - t0
+    print(f"[load] the full run, {len(parity)} chunked = monolithic checks and the fault "
+          f"stream in {secs:.1f} s; launches {json.dumps(total)}")
+    return dict(full=full, parity=parity, faults=fault, seconds=secs), total, err
 
 
 # ---------------------------------------------------------------------------
@@ -3303,6 +3726,7 @@ def main() -> int:
         from repro_torch.core import dispatch as D
         from repro_torch.core import policies as P
         from repro_torch import env as tenv
+        from repro_torch import load as tload
         from repro_torch import obs
         from repro_torch.core import metrics as met
         from repro_torch.kernels import _nvcc
@@ -3362,6 +3786,8 @@ def main() -> int:
                                                speeds, dev, card)
     fleet, fleet_launches_ = phase_fleet(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev,
                                          card)
+    load, load_launches, load_pool_err = phase_load(torch, tr, tsl, tenv, tload, obs, trcv, chk,
+                                                    D, K, CK, CR, met, speeds, dev, card, faults)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
@@ -3409,7 +3835,8 @@ def main() -> int:
 
     total = {name: sum(r["launches"][name] for r in main_runs.values())
              + scenario_launches[name] + fault_launches[name] + policy_launches[name]
-             + obs_launches[name] + fleet_launches_[name] for name in REPLACES}
+             + obs_launches[name] + fleet_launches_[name] + load_launches[name]
+             for name in REPLACES}
     kernels = []
     for name in REPLACES:
         t = times[(name, 1024, BATCH)]
@@ -3427,8 +3854,8 @@ def main() -> int:
         launches=sum(c["launches"]["pool_chain"] for c in scan_cells.values())
         + scenario_launches["pool_chain"] + fault_launches["pool_chain"]
         + policy_launches["pool_chain"] + obs_launches["pool_chain"]
-        + fleet_launches_["pool_chain"],
-        max_abs_err=pool_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        + fleet_launches_["pool_chain"] + load_launches["pool_chain"],
+        max_abs_err=max(pool_err, load_pool_err), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None,
         real_turn_ms=pool_turn_times[("a", W)]["ms"]))
     t = flash_times["main"]
@@ -3454,6 +3881,7 @@ def main() -> int:
     print(f"[summary] obs {json.dumps(obs_res)}")
     print(f"[summary] policies {json.dumps(policies)}")
     print(f"[summary] fleet {json.dumps(fleet)}")
+    print(f"[summary] load {json.dumps(load)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")
     print(f"[summary] profile prefill {json.dumps(prof_prefill)} decode "

@@ -1,8 +1,9 @@
 """Summaries of serving runs (numpy, host side): response-time summaries,
 the adaptation-time metric of the environment engine (``repro_torch.env``),
-the fault-run ledger checks of the recovery layer (``serving.recovery``)
-and the frontend fleet's health summary (``fleet_summary``), copied from
-the JAX package's ``core/metrics.py``."""
+the fault-run ledger checks of the recovery layer (``serving.recovery``),
+the load harness's whole-horizon report from window records
+(``calibration_report``) and the frontend fleet's health summary
+(``fleet_summary``), copied from the JAX package's ``core/metrics.py``."""
 from __future__ import annotations
 
 import numpy as np
@@ -206,6 +207,64 @@ def fault_report(responses, ledger: dict, *, horizon: float | None = None) -> di
     if horizon:
         out["goodput"] = completed / horizon
         out["throughput"] = int(ledger["copies_real_completed"]) / horizon
+    return out
+
+
+def calibration_report(cfg, windows: "list[dict]", *,
+                       warmup_windows: int = 0, tol: float = 0.1) -> dict:
+    """λ̂-calibration and latency over a FULL (possibly streamed) horizon,
+    computed from the windowed telemetry records — the load harness's
+    whole-run report (the ``[load]`` phase of ``chip_smoke.py``), usable on any
+    ``info["windows"]`` stream or a re-read JSONL sink.
+
+    Aggregates the per-window log-histograms into whole-horizon
+    p50/p99/p999 (exact fold: histogram addition commutes with the
+    quantile read within the pinned one-bin tolerance) and reduces the
+    ``lam_calibration`` series (λ̂ / realized arrival rate, target 1.0) to:
+    its post-warmup mean/min/max, the final window's value, and
+    ``settle_t`` — the earliest window-end time after which EVERY later
+    window stays within ``tol`` of 1.0 (the λ̂ analogue of
+    ``adaptation_time``; NaN if it never settles)."""
+    from repro_torch.obs import windows as obw
+
+    recs = list(windows)
+    out: dict = {"n_windows": len(recs), "warmup_windows": warmup_windows}
+    if not recs:
+        return out
+    body = recs[warmup_windows:] or recs
+    hist = np.sum([np.asarray(r["hist"]) for r in body], axis=0)
+    out.update(
+        requests=int(sum(r["arrivals"] for r in recs)),
+        completed=int(sum(r["n_resp"] for r in recs)),
+        horizon_t=float(recs[-1]["t_end"]),
+        p50=obw.hist_quantile(hist, 0.50, cfg),
+        p99=obw.hist_quantile(hist, 0.99, cfg),
+        p999=obw.hist_quantile(hist, 0.999, cfg),
+        mean_est=obw.hist_mean(hist, cfg),
+    )
+    cal = np.asarray([r["lam_calibration"] for r in body], np.float64)
+    t_end = np.asarray([r["t_end"] for r in body], np.float64)
+    ok = np.isfinite(cal)
+    if ok.any():
+        c = cal[ok]
+        out["lam_calibration"] = {
+            "mean": float(c.mean()),
+            "min": float(c.min()),
+            "max": float(c.max()),
+            "final": float(c[-1]),
+            "worst_abs_err": float(np.abs(c - 1.0).max()),
+        }
+        # earliest window end after which |calibration − 1| ≤ tol holds
+        # for every later finite window
+        bad = ok & (np.abs(cal - 1.0) > tol)
+        if bad.any():
+            last_bad = int(np.nonzero(bad)[0][-1])
+            out["lam_calibration"]["settle_t"] = (
+                float(t_end[last_bad]) if last_bad + 1 < len(cal)
+                else float("nan")
+            )
+        else:
+            out["lam_calibration"]["settle_t"] = float(t_end[0])
     return out
 
 

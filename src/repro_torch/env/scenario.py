@@ -100,12 +100,12 @@ class ServingWorkload:
         ``ServingWorkload`` views (every per-turn column — times, costs,
         speeds, membership, rejoin edges, burst targets, fault tracks —
         sliced consistently; ``shift_times`` stays whole as run-level
-        metadata and ``trace_dropped`` rides the final chunk). A chunked
-        run composes these back into exactly the monolithic program,
-        as the one-program loop's carry does across its chunks. Lazily
+        metadata and ``trace_dropped`` rides the final chunk). The chunked
+        scan driver composes these back into exactly the monolithic
+        program — ``repro_torch.load.run_stream_scan(iter_chunks(...))`` is
+        bit-equal to ``run_workload_scan`` on the whole arrays. Lazily
         GENERATED chunk streams (the host never holding the full trace)
-        are the streaming load harness's, not ported yet (ROADMAP queue A,
-        A7)."""
+        come from ``repro_torch.load.ScenarioStream`` instead."""
         step = max(int(chunk_turns), 1)
         T = self.turns
 
@@ -278,9 +278,7 @@ class Scenario:
                 f"scenario {self.name!r} uses a streaming arrival process "
                 f"({type(self.arrivals).__name__}) — it cannot be "
                 f"materialized whole; drive it through "
-                f"repro.load.ScenarioStream / run_stream_scan instead (the "
-                f"streaming load harness: not ported yet, ROADMAP queue A, "
-                f"A7)"
+                f"repro_torch.load.ScenarioStream / run_stream_scan instead"
             )
         speeds0 = np.asarray(self.speeds, float)
         n = self.n

@@ -83,8 +83,11 @@ namespace {
 
 constexpr int kThreads = 1024;  // the most threads a block takes
 constexpr int kMaxN = 16384;
-constexpr int kMaxM = 4096;
-constexpr int kMaxSmem = 4 * kMaxN + 34 * kMaxM;  // 204,800 B < 227 KB
+constexpr int kMaxM = 4096;  // the most steps at kMaxN replicas
+// the shared memory a launch may take, 204,800 B < 227 KB: any n <= kMaxN
+// and M with 4n + 34M within it (a churn stream's fixed burst width at
+// n = 1024 gives M ~ 4,240)
+constexpr int kMaxSmem = 4 * kMaxN + 34 * kMaxM;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStitch = 8;  // tiles whose flags the stitching warp reads ahead
 constexpr unsigned char kFirst = 1, kLast = 2;  // a step's place in its tile's group
@@ -260,7 +263,8 @@ __global__ void __launch_bounds__(kThreads) pool_chain_kernel(Params p) {
 
 template <bool kTurn>
 int launch(const Params& p, cudaStream_t stream) {
-  if (p.n < 1 || p.n > kMaxN || p.M < 0 || p.M > kMaxM) return (int)cudaErrorInvalidValue;
+  if (p.n < 1 || p.n > kMaxN || p.M < 0 || 4LL * p.n + 34LL * p.M > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   // set once, before any capture: the first launch of the one-program loop
   // is an eager warm-up turn
   static const cudaError_t attr = cudaFuncSetAttribute(

@@ -22,9 +22,16 @@ from repro_torch.kernels.pool_chain import build, ref
 
 launches = {"pool_chain": 0}
 
-#: the largest n and M one launch takes: its block keeps 4n + 34M bytes of
-#: shared memory (kMaxN, kMaxM in the source)
+#: the largest n one launch takes, and the most steps M at that n: its block
+#: keeps 4n + 34M bytes of shared memory, at most SMEM_BYTES (kMaxN, kMaxM,
+#: kMaxSmem in the source), so fewer replicas leave room for more steps
 MAX_N, MAX_M = 16384, 4096
+SMEM_BYTES = 4 * MAX_N + 34 * MAX_M
+
+
+def max_steps(n: int) -> int:
+    """The most steps one launch takes beside ``n`` replicas."""
+    return (SMEM_BYTES - 4 * n) // 34
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
@@ -46,8 +53,9 @@ def _device(ts) -> torch.device:
 
 
 def _fits(n: int, M: int) -> None:
-    if not (1 <= n <= MAX_N and M <= MAX_M):
-        raise ValueError(f"pool_chain: n={n}, M={M} outside n <= {MAX_N}, M <= {MAX_M}")
+    if not (1 <= n <= MAX_N and M <= max_steps(n)):
+        raise ValueError(f"pool_chain: n={n}, M={M} outside n <= {MAX_N}, "
+                         f"4n + 34M <= {SMEM_BYTES}")
 
 
 def _counted() -> None:

@@ -111,6 +111,7 @@ from repro_torch.fleet import conflict as cfl
 from repro_torch.fleet import state as fst
 from repro_torch.kernels.pool_chain import kernel as pool_kernel
 from repro_torch.obs import detect as obd
+from repro_torch.obs import export as oex
 from repro_torch.obs import tracing as obt
 from repro_torch.obs import windows as obw
 from repro_torch.serving import recovery as rcv
@@ -1091,16 +1092,24 @@ def _drive_scan(router: rt.RosellaRouter, pool: rt.SimulatedPool, chunks, *,
                 rows: int, k: int, churn: bool, burst_cap: int, fake_cost: float,
                 burst_cost: float, pend_cap: int, comp_cap: int | None,
                 strict_overflow: bool, recovery=None, task_cap: int = 0,
-                observe: obw.ObserveConfig | None = None, obs_sink=None, decisions=None):
-    """The chunk driver: load the carry from the router and the pool, run
-    each chunk ({column: numpy [t, ...]}, t <= rows) from the carry left by
-    the last, read the overflow counters once, and write the final state
-    back to the router and the pool. With ``recovery`` (the resolved
-    config) the faulty turn runs over at most ``task_cap`` tasks, and the
-    books close on the final carry with the host loop's epilogue
-    (``drain_pending``, ``build_ledger``). With ``observe`` each chunk's
-    boundary rows become window records after its one copy back (handed to
-    ``obs_sink``), and the trailing partial window closes the stream."""
+                observe: obw.ObserveConfig | None = None, obs_sink=None, decisions=None,
+                timing: bool = False):
+    """The chunk driver, shared by ``run_workload_scan`` (slices of a
+    materialised workload) and ``load.run_stream_scan`` (chunks generated
+    as they are pulled): load the carry from the router and the pool, run
+    each chunk ({column: numpy [t, ...]}, t <= rows; an empty one is
+    skipped, a longer one raises) from the carry left by the last, read
+    the overflow counters once, and write the final state back to the
+    router and the pool. With ``recovery`` (the resolved config) the faulty
+    turn runs over at most ``task_cap`` tasks, and the books close on the
+    final carry with the host loop's epilogue (``drain_pending``,
+    ``build_ledger``). With ``observe`` each chunk's boundary rows become
+    window records after its one copy back (handed to ``obs_sink``), and
+    the trailing partial window closes the stream. With ``timing`` each
+    chunk's record goes to ``info["chunks"]``: its turns and requests,
+    ``gen_s`` (pulling it from ``chunks``), ``run_s`` (its turns, fenced by
+    a device synchronize on the card) and the process's ``rss_mb`` after
+    it."""
     cfg = scan_config(router, k, churn=churn, burst_cap=burst_cap, fake_cost=fake_cost,
                       burst_cost=burst_cost, pend_cap=pend_cap, comp_cap=comp_cap,
                       recovery=recovery, task_cap=task_cap, observe=observe,
@@ -1111,17 +1120,38 @@ def _drive_scan(router: rt.RosellaRouter, pool: rt.SimulatedPool, chunks, *,
     resp_l, mu_l = [], []
     windows: list = []
     arrivals_l = []  # the decision trace's arrival times (faulty turn)
+    chunks_meta: list = []
     active_last = None
-    turns = 0
-    for ci, chunk in enumerate(chunks):
+    turns = ci = 0
+    it = iter(chunks)
+    while True:
+        t0 = time.perf_counter()
+        chunk = next(it, None)
+        if chunk is None:
+            break
+        gen_s = time.perf_counter() - t0
         c_turns = len(chunk["times"])
+        if c_turns == 0:
+            continue
+        if c_turns > rows:
+            raise ValueError(
+                f"chunk {ci} holds {c_turns} turns, more than the {rows} rows the turn "
+                f"was captured for (chunk_turns, or the first chunk's length): pass "
+                f"chunks no longer than the first")
         if recovery is not None and (turns + c_turns) * k > task_cap:
             raise RuntimeError(
                 f"stream exceeded task_cap={task_cap}: a chunk would bring the launched-"
                 f"task count to {(turns + c_turns) * k}; size task_cap to the stream's "
                 f"total turns x k")
+        t1 = time.perf_counter()
         with obt.step_annotation("serve_scan_chunk", ci, router.device):
             ys = run.run_rows(chunk)
+        if timing:
+            if run.device.type == "cuda":
+                torch.cuda.synchronize(run.device)
+            chunks_meta.append({"chunk": ci, "turns": c_turns, "requests": c_turns * k,
+                                "gen_s": gen_s, "run_s": time.perf_counter() - t1,
+                                "rss_mb": oex.rss_mb()})
         if run.emit:
             mu_l.append(ys["mu"].copy())
             if recovery is None:
@@ -1136,6 +1166,7 @@ def _drive_scan(router: rt.RosellaRouter, pool: rt.SimulatedPool, chunks, *,
                               None if recovery is not None else ys["resp"])
             arrivals_l.append(chunk["times"])
         turns += c_turns
+        ci += 1
         if churn:
             active_last = chunk["active"][-1]
     c = run.carry
@@ -1154,6 +1185,8 @@ def _drive_scan(router: rt.RosellaRouter, pool: rt.SimulatedPool, chunks, *,
             "graph_kernels": dict(run.graph_kernels), "replays": run.replays - replays0}
     if observe is not None:
         info["windows"] = windows
+    if timing:
+        info["chunks"] = chunks_meta
     mu_trace = np.concatenate(mu_l) if mu_l else np.zeros((0, router.n), np.float32)
     if recovery is not None:
         # the response min-fold rides the carry (a task's copies may finish

@@ -735,7 +735,9 @@ def test_pool_chain_refuses_what_one_block_cannot_hold(dev):
     with pytest.raises(ValueError, match="outside"):
         ck.pool_chain(*_chain(ck.MAX_N + 1, 8, dev))
     with pytest.raises(ValueError, match="outside"):
-        ck.pool_chain(*_chain(16, ck.MAX_M + 1, dev))
+        ck.pool_chain(*_chain(16, ck.max_steps(16) + 1, dev))
+    with pytest.raises(ValueError, match="outside"):
+        ck.pool_chain(*_chain(ck.MAX_N, ck.MAX_M + 1, dev))
 
 
 @pytest.mark.parametrize("use_alias", [True, False])
@@ -1059,3 +1061,159 @@ def test_fleet_scan_on_the_card_equals_the_cpu_and_the_host_fleet_loop(dev, mode
         for a, b in zip(rh.frontends, g["router"].frontends):
             assert torch.equal(a.q_view, b.q_view) and torch.equal(a.learner.mu_hat,
                                                                    b.learner.mu_hat)
+
+
+@pytest.mark.parametrize("n,bc", [(1024, 4096), (64, 256)])
+def test_pool_turn_kernel_at_a_stream_burst_width(dev, n, bc):
+    """The turn form at a churn stream's fixed burst width (n x probe_burst,
+    -1 padded), with the faulty turn's tail: at n = 1024 that is 4,238 steps,
+    more than MAX_M but within the block's shared memory (max_steps(n)); the
+    -1 pads all submit to replica 0 inactive, one long chain. Equal to the
+    plain version."""
+    from repro_torch.kernels.pool_chain import kernel as ck
+    from repro_torch.kernels.pool_chain import ref as cr
+
+    rng = np.random.RandomState(n + bc)
+    k, R = 128, 6
+    assert 8 + bc + k + R <= ck.max_steps(n)
+    fa, sp = rng.rand(n) * 3, rng.rand(n) + 0.05
+    fake = rng.randint(0, n, 8).astype(np.int32)
+    burst = np.full(bc, -1, np.int32)
+    burst[:12] = np.repeat(rng.randint(0, n, 3), 4).astype(np.int32)  # three rejoins
+    workers = rng.randint(0, n, k).astype(np.int32)
+    times, costs = np.sort(rng.rand(k) * 3), rng.exponential(1.0, k)
+    t = [torch.from_numpy(x).to(dev) for x in (fa, sp, fake, burst, workers, times, costs)]
+    tail = [torch.from_numpy(x).to(dev) for x in (rng.randint(0, n, R).astype(np.int32),
+                                                  rng.exponential(1.0, R), rng.rand(R) < 0.7)]
+    want = cr.pool_turn_ref(*t, 0.25, 1.0, *tail)
+    cm = torch.zeros((), dtype=torch.int32, device=dev)
+    got = ck.pool_turn(*t, 0.25, 1.0, tail_w=tail[0], tail_cost=tail[1], tail_gate=tail[2],
+                       chain_max=cm)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(cm) == cr.longest_chain(want[2], n) >= bc - 12
+
+
+LOAD_SPEED_TILE = (2.0, 2.0, 1.0, 1.0, 0.5, 1.5, 1.0, 0.5)
+
+
+def _load_scenario(horizon: float):
+    """chip_smoke.py's [load] cell (64 workers, base rate 40, the Azure shape
+    of benchmarks/loadtest.py, batches of 128) cut to ``horizon`` seconds."""
+    from repro_torch.env.scenario import Scenario
+    from repro_torch.load import AzureLikeTrace
+
+    return Scenario(name="azure_like_load", speeds=tuple(np.tile(LOAD_SPEED_TILE, 8)),
+                    rate=40.0, horizon=horizon,
+                    arrivals=AzureLikeTrace(period=3600.0, depth=0.4, burst_factor=3.0,
+                                            dwell=(120.0, 15.0), cost_sigma=1.2))
+
+
+@pytest.mark.parametrize("use_alias", [True, False])
+def test_stream_on_the_card_equals_the_monolithic_scan(dev, use_alias):
+    """A generated stream through ``run_stream_scan`` on the card, in chunks
+    of 32 turns (windows of 16): responses, μ̂ trace, window records and the
+    final router and pool state equal bit for bit to ``run_workload_scan``
+    on the card over the concatenated chunks (its own capture, one chunk);
+    stream-only gives the same windows; every turn a graph replay. On the
+    alias stream, against the same stream run eagerly on the CPU: responses
+    equal, μ̂ within 8 ulps, windows within tests/test_torch_obs.py's bars
+    (the CDF stream is not held to the CPU's: the card's cumsum orders the
+    cdf's sums otherwise, a few ulps apart, and a draw near a step of the
+    cdf then takes its neighbour, after which the runs part)."""
+    from test_torch_load_scan import MU_ULPS, _same_final_state, _same_runs, _ulps
+    from test_torch_obs import assert_records_equal, assert_windows_within_bars, edge_count
+
+    from repro_torch import obs
+    from repro_torch.load import ScenarioStream, run_stream_scan
+    from repro_torch.serving import router as tr
+    from repro_torch.serving import scanloop as tsl
+
+    scn = _load_scenario(400.0)
+    speeds = np.asarray(scn.speeds, float)
+    ocfg = obs.ObserveConfig(window_turns=16)
+
+    def router(device):
+        return tr.RosellaRouter(64, float(speeds.sum()), seed=0, use_alias=use_alias,
+                                async_mu=False, c_window=10.0, device=device)
+
+    def stream_run(device, cfg=ocfg):
+        r, p = router(device), tr.SimulatedPool(speeds)
+        out = run_stream_scan(r, p, ScenarioStream(scn, seed=0, arrival_batch=128),
+                              chunk_turns=32, fake_cost=0.25, pend_cap=8192, comp_cap=512,
+                              observe=cfg, timing=True)
+        return out, r, p
+
+    got, r1, p1 = stream_run(dev)
+    # the same chunks concatenated (a generated stream's draws depend on the
+    # chunk length: its cost draws interleave with the arrival blocks)
+    parts = list(ScenarioStream(scn, seed=0, arrival_batch=128).chunks(32))
+    cols = {f: np.concatenate([getattr(c, f) for c in parts]) for f in ("times", "costs",
+                                                                         "speeds")}
+    r0, p0 = router(dev), tr.SimulatedPool(speeds)
+    want = tsl.run_workload_scan(r0, p0, cols["times"], cols["costs"], cols["speeds"],
+                                 fake_cost=0.25, pend_cap=8192, comp_cap=512, observe=ocfg)
+    info = got[2]
+    T = len(cols["times"])
+    assert info["replays"] == info["turns"] == T > 100 and info["graph_nodes"]
+    assert len(info["chunks"]) == len(parts)
+    _same_runs(got, want)
+    _same_final_state(r1, p1, r0, p0)
+    so = stream_run(dev, obs.ObserveConfig(window_turns=16, emit_responses=False))[0]
+    assert so[0].size == 0 and so[1].shape == (0, 64)
+    assert_records_equal(so[2]["windows"], info["windows"])
+    if not use_alias:
+        return
+    cpu, _, _ = stream_run("cpu")
+    np.testing.assert_array_equal(got[0], cpu[0])
+    assert int(_ulps(got[1], cpu[1]).max()) <= MU_ULPS
+    assert_windows_within_bars(info["windows"], cpu[2]["windows"], ocfg,
+                               edge_count(got[0], ocfg))
+
+
+def test_faulty_stream_on_the_card_equals_the_monolithic_scan(dev):
+    """crash_storm at n = 64 (the §6.1 speed grid, 0.7·Σ speeds, batches of
+    32, recovery armed) as a ScenarioStream on the card, in chunks of 37
+    with windows of 16 (coprime) and the stream's fixed burst width:
+    responses (NaN = lost), μ̂ trace, windows, ledger and final state equal
+    bit for bit to the monolithic faulty scan on the card; conserved."""
+    from test_torch_load_scan import _pad_burst, _same_final_state, _same_runs
+
+    from repro_torch import env as tenv
+    from repro_torch import obs
+    from repro_torch.configs.rosella_sim import tpch_speed_set
+    from repro_torch.core import metrics as met
+    from repro_torch.load import ScenarioStream, run_stream_scan
+    from repro_torch.serving import recovery as rcv
+    from repro_torch.serving import router as tr
+    from repro_torch.serving import scanloop as tsl
+
+    speeds = tpch_speed_set(64, 0)
+    scn = tenv.make("crash_storm", speeds=tuple(speeds), rate=0.7 * float(speeds.sum()),
+                    horizon=240.0)
+    wl = scn.compile_serving(seed=0, arrival_batch=32)
+    rc = rcv.RecoveryConfig(timeout_mult=8.0, retry_budget=2, retry_cap=4, spec_cap=2,
+                            spec_ratio=3.0)
+    ocfg = obs.ObserveConfig(window_turns=16)
+
+    def router():
+        return tr.RosellaRouter(64, float(speeds.sum()), seed=0, use_alias=True,
+                                async_mu=False, device=dev)
+
+    stream = ScenarioStream(scn, seed=0, arrival_batch=32)
+    r1, p1 = router(), tr.SequentialPool(speeds)
+    got = run_stream_scan(r1, p1, stream, chunk_turns=37, fake_cost=scn.request_cost * 0.25,
+                          recovery=rc, pend_cap=16384, comp_cap=1024,
+                          task_cap=wl.turns * 32, observe=ocfg)
+    r0, p0 = router(), tr.SequentialPool(speeds)
+    want = tsl.run_workload_scan(
+        r0, p0, wl.times, wl.costs, wl.speeds, active_np=wl.active, rejoin_np=wl.rejoin,
+        burst_np=_pad_burst(wl.burst, wl.turns, stream.burst_cap),
+        fake_cost=scn.request_cost * 0.25, kill_np=wl.kill_at, stall_np=wl.stall_at,
+        stall_dur_np=wl.stall_dur, recovery=rc, pend_cap=16384, comp_cap=1024, observe=ocfg)
+    assert got[2]["replays"] == got[2]["turns"] == wl.turns and stream.burst_cap == 256
+    _same_runs(got, want)
+    _same_final_state(r1, p1, r0, p0)
+    led = got[2]["ledger"]
+    assert led["conserved"] and met.check_conservation(led)[0] and led["n_retries"] > 0

@@ -298,7 +298,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                   "repro_torch.obs", "repro_torch.obs.windows", "repro_torch.obs.detect",
                   "repro_torch.obs.slo", "repro_torch.obs.export", "repro_torch.obs.tracing",
                   "repro_torch.fleet", "repro_torch.fleet.conflict", "repro_torch.fleet.state",
-                  "repro_torch.fleet.sync"):
+                  "repro_torch.fleet.sync", "repro_torch.load", "repro_torch.load.traces",
+                  "repro_torch.load.stream"):
             assert m in sys.modules, m
         print("clean")
     """)

@@ -2664,6 +2664,462 @@ def phase_load(torch, tr, tsl, tenv, tload, obs, trcv, chk, D, K, CK, CR, met, s
 
 
 # ---------------------------------------------------------------------------
+# the chain simulator: the paper's figures through sim_chain
+# ---------------------------------------------------------------------------
+
+SIM_SOURCE = "src/repro_torch/kernels/sim_chain/csrc/sim_chain.cu"
+# not a Pallas kernel: the round function under the chain's lax.scan
+SIM_REPLACES = "src/repro/core/simulator.py:553-743"
+SIM_CHECK_ROUNDS = 4000
+# the kernels line's fixed case: Fig. 8's static Rosella run cut to this
+# many rounds, where the plain chain on the card is timed too
+SIM_LINE_ROUNDS = 2000
+SIM_PLAIN_CARD_ROUNDS = 300
+# the chain's serial floor in cycles a round: the f32 add of the clock,
+# now += dt, the one dependence every round has on the one before
+SIM_CHAIN_CYCLES = 4
+FIG9_PROBS = [0.4, 0.3, 0.2, 0.1]
+
+
+def sim_run(RS, dev, policy, speeds, load, rounds, *, learner, fake=None, phases=0,
+            period=120.0, alias=True, bsc=True, mt=1, probs=None, pins=0.0, c_window=10.0,
+            seed=SEED, key=None):
+    """(cfg, params, key) of one chain: ``make_sim`` at the benchmarks'
+    arguments; ``key`` the run's PRNG seed (the benchmarks use ``seed``)."""
+    import dataclasses
+
+    from repro_torch.utils import prng
+
+    cfg, params = RS.make_sim(policy, speeds, load, rounds=rounds, use_learner=learner,
+                              use_fake_jobs=learner if fake is None else fake,
+                              volatile_phases=phases, phase_period=period, c_window=c_window,
+                              max_tasks=mt, task_probs=probs, constrained_frac=pins,
+                              seed=seed, device=dev)
+    cfg = dataclasses.replace(cfg, use_alias=alias, batch_self_correct=bsc)
+    return cfg, params, prng.PRNGKey(seed if key is None else key)
+
+
+def sim_check_groups(RS, dev) -> dict:
+    """The kernel = plain cases, SIM_CHECK_ROUNDS rounds each, by launch."""
+    tpch, zipf = RS.tpch_speed_set(30, SEED), RS.zipf_speeds(15, seed=SEED)
+    R = SIM_CHECK_ROUNDS
+    return {
+        "rosella (6.1 speeds, load 0.8)": [
+            (f"{env} {'alias' if alias else 'cdf'}",
+             sim_run(RS, dev, "ppot_sq2", tpch, 0.8, R, learner=True, phases=phases,
+                     alias=alias))
+            for env, phases in (("static", 0), ("volatile", 6)) for alias in (True, False)],
+        "fig 9 jobs (1-4 tasks, 10% pinned)": [
+            (f"{policy} bsc={bsc}",
+             sim_run(RS, dev, policy, tpch, 0.8, R, learner=learner, mt=4, probs=FIG9_PROBS,
+                     pins=0.1, bsc=bsc))
+            for policy, learner in (("ppot_sq2", True), ("sparrow", False), ("bandit", True))
+            for bsc in (True, False)],
+        "known speeds (zipf 15, load 0.9)": [
+            (policy, sim_run(RS, dev, policy, zipf, 0.9, R, learner=False))
+            for policy in ("pot", "pss", "halo", "ppot_ll2")],
+    }
+
+
+def sim_figures(RS, dev) -> dict:
+    """The figures at the settings of benchmarks/fig8_response_time.py ...
+    fig13_sq2_ll2.py, written out again: label -> [(run label, run,
+    warmup)], one launch each."""
+    tpch, zipf = RS.tpch_speed_set(30, seed=SEED), RS.zipf_speeds(15, seed=SEED)
+    s1, s2 = RS.synthetic_s1(), RS.synthetic_s2()
+    figs = {}
+    figs["fig8"] = [
+        (f"{env}/{name}", sim_run(RS, dev, policy, tpch, 0.8, 120_000, learner=learner,
+                                  phases=phases, period=120.0), 0.3)
+        for env, phases in (("static", 0), ("volatile", 6))
+        for name, policy, learner in (("rosella", "ppot_sq2", True),
+                                      ("sparrow", "sparrow", False))]
+    figs["fig9"] = [
+        (f"{env}/{name}", sim_run(RS, dev, policy, tpch, 0.8, 100_000, learner=learner,
+                                  fake=fake, phases=phases, period=120.0, mt=4,
+                                  probs=FIG9_PROBS, pins=0.1), 0.3)
+        for env, phases in (("static", 0), ("volatile", 6))
+        for name, policy, learner, fake in (("sparrow", "sparrow", False, False),
+                                            ("pot", "pot", False, False),
+                                            ("bandit", "bandit", True, True),
+                                            ("pss_learn", "pss", True, True),
+                                            ("rosella", "ppot_sq2", True, True))]
+    figs["fig10"] = [
+        (f"10a/{name}", sim_run(RS, dev, policy, zipf, 0.9, 80_000, learner=False), 0.0)
+        for name, policy in (("pot", "pot"), ("ppot", "ppot_sq2"), ("pss", "pss"))] + [
+        (f"10b/{load}/{name}", sim_run(RS, dev, policy, zipf, load, 40_000, learner=False),
+         0.3)
+        for load in (0.5, 0.7, 0.9)
+        for name, policy in (("ppot", "ppot_sq2"), ("pss", "pss"), ("halo", "halo"),
+                             ("pot", "pot"))]
+    figs["fig11"] = [
+        (f"{sname}/{load}/{name}", sim_run(RS, dev, policy, sp, load, 90_000,
+                                           learner=learner, fake=fake, phases=8,
+                                           period=60.0), 0.3)
+        for sname, sp in (("S1", s1), ("S2", s2)) for load in (0.6, 0.85)
+        for name, policy, learner, fake in (("pot", "pot", False, False),
+                                            ("bandit", "bandit", True, True),
+                                            ("pss_learn", "pss", True, True),
+                                            ("rosella", "ppot_sq2", True, True))]
+    figs["fig12"] = [
+        (f"{sname}/{name}", sim_run(RS, dev, "ppot_sq2", sp, 0.85, 90_000, learner=True,
+                                    fake=fake, c_window=c, phases=8, period=60.0), 0.3)
+        for sname, sp in (("S1", s1), ("S2", s2))
+        for name, fake, c in [("fake", True, 10.0)] + [(f"w{c}", False, float(c))
+                                                       for c in (10, 20, 30, 40)]]
+    figs["fig13"] = [
+        (name, sim_run(RS, dev, policy, s1, 0.85, 120_000, learner=False), 0.3)
+        for name, policy in (("sq2", "ppot_sq2"), ("ll2", "ppot_ll2"))]
+    return figs
+
+
+def response_stats(m, censor_penalty=None) -> dict:
+    """benchmarks/common.py's summary of an ``analyze`` record."""
+    r = m.response_times
+    out = {"n": int(m.num_jobs), "censored_frac": m.censored / max(m.num_jobs, 1)}
+    if censor_penalty is not None and m.censored:
+        r = np.concatenate([r, np.full(m.censored, censor_penalty)])
+    if r.size:
+        out.update(mean=float(np.mean(r)), p5=float(np.percentile(r, 5)),
+                   p25=float(np.percentile(r, 25)), p50=float(np.percentile(r, 50)),
+                   p75=float(np.percentile(r, 75)), p95=float(np.percentile(r, 95)))
+    else:
+        out.update(mean=float("inf"), p5=0, p25=0, p50=0, p75=0, p95=float("inf"))
+    return out
+
+
+def figure_claims(fig: str, runs: dict) -> list:
+    """Each claim the benchmark prints, with its truth value and figures."""
+    st = {k: r["stats"] for k, r in runs.items()}
+    if fig == "fig8":
+        return [("rosella_beats_sparrow static (mean < 0.5 x sparrow's)",
+                 st["static/rosella"]["mean"] < 0.5 * st["static/sparrow"]["mean"]),
+                ("rosella_beats_sparrow volatile",
+                 st["volatile/rosella"]["mean"] < st["volatile/sparrow"]["mean"])]
+    if fig == "fig9":
+        best = min((k for k in st if "static" in k), key=lambda k: st[k]["mean"])
+        return [(f"rosella_best_static (best={best})", best == "static/rosella")]
+    if fig == "fig10":
+        a = {k: runs[k]["extra"] for k in runs if k.startswith("10a/")}
+        out = [("pot_nonstationary at 0.9 (pot growth > 2 or censored > 0.2, ppot growth < 2)",
+                (a["10a/pot"]["growth"] > 2.0 or a["10a/pot"]["censored"] > 0.2)
+                and a["10a/ppot"]["growth"] < 2.0)]
+        for load in (0.5, 0.7, 0.9):
+            eff = {}
+            for name in ("ppot", "pss", "halo", "pot"):
+                s = st[f"10b/{load}/{name}"]
+                eff[name] = s["mean"] if s["censored_frac"] < 0.05 else s["mean"] * (
+                    1 + 20 * s["censored_frac"])
+            out.append((f"ppot_best_load{load}", min(eff, key=eff.get) == "ppot"))
+        return out
+    if fig == "fig11":
+        out = []
+        for sname in ("S1", "S2"):
+            for load in (0.6, 0.85):
+                eff = {name: st[f"{sname}/{load}/{name}"]["mean"]
+                       * (1 + 20 * st[f"{sname}/{load}/{name}"]["censored_frac"])
+                       for name in ("pot", "bandit", "pss_learn", "rosella")}
+                out.append((f"rosella_best_{sname}_load{load}",
+                            min(eff, key=eff.get) == "rosella"))
+        return out
+    if fig == "fig12":
+        out = []
+        for sname in ("S1", "S2"):
+            fake = st[f"{sname}/fake"]["mean"]
+            best = min(st[f"{sname}/w{w}"]["mean"] for w in (10, 20, 30, 40))
+            out.append((f"fake_jobs_help_{sname} (fake {fake:.4f}, best window {best:.4f})",
+                        fake <= best * 1.05))
+        return out
+    ratio = {k: runs[k]["extra"]["ratio"] for k in runs}
+    return [(f"ll2_congests_fast_worker (sq2 ratio {ratio['sq2']:.4f}, ll2 ratio "
+             f"{ratio['ll2']:.4f})", ratio["ll2"] > 2.0 * ratio["sq2"])]
+
+
+def sim_kernel_equals_plain(torch, tsim, groups, dev) -> dict:
+    """Each group's draws made once on the card, the kernel run on them and
+    the plain chain on the same draws copied to the CPU: every trace column
+    and every field of the final state equal. Also how the card's draws
+    differ from the CPU's for the same keys."""
+    out = {}
+    for gname, cases in groups.items():
+        runs = [run for _, run in cases]
+        t0 = time.perf_counter()
+        draws = [tsim.draw_rounds(cfg, p, key, dev) for cfg, p, key in runs]
+        got = tsim.simulate_many(runs, dev, draws)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cpu_runs = [(cfg, p.to("cpu"), key) for cfg, p, key in runs]
+        cpu_draws = [{k: v.cpu() for k, v in d.items()} for d in draws]
+        want = tsim.simulate_many(cpu_runs, "cpu", cpu_draws)
+        t2 = time.perf_counter()
+        own = [tsim.draw_rounds(cfg, p, key, "cpu") for cfg, p, key in cpu_runs]
+        diff = {"ev": 0, "n_tasks": 0, "dt_max_ulps": 0}
+        err = 0.0
+        for (label, _), (gs, gt), (ws, wt), d_card, d_cpu in zip(cases, got, want,
+                                                                 cpu_draws, own):
+            for name in wt:
+                g, w = gt[name].cpu(), wt[name]
+                if g.numel():
+                    err = max(err, (g.double() - w.double()).abs().max().item())
+                need(torch.equal(g, w),
+                     f"[sim] {gname} {label}: sim_chain's {name} differs from the plain chain")
+            for f in ("now", "q_real", "q_fake", "s_real", "busy_start"):
+                need(torch.equal(getattr(gs, f).cpu(), getattr(ws, f)),
+                     f"[sim] {gname} {label}: final {f} differs from the plain chain")
+            for f in ("samples", "stamps", "widx", "count", "epoch_start", "mu_hat"):
+                need(torch.equal(getattr(gs.learner, f).cpu(), getattr(ws.learner, f)),
+                     f"[sim] {gname} {label}: final learner.{f} differs")
+            for f in ("times", "idx", "count", "lam_hat"):
+                need(torch.equal(getattr(gs.arr, f).cpu(), getattr(ws.arr, f)),
+                     f"[sim] {gname} {label}: final arr.{f} differs")
+            for k in ("u_svc", "u_fake", "u", "j_fake", "pins", "j"):
+                need(torch.equal(d_card[k], d_cpu[k]),
+                     f"[sim] {gname} {label}: the card's {k} draws differ from the CPU's")
+            for k in ("ev", "n_tasks"):  # categorical: torch's log on each device
+                diff[k] += int((d_card[k] != d_cpu[k]).sum())
+            a, b = d_card["dt"].numpy().view(np.int32), d_cpu["dt"].numpy().view(np.int32)
+            diff["dt_max_ulps"] = max(diff["dt_max_ulps"],
+                                      int(np.abs(a.astype(np.int64) - b).max()))
+        rounds = sum(cfg.rounds for cfg, _, _ in runs)
+        out[gname] = dict(chains=len(runs), rounds=rounds, card_s=t1 - t0, plain_cpu_s=t2 - t1,
+                          max_abs_err=err, draws_card_vs_cpu=diff,
+                          labels=[label for label, _ in cases])
+        print(f"[sim] kernel = plain chain: {gname}: {len(runs)} chains x "
+              f"{SIM_CHECK_ROUNDS} rounds ({', '.join(out[gname]['labels'])}) in one launch, "
+              f"every trace column and the final state equal bit for bit (card {t1 - t0:.2f} s "
+              f"with its draws, plain chain on the CPU {t2 - t1:.2f} s); card draws vs the "
+              f"CPU's for the same keys: uniforms and integer draws equal, categorical "
+              f"ev {diff['ev']} / n_tasks {diff['n_tasks']} rounds differ, dt within "
+              f"{diff['dt_max_ulps']} ulp")
+    return out
+
+
+def sim_figure(torch, tsim, fig, runs, dev) -> dict:
+    """One figure's runs through one sim_chain launch, each analysed."""
+    from repro_torch.core import metrics as M
+
+    t0 = time.perf_counter()
+    draws = [tsim.draw_rounds(cfg, p, key, dev) for _, (cfg, p, key), _ in runs]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    outs = tsim.simulate_many([run for _, run, _ in runs], dev, draws)
+    e1.record()
+    torch.cuda.synchronize()
+    launch_s = e0.elapsed_time(e1) / 1e3
+    t2 = time.perf_counter()
+    rec = {}
+    for (label, (cfg, params, _), warm), (_, tr) in zip(runs, outs):
+        for name in ("now", "lam_hat", "mu_hat"):
+            need(bool(torch.isfinite(tr[name]).all()), f"[sim] {fig} {label}: {name} not finite")
+        need(tuple(tr["q_real"].shape) == (cfg.rounds, cfg.n)
+             and tuple(tr["task_workers"].shape) == (cfg.rounds, cfg.max_tasks),
+             f"[sim] {fig} {label}: trace shapes")
+        m = M.analyze(tr, n=cfg.n, warmup_frac=warm)
+        st = response_stats(m)
+        r = {"rounds": cfg.rounds, "rounds_per_s": cfg.rounds / launch_s, "stats": st,
+             "extra": {}}
+        if fig == "fig8":
+            rt = m.response_times
+            slow = float(np.mean(rt > 20.0)) if rt.size else 1.0
+            r["extra"]["frac_gt20"] = (slow * rt.size + m.censored) / max(rt.size + m.censored, 1)
+        if fig == "fig10" and label.startswith("10a/"):
+            rt = m.response_times
+            half = max(len(rt) // 2, 1)
+            r["extra"]["growth"] = (float(np.mean(rt[half:]) / max(np.mean(rt[:half]), 1e-9))
+                                    if len(rt) > 10 else float("inf"))
+            r["extra"]["censored"] = m.censored / max(m.num_jobs, 1)
+        if fig == "fig13":  # the fastest and slowest workers' mean queues
+            speeds = params.mu_schedule[0].cpu().numpy()
+            fast, slow_w = int(np.argmax(speeds)), int(np.argmin(speeds))
+            means = {}
+            for w in (fast, slow_w):
+                hist = M.queue_length_histogram(tr, w)
+                means[w] = float(np.sum(np.arange(len(hist)) * hist))
+            r["extra"] = {"fast_mean_q": means[fast], "slow_mean_q": means[slow_w],
+                          "ratio": means[fast] / max(means[slow_w], 1e-3)}
+        rec[label] = r
+    t3 = time.perf_counter()
+    claims = figure_claims(fig, rec)
+    chains = len(runs)
+    print(f"[sim] {fig}: {chains} chains in one launch, {launch_s * 1e3:.3f} ms "
+          f"(draws {t1 - t0:.3f} s, analyze {t3 - t2:.3f} s)")
+    for label, r in rec.items():
+        s = r["stats"]
+        extra = "".join(f", {k} {v:.6g}" for k, v in r["extra"].items())
+        print(f"[sim] {fig} {label}: {r['rounds']} rounds, {r['rounds_per_s']:.1f} rounds/s "
+              f"in the launch; jobs {s['n']}, mean {s['mean']:.6g}, p50 {s['p50']:.6g}, "
+              f"p95 {s['p95']:.6g}, censored {s['censored_frac']:.6g}{extra}")
+    for claim, ok in claims:
+        print(f"[sim] {fig} claim {claim}: {bool(ok)}")
+    return dict(chains=chains, launch_ms=launch_s * 1e3, draws_s=t1 - t0, analyze_s=t3 - t2,
+                runs=rec, claims={c: bool(ok) for c, ok in claims})
+
+
+def sim_theory(torch, tsim, RS, TH, dev) -> dict:
+    """tests/test_theory.py at its settings (20 equal workers, load 0.8,
+    80,000 rounds, seed 4, known speeds, no benchmark jobs), one launch:
+    Lemma 4's doubly exponential tail and the max-queue gap, the
+    reference's own assertions, must hold."""
+    from repro_torch.core import metrics as M
+
+    runs = [sim_run(RS, dev, policy, np.ones(20), 0.8, 80_000, learner=False, key=4)
+            for policy in ("ppot_sq2", "pss")]
+    (_, tp), (_, ts) = tsim.simulate_many(runs, dev)
+    tail_ppot, tail_pss = M.stationary_tail(tp), M.stationary_tail(ts)
+
+    def at(t, k):
+        return float(t[k]) if k < len(t) else 0.0
+
+    q_ppot, q_pss = int(tp["q_real"].max()), int(ts["q_real"].max())
+    bound = TH.max_queue_ppot(20, 0.8)
+    checks = {
+        "tail k=3: ppot < 0.6 x pss": at(tail_ppot, 3) < 0.6 * at(tail_pss, 3) + 1e-9,
+        "tail k=5: ppot < 0.05": at(tail_ppot, 5) < 0.05,
+        "tail k=5: pss > ppot": at(tail_pss, 5) > at(tail_ppot, 5),
+        "max queue: ppot <= pss": q_ppot <= q_pss,
+        "max queue: ppot <= max_queue_ppot(20, 0.8) + 3": q_ppot <= bound + 3,
+    }
+    print(f"[sim] theory (20 equal workers, load 0.8, 80000 rounds, seed 4, known speeds): "
+          f"P[q >= k] ppot {[round(at(tail_ppot, k), 6) for k in range(6)]}, pss "
+          f"{[round(at(tail_pss, k), 6) for k in range(6)]} (alpha^(2^k-1) "
+          f"{[round(float(TH.ppot_tail(0.8, k)), 6) for k in range(6)]}); max queue ppot "
+          f"{q_ppot}, pss {q_pss}, max_queue_ppot(20, 0.8) = {bound}")
+    for name, ok in checks.items():
+        print(f"[sim] theory {name}: {ok}")
+        need(ok, f"[sim] theory: {name} does not hold")
+    return dict(tail_ppot=[at(tail_ppot, k) for k in range(6)],
+                tail_pss=[at(tail_pss, k) for k in range(6)], max_q_ppot=q_ppot,
+                max_q_pss=q_pss, max_queue_ppot=bound)
+
+
+def phase_sim(torch, RS, TH, dev, card) -> tuple[dict, dict]:
+    """The [sim] cells; returns the records and the main path's launches."""
+    from repro_torch.core import simulator as tsim
+    from repro_torch.kernels.sim_chain import kernel as SK
+
+    t0 = time.perf_counter()
+    print(f"[sim] {card}; the paper's chain in its own mode (one frontend synced every "
+          f"round), through sim_chain, seed {SEED}")
+    checks = sim_kernel_equals_plain(torch, tsim, sim_check_groups(RS, dev), dev)
+    figures = sim_figures(RS, dev)
+    SK.reset_launches()
+    figs = {fig: sim_figure(torch, tsim, fig, runs, dev) for fig, runs in figures.items()}
+    theory = sim_theory(torch, tsim, RS, TH, dev)
+    launches = SK.launch_counts()
+    need(launches["sim_chain"] == len(figures) + 1,
+         f"[sim] sim_chain launched {launches['sim_chain']} times on the main path, "
+         f"expected one a figure and one for the theory checks")
+    secs = time.perf_counter() - t0
+    print(f"[sim] {len(checks)} kernel = plain launches, {len(figs)} figures "
+          f"({sum(f['chains'] for f in figs.values())} chains) and the theory checks in "
+          f"{secs:.1f} s; main-path launches {json.dumps(launches)}")
+    return dict(checks=checks, figures=figs, theory=theory, seconds=secs), launches
+
+
+def sim_line_bytes(args, T: int, n: int, mt: int, cap: int, S: int) -> int:
+    """The bytes a sim_chain call must move: every input read once (the
+    configs, the speeds, μ̂0 and the draw columns of its T rounds) and every
+    output written once (the trace rows and the final state)."""
+    conf_i, conf_f, sched, mu0, cols = args
+    C = conf_i.shape[0]
+    ins = sum(t.numel() * t.element_size() for t in (conf_i, conf_f, sched, mu0))
+    ins += sum(v[:, :T].numel() * v.element_size() for v in cols.values())
+    trace = C * T * 4 * (11 + 2 * mt + 2 * n)  # 11 scalar columns, 2 of mt, 2 of n
+    final = C * 4 * (9 * n + 2 * n * cap + S + 4)
+    return ins + trace + final
+
+
+def sim_line_ops(trace: dict, n: int, refresh: int, cap: int) -> int:
+    """The chain's float operations on these inputs: the clock's add a
+    round, the estimator's two a arrival, the acceptance division and the
+    sample's subtraction a service or benchmark event, and at each refresh
+    at most ring_cap adds and ten scalar operations a worker."""
+    code = trace["code"]
+    T = code.shape[0]
+    arrivals = int((code == 0).sum())
+    refreshes = (T + refresh - 1) // refresh
+    return T + 2 * arrivals + 2 * (T - arrivals) + refreshes * n * (cap + 10)
+
+
+def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
+    """sim_chain alone by event pairs: Fig. 8's static Rosella run at its
+    120,000 rounds (one chain), Fig. 8's batch of four, and the kernels
+    line's case (the Rosella run cut to SIM_LINE_ROUNDS), with its plain
+    chain on the card and its bound; draw_rounds and analyze per run."""
+    from repro_torch.core import metrics as M
+    from repro_torch.core import simulator as tsim
+    from repro_torch.kernels.sim_chain import kernel as SK
+    from repro_torch.kernels.sim_chain import ref as SR
+
+    def event_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        return float(np.median(ts))
+
+    fig8 = [run for _, run, _ in sim_figures(RS, dev)["fig8"]]
+    cfg, params, key = fig8[0]  # static Rosella
+    draws = tsim.draw_rounds(cfg, params, key, dev)
+    args, shape = tsim.chain_inputs([fig8[0]], [draws], dev)
+    full_ms = event_ms(lambda: SK.sim_chain(*args, **shape), 3)
+    batch_args, _ = tsim.chain_inputs(fig8, [tsim.draw_rounds(c, p, k, dev)
+                                             for c, p, k in fig8], dev)
+    batch_ms = event_ms(lambda: SK.sim_chain(*batch_args, **shape), 3)
+    draw_ms = host_median_ms(torch, lambda: tsim.draw_rounds(cfg, params, key, dev), 3)
+    _, trace = SK.sim_chain(*args, **shape)
+    tr0 = {k: v[0] for k, v in trace.items()}
+    analyze_ms = host_median_ms(torch, lambda: M.analyze(tr0, n=cfg.n, warmup_frac=0.3), 3)
+
+    R = SIM_LINE_ROUNDS
+    import dataclasses
+    cut = (dataclasses.replace(cfg, rounds=R), params, key)
+    cut_args, _ = tsim.chain_inputs([cut], [{k: v[:R] for k, v in draws.items()}], dev)
+    ms = event_ms(lambda: SK.sim_chain(*cut_args, **shape), 20)
+    _, cut_trace = SK.sim_chain(*cut_args, **shape)
+    P = SIM_PLAIN_CARD_ROUNDS
+    plain_cut = (dataclasses.replace(cfg, rounds=P), params, key)
+    plain_args, _ = tsim.chain_inputs([plain_cut], [{k: v[:P] for k, v in draws.items()}], dev)
+    plain_round_ms = host_median_ms(torch, lambda: SR.sim_chain_ref(*plain_args, **shape),
+                                    3) / P
+    plain_ms = host_median_ms(torch, lambda: SR.sim_chain_ref(*cut_args, **shape), 1)
+    nbytes = sim_line_bytes(cut_args, R, cfg.n, cfg.max_tasks, cfg.ring_cap,
+                            cfg.arrival_window)
+    ops = sim_line_ops({k: v[0] for k, v in cut_trace.items()}, cfg.n, cfg.learner_refresh,
+                       cfg.ring_cap)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / 67e12 * 1e3  # f32 outside the tensor cores
+    chain_ms = R * SIM_CHAIN_CYCLES / (mhz * 1e6) * 1e3
+    full_chain_ms = cfg.rounds * SIM_CHAIN_CYCLES / (mhz * 1e6) * 1e3
+    rec = dict(ms=ms, plain_ms=plain_ms, plain_round_ms=plain_round_ms,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
+               ops=ops, chain_ms=chain_ms, rounds=R, full_rounds=cfg.rounds, full_ms=full_ms,
+               full_chain_ms=full_chain_ms, batch_ms=batch_ms, batch_chains=len(fig8),
+               draw_ms=draw_ms, analyze_ms=analyze_ms, floor_ms=floor_ms, library_ms=None)
+    print(f"[times] sim_chain, Fig. 8's static Rosella run (n=30, PPoT-SQ(2), learner and "
+          f"benchmark jobs): {cfg.rounds} rounds, one chain {full_ms:.6f} ms "
+          f"({cfg.rounds / full_ms * 1e3:.1f} rounds/s; chain floor {full_chain_ms:.6f} ms at "
+          f"{SIM_CHAIN_CYCLES} cycles a round, {mhz:.0f} MHz); Fig. 8's {len(fig8)} chains in "
+          f"one launch {batch_ms:.6f} ms; draw_rounds {draw_ms:.6f} ms, analyze "
+          f"{analyze_ms:.6f} ms a run (host clock)")
+    print(f"[times] sim_chain at {R} rounds of that run: kernel {ms:.6f} ms, plain chain on "
+          f"the card {plain_ms:.6f} ms ({plain_round_ms:.6f} ms a round over {P} rounds), "
+          f"bound {rec['bound_ms']:.9f} ms ({rec['bound_by']}: {nbytes} B at 3.35 TB/s = "
+          f"{bytes_ms:.9f} ms; {ops} f32 operations at 67 TFLOP/s = {ops_ms:.9f} ms), chain "
+          f"floor {chain_ms:.6f} ms, launch floor {floor_ms:.6f} ms, library call: none")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # model serving: flash attention, prefill, engines behind the router
 # ---------------------------------------------------------------------------
 
@@ -3722,8 +4178,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device")
     try:
+        from repro_torch.configs import rosella_sim as RS
         from repro_torch.configs.rosella_sim import tpch_speed_set
         from repro_torch.core import dispatch as D
+        from repro_torch.core import theory as TH
         from repro_torch.core import policies as P
         from repro_torch import env as tenv
         from repro_torch import load as tload
@@ -3740,6 +4198,7 @@ def main() -> int:
         from repro_torch.kernels.pool_chain import build as pool_build
         from repro_torch.kernels.pool_chain import kernel as CK
         from repro_torch.kernels.pool_chain import ref as CR
+        from repro_torch.kernels.sim_chain import build as sim_build
         from repro_torch.kernels.ssd_scan import build as ssd_build
         from repro_torch.kernels.ssd_scan import kernel as SK
         from repro_torch.kernels.ssd_scan import ops as SO
@@ -3759,7 +4218,8 @@ def main() -> int:
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
     t0 = t_start = time.perf_counter()
-    libs = (build.LIBRARY, flash_build.LIBRARY, ssd_build.LIBRARY, pool_build.LIBRARY)
+    libs = (build.LIBRARY, flash_build.LIBRARY, ssd_build.LIBRARY, pool_build.LIBRARY,
+            sim_build.LIBRARY)
     _nvcc.build_all(*libs)
     print(f"[build] {', '.join(lib.library_path().name for lib in libs)} "
           f"in {time.perf_counter() - t0:.2f} s (one nvcc each, at once)")
@@ -3788,6 +4248,7 @@ def main() -> int:
                                          card)
     load, load_launches, load_pool_err = phase_load(torch, tr, tsl, tenv, tload, obs, trcv, chk,
                                                     D, K, CK, CR, met, speeds, dev, card, faults)
+    sim, sim_launches = phase_sim(torch, RS, TH, dev, card)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
@@ -3805,6 +4266,7 @@ def main() -> int:
     times, floor_ms, mhz = phase_times(torch, K, R, D, build, dev)
     pool_times = phase_pool_chain_times(torch, CK, CR, pool_build, dev, mhz, floor_ms,
                                         real_turns)
+    sim_times = phase_sim_times(torch, dev, RS, mhz, floor_ms)
     pool_turn_times = {(m, t): pool_times[real_turn_label(m, t, r["n"], r["M"])]
                        for m in REAL_TURN_MODES
                        for t, r in scan_cells[m]["real_turns"].items()}
@@ -3858,6 +4320,16 @@ def main() -> int:
         max_abs_err=max(pool_err, load_pool_err), ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=None,
         real_turn_ms=pool_turn_times[("a", W)]["ms"]))
+    # Fig. 8's static Rosella run cut to SIM_LINE_ROUNDS rounds, where the
+    # plain chain on the card is timed too; full_ms: its 120,000 rounds
+    kernels.append(dict(
+        name="sim_chain", route="cuda", source=SIM_SOURCE, replaces=SIM_REPLACES,
+        launches=sim_launches["sim_chain"],
+        max_abs_err=max(c["max_abs_err"] for c in sim["checks"].values()), ms=sim_times["ms"],
+        plain_ms=sim_times["plain_ms"], bound_ms=sim_times["bound_ms"],
+        bound_by=sim_times["bound_by"], library_ms=None, rounds=sim_times["rounds"],
+        chain_ms=sim_times["chain_ms"], full_rounds=sim_times["full_rounds"],
+        full_ms=sim_times["full_ms"]))
     t = flash_times["main"]
     kernels.append(dict(
         name="flash_attention_fwd", route="cuda", source=FLASH_SOURCE,
@@ -3882,6 +4354,8 @@ def main() -> int:
     print(f"[summary] policies {json.dumps(policies)}")
     print(f"[summary] fleet {json.dumps(fleet)}")
     print(f"[summary] load {json.dumps(load)}")
+    print(f"[summary] sim {json.dumps(sim)}")
+    print(f"[summary] sim_chain times {json.dumps(sim_times)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")
     print(f"[summary] profile prefill {json.dumps(prof_prefill)} decode "

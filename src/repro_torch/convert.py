@@ -1,5 +1,5 @@
-"""Carry a router's learned state, and a model's parameters and decode
-cache, across from the JAX package.
+"""Carry a router's learned state, a model's parameters and decode cache,
+and the chain simulator's params across from the JAX package.
 
 For a scheduler the learned state plays the part of weights: the queue
 view, the arrival estimator, the learner's rings and μ̂, the routing
@@ -167,3 +167,19 @@ def lm_cache_from_numpy(cfg, tree: dict, device=None) -> list:
                         "h": t(h, torch.float32)}
         out.append(c)
     return out
+
+
+#: the chain simulator's params, by the reference's field names
+SIM_PARAMS = ("lam", "mu_schedule", "phase_period", "mu_bar", "mu_hat0", "task_logits",
+              "lb_weights")
+
+
+def sim_params_from_reference(d: dict, device=None):
+    """The port's ``core.simulator.SimParams`` from the reference's
+    ``SimParams`` leaves given as numpy arrays (name -> array, the names in
+    ``SIM_PARAMS``), as float32 tensors on ``device`` (``None``: the card)."""
+    from repro_torch.core.simulator import SimParams
+
+    dev = resolve_device(device)
+    return SimParams(**{k: torch.from_numpy(np.array(d[k], np.float32)).to(dev)
+                        for k in SIM_PARAMS})

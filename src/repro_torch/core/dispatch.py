@@ -14,7 +14,9 @@ batch's own placements fold back into the view. Sparrow water-fills its
 d·B probes instead (``sparrow_select``). ``fold_chunks=C`` re-snapshots
 the queue between C sub-chunks; ``C = B`` is per-task sequential placement,
 kept as the oracle ``dispatch_sequential``. ``mask`` (bool[n]) restricts
-every draw to active workers.
+every draw to active workers, and ``forced`` (i32[B]) pins slots to given
+workers (the chain simulator's placement-constrained tasks). ``place`` is
+the engine after its draws, for callers that hold the draws already.
 
 Kernels: every C = 1 PPoT-SQ(2) batch goes through a kernel wrapper,
 which launches the kernel on CUDA tensors and runs its plain version only
@@ -330,56 +332,94 @@ def dispatch(
     B: int,
     *,
     active: torch.Tensor | None = None,  # bool[B]; inactive slots place nothing
+    forced: torch.Tensor | None = None,  # i32[B]; >= 0 pins the slot to that worker
     fold_chunks: int = 1,
     table: AliasTable | None = None,  # alias table built from THIS mu_hat
     mask: torch.Tensor | None = None,  # bool[n] membership
 ) -> DispatchResult:
     """Place ``B`` tasks in one engine call; see the module docstring.
     Sparrow ignores ``fold_chunks`` (water-filling already folds every
-    placement back) and ``table``."""
+    placement back) and ``table``. ``forced`` pins are the caller's
+    contract (pin to active workers); see ``place``."""
     n = q.shape[0]
     if policy == pol.SPARROW:
-        act = torch.ones(B, dtype=torch.bool, device=q.device) if active is None else active
-        probes = _draws(policy, key, B, n, cfg, mu_hat, mu_true, mask=mask)["probes"]
-        seq = sparrow_select(q, probes, B, act.sum(dtype=torch.int32))
-        slot_rank = torch.cumsum(act.to(torch.int32), 0, dtype=torch.int32) - 1
-        return _fold(q, seq[slot_rank.clamp(0, B - 1).long()], act)
+        d = _draws(policy, key, B, n, cfg, mu_hat, mu_true, mask=mask)
+        return place(policy, d, q, mu_hat, B, active=active, forced=forced)
     C, Bp = _chunking(B, fold_chunks)
     if C == 1 and policy == pol.PPOT_SQ2:
-        return _dispatch_batch(key, B, q, mu_hat, active, table, mask, cfg)
-    act = active
-    if Bp != B:
-        pad = torch.zeros(Bp - B, dtype=torch.bool, device=q.device)
-        head = torch.ones(B, dtype=torch.bool, device=q.device) if act is None else act
-        act = torch.cat([head, pad])
+        return _dispatch_batch(key, B, q, mu_hat, active, forced, table, mask, cfg)
     d = _draws(policy, key, Bp, n, cfg, mu_hat, mu_true, table=table, mask=mask)
+    return place(policy, d, q, mu_hat, B, active=active, forced=forced,
+                 fold_chunks=fold_chunks)
+
+
+def place(policy: str, d: dict, q: torch.Tensor, mu_hat: torch.Tensor, B: int, *,
+          active: torch.Tensor | None = None, forced: torch.Tensor | None = None,
+          fold_chunks: int = 1) -> DispatchResult:
+    """The engine after its draws: ``d`` as ``_draws`` makes it for the
+    padded batch (probes, or j1/j2/j_uni/explore), selected with tensor ops.
+
+    A slot whose ``forced`` entry is >= 0 takes that worker instead of its
+    selection, and the pin folds back into the view that later chunks see
+    like any other placement. Sparrow folds the active pins into the fill's
+    snapshot first and water-fills the other active slots around them."""
+    dev = q.device
+    if policy == pol.SPARROW:
+        act = torch.ones(B, dtype=torch.bool, device=dev) if active is None else active
+        pin = torch.zeros_like(act) if forced is None else (forced >= 0) & act
+        q_fill = q if forced is None else q + fold_counts(q, forced.clamp(min=0), pin)
+        unpinned = act & ~pin
+        seq = sparrow_select(q_fill, d["probes"], B, unpinned.sum(dtype=torch.int32))
+        slot_rank = torch.cumsum(unpinned.to(torch.int32), 0, dtype=torch.int32) - 1
+        workers = seq[slot_rank.clamp(0, B - 1).long()]
+        if forced is not None:
+            workers = torch.where(pin, forced, workers)
+        return _fold(q, workers, act)
+    C, Bp = _chunking(B, fold_chunks)
+    act, pins = active, forced
+    if Bp != B:
+        pad = torch.zeros(Bp - B, dtype=torch.bool, device=dev)
+        head = torch.ones(B, dtype=torch.bool, device=dev) if act is None else act
+        act = torch.cat([head, pad])
+        if pins is not None:
+            pins = torch.cat([pins, pins.new_full((Bp - B,), -1)])
     if C == 1:
-        return _fold(q, _select(policy, q, d, mu_hat), act)
+        workers = _select(policy, q, d, mu_hat)
+        if pins is not None:
+            workers = torch.where(pins >= 0, pins, workers)
+        return _fold(q, workers, act)
     chunks = {name: v.view(C, -1) for name, v in d.items()}
-    acts = (torch.ones(Bp, dtype=torch.bool, device=q.device)
-            if act is None else act).view(C, -1)
+    acts = (torch.ones(Bp, dtype=torch.bool, device=dev) if act is None else act).view(C, -1)
+    pin_chunks = None if pins is None else pins.view(C, -1)
     qv, ws = q, []
     for c in range(C):  # re-snapshot the queue after every chunk
         w = _select(policy, qv, {name: v[c] for name, v in chunks.items()}, mu_hat)
+        if pin_chunks is not None:
+            w = torch.where(pin_chunks[c] >= 0, pin_chunks[c], w)
         qv = qv + fold_counts(qv, w, acts[c])
         ws.append(w)
     workers = torch.cat(ws)[:B].to(torch.int32)
     return _fold(q, workers, None if act is None else act[:B])
 
 
-def _dispatch_batch(key, B: int, q, mu_hat, active, table, mask, cfg) -> DispatchResult:
+def _dispatch_batch(key, B: int, q, mu_hat, active, forced, table, mask,
+                    cfg) -> DispatchResult:
     """PPoT-SQ(2) at C = 1: one snapshot for the whole batch, through the
-    kernel wrappers."""
+    kernel wrappers. Pinned slots take their pins after the selection, so
+    the batch is folded here rather than in the fused kernel."""
     d = _draws(pol.PPOT_SQ2, key, B, q.shape[0], cfg, mu_hat, mu_hat, need_j=False,
                table=table, mask=mask)
     if table is not None:
         workers, q_after = kernel.ppot_dispatch_fused_alias(
             table.prob, table.alias, q, d["u1"], d["v1"], d["u2"], d["v2"])
-    elif active is None and mask is None:
+    elif active is None and mask is None and forced is None:
         workers, q_after = kernel.ppot_dispatch_fused(d["cdf"], q, d["u1"], d["u2"])
     else:
-        return _fold(q, kernel.ppot_dispatch(d["cdf"], q, d["u1"], d["u2"]), active)
-    if active is not None:  # the kernel folded every slot: refold the active ones
+        workers, q_after = kernel.ppot_dispatch(d["cdf"], q, d["u1"], d["u2"]), None
+    if forced is not None:
+        workers = torch.where(forced >= 0, forced, workers)
+    if q_after is None or forced is not None or active is not None:
+        # pins, or a kernel that folded every slot: fold the active ones here
         return _fold(q, workers, active)
     return DispatchResult(workers=workers, q_after=q_after)
 
@@ -395,8 +435,8 @@ def _fold(q, workers, act) -> DispatchResult:
 
 
 def dispatch_sequential(policy: str, key, q, mu_hat, mu_true, cfg, B: int, *,
-                        active=None, table: AliasTable | None = None,
+                        active=None, forced=None, table: AliasTable | None = None,
                         mask: torch.Tensor | None = None) -> DispatchResult:
     """Oracle: the same draws, folded back after every task."""
     return dispatch(policy, key, q, mu_hat, mu_true, cfg, B, active=active,
-                    fold_chunks=B, table=table, mask=mask)
+                    forced=forced, fold_chunks=B, table=table, mask=mask)

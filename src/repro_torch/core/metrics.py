@@ -3,10 +3,145 @@ the adaptation-time metric of the environment engine (``repro_torch.env``),
 the fault-run ledger checks of the recovery layer (``serving.recovery``),
 the load harness's whole-horizon report from window records
 (``calibration_report``) and the frontend fleet's health summary
-(``fleet_summary``), copied from the JAX package's ``core/metrics.py``."""
+(``fleet_summary``), copied from the JAX package's ``core/metrics.py``, and the chain
+simulator's trace analysis (``analyze``, ``percentiles``,
+``queue_length_histogram``, ``estimate_error``, ``stationary_tail``),
+copied from the same file; these take numpy arrays or tensors on any
+device (a tensor is copied to the host)."""
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
+
+from repro_torch.core.simulator import EV_ARRIVAL, EV_REAL_DONE
+
+
+def _np(x, dtype=None) -> np.ndarray:
+    """A trace column as a numpy array (a tensor is copied to the host)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)
+
+
+@dataclasses.dataclass
+class TraceMetrics:
+    response_times: np.ndarray  # f64[num_completed_jobs]
+    arrival_times: np.ndarray  # f64[num_jobs]
+    censored: int  # jobs whose tasks didn't all finish in-sim
+    num_jobs: int
+    max_queue: np.ndarray  # i64[T] running max queue length (if traced)
+    mean_queue: np.ndarray  # f64[T]
+    final_q: np.ndarray
+    mu_hat_trace: np.ndarray | None  # f32[T, n] (if traced)
+    times: np.ndarray  # f64[T] event times
+    lam_hat: np.ndarray  # f32[T]
+    killed_jobs: int = 0  # jobs with ≥1 task killed by a worker crash
+
+
+def analyze(trace, n: int, warmup_frac: float = 0.0) -> TraceMetrics:
+    code = _np(trace["code"])
+    worker = _np(trace["worker"])
+    now = _np(trace["now"], dtype=np.float64)
+    T = code.shape[0]
+
+    # --- per-worker real-completion timestamps, in order -------------------
+    # Crash kills consume completion ordinals without emitting EV_REAL_DONE
+    # rows (simulator bumps s_real by the killed count), so the per-worker
+    # timeline interleaves completion timestamps with NaN blocks — one NaN
+    # per killed ordinal, in chain-round order. A job whose task maps to a
+    # NaN ordinal was killed, not censored.
+    killed = _np(trace["killed"]) if "killed" in trace else None
+    has_kills = killed is not None and killed.size and killed.any()
+    comp_times: list[np.ndarray] = []
+    for w in range(n):
+        mask = (code == EV_REAL_DONE) & (worker == w)
+        if not has_kills:
+            comp_times.append(now[mask])
+            continue
+        comp_rows = np.nonzero(mask)[0]
+        kill_rows = np.nonzero(killed[:, w] > 0)[0]
+        rows = np.concatenate([comp_rows, kill_rows])
+        vals = np.concatenate(
+            [now[comp_rows], np.full(len(kill_rows), np.nan)]
+        )
+        cnts = np.concatenate(
+            [np.ones(len(comp_rows), np.int64), killed[kill_rows, w]]
+        )
+        order = np.argsort(rows, kind="stable")
+        comp_times.append(np.repeat(vals[order], cnts[order]))
+
+    # --- job response times -------------------------------------------------
+    arr_mask = code == EV_ARRIVAL
+    arr_rows = np.nonzero(arr_mask)[0]
+    t_arr = now[arr_rows]
+    tw = _np(trace["task_workers"])[arr_rows]  # [J, mt]
+    tg = _np(trace["task_targets"])[arr_rows]  # [J, mt]
+
+    responses, censored, killed_jobs = [], 0, 0
+    t_warm = warmup_frac * now[-1]
+    kept_arrivals = []
+    for ji in range(arr_rows.shape[0]):
+        if t_arr[ji] < t_warm:
+            continue
+        kept_arrivals.append(t_arr[ji])
+        done, was_killed, tmax = True, False, t_arr[ji]
+        for k in range(tw.shape[1]):
+            w, tgt = int(tw[ji, k]), int(tg[ji, k])
+            if w < 0:
+                continue
+            ct = comp_times[w]
+            if tgt - 1 < ct.shape[0]:
+                v = float(ct[tgt - 1])
+                if np.isnan(v):
+                    was_killed = True
+                    break
+                tmax = max(tmax, v)
+            else:
+                done = False
+                break
+        if was_killed:
+            killed_jobs += 1
+        elif done:
+            responses.append(tmax - t_arr[ji])
+        else:
+            censored += 1
+
+    q = _np(trace["q_real"])
+    if q.size:
+        max_queue = q.max(axis=1)
+        mean_queue = q.mean(axis=1)
+        final_q = q[-1]
+    else:
+        max_queue = np.zeros((T,), np.int64)
+        mean_queue = np.zeros((T,))
+        final_q = np.zeros((n,), np.int64)
+
+    mu_hat = _np(trace["mu_hat"])
+    mu_hat = mu_hat if mu_hat.size else None
+
+    return TraceMetrics(
+        response_times=np.asarray(responses, dtype=np.float64),
+        arrival_times=np.asarray(kept_arrivals, dtype=np.float64),
+        censored=censored,
+        num_jobs=len(kept_arrivals),
+        max_queue=max_queue,
+        mean_queue=mean_queue,
+        final_q=final_q,
+        mu_hat_trace=mu_hat,
+        times=now,
+        lam_hat=_np(trace["lam_hat"]),
+        killed_jobs=killed_jobs,
+    )
+
+
+def percentiles(x: np.ndarray, ps=(5, 25, 50, 75, 95)) -> dict[int, float]:
+    if x.size == 0:
+        return {p: float("nan") for p in ps}
+    return {p: float(np.percentile(x, p)) for p in ps}
+
+
 
 
 def serve_summary(responses: np.ndarray, mu_trace: np.ndarray | None = None) -> dict:
@@ -292,7 +427,7 @@ def fleet_summary(
 
     Serving callers pass ``run_fleet_simulation``'s (or the fleet scan's)
     info fields directly; the chain simulator's trace form
-    (``fleet_summary_from_trace``) is ROADMAP queue A, A8.
+    (``fleet_summary_from_trace``) is ROADMAP queue A, A8b.
     """
     from repro_torch.fleet import conflict as cfl
 
@@ -355,3 +490,36 @@ def fleet_summary(
             "conserved": bool(ledger.get("conserved", True)),
         }
     return out
+
+
+def queue_length_histogram(trace, worker: int, warmup_frac: float = 0.5):
+    """Time-weighted histogram of one worker's queue length (Fig. 13)."""
+    q = _np(trace["q_real"])[:, worker]
+    now = _np(trace["now"], dtype=np.float64)
+    t0 = warmup_frac * now[-1]
+    keep = now >= t0
+    qk, tk = q[keep], now[keep]
+    if qk.size < 2:
+        return np.zeros(1)
+    dt = np.diff(tk, append=tk[-1])
+    hist = np.zeros(int(qk.max()) + 1)
+    np.add.at(hist, qk, dt)
+    return hist / hist.sum()
+
+
+def estimate_error(trace, mu_true: np.ndarray) -> np.ndarray:
+    """Mean relative |μ̂ − μ|/μ over time (learning-curve metric, R2)."""
+    mu_hat = _np(trace["mu_hat"], dtype=np.float64)
+    mu = np.asarray(mu_true, dtype=np.float64)[None, :]
+    return np.abs(mu_hat - mu).sum(axis=1) / mu.sum()
+
+
+def stationary_tail(trace, warmup_frac: float = 0.5) -> np.ndarray:
+    """P[queue ≥ k] pooled over workers & (post-warmup) time — Lemma 4."""
+    q = _np(trace["q_real"])
+    now = _np(trace["now"], dtype=np.float64)
+    keep = now >= warmup_frac * now[-1]
+    qk = q[keep].ravel()
+    kmax = int(qk.max()) + 1
+    tail = np.array([(qk >= k).mean() for k in range(kmax + 1)])
+    return tail

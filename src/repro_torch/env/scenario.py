@@ -18,8 +18,8 @@ rate. It compiles to:
   * ``shift_times`` → the environment's shock instants, feeding the
     adaptation-time harness (``core/metrics.adaptation_report``).
 
-``to_sim`` (the chain simulator's compile) is not ported yet and raises
-(ROADMAP queue A, A8).
+``to_sim`` (the compile for the chain simulator's environment mode) is not
+ported yet and raises (ROADMAP queue A, A8b).
 
 The registry maps names to factories: ``env.make("flash_crowd")``,
 ``env.make("churn_heavy", horizon=900.0)``, … — see the builtin catalog
@@ -405,11 +405,11 @@ class Scenario:
     def to_sim(self, policy: str, *, rounds: int = 120_000, seed: int = 0,
                **cfg_kw):
         """Compile for the chain simulator: ``(SimConfig, SimParams, env)``.
-        The chain simulator is not ported yet: raises."""
+        The chain's environment mode is not ported yet: raises."""
         del policy, rounds, seed, cfg_kw
         raise NotImplementedError(
-            f"Scenario.to_sim ({self.name!r}): the chain simulator is not "
-            f"ported yet (ROADMAP queue A, A8)")
+            f"Scenario.to_sim ({self.name!r}): the chain simulator's environment "
+            f"mode is not ported yet (ROADMAP queue A, A8b)")
 
 
 # ---------------------------------------------------------------------------

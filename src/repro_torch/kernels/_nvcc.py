@@ -32,17 +32,20 @@ def nvcc() -> str:
 
 class CudaLibrary:
     """One ``.cu`` source, its entry points' argtypes (each returns a
-    ``cudaError_t`` as int) and the name of its error-string function."""
+    ``cudaError_t`` as int), the name of its error-string function and any
+    nvcc flags of its own after the shared ones."""
 
-    def __init__(self, src: Path, signatures: dict, error_fn: str):
+    def __init__(self, src: Path, signatures: dict, error_fn: str,
+                 extra_flags: tuple = ()):
         self.src = Path(src)
         self.signatures = signatures
         self.error_fn = error_fn
+        self.flags = FLAGS + tuple(extra_flags)
         self.build_log = ""  # nvcc's output (ptxas register/shared-memory report)
         self._lib: ctypes.CDLL | None = None
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.src.read_bytes() + " ".join(FLAGS).encode())
+        h = hashlib.sha256(self.src.read_bytes() + " ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.src.stem}_{h.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
@@ -54,7 +57,7 @@ class CudaLibrary:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            res = subprocess.run([nvcc(), *FLAGS, "-o", tmp, str(self.src)],
+            res = subprocess.run([nvcc(), *self.flags, "-o", tmp, str(self.src)],
                                  capture_output=True, text=True)
             self.build_log = res.stdout + res.stderr
             if res.returncode != 0:

@@ -232,3 +232,82 @@ def uniform_quad(key: Key, B: int, device=None):
     u1, u2 = _halves(h1)
     v1, v2 = _halves(h2)
     return u1, u2, v1, v2
+
+
+def exponential(key: Key, shape, device=None) -> torch.Tensor:
+    """f32 Exp(1) draws, ``jax.random.exponential(key, shape)``: ``-log1p(-u)``
+    of a uniform on [0, 1). Its ``log1p`` is torch's, which may differ from
+    XLA's in the last bit."""
+    return -torch.log1p(-uniform(key, shape, device))
+
+
+# -- the same draws for a batch of keys ----------------------------------------
+#
+# Each ``v*`` function takes keys as an int64 tensor [R, 2] and returns the
+# draws of every key stacked on a leading axis of R: row r equals the
+# single-key function on key r (``jax.vmap`` of the single-key draw).
+
+
+def _cols(keys: torch.Tensor):
+    """The two key words of a [R, 2] batch as [R, 1] columns."""
+    return keys[:, :1], keys[:, 1:]
+
+
+def vsplit(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """int64 [R, num, 2]: ``split(keys[r], num)`` for every r."""
+    k0, k1 = _cols(keys)
+    x1 = torch.arange(num, dtype=torch.int64, device=keys.device)[None, :]
+    x0, y1 = _threefry_rounds(k0, k1, torch.zeros_like(x1), x1, _add_int, _rotl_t)
+    return torch.stack([x0, y1], -1)
+
+
+def vrandom_bits(keys: torch.Tensor, shape) -> torch.Tensor:
+    """u32 bits (as int64) [R, *shape] of every key."""
+    shape = _shape(shape)
+    k0, k1 = _cols(keys)
+    return _bits(k0, k1, shape, keys.device).view(keys.shape[0], *shape)
+
+
+def vuniform(keys: torch.Tensor, shape) -> torch.Tensor:
+    """f32 [R, *shape] in [0, 1)."""
+    bits = (vrandom_bits(keys, shape) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def vrandint(keys: torch.Tensor, shape, lo: int, hi: int) -> torch.Tensor:
+    """i32 [R, *shape] in [lo, hi), by ``randint``'s fold of two 32-bit draws."""
+    span = int(hi) - int(lo) if int(hi) > int(lo) else 1
+    halves = vsplit(keys, 2)
+    hi_bits, lo_bits = vrandom_bits(halves[:, 0], shape), vrandom_bits(halves[:, 1], shape)
+    mult = (((65536 % span) ** 2) & M32) % span
+    off = ((((hi_bits % span) * mult) & M32) + lo_bits % span) & M32
+    return (off % span + int(lo)).to(torch.int32)
+
+
+def vgumbel(keys: torch.Tensor, shape) -> torch.Tensor:
+    """f32 [R, *shape] Gumbel noise (``gumbel``'s "low" mode)."""
+    u = (vuniform(keys, shape) + F32_TINY).clamp(min=F32_TINY)
+    return -torch.log(-torch.log(u))
+
+
+def vcategorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """i32 [R]: one draw over the 1-d ``logits`` for every key."""
+    g = vgumbel(keys, logits.shape)
+    return torch.argmax(g + logits, dim=-1).to(torch.int32)
+
+
+def vexponential(keys: torch.Tensor, shape) -> torch.Tensor:
+    """f32 [R, *shape] Exp(1) draws."""
+    return -torch.log1p(-vuniform(keys, shape))
+
+
+def vuniform_pair(keys: torch.Tensor, B: int):
+    """Two f32 [R, B] counter-hash uniforms, ``uniform_pair`` of every key
+    (its arithmetic is elementwise in the key words, so [R, 1] columns
+    broadcast against the [B] counter)."""
+    return uniform_pair(_cols(keys), B, keys.device)
+
+
+def vuniform_quad(keys: torch.Tensor, B: int):
+    """(u1, u2, v1, v2), each f32 [R, B]: ``uniform_quad`` of every key."""
+    return uniform_quad(_cols(keys), B, keys.device)

@@ -1217,3 +1217,71 @@ def test_faulty_stream_on_the_card_equals_the_monolithic_scan(dev):
     _same_final_state(r1, p1, r0, p0)
     led = got[2]["ledger"]
     assert led["conserved"] and met.check_conservation(led)[0] and led["n_retries"] > 0
+
+
+def _sim_batch(n, mt, specs, rounds, dev):
+    """(runs, draws on the card): each spec a (policy, learner, alias,
+    phases, bsc) run at n workers and mt slots of Fig. 9's job mix."""
+    from repro_torch.configs import rosella_sim as RS
+    from repro_torch.core import simulator as tsim
+    from repro_torch.utils import prng as tprng
+
+    speeds = RS.tpch_speed_set(n, 0)
+    probs = None if mt == 1 else [0.4, 0.3, 0.2, 0.1][:mt]
+    runs = []
+    for i, (policy, learner, alias, phases, bsc) in enumerate(specs):
+        cfg, params = RS.make_sim(policy, speeds, 0.8, rounds=rounds, use_learner=learner,
+                                  use_fake_jobs=learner, volatile_phases=phases,
+                                  phase_period=15.0, max_tasks=mt, task_probs=probs,
+                                  constrained_frac=0.1 if mt > 1 else 0.0, device=dev)
+        import dataclasses
+        cfg = dataclasses.replace(cfg, use_alias=alias, batch_self_correct=bsc)
+        runs.append((cfg, params, tprng.PRNGKey(i)))
+    draws = [tsim.draw_rounds(cfg, p, key, dev) for cfg, p, key in runs]
+    return runs, draws
+
+
+@pytest.mark.parametrize("case", ["rosella", "fig9_batch"])
+def test_sim_chain_kernel_equals_the_plain_chain(dev, case):
+    """The kernel and the plain chain on the CPU, fed the same draws (drawn
+    on the card), agree in every trace column and every field of the final
+    state, bit for bit."""
+    from repro_torch.core import simulator as tsim
+    from repro_torch.kernels.sim_chain import kernel as SCK
+
+    if case == "rosella":
+        runs, draws = _sim_batch(30, 1, [("ppot_sq2", True, True, 4, True)], 3000, dev)
+    else:
+        specs = [("sparrow", False, True, 0, True), ("bandit", True, False, 3, False),
+                 ("ppot_ll2", False, True, 0, True), ("halo", False, True, 3, True),
+                 ("pss", True, False, 0, True), ("uniform", False, True, 0, False),
+                 ("pot", False, True, 2, True), ("ppot_sq2", True, False, 3, True)]
+        runs, draws = _sim_batch(30, 4, specs, 1500, dev)
+    SCK.reset_launches()
+    got = tsim.simulate_many(runs, dev, draws)
+    torch.cuda.synchronize()
+    assert SCK.launch_counts()["sim_chain"] == 1
+    cpu_runs = [(cfg, p.to("cpu"), key) for cfg, p, key in runs]
+    want = tsim.simulate_many(cpu_runs, "cpu", [{k: v.cpu() for k, v in d.items()}
+                                                for d in draws])
+    assert SCK.launch_counts()["sim_chain"] == 1
+    for (gs, gt), (ws, wt) in zip(got, want):
+        for name in wt:
+            assert torch.equal(gt[name].cpu(), wt[name]), name
+        for f in ("now", "q_real", "q_fake", "s_real", "busy_start"):
+            assert torch.equal(getattr(gs, f).cpu(), getattr(ws, f)), f
+        for f in ("samples", "stamps", "widx", "count", "mu_hat"):
+            assert torch.equal(getattr(gs.learner, f).cpu(), getattr(ws.learner, f)), f
+        assert (gt["code"] == 0).sum() > 0
+
+
+def test_sim_chain_refuses_what_one_block_cannot_hold(dev):
+    from repro_torch.configs import rosella_sim as RS
+    from repro_torch.core import simulator as tsim
+    from repro_torch.utils import prng as tprng
+
+    for n, mt in ((300, 1), (15, 9)):
+        cfg, params = RS.make_sim("ppot_sq2", np.ones(n), 0.5, rounds=10, max_tasks=mt,
+                                  device=dev)
+        with pytest.raises(ValueError, match="sim_chain"):
+            tsim.simulate(cfg, params, tprng.PRNGKey(0), device=dev)

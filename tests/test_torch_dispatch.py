@@ -299,7 +299,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                   "repro_torch.obs.slo", "repro_torch.obs.export", "repro_torch.obs.tracing",
                   "repro_torch.fleet", "repro_torch.fleet.conflict", "repro_torch.fleet.state",
                   "repro_torch.fleet.sync", "repro_torch.load", "repro_torch.load.traces",
-                  "repro_torch.load.stream"):
+                  "repro_torch.load.stream", "repro_torch.core.simulator",
+                  "repro_torch.core.theory", "repro_torch.configs.rosella_sim",
+                  "repro_torch.kernels.sim_chain", "repro_torch.kernels.sim_chain.kernel",
+                  "repro_torch.kernels.sim_chain.ref", "repro_torch.kernels.sim_chain.build"):
             assert m in sys.modules, m
         print("clean")
     """)

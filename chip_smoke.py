@@ -3043,11 +3043,42 @@ def sim_line_ops(trace: dict, n: int, refresh: int, cap: int) -> int:
     return T + 2 * arrivals + 2 * (T - arrivals) + refreshes * n * (cap + 10)
 
 
+def sim_split_runs(figs: dict) -> dict:
+    """The two runs of ``sim_figures``'s ``figs`` that the per-phase split is
+    read on: Fig. 8's static Rosella run (n = 30, PPoT-SQ(2), learner and
+    benchmark jobs, 120,000 rounds) and Fig. 10a's PPoT-SQ(2) run (n = 15,
+    known speeds, 80,000 rounds)."""
+    runs = {label: run for fig in ("fig8", "fig10") for label, run, _ in figs[fig]}
+    return {"fig8 static/rosella": runs["static/rosella"], "fig10 10a/ppot": runs["10a/ppot"]}
+
+
+def sim_split(rec: dict) -> dict:
+    """A chain's clocked record (``kernel.read_clocks``) as cycles a round by
+    phase, and cycles an event for the branches, the refresh, the rebuild
+    and a tile."""
+    cyc, cnt = rec["cycles"], rec["counts"]
+    rounds = max(cnt["rounds"], 1)
+    per = {"arrival": "arrivals", "service": "services", "fake": "fakes",
+           "refresh": "refreshes", "rebuild": "rebuilds", "tile": "tiles"}
+    return dict(cycles_per_round=sum(cyc.values()) / rounds,
+                per_round={k: v / rounds for k, v in cyc.items()},
+                per_event={k: cyc[k] / max(cnt[c], 1) for k, c in per.items()}, counts=cnt)
+
+
+def sim_split_text(s: dict) -> str:
+    return (f"{s['cycles_per_round']:.1f} cycles a round = "
+            + ", ".join(f"{k} {v:.1f}" for k, v in s["per_round"].items())
+            + "; an event: " + ", ".join(f"{k} {v:.1f}" for k, v in s["per_event"].items())
+            + f"; counts {json.dumps(s['counts'])}")
+
+
 def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
     """sim_chain alone by event pairs: Fig. 8's static Rosella run at its
-    120,000 rounds (one chain), Fig. 8's batch of four, and the kernels
-    line's case (the Rosella run cut to SIM_LINE_ROUNDS), with its plain
-    chain on the card and its bound; draw_rounds and analyze per run."""
+    120,000 rounds (one chain) with its bound at that size, Fig. 10a's
+    known-speed run, Fig. 8's batch of four, and the kernels line's case
+    (the Rosella run cut to SIM_LINE_ROUNDS), with its plain chain on the
+    card and its bound; draw_rounds and analyze per run; the per-phase
+    cycle split of both single runs (the clocked build)."""
     from repro_torch.core import metrics as M
     from repro_torch.core import simulator as tsim
     from repro_torch.kernels.sim_chain import kernel as SK
@@ -3066,13 +3097,30 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
             ts.append(e0.elapsed_time(e1))
         return float(np.median(ts))
 
-    fig8 = [run for _, run, _ in sim_figures(RS, dev)["fig8"]]
-    cfg, params, key = fig8[0]  # static Rosella
-    draws = tsim.draw_rounds(cfg, params, key, dev)
-    args, shape = tsim.chain_inputs([fig8[0]], [draws], dev)
-    full_ms = event_ms(lambda: SK.sim_chain(*args, **shape), 3)
-    batch_args, _ = tsim.chain_inputs(fig8, [tsim.draw_rounds(c, p, k, dev)
-                                             for c, p, k in fig8], dev)
+    figs = sim_figures(RS, dev)
+    fig8 = [run for _, run, _ in figs["fig8"]]
+    splits, single, inputs = {}, {}, {}
+    for label, run in sim_split_runs(figs).items():
+        c, p, k = run
+        d = tsim.draw_rounds(c, p, k, dev)
+        a, sh = tsim.chain_inputs([run], [d], dev)
+        inputs[label] = (d, a, sh)
+        ms_run = event_ms(lambda: SK.sim_chain(*a, **sh), 3)
+        _, tr_run, rec = SK.clock_split(*a, **sh)
+        splits[label] = sim_split(rec[0])
+        nb = sim_line_bytes(a, c.rounds, c.n, c.max_tasks, c.ring_cap, c.arrival_window)
+        nops = sim_line_ops({k2: v[0] for k2, v in tr_run.items()}, c.n, c.learner_refresh,
+                            c.ring_cap)
+        single[label] = dict(rounds=c.rounds, n=c.n, ms=ms_run, bytes=nb, ops=nops,
+                             bytes_ms=nb / HBM_BYTES_PER_S * 1e3, ops_ms=nops / 67e12 * 1e3,
+                             chain_ms=c.rounds * SIM_CHAIN_CYCLES / (mhz * 1e6) * 1e3)
+    # Fig. 8's static Rosella run (fig8[0]): its one-chain time and draws
+    # serve the batch, draw_rounds, analyze and the cut below
+    cfg, params, key = fig8[0]
+    draws, args, shape = inputs["fig8 static/rosella"]
+    full_ms = single["fig8 static/rosella"]["ms"]
+    batch_args, _ = tsim.chain_inputs(fig8, [draws] + [tsim.draw_rounds(c, p, k, dev)
+                                                       for c, p, k in fig8[1:]], dev)
     batch_ms = event_ms(lambda: SK.sim_chain(*batch_args, **shape), 3)
     draw_ms = host_median_ms(torch, lambda: tsim.draw_rounds(cfg, params, key, dev), 3)
     _, trace = SK.sim_chain(*args, **shape)
@@ -3104,7 +3152,8 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
                bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
                ops=ops, chain_ms=chain_ms, rounds=R, full_rounds=cfg.rounds, full_ms=full_ms,
                full_chain_ms=full_chain_ms, batch_ms=batch_ms, batch_chains=len(fig8),
-               draw_ms=draw_ms, analyze_ms=analyze_ms, floor_ms=floor_ms, library_ms=None)
+               draw_ms=draw_ms, analyze_ms=analyze_ms, floor_ms=floor_ms, library_ms=None,
+               runs=single, splits=splits)
     print(f"[times] sim_chain, Fig. 8's static Rosella run (n=30, PPoT-SQ(2), learner and "
           f"benchmark jobs): {cfg.rounds} rounds, one chain {full_ms:.6f} ms "
           f"({cfg.rounds / full_ms * 1e3:.1f} rounds/s; chain floor {full_chain_ms:.6f} ms at "
@@ -3116,6 +3165,14 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
           f"bound {rec['bound_ms']:.9f} ms ({rec['bound_by']}: {nbytes} B at 3.35 TB/s = "
           f"{bytes_ms:.9f} ms; {ops} f32 operations at 67 TFLOP/s = {ops_ms:.9f} ms), chain "
           f"floor {chain_ms:.6f} ms, launch floor {floor_ms:.6f} ms, library call: none")
+    for label, r in single.items():
+        print(f"[times] sim_chain, {label} (n={r['n']}): {r['rounds']} rounds {r['ms']:.6f} ms "
+              f"({r['ms'] / r['rounds'] * 1e6:.3f} ns a round); bound "
+              f"{max(r['bytes_ms'], r['ops_ms']):.9f} ms ({r['bytes']} B at 3.35 TB/s = "
+              f"{r['bytes_ms']:.9f} ms; {r['ops']} f32 operations at 67 TFLOP/s = "
+              f"{r['ops_ms']:.9f} ms); chain floor {r['chain_ms']:.6f} ms")
+        print(f"[times] sim_chain split, {label} (clocked build, lane 0's clock64()): "
+              f"{sim_split_text(splits[label])}")
     return rec
 
 
@@ -4219,7 +4276,7 @@ def main() -> int:
 
     t0 = t_start = time.perf_counter()
     libs = (build.LIBRARY, flash_build.LIBRARY, ssd_build.LIBRARY, pool_build.LIBRARY,
-            sim_build.LIBRARY)
+            sim_build.LIBRARY, sim_build.CLOCKED)
     _nvcc.build_all(*libs)
     print(f"[build] {', '.join(lib.library_path().name for lib in libs)} "
           f"in {time.perf_counter() - t0:.2f} s (one nvcc each, at once)")
@@ -4321,7 +4378,8 @@ def main() -> int:
         bound_by=t["bound_by"], library_ms=None,
         real_turn_ms=pool_turn_times[("a", W)]["ms"]))
     # Fig. 8's static Rosella run cut to SIM_LINE_ROUNDS rounds, where the
-    # plain chain on the card is timed too; full_ms: its 120,000 rounds
+    # plain chain on the card is timed too; full_ms: its 120,000 rounds,
+    # full_bound_ms: their bound; fig10_ms: Fig. 10a's known-speed run
     kernels.append(dict(
         name="sim_chain", route="cuda", source=SIM_SOURCE, replaces=SIM_REPLACES,
         launches=sim_launches["sim_chain"],
@@ -4329,7 +4387,10 @@ def main() -> int:
         plain_ms=sim_times["plain_ms"], bound_ms=sim_times["bound_ms"],
         bound_by=sim_times["bound_by"], library_ms=None, rounds=sim_times["rounds"],
         chain_ms=sim_times["chain_ms"], full_rounds=sim_times["full_rounds"],
-        full_ms=sim_times["full_ms"]))
+        full_ms=sim_times["full_ms"],
+        full_bound_ms=max(sim_times["runs"]["fig8 static/rosella"][k]
+                          for k in ("bytes_ms", "ops_ms")),
+        fig10_ms=sim_times["runs"]["fig10 10a/ppot"]["ms"]))
     t = flash_times["main"]
     kernels.append(dict(
         name="flash_attention_fwd", route="cuda", source=FLASH_SOURCE,

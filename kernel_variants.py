@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Times the port's flash-attention (K4), SSD-scan (K5), PPoT dispatch
-(K1-K3 and the alias-table build) and pool-chain kernels against variants
-of their own sources on one CUDA card, at the shapes of chip_smoke.py's
-[times] phase.
+(K1-K3 and the alias-table build), pool-chain and chain-simulator
+(``sim_chain``) kernels against variants of their own sources on one CUDA
+card, at the shapes of chip_smoke.py's [times] phase.
 
 Each variant is the current source with one textual edit (a design choice
 undone, or a part of the work left out to see what it costs: those are
@@ -15,9 +15,14 @@ ones as they were before the alias-table kernel (``alias_pairing`` walks a
 stack built by tensor ops), its pool chain's array form (``pool_chain``) as
 it has been since the chain was ported; with the chain, the one-program
 loop's [scan a] and [scan e] also run whole on each checkout, each in a
-process of its own. ``--kernels`` picks the sources (default all four).
+process of its own. Its chain simulator is read as it was ported, and its
+per-phase cycle split is taken by inserting this source's clock block and
+marks into it (``clocked_parent_source``); with ``sim``, a small probe
+kernel also reads what one warp pays a step for the instruction classes
+the chain kernel is made of (``WARP_PROBE_SRC``). ``--kernels`` picks the
+sources (default all five).
 
-    python3 kernel_variants.py [--kernels flash,ssd,ppot,chain] [--parent DIR] [--out FILE.json]
+    python3 kernel_variants.py [--kernels flash,ssd,ppot,chain,sim] [--parent DIR] [--out FILE.json]
 
 Needs a CUDA card and nvcc; imports torch and the port, nothing of JAX.
 """
@@ -267,6 +272,7 @@ PARENT_SIGNATURES = {
              "ppot_select_cdf": (_P,) * 4 + (_I, _I, _P, _P),
              "alias_pairing": (_P, _P, _P, _I, _P, _P, _P)},
     "chain": {"pool_chain": (_P,) * 6 + (_I, _I) + (_P,) * 4},
+    "sim": {"sim_chain": (_P,) * 13 + (_I,) * 10 + (_P,) * 28 + (_P,)},
 }
 
 
@@ -539,15 +545,316 @@ def time_chain(torch, libs, parent, median_ms) -> dict:
     return out
 
 
+SIM_SRC = "src/repro_torch/kernels/sim_chain/csrc/sim_chain.cu"
+# (name, edit of the source): each undoes one design choice of the chain
+# kernel; every variant still equals the plain chain bit for bit
+_SIM_TILE_OUT = """    // the tile's trace rows out, by the whole warp: a round's record a lane
+    for (int x = lane; x < rt; x += kThreads) {
+      uint32_t rec[kRec];
+      get_record<kRec>(o_rec + x * kRec, rec);
+      put_trace<MT>(tr, row0 + x, mt_, rec);
+    }
+    if (tq) stage_out(words(tr.q_real + row0 * n), words(w_q), rt * n, lane);
+    if (tm) stage_out(words(tr.mu_hat + row0 * n), words(w_mu), rt * n, lane);
+"""
+
+
+def _edits(*pairs):
+    """An edit of the source made of text replacements, each of text that
+    is found exactly once (else the edit leaves the source as it was, and
+    variant_sources refuses it)."""
+    def edit(src: str) -> str:
+        out = src
+        for old, new in pairs:
+            if out.count(old) != 1:
+                return src
+            out = out.replace(old, new)
+        return out
+    return edit
+
+
+SIM_VARIANTS = [
+    ("rings ring-major ([n][cap], as ported: 30 lanes on one bank at a refresh)",
+     _edits(("auto ring = [&](int l, int i) { return l * rs + i; };",
+             "auto ring = [&](int l, int i) { return i * cap + l; };"))),
+    ("trace rows stored to device memory every round (not staged by tiles)",
+     _edits(("put_record<kRec>(o_rec + r * kRec, rec);",
+             "put_trace<MT>(tr, row0 + r, mt_, rec);"),
+            ("reinterpret_cast<int*>(o_q + word_shift(tr.q_real + (tq ? row0 * n : 0)))",
+             "tr.q_real + (tq ? row0 * n : 0)"),
+            ("reinterpret_cast<float*>(o_mu + word_shift(tr.mu_hat + (tm ? row0 * n : 0)))",
+             "tr.mu_hat + (tm ? row0 * n : 0)"),
+            (_SIM_TILE_OUT, ""))),
+    ("the round's warp syncs left out (right only while the warp stays converged)",
+     lambda s: s.replace("        __syncwarp();  // every lane's reads before any lane's writes\n", "")
+     .replace("      __syncwarp();  // the event's writes before the refresh and the rows read "
+              "them\n", "")
+     .replace("      __syncwarp();  // this round's accesses before the next round's\n", "")),
+    ("launch bounds without a minimum of one block (ptxas caps registers and spills)",
+     lambda s: s.replace("__launch_bounds__(kThreads, 1) sim_chain_kernel(",
+                         "__launch_bounds__(kThreads) sim_chain_kernel(")),
+    ("the probing policies tested last in a job's policy ladder",
+     lambda s: s.replace("              if (two_probes) {", "              if (false) {")
+     .replace("""              } else {  // uniform
+                sel = jj[b];
+              }""", """              } else if (policy == UNIFORM) {
+                sel = jj[b];
+              } else {
+                const int j1 = probe(0, 2), j2 = probe(1, 3);
+                if (policy == PPOT_LL2) {
+                  const float w1 = ((float)qv(j1) + 1.0f) / fmaxf(mu_view[j1], 1e-9f);
+                  const float w2 = ((float)qv(j2) + 1.0f) / fmaxf(mu_view[j2], 1e-9f);
+                  sel = w1 <= w2 ? j1 : j2;
+                } else {
+                  sel = qv(j1) <= qv(j2) ? j1 : j2;
+                  if (policy == BANDIT && jj[mt_ + b] != 0) sel = jj[b];
+                }
+              }""")),
+]
+# What one warp alone on its scheduler pays, in cycles a step of 256 (the
+# chain kernel's regime): a dependent f32 add, a dependent shared load, a
+# shared load with an add (broadcast, a word a lane), a shared store, a
+# 16-byte shared store, a shared load feeding a select, and ALU work ending
+# in a branch on data.
+WARP_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void warp_probe_kernel(unsigned long long* out, const float* buf, const int* nxt) {
+  __shared__ __align__(16) float s[4096];
+  __shared__ int si[1024];
+  const int lane = threadIdx.x;
+  for (int i = lane; i < 1024; i += 32) { s[i] = buf[i]; si[i] = nxt[i]; }
+  __syncwarp();
+  float a = buf[lane];
+  int p = si[lane & 7], q = p, x = p;
+  float b = 0.0f, c = 0.0f;
+  long long t[9];
+  t[0] = clock64();
+  for (int i = 0; i < 256; ++i) a = a + 1.0f;
+  t[1] = clock64();
+  for (int i = 0; i < 256; ++i) p = si[p];
+  t[2] = clock64();
+#pragma unroll 8
+  for (int i = 0; i < 256; ++i) b = b + s[i];
+  t[3] = clock64();
+#pragma unroll 8
+  for (int i = 0; i < 256; ++i) c = c + s[(i * 32 + lane) & 1023];
+  t[4] = clock64();
+#pragma unroll 16
+  for (int i = 0; i < 256; ++i) s[((i * 32) & 4064) + lane] = a + i;
+  t[5] = clock64();
+#pragma unroll 16
+  for (int i = 0; i < 256; ++i)
+    reinterpret_cast<float4*>(s)[(i * 2) & 1023] = make_float4(a, a + i, a, a);
+  t[6] = clock64();
+  for (int i = 0; i < 256; ++i) { const int v = si[q & 1023]; q += v > 3 ? 3 : 1; }
+  t[7] = clock64();
+  for (int i = 0; i < 256; ++i) { x = x * 3 + 1; if (x & 4) x ^= 0x55; }
+  t[8] = clock64();
+  if (lane == 0)
+    for (int k = 0; k < 8; ++k) out[k] = t[k + 1] - t[k];
+  if (a + b + c + p + q + x + s[lane] == 1234.5f) out[8] = 1;
+}
+extern "C" int warp_probe(unsigned long long* out, const float* buf, const int* nxt) {
+  warp_probe_kernel<<<1, 32>>>(out, buf, nxt);
+  return (int)cudaGetLastError();
+}
+extern "C" const char* warp_probe_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
+"""
+WARP_PROBE_STEPS = ("dependent f32 add", "dependent shared load", "shared load + add, broadcast",
+                    "shared load + add, a word a lane", "shared store, a word a lane",
+                    "16-byte shared store", "shared load feeding a select",
+                    "ALU work and a branch on data")
+_CLOCK_BEGIN, _CLOCK_END = "// -- per-phase clock: begin\n", "// -- per-phase clock: end\n"
+# the per-phase clock's marks in the chain kernel as it was ported (before
+# its redesign): (text, text with the marks), each found once
+PARENT_SIM_MARKS = [
+    ("  const int c = blockIdx.x, tid = threadIdx.x;\n",
+     "  const int c = blockIdx.x, tid = threadIdx.x;\n  CLK_BEGIN();\n"),
+    ("  const float nu_den = fmaxf(nu_max, 1e-30f);\n  __syncthreads();\n",
+     "  const float nu_den = fmaxf(nu_max, 1e-30f);\n  __syncthreads();\n  CLK(CK_SETUP);\n"),
+    ("      const float* mu_now = sched + (size_t)phase * n;\n",
+     "      const float* mu_now = sched + (size_t)phase * n;\n      CLK(CK_HEAD);\n"),
+    ("      for (int b = 0; b < mt; ++b) tw[b] = tt[b] = -1;\n",
+     "      for (int b = 0; b < mt; ++b) tw[b] = tt[b] = -1;\n      CLK(CK_TRACE);\n"),
+    ("          build_views(mu_view, n, use_table, !use_table, p, prob, alias, stack, cdf);\n",
+     "          CLK(CK_ARRIVAL);\n"
+     "          build_views(mu_view, n, use_table, !use_table, p, prob, alias, stack, cdf);\n"
+     "          CLK(CK_REBUILD);\n          CLK_COUNT(CN_REBUILDS);\n"),
+    ("          build_views(mu_now, n, false, true, p, prob, alias, stack, hcdf);\n",
+     "          CLK(CK_ARRIVAL);\n"
+     "          build_views(mu_now, n, false, true, p, prob, alias, stack, hcdf);\n"
+     "          CLK(CK_REBUILD);\n          CLK_COUNT(CN_REBUILDS);\n"),
+    ("        for (int b = 0; b < nt && b < mt; ++b) q_real[w[b]] += 1;\n      } else if (ev <= n) {",
+     "        for (int b = 0; b < nt && b < mt; ++b) q_real[w[b]] += 1;\n"
+     "        CLK(CK_ARRIVAL);\n        CLK_COUNT(CN_ARRIVALS);\n      } else if (ev <= n) {"),
+    ("          code = EV_FAKE_DONE;\n        }\n      } else {",
+     "          code = EV_FAKE_DONE;\n        }\n"
+     "        CLK(CK_SERVICE);\n        CLK_COUNT(CN_SERVICES);\n      } else {"),
+    ("          code = EV_FAKE_DISPATCH;\n        }\n      }\n",
+     "          code = EV_FAKE_DISPATCH;\n        }\n"
+     "        CLK(CK_FAKE);\n        CLK_COUNT(CN_FAKES);\n      }\n"),
+    ("      s_lam = lam_hat;\n    }\n    __syncthreads();\n",
+     "      s_lam = lam_hat;\n      CLK(CK_TRACE);\n    }\n    __syncthreads();\n"
+     "    CLK(CK_BARRIER);\n"),
+    ("      if (tid == 0) view_stale = true;\n      __syncthreads();\n",
+     "      if (tid == 0) view_stale = true;\n      CLK(CK_REFRESH);\n"
+     "      CLK_COUNT(CN_REFRESHES);\n      __syncthreads();\n      CLK(CK_BARRIER);\n"),
+    ("tr.mu_hat[row * n + i] = mu_hat[i];\n    __syncthreads();\n  }\n",
+     "tr.mu_hat[row * n + i] = mu_hat[i];\n    CLK(CK_TRACE);\n    __syncthreads();\n"
+     "    CLK(CK_BARRIER);\n    CLK_COUNT(CN_ROUNDS);\n  }\n"),
+    ("    fin.arr_count[c] = arr_count;\n  }\n}\n",
+     "    fin.arr_count[c] = arr_count;\n  }\n  CLK(CK_SETUP);\n  CLK_END(c);\n}\n"),
+]
+
+
+def clocked_parent_source(parent_src: str) -> str:
+    """The ported chain kernel with the current source's per-phase clock
+    block and the marks above, so that its clocked build records the same
+    phases (CK_TILE stays 0: it stages nothing)."""
+    src = (ROOT / SIM_SRC).read_text()
+    block = src[src.index(_CLOCK_BEGIN):src.index(_CLOCK_END) + len(_CLOCK_END)]
+    out = parent_src.replace("#include <math.h>\n", "#include <math.h>\n\n" + block, 1)
+    for old, new in PARENT_SIM_MARKS:
+        if out.count(old) != 1:
+            raise SystemExit(f"the parent's sim_chain source has moved on: {old!r}")
+        out = out.replace(old, new)
+    return out
+
+
+def parent_sim_chain(torch, lib, args, shape):
+    """One launch of the ported chain kernel's C entry (its wrapper's call,
+    before the redesign): (final, trace)."""
+    from repro_torch.kernels.sim_chain import kernel as SK
+    from repro_torch.kernels.sim_chain import ref as SR
+
+    conf_i, conf_f, sched, mu0, cols = args
+    n, mt, cap, S = shape["n"], shape["mt"], shape["ring_cap"], shape["arrival_window"]
+    tq, tm = shape["trace_queues"], shape["trace_mu"]
+    C, T = cols["dt"].shape
+    dev = cols["dt"].device
+    final = {k: torch.zeros((C,) + sh, dtype=dt, device=dev)
+             for k, (dt, sh) in SR.final_shapes(n, cap, S).items()}
+    trace = {k: torch.zeros((C,) + sh, dtype=dt, device=dev)
+             for k, (dt, sh) in SR.trace_shapes(T, n, mt, tq, tm).items()}
+    order = ("code", "worker", "n_tasks", "task_workers", "task_targets", "frontend",
+             "view_gap", "sync_age", "now", "lam_hat", "killed_fake", "q_real", "mu_hat")
+    ins = (conf_i, conf_f, sched, mu0, *(cols[k] for k in SK.COLS))
+    err = lib.load().sim_chain(*(t.data_ptr() for t in ins), C, T, n, mt,
+                               cols["j"].shape[2], sched.shape[1], S, cap, int(tq), int(tm),
+                               *(trace[k].data_ptr() for k in order),
+                               *(v.data_ptr() for v in final.values()),
+                               torch.cuda.current_stream().cuda_stream)
+    lib.raise_on(err, "parent sim_chain")
+    return final, trace
+
+
+def warp_costs(torch, lib) -> dict:
+    """WARP_PROBE_SRC's steps on one warp: cycles a step (median of 3)."""
+    dev = torch.device("cuda")
+    out = torch.zeros(9, dtype=torch.int64, device=dev)
+    buf = torch.rand(1024, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    nxt = torch.randint(0, 1024, (1024,), dtype=torch.int32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    runs = []
+    for _ in range(3):
+        lib.raise_on(lib.load().warp_probe(out.data_ptr(), buf.data_ptr(), nxt.data_ptr()),
+                     "warp_probe")
+        torch.cuda.synchronize()
+        runs.append([v / 256 for v in out[:8].tolist()])
+    costs = {name: statistics.median(r[k] for r in runs)
+             for k, name in enumerate(WARP_PROBE_STEPS)}
+    print("[sim warp costs] cycles a step, one warp: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()), flush=True)
+    return costs
+
+
+def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
+    """The chain kernel at chip_smoke.py's split runs (Fig. 8's static
+    Rosella run, Fig. 10a's known-speed PPoT run), one chain a launch, and
+    at Fig. 9's ten chains in one launch (jobs of 1-4 tasks: the kernel's
+    MT = kMaxMt body): the current source, each variant in turns with it
+    (current, variant, variant, current) and, with a parent, the ported
+    kernel the same way (parent, current, current, parent), every output
+    held equal to the current kernel's bit for bit; and the per-phase split
+    of the launch's slowest chain for the current kernel, each variant and
+    the parent (their clocked builds, ``clocked`` in the order of
+    ``libs``)."""
+    import chip_smoke as CS
+    from repro_torch.configs import rosella_sim as RS
+    from repro_torch.core import simulator as tsim
+    from repro_torch.kernels.sim_chain import kernel as SK
+
+    dev = torch.device("cuda")
+    out = {}
+    variants = [(name, lib) for name, lib in libs[1:]]
+
+    def slowest(recs):
+        return max((CS.sim_split(r) for r in recs), key=lambda x: x["cycles_per_round"])
+
+    figs = CS.sim_figures(RS, dev)
+    cases = {label: [run] for label, run in CS.sim_split_runs(figs).items()}
+    cases["fig9 batch"] = [run for _, run, _ in figs["fig9"]]
+    for label, runs in cases.items():
+        cfg = runs[0][0]
+        args, shape = tsim.chain_inputs(runs, [tsim.draw_rounds(c, p, k, dev)
+                                               for c, p, k in runs], dev)
+        ins = (*args[:4], *(args[4][k] for k in SK.COLS))
+        C, T = args[4]["dt"].shape
+        K, J = args[2].shape[1], args[4]["j"].shape[2]
+
+        def current(lib=None):
+            if lib is None:
+                return SK.sim_chain(*args, **shape)
+            return SK._launch(lib, ins, dev, C, T, shape["n"], shape["mt"], J, K,
+                              shape["ring_cap"], shape["arrival_window"],
+                              shape["trace_queues"], shape["trace_mu"])
+
+        want = current()
+
+        def same(got) -> bool:
+            return all(torch.equal(g, w) for part in (0, 1) for g, w in
+                       zip(got[part].values(), want[part].values()))
+
+        reps = 3
+        row = {"rounds": cfg.rounds, "current": dict(ms=median_ms(current, reps))}
+        others = [(name, lambda lb=lib: current(lb)) for name, lib in variants]
+        if parent is not None:
+            others.append(("parent", lambda: parent_sim_chain(torch, parent["plain"], args,
+                                                              shape)))
+        for name, fn in others:
+            turns = [median_ms(f, reps) for f in (fn, current, current, fn)]
+            row[name] = dict(ms=statistics.mean((turns[0], turns[3])),
+                             current_same_call_ms=statistics.mean(turns[1:3]),
+                             equal=same(fn()))
+        for (name, _), lib in zip(libs, clocked):
+            *_, recs = SK.clock_split(*args, **shape, lib=lib)
+            row[name]["split"] = slowest(recs)
+        if parent is not None:
+            parent_sim_chain(torch, parent["clocked"], args, shape)
+            row["parent"]["split"] = slowest(SK.read_clocks(parent["clocked"], C))
+        out[label] = row
+        for name, r in row.items():
+            if name == "rounds":
+                continue
+            print(f"[sim {label}] {name}: {r['ms']:.6f} ms for {len(runs)} chain(s) of "
+                  f"{cfg.rounds} rounds"
+                  + (f" (current in the same turns {r['current_same_call_ms']:.6f} ms, "
+                     f"equal to the current kernel bit for bit: {r['equal']})"
+                     if "current_same_call_ms" in r else "")
+                  + (f"; split: {CS.sim_split_text(r['split'])}" if "split" in r else ""),
+                  flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="flash,ssd,ppot,chain",
-                    help="comma-separated sources to time: flash, ssd, ppot, chain")
+    ap.add_argument("--kernels", default="flash,ssd,ppot,chain,sim",
+                    help="comma-separated sources to time: flash, ssd, ppot, chain, sim")
     ap.add_argument("--parent", type=Path, help="a checkout of an earlier commit")
     ap.add_argument("--out", type=Path, help="write the readings as JSON")
     args = ap.parse_args()
     kinds = set(args.kernels.split(","))
-    known = {"flash", "ssd", "ppot", "chain"}
+    known = {"flash", "ssd", "ppot", "chain", "sim"}
     if not kinds <= known:
         raise SystemExit(f"--kernels: unknown {sorted(kinds - known)}")
 
@@ -560,6 +867,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.pool_chain import build as cbuild
     from repro_torch.kernels.ppot_dispatch import build as pbuild
+    from repro_torch.kernels.sim_chain import build as simbuild
     from repro_torch.kernels.ssd_scan import build as sbuild
     from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.kernels.ssd_scan import ref as SR
@@ -573,16 +881,40 @@ def main() -> int:
     sources = {"flash": (K4_SRC, K4_VARIANTS, fbuild, "flash_error_string"),
                "ssd": (K5_SRC, K5_VARIANTS, sbuild, "ssd_error_string"),
                "ppot": (PPOT_SRC, PPOT_VARIANTS, pbuild, "ppot_error_string"),
-               "chain": (POOL_SRC, CHAIN_VARIANTS, cbuild, "pool_chain_error_string")}
+               "chain": (POOL_SRC, CHAIN_VARIANTS, cbuild, "pool_chain_error_string"),
+               "sim": (SIM_SRC, SIM_VARIANTS, simbuild, "sim_chain_error_string")}
     libs, parent = {}, {}
     for kind in sorted(kinds):
         path, variants, bld, err = sources[kind]
+        own = bld.LIBRARY.flags[len(_nvcc.FLAGS):]
         libs[kind] = [("current", bld.LIBRARY)] + [
-            (n, _nvcc.CudaLibrary(p, bld._SIGNATURES, err))
+            (n, _nvcc.CudaLibrary(p, bld._SIGNATURES, err, extra_flags=own))
             for n, p in variant_sources(path, variants, tmp)]
-        if args.parent:
+        if args.parent and kind == "sim":
+            clocked = tmp / "sim_chain_parent_clocked.cu"
+            clocked.write_text(clocked_parent_source((args.parent / path).read_text()))
+            sigs = PARENT_SIGNATURES[kind]
+            parent[kind] = {"plain": _nvcc.CudaLibrary(args.parent / path, sigs, err, own),
+                            "clocked": _nvcc.CudaLibrary(
+                                clocked, {**sigs, **simbuild.CLOCK_SIGNATURE}, err,
+                                simbuild.CLOCKED.flags[len(_nvcc.FLAGS):])}
+        elif args.parent:
             parent[kind] = _nvcc.CudaLibrary(args.parent / path, PARENT_SIGNATURES[kind], err)
-    _nvcc.build_all(*(lib for row in libs.values() for _, lib in row), *parent.values())
+    probe = None
+    if "sim" in kinds:
+        (tmp / "warp_probe.cu").write_text(WARP_PROBE_SRC)
+        probe = _nvcc.CudaLibrary(tmp / "warp_probe.cu", {"warp_probe": (_P,) * 3},
+                                  "warp_probe_error_string")
+    # the chain kernel's variants also in clocked builds, for their splits
+    sim_clocked = [_nvcc.CudaLibrary(lib.src, {**simbuild._SIGNATURES,
+                                               **simbuild.CLOCK_SIGNATURE},
+                                     "sim_chain_error_string",
+                                     simbuild.CLOCKED.flags[len(_nvcc.FLAGS):])
+                   for _, lib in libs.get("sim", [])]
+    extra = sim_clocked + ([probe] if probe else [])
+    _nvcc.build_all(*(lib for row in libs.values() for _, lib in row), *extra,
+                    *(lib for p in parent.values()
+                      for lib in (p.values() if isinstance(p, dict) else (p,))))
 
     def median_ms(fn, reps):
         for _ in range(3):
@@ -620,6 +952,10 @@ def main() -> int:
         readings["pool_chain"] = time_chain(torch, libs["chain"], parent.get("chain"), median_ms)
         if args.parent:
             readings["scan"] = time_scan(args.parent)
+    if "sim" in kinds:
+        readings["sim_chain"] = time_sim(torch, libs["sim"], sim_clocked, parent.get("sim"),
+                                         median_ms)
+        readings["sim_chain"]["warp_costs"] = warp_costs(torch, probe)
 
     # K4: q [B, S, H, D] in the model's layout, causal (hymba: window 1024)
     k4 = libs.get("flash", [])

@@ -1219,44 +1219,74 @@ def test_faulty_stream_on_the_card_equals_the_monolithic_scan(dev):
     assert led["conserved"] and met.check_conservation(led)[0] and led["n_retries"] > 0
 
 
-def _sim_batch(n, mt, specs, rounds, dev):
+def _sim_batch(n, mt, specs, rounds, dev, *, trace_queues=True, trace_mu=True):
     """(runs, draws on the card): each spec a (policy, learner, alias,
-    phases, bsc) run at n workers and mt slots of Fig. 9's job mix."""
+    phases, bsc) run at n workers and mt slots of Fig. 9's job mix, each of
+    ``rounds`` rounds (an int, or one a spec)."""
+    import dataclasses
+
     from repro_torch.configs import rosella_sim as RS
     from repro_torch.core import simulator as tsim
     from repro_torch.utils import prng as tprng
 
     speeds = RS.tpch_speed_set(n, 0)
     probs = None if mt == 1 else [0.4, 0.3, 0.2, 0.1][:mt]
+    lengths = [rounds] * len(specs) if isinstance(rounds, int) else rounds
     runs = []
-    for i, (policy, learner, alias, phases, bsc) in enumerate(specs):
-        cfg, params = RS.make_sim(policy, speeds, 0.8, rounds=rounds, use_learner=learner,
+    for i, ((policy, learner, alias, phases, bsc), T) in enumerate(zip(specs, lengths)):
+        cfg, params = RS.make_sim(policy, speeds, 0.8, rounds=T, use_learner=learner,
                                   use_fake_jobs=learner, volatile_phases=phases,
                                   phase_period=15.0, max_tasks=mt, task_probs=probs,
                                   constrained_frac=0.1 if mt > 1 else 0.0, device=dev)
-        import dataclasses
-        cfg = dataclasses.replace(cfg, use_alias=alias, batch_self_correct=bsc)
+        cfg = dataclasses.replace(cfg, use_alias=alias, batch_self_correct=bsc,
+                                  trace_queues=trace_queues, trace_mu=trace_mu)
         runs.append((cfg, params, tprng.PRNGKey(i)))
     draws = [tsim.draw_rounds(cfg, p, key, dev) for cfg, p, key in runs]
     return runs, draws
 
 
-@pytest.mark.parametrize("case", ["rosella", "fig9_batch"])
+_MIXED = [("ppot_sq2", True, True, 0, True), ("pss", True, False, 3, True),
+          ("halo", False, True, 2, True), ("sparrow", False, True, 0, True),
+          ("pot", False, True, 0, True)]
+#: case -> _sim_batch arguments (n, mt, specs, rounds, flags). tile_edges:
+#: at n = 30 a tile is kernel.TILE_MAX = 256 rounds, so 100 is shorter than
+#: one, 257 one past it, 600 and 1 no multiple of it, 256 exactly one
+SIM_CASES = {
+    "rosella": (30, 1, [("ppot_sq2", True, True, 4, True)], 3000, {}),
+    "fig9_batch": (30, 4, [("sparrow", False, True, 0, True), ("bandit", True, False, 3, False),
+                           ("ppot_ll2", False, True, 0, True), ("halo", False, True, 3, True),
+                           ("pss", True, False, 0, True), ("uniform", False, True, 0, False),
+                           ("pot", False, True, 2, True), ("ppot_sq2", True, False, 3, True)],
+                   1500, {}),
+    "tile_edges": (30, 1, _MIXED, [600, 100, 257, 256, 1], {}),
+    "untraced": (30, 1, _MIXED, [600, 100, 257, 256, 1],
+                 dict(trace_queues=False, trace_mu=False)),
+    "queues_only": (30, 4, _MIXED[:3], [513, 40, 300], dict(trace_mu=False)),
+    "n1": (1, 1, [("ppot_sq2", True, True, 0, True), ("pss", True, False, 2, True),
+                  ("pot", False, True, 0, True)], 700, {}),
+    "n200": (200, 1, [("ppot_sq2", True, True, 0, True), ("pss", True, False, 2, True)],
+             [300, 251], {}),
+    "cdf_learner": (30, 1, [("ppot_sq2", True, False, 0, True), ("bandit", True, False, 3, True),
+                            ("ppot_ll2", True, False, 2, True)], 2000, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(SIM_CASES))
 def test_sim_chain_kernel_equals_the_plain_chain(dev, case):
     """The kernel and the plain chain on the CPU, fed the same draws (drawn
     on the card), agree in every trace column and every field of the final
-    state, bit for bit."""
+    state, bit for bit: at the tile edges, on batches of unequal rounds,
+    with and without the queue and μ̂ rows, at n = 1 and n = 200 (a ring of
+    128), on the CDF stream with the learner."""
     from repro_torch.core import simulator as tsim
     from repro_torch.kernels.sim_chain import kernel as SCK
 
-    if case == "rosella":
-        runs, draws = _sim_batch(30, 1, [("ppot_sq2", True, True, 4, True)], 3000, dev)
-    else:
-        specs = [("sparrow", False, True, 0, True), ("bandit", True, False, 3, False),
-                 ("ppot_ll2", False, True, 0, True), ("halo", False, True, 3, True),
-                 ("pss", True, False, 0, True), ("uniform", False, True, 0, False),
-                 ("pot", False, True, 2, True), ("ppot_sq2", True, False, 3, True)]
-        runs, draws = _sim_batch(30, 4, specs, 1500, dev)
+    n, mt, specs, rounds, flags = SIM_CASES[case]
+    runs, draws = _sim_batch(n, mt, specs, rounds, dev, **flags)
+    if case == "tile_edges":
+        args, shape = tsim.chain_inputs(runs, draws, dev)
+        assert SCK.tile_rounds(args[4]["dt"].shape[1], n, mt, shape["ring_cap"],
+                               shape["arrival_window"], J=2 * mt) == SCK.TILE_MAX == 256
     SCK.reset_launches()
     got = tsim.simulate_many(runs, dev, draws)
     torch.cuda.synchronize()
@@ -1265,22 +1295,28 @@ def test_sim_chain_kernel_equals_the_plain_chain(dev, case):
     want = tsim.simulate_many(cpu_runs, "cpu", [{k: v.cpu() for k, v in d.items()}
                                                 for d in draws])
     assert SCK.launch_counts()["sim_chain"] == 1
-    for (gs, gt), (ws, wt) in zip(got, want):
+    for (cfg, _, _), (gs, gt), (ws, wt) in zip(runs, got, want):
+        assert set(gt) == set(wt)
         for name in wt:
             assert torch.equal(gt[name].cpu(), wt[name]), name
         for f in ("now", "q_real", "q_fake", "s_real", "busy_start"):
             assert torch.equal(getattr(gs, f).cpu(), getattr(ws, f)), f
-        for f in ("samples", "stamps", "widx", "count", "mu_hat"):
+        for f in ("samples", "stamps", "widx", "count", "epoch_start", "mu_hat"):
             assert torch.equal(getattr(gs.learner, f).cpu(), getattr(ws.learner, f)), f
-        assert (gt["code"] == 0).sum() > 0
+        for f in ("times", "idx", "count", "lam_hat"):
+            assert torch.equal(getattr(gs.arr, f).cpu(), getattr(ws.arr, f)), f
+        if cfg.rounds >= 100:
+            assert (gt["code"] == 0).sum() > 0
 
 
 def test_sim_chain_refuses_what_one_block_cannot_hold(dev):
+    """The first n past the shared-memory limit at a ring of 128 (213: the
+    rings, the state and a tile of one round), and mt past MAX_MT."""
     from repro_torch.configs import rosella_sim as RS
     from repro_torch.core import simulator as tsim
     from repro_torch.utils import prng as tprng
 
-    for n, mt in ((300, 1), (15, 9)):
+    for n, mt in ((213, 1), (300, 1), (15, 9)):
         cfg, params = RS.make_sim("ppot_sq2", np.ones(n), 0.5, rounds=10, max_tasks=mt,
                                   device=dev)
         with pytest.raises(ValueError, match="sim_chain"):

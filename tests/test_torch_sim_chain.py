@@ -302,3 +302,85 @@ def test_simulate_without_a_device_raises_without_a_card(monkeypatch):
         tsim.simulate(cfg, params, prng.PRNGKey(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TRS.make_sim("ppot_sq2", ZIPF, 0.8, rounds=20)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kernel_shape(cfg) -> tuple:
+    """(n, mt, ring_cap, arrival_window, J, trace_queues, trace_mu) of a run."""
+    from repro_torch.core import policies as tpol
+
+    j = tsim.probe_width(cfg, tpol.default_policy_config())
+    return (cfg.n, cfg.max_tasks, cfg.ring_cap, cfg.arrival_window, j, cfg.trace_queues,
+            cfg.trace_mu)
+
+
+def test_sim_chain_shape_limit_takes_every_shape_the_card_runs():
+    """``kernel.check_shape`` / ``smem_bytes`` take every chain shape of
+    chip_smoke.py's figures, check chains and theory cell, of the card
+    tests' cases, and n = 200 at a ring of 128, each with a tile of at
+    least one round in SMEM_LIMIT; they refuse the first n past the limit
+    at a ring of 128 (213) with a message naming sim_chain."""
+    from repro_torch.kernels.sim_chain import kernel as SK
+    from test_torch_cuda import SIM_CASES
+
+    cs = _chip_smoke()
+    cfgs = [cfg for runs in cs.sim_figures(TRS, "cpu").values() for _, (cfg, _, _), _ in runs]
+    cfgs += [cfg for cases in cs.sim_check_groups(TRS, "cpu").values()
+             for _, (cfg, _, _) in cases]
+    cfgs.append(TRS.make_sim("ppot_sq2", np.ones(20), 0.8, rounds=80_000, use_learner=False,
+                             device="cpu")[0])  # the theory cell
+    shapes = {_kernel_shape(cfg) for cfg in cfgs}
+    shapes |= {(n, mt, 128, 64, 2 * mt, flags.get("trace_queues", True),
+                flags.get("trace_mu", True)) for n, mt, _, _, flags in SIM_CASES.values()}
+    shapes.add((200, 1, 128, 64, 2, True, True))
+    assert {s[0] for s in shapes} >= {1, 15, 20, 30, 200}
+    for n, mt, cap, S, J, tq, tm in sorted(shapes):
+        kw = dict(J=J, trace_queues=tq, trace_mu=tm)
+        SK.check_shape(n, mt, cap, S, **kw)
+        stride = SK.ring_stride(n, mt, cap, S, **kw)
+        tile = SK.tile_rounds(120_000, n, mt, cap, S, stride=stride, **kw)
+        assert n <= stride and tile >= 1
+        assert SK.smem_bytes(n, mt, cap, S, tile=tile, stride=stride, **kw) <= SK.SMEM_LIMIT
+    first = next(n for n in range(200, 300) if SK.smem_bytes(n, 1, 128, 64) > SK.SMEM_LIMIT)
+    assert first == 213
+    SK.check_shape(first - 1, 1, 128, 64)
+    with pytest.raises(ValueError, match="sim_chain"):
+        SK.check_shape(first, 1, 128, 64)
+    with pytest.raises(ValueError, match="sim_chain"):
+        SK.check_shape(30, SK.MAX_MT + 1, 128, 64)
+
+
+def test_sim_chain_wrapper_constants_match_the_source():
+    """The wrapper's copies of the kernel's constants: the state arrays and
+    slots a job of the shared-memory formula, and the clocked build's record
+    (the CK_* phases, then the CN_* counts) that ``read_clocks`` names."""
+    import re
+
+    from repro_torch.kernels.sim_chain import build as SB
+    from repro_torch.kernels.sim_chain import kernel as SK
+
+    src = SB.SRC.read_text()
+    assert int(re.search(r"constexpr int kStateArrays = (\d+);", src).group(1)) == \
+        SK.STATE_ARRAYS
+    assert int(re.search(r"constexpr int kMaxMt = (\d+);", src).group(1)) == SK.MAX_MT
+    assert int(re.search(r"constexpr int kClockChains = (\d+);", src).group(1)) == \
+        SK.CLOCK_CHAINS
+    assert "2 * (size_t)(n + 4)" in src  # the table's stack, beside the rings
+    phases = re.search(r"enum \{ (CK_SETUP[^}]*) \};", src).group(1)
+    counts = re.search(r"enum \{ (CN_ROUNDS[^}]*) \};", src).group(1)
+    names = [w.strip().split(" ")[0] for w in phases.replace("\n", " ").split(",")]
+    assert names[-1] == "CK_PHASES"
+    assert [w[3:].lower() for w in names[:-1]] == list(SK.CLOCK_PHASES)
+    cnames = [w.strip().split(" ")[0] for w in counts.replace("\n", " ").split(",")]
+    assert cnames[-1] == "CK_SLOTS"
+    assert [w[3:].lower() for w in cnames[:-1]] == list(SK.CLOCK_COUNTS)

@@ -2674,6 +2674,7 @@ SIM_CHECK_ROUNDS = 4000
 # the kernels line's fixed case: Fig. 8's static Rosella run cut to this
 # many rounds, where the plain chain on the card is timed too
 SIM_LINE_ROUNDS = 2000
+SIM_LINE_REPS = 20
 SIM_PLAIN_CARD_ROUNDS = 300
 # the chain's serial floor in cycles a round: the f32 add of the clock,
 # now += dt, the one dependence every round has on the one before
@@ -2835,24 +2836,27 @@ def figure_claims(fig: str, runs: dict) -> list:
              f"{ratio['ll2']:.4f})", ratio["ll2"] > 2.0 * ratio["sq2"])]
 
 
-def sim_kernel_equals_plain(torch, tsim, groups, dev) -> dict:
+def sim_kernel_equals_plain(torch, tsim, groups, dev, tag="[sim]") -> dict:
     """Each group's draws made once on the card, the kernel run on them and
     the plain chain on the same draws copied to the CPU: every trace column
-    and every field of the final state equal. Also how the card's draws
-    differ from the CPU's for the same keys."""
+    and every field of the final state equal (the fleet's and the crash
+    track's too, where a run has them). Also how the card's draws differ
+    from the CPU's for the same keys. A run is (cfg, params, key) or
+    (cfg, params, key, env)."""
     out = {}
     for gname, cases in groups.items():
-        runs = [run for _, run in cases]
+        runs = [tuple(run) + (None,) * (4 - len(run)) for _, run in cases]
         t0 = time.perf_counter()
-        draws = [tsim.draw_rounds(cfg, p, key, dev) for cfg, p, key in runs]
+        draws = [tsim.draw_rounds(cfg, p, key, dev, env) for cfg, p, key, env in runs]
         got = tsim.simulate_many(runs, dev, draws)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        cpu_runs = [(cfg, p.to("cpu"), key) for cfg, p, key in runs]
+        cpu_runs = [(cfg, p.to("cpu"), key, None if env is None else env.to("cpu"))
+                    for cfg, p, key, env in runs]
         cpu_draws = [{k: v.cpu() for k, v in d.items()} for d in draws]
         want = tsim.simulate_many(cpu_runs, "cpu", cpu_draws)
         t2 = time.perf_counter()
-        own = [tsim.draw_rounds(cfg, p, key, "cpu") for cfg, p, key in cpu_runs]
+        own = [tsim.draw_rounds(cfg, p, key, "cpu", env) for cfg, p, key, env in cpu_runs]
         diff = {"ev": 0, "n_tasks": 0, "dt_max_ulps": 0}
         err = 0.0
         for (label, _), (gs, gt), (ws, wt), d_card, d_cpu in zip(cases, got, want,
@@ -2862,34 +2866,49 @@ def sim_kernel_equals_plain(torch, tsim, groups, dev) -> dict:
                 if g.numel():
                     err = max(err, (g.double() - w.double()).abs().max().item())
                 need(torch.equal(g, w),
-                     f"[sim] {gname} {label}: sim_chain's {name} differs from the plain chain")
+                     f"{tag} {gname} {label}: sim_chain's {name} differs from the plain chain")
             for f in ("now", "q_real", "q_fake", "s_real", "busy_start"):
                 need(torch.equal(getattr(gs, f).cpu(), getattr(ws, f)),
-                     f"[sim] {gname} {label}: final {f} differs from the plain chain")
+                     f"{tag} {gname} {label}: final {f} differs from the plain chain")
             for f in ("samples", "stamps", "widx", "count", "epoch_start", "mu_hat"):
                 need(torch.equal(getattr(gs.learner, f).cpu(), getattr(ws.learner, f)),
-                     f"[sim] {gname} {label}: final learner.{f} differs")
+                     f"{tag} {gname} {label}: final learner.{f} differs")
             for f in ("times", "idx", "count", "lam_hat"):
                 need(torch.equal(getattr(gs.arr, f).cpu(), getattr(ws.arr, f)),
-                     f"[sim] {gname} {label}: final arr.{f} differs")
-            for k in ("u_svc", "u_fake", "u", "j_fake", "pins", "j"):
-                need(torch.equal(d_card[k], d_cpu[k]),
-                     f"[sim] {gname} {label}: the card's {k} draws differ from the CPU's")
+                     f"{tag} {gname} {label}: final arr.{f} differs")
+            need((gs.fleet is None) == (ws.fleet is None),
+                 f"{tag} {gname} {label}: one side kept no fleet state")
+            if ws.fleet is not None:
+                need(torch.equal(gs.crash_i.cpu(), ws.crash_i),
+                     f"{tag} {gname} {label}: final crash_i differs")
+                for f in ("q_snap", "q_delta", "mu_view", "alias_p", "alias_a", "t_sync",
+                          "lam_global"):
+                    need(torch.equal(getattr(gs.fleet, f).cpu(), getattr(ws.fleet, f)),
+                         f"{tag} {gname} {label}: final fleet.{f} differs")
+                for f in ("last_time", "mean_gap", "count"):
+                    need(torch.equal(getattr(gs.fleet.arr, f).cpu(), getattr(ws.fleet.arr, f)),
+                         f"{tag} {gname} {label}: final fleet.arr.{f} differs")
+            for k in ("u_svc", "u_fake", "u", "j_fake", "pins", "j", "u_thin", "u_pin",
+                      "u_jfake", "uj"):
+                if k in d_card:
+                    need(torch.equal(d_card[k], d_cpu[k]),
+                         f"{tag} {gname} {label}: the card's {k} draws differ from the CPU's")
             for k in ("ev", "n_tasks"):  # categorical: torch's log on each device
                 diff[k] += int((d_card[k] != d_cpu[k]).sum())
             a, b = d_card["dt"].numpy().view(np.int32), d_cpu["dt"].numpy().view(np.int32)
             diff["dt_max_ulps"] = max(diff["dt_max_ulps"],
                                       int(np.abs(a.astype(np.int64) - b).max()))
-        rounds = sum(cfg.rounds for cfg, _, _ in runs)
+        rounds = sum(cfg.rounds for cfg, _, _, _ in runs)
         out[gname] = dict(chains=len(runs), rounds=rounds, card_s=t1 - t0, plain_cpu_s=t2 - t1,
                           max_abs_err=err, draws_card_vs_cpu=diff,
                           labels=[label for label, _ in cases])
-        print(f"[sim] kernel = plain chain: {gname}: {len(runs)} chains x "
-              f"{SIM_CHECK_ROUNDS} rounds ({', '.join(out[gname]['labels'])}) in one launch, "
-              f"every trace column and the final state equal bit for bit (card {t1 - t0:.2f} s "
-              f"with its draws, plain chain on the CPU {t2 - t1:.2f} s); card draws vs the "
-              f"CPU's for the same keys: uniforms and integer draws equal, categorical "
-              f"ev {diff['ev']} / n_tasks {diff['n_tasks']} rounds differ, dt within "
+        lengths = sorted({cfg.rounds for cfg, _, _, _ in runs})
+        print(f"{tag} kernel = plain chain: {gname}: {len(runs)} chains x "
+              f"{'/'.join(map(str, lengths))} rounds ({', '.join(out[gname]['labels'])}) in one "
+              f"launch, every trace column and the final state equal bit for bit (card "
+              f"{t1 - t0:.2f} s with its draws, plain chain on the CPU {t2 - t1:.2f} s); card "
+              f"draws vs the CPU's for the same keys: uniforms and integer draws equal, "
+              f"categorical ev {diff['ev']} / n_tasks {diff['n_tasks']} rounds differ, dt within "
               f"{diff['dt_max_ulps']} ulp")
     return out
 
@@ -2918,8 +2937,7 @@ def sim_figure(torch, tsim, fig, runs, dev) -> dict:
              f"[sim] {fig} {label}: trace shapes")
         m = M.analyze(tr, n=cfg.n, warmup_frac=warm)
         st = response_stats(m)
-        r = {"rounds": cfg.rounds, "rounds_per_s": cfg.rounds / launch_s, "stats": st,
-             "extra": {}}
+        r = {"rounds": cfg.rounds, "stats": st, "extra": {}}
         if fig == "fig8":
             rt = m.response_times
             slow = float(np.mean(rt > 20.0)) if rt.size else 1.0
@@ -2943,18 +2961,21 @@ def sim_figure(torch, tsim, fig, runs, dev) -> dict:
     t3 = time.perf_counter()
     claims = figure_claims(fig, rec)
     chains = len(runs)
-    print(f"[sim] {fig}: {chains} chains in one launch, {launch_s * 1e3:.3f} ms "
+    rounds = sum(r["rounds"] for r in rec.values())
+    print(f"[sim] {fig}: {chains} chains in one launch, {launch_s * 1e3:.3f} ms, their "
+          f"{rounds} rounds at {rounds / launch_s:.1f} rounds/s over the launch "
           f"(draws {t1 - t0:.3f} s, analyze {t3 - t2:.3f} s)")
     for label, r in rec.items():
         s = r["stats"]
         extra = "".join(f", {k} {v:.6g}" for k, v in r["extra"].items())
-        print(f"[sim] {fig} {label}: {r['rounds']} rounds, {r['rounds_per_s']:.1f} rounds/s "
-              f"in the launch; jobs {s['n']}, mean {s['mean']:.6g}, p50 {s['p50']:.6g}, "
+        print(f"[sim] {fig} {label}: {r['rounds']} rounds; jobs {s['n']}, mean {s['mean']:.6g}, "
+              f"p50 {s['p50']:.6g}, "
               f"p95 {s['p95']:.6g}, censored {s['censored_frac']:.6g}{extra}")
     for claim, ok in claims:
         print(f"[sim] {fig} claim {claim}: {bool(ok)}")
-    return dict(chains=chains, launch_ms=launch_s * 1e3, draws_s=t1 - t0, analyze_s=t3 - t2,
-                runs=rec, claims={c: bool(ok) for c, ok in claims})
+    return dict(chains=chains, launch_ms=launch_s * 1e3, rounds=rounds,
+                rounds_per_s=rounds / launch_s, draws_s=t1 - t0, analyze_s=t3 - t2, runs=rec,
+                claims={c: bool(ok) for c, ok in claims})
 
 
 def sim_theory(torch, tsim, RS, TH, dev) -> dict:
@@ -3016,6 +3037,271 @@ def phase_sim(torch, RS, TH, dev, card) -> tuple[dict, dict]:
           f"({sum(f['chains'] for f in figs.values())} chains) and the theory checks in "
           f"{secs:.1f} s; main-path launches {json.dumps(launches)}")
     return dict(checks=checks, figures=figs, theory=theory, seconds=secs), launches
+
+
+# the environment, fault and fleet modes (ROADMAP A8b)
+SIM_EXT_CHECK_ROUNDS = 2000
+# benchmarks/fleet_scale.py's _staleness_sweep at its full settings
+SIM_FLEET_ROUNDS = 60_000
+SIM_FLEET_S = 4
+SIM_FLEET_SYNCS = (1, 4, 16, 64, 256)
+SIM_ENV_HORIZON = 360.0
+# the rounds [sim env]'s hold runs past its chain's events (~25 s at R ~ 20)
+SIM_ENV_HOLD_MARGIN = 500
+
+
+def sim_ext_check_groups(RS, tenv, dev) -> dict:
+    """The kernel = plain cases of the new modes, by launch: every
+    environment scenario with a track of its own on the registry's cluster
+    (n = 5; churn also at S = 4, sync 64, herd), and §6.1's 30 speeds at
+    S = 4, sync 4 under the herd correction, the weighted and the sticky
+    load balancer."""
+    import dataclasses
+
+    from repro_torch.utils import prng
+
+    R = SIM_EXT_CHECK_ROUNDS
+    env = []
+    for i, name in enumerate(("flash_crowd", "reshuffle", "churn", "churn_heavy", "blackout",
+                              "crash_storm", "grey_failure")):
+        cfg, params, e = tenv.make(name).to_sim("ppot_sq2", rounds=R, device=dev)
+        env.append((name, (cfg, params, prng.PRNGKey(SEED + i), e)))
+    cfg, params, e = tenv.make("churn").to_sim("ppot_sq2", rounds=R, device=dev, n_frontends=4,
+                                               fleet_sync_every=64, fleet_herd_correction=True)
+    env.append(("churn S=4 sync 64 herd", (cfg, params, prng.PRNGKey(SEED), e)))
+    tpch = RS.tpch_speed_set(30, SEED)
+    fleet = []
+    for label, herd, lb in (("herd", True, "uniform"), ("weighted", False, "weighted"),
+                            ("sticky", False, "sticky")):
+        cfg, params = RS.make_sim("ppot_sq2", tpch, 0.8, rounds=R, n_frontends=4,
+                                  fleet_sync_every=4, fleet_herd_correction=herd, device=dev)
+        if lb == "weighted":
+            params = dataclasses.replace(params, lb_weights=params.lb_weights.new_tensor(
+                [6.0, 1.0, 1.0, 1.0]))
+        fleet.append((label, (dataclasses.replace(cfg, frontend_lb=lb), params,
+                              prng.PRNGKey(SEED))))
+    return {"environments (registry cluster, n = 5)": env,
+            "fleet (6.1 speeds, S = 4, sync 4)": fleet}
+
+
+SIM_FLEET_SETTINGS = [(se, False) for se in SIM_FLEET_SYNCS] + [(SIM_FLEET_SYNCS[-1], True)]
+
+
+def sim_fleet_runs(RS, dev) -> list:
+    """The staleness sweep's runs, one a (sync cadence, herd) setting."""
+    from repro_torch.utils import prng
+
+    speeds = RS.tpch_speed_set(30, seed=SEED)
+    runs = []
+    for se, herd in SIM_FLEET_SETTINGS:
+        cfg, params = RS.make_sim("ppot_sq2", speeds, 0.8, rounds=SIM_FLEET_ROUNDS, seed=SEED,
+                                  n_frontends=SIM_FLEET_S, fleet_sync_every=se,
+                                  fleet_herd_correction=herd, device=dev)
+        runs.append((cfg, params, prng.PRNGKey(SEED)))
+    return runs
+
+
+def sim_fleet_sweep(torch, tsim, RS, met, dev) -> dict:
+    """[sim fleet]: benchmarks/fleet_scale.py's _staleness_sweep at its full
+    settings, six chains in one sim_chain launch."""
+    from repro_torch.fleet import fleet_lam_hats
+
+    lam = 0.8 * float(RS.tpch_speed_set(30, seed=SEED).sum())
+    settings = SIM_FLEET_SETTINGS
+    runs = sim_fleet_runs(RS, dev)
+    t0 = time.perf_counter()
+    draws = [tsim.draw_rounds(c, p, k, dev) for c, p, k in runs]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    outs = tsim.simulate_many(runs, dev, draws)
+    e1.record()
+    torch.cuda.synchronize()
+    launch_ms = e0.elapsed_time(e1)
+    t2 = time.perf_counter()
+    rec, base = {}, None
+    for (se, herd), (cfg, _, _), (final, tr) in zip(settings, runs, outs):
+        for name in ("now", "lam_hat", "mu_hat", "sync_age"):
+            need(bool(torch.isfinite(tr[name]).all()), f"[sim fleet] sync {se}: {name} not finite")
+        m = met.analyze(tr, n=cfg.n, warmup_frac=0.3)
+        fs = met.fleet_summary_from_trace(
+            tr, n_frontends=SIM_FLEET_S, sync_every=se,
+            lam_hat_frontends=fleet_lam_hats(final.fleet).cpu().numpy(), lam_true=lam)
+        need(m.response_times.size > 0, f"[sim fleet] sync {se}: no completed job")
+        p50 = float(np.percentile(m.response_times, 50))
+        p99 = float(np.percentile(m.response_times, 99))
+        if se == 1 and not herd:
+            base = (p50, p99)
+        key = f"sync{se}" + ("_herd" if herd else "")
+        rec[key] = dict(sync_every=se, herd=herd, p50=p50, p99=p99, p50_inflation=p50 / base[0],
+                        p99_inflation=p99 / base[1], censored=m.censored, jobs=m.num_jobs,
+                        collision_rate=fs["collision_rate"],
+                        gap_mean=fs.get("staleness", {}).get("gap_mean"),
+                        lam_cal_mean_rel_err=fs["lam_calibration_rel_err"]["mean"])
+    t3 = time.perf_counter()
+    rounds = sum(cfg.rounds for cfg, _, _ in runs)
+    plain = [rec[f"sync{se}"]["p99"] for se in SIM_FLEET_SYNCS]
+    claims = {"p99 rises with the sync cadence (sync 256 above sync 1)": plain[-1] > plain[0],
+              "p99 rises at every step of the cadence": all(b >= a for a, b in zip(plain,
+                                                                                   plain[1:]))}
+    print(f"[sim fleet] benchmarks/fleet_scale.py's staleness sweep: 6.1's 30 speeds (seed "
+          f"{SEED}), load 0.8, {SIM_FLEET_ROUNDS} rounds, S = {SIM_FLEET_S}, Rosella; "
+          f"{len(runs)} chains in one launch {launch_ms:.6f} ms, their {rounds} rounds at "
+          f"{rounds / (launch_ms / 1e3):.1f} rounds/s over the launch (draws {t1 - t0:.3f} s, "
+          f"analyze + fleet_summary {t3 - t2:.3f} s)")
+    for key, r in rec.items():
+        print(f"[sim fleet] {key}: p50 {r['p50']:.6g} p99 {r['p99']:.6g} (inflation vs sync 1: "
+              f"p50 {r['p50_inflation']:.4f}, p99 {r['p99_inflation']:.4f}), jobs {r['jobs']}, "
+              f"censored {r['censored']}, collision rate {r['collision_rate']:.6f}, mean staleness "
+              f"gap {r['gap_mean']:.6f}, lam_hat calibration mean rel err "
+              f"{r['lam_cal_mean_rel_err']:.6f}")
+    for claim, ok in claims.items():
+        print(f"[sim fleet] claim {claim}: {ok}")
+    return dict(launch_ms=launch_ms, rounds=rounds, rounds_per_s=rounds / (launch_ms / 1e3),
+                draws_s=t1 - t0, analyze_s=t3 - t2, sweep=rec, claims=claims)
+
+
+def sim_env_scenarios(torch, tsim, RS, tenv, met, dev) -> dict:
+    """[sim env]: every non-null registry scenario through to_sim at the
+    paper's cluster (6.1's 30 speeds, rate 0.8 x their sum) over the
+    registry's 360 s, each chain long enough to pass the horizon, all in one
+    sim_chain launch; crash_storm must kill jobs and churn none."""
+    import dataclasses
+
+    from repro_torch.utils import prng
+
+    speeds = RS.tpch_speed_set(30, seed=SEED)
+    rate = 0.8 * float(speeds.sum())
+    runs, names = [], []
+    for name in tenv.names():
+        scn = tenv.make(name, speeds=tuple(speeds), rate=rate)
+        if scn.is_null:
+            continue
+        cfg, params, e = scn.to_sim("ppot_sq2", rounds=1, device=dev)
+        R = float(tsim.rates_of(cfg, params, e)[0])
+        cfg = dataclasses.replace(cfg, rounds=int(np.ceil(SIM_ENV_HORIZON * R * 1.1)) + 1000)
+        runs.append((cfg, params, prng.PRNGKey(SEED), e))
+        names.append(name)
+    t0 = time.perf_counter()
+    draws = [tsim.draw_rounds(c, p, k, dev, e) for c, p, k, e in runs]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    outs = tsim.simulate_many(runs, dev, draws)
+    e1.record()
+    torch.cuda.synchronize()
+    launch_ms = e0.elapsed_time(e1)
+    t2 = time.perf_counter()
+    rec = {}
+    for name, (cfg, _, _, e), (final, tr) in zip(names, runs, outs):
+        for col in ("now", "lam_hat", "mu_hat"):
+            need(bool(torch.isfinite(tr[col]).all()), f"[sim env] {name}: {col} not finite")
+        end = float(tr["now"][-1])
+        need(end > SIM_ENV_HORIZON, f"[sim env] {name}: {cfg.rounds} rounds end at {end:.3f} s, "
+             f"before the {SIM_ENV_HORIZON} s horizon")
+        m = met.analyze(tr, n=cfg.n)
+        need(m.response_times.size > 0, f"[sim env] {name}: no completed job")
+        rt = m.response_times
+        rec[name] = dict(rounds=cfg.rounds, end_s=end, jobs=m.num_jobs, censored=m.censored,
+                         killed_jobs=m.killed_jobs, mean=float(np.mean(rt)),
+                         p50=float(np.percentile(rt, 50)), p99=float(np.percentile(rt, 99)),
+                         crashes=int(final.crash_i))
+    t3 = time.perf_counter()
+    rounds = sum(cfg.rounds for cfg, _, _, _ in runs)
+    need(rec["crash_storm"]["killed_jobs"] > 0, "[sim env] crash_storm killed no job")
+    need(rec["churn"]["killed_jobs"] == 0, "[sim env] churn killed a job: departures must drain")
+    print(f"[sim env] {len(runs)} registry scenarios through to_sim at 6.1's 30 speeds, rate "
+          f"{rate:.6g}, {SIM_ENV_HORIZON} s, Rosella; one launch {launch_ms:.6f} ms, their "
+          f"{rounds} rounds at {rounds / (launch_ms / 1e3):.1f} rounds/s over the launch (draws "
+          f"{t1 - t0:.3f} s, analyze {t3 - t2:.3f} s)")
+    for name, r in rec.items():
+        print(f"[sim env] {name}: {r['rounds']} rounds to {r['end_s']:.3f} s, jobs {r['jobs']}, "
+              f"mean {r['mean']:.6g} p50 {r['p50']:.6g} p99 {r['p99']:.6g}, censored "
+              f"{r['censored']}, killed jobs {r['killed_jobs']} ({r['crashes']} crashes)")
+    print("[sim env] crash_storm kills jobs, churn drains: True")
+    hold = sim_env_hold(torch, tsim, names, runs, draws, outs)
+    return dict(launch_ms=launch_ms, rounds=rounds, rounds_per_s=rounds / (launch_ms / 1e3),
+                draws_s=t1 - t0, analyze_s=t3 - t2, scenarios=rec, hold=hold)
+
+
+def sim_env_hold_rounds(e, now: np.ndarray, rounds: int) -> tuple[int, float]:
+    """How many of a [sim env] chain's rounds its hold against the plain
+    chain covers, and the time they must pass: the second change of each
+    of its tracks (membership, stall, μ, λ: a worker leaves and rejoins, a
+    stall begins and ends, ...) and its second crash, then
+    SIM_ENV_HOLD_MARGIN rounds more; at least SIM_EXT_CHECK_ROUNDS, at most
+    the chain's rounds."""
+    times = []
+    for bp, val in ((e.act_bp, e.act_val), (e.stall_bp, e.stall_val), (e.mu_bp, e.mu_val),
+                    (e.lam_bp, e.lam_val)):
+        if bp is None:
+            continue
+        bp, val = bp.cpu().numpy(), val.cpu().numpy()
+        times += [float(bp[i]) for i in range(1, len(bp))
+                  if not np.array_equal(val[i], val[i - 1])][:2]
+    if e.crash_t is not None:
+        times += [float(t) for t in e.crash_t.cpu().numpy()[:2]]
+    t_hold = max([t for t in times if t < SIM_ENV_HORIZON], default=0.0)
+    k = int(np.searchsorted(now, t_hold, side="right")) + SIM_ENV_HOLD_MARGIN
+    return min(rounds, max(SIM_EXT_CHECK_ROUNDS, k)), t_hold
+
+
+def sim_env_hold(torch, tsim, names, runs, draws, outs) -> dict:
+    """[sim env]'s launch itself held against the plain chain: the chain is
+    causal, so the plain chain on the CPU, fed each chain's first K draw
+    rows (``sim_env_hold_rounds``), must give the launch's first K rows of
+    every trace column bit for bit, at the shape the main path runs (n = 30,
+    the scenario's own tracks)."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    cuts, cpu_runs, cpu_draws = [], [], []
+    for (cfg, p, key, e), d, (_, tr) in zip(runs, draws, outs):
+        k, t_hold = sim_env_hold_rounds(e, tr["now"].cpu().numpy(), cfg.rounds)
+        cuts.append((k, t_hold))
+        cpu_runs.append((dataclasses.replace(cfg, rounds=k), p.to("cpu"), key, e.to("cpu")))
+        cpu_draws.append({name: v[:k].cpu() for name, v in d.items()})
+    want = tsim.simulate_many(cpu_runs, "cpu", cpu_draws)
+    rec = {}
+    for name, (k, t_hold), (_, got), (_, wt) in zip(names, cuts, outs, want):
+        for col in wt:
+            need(torch.equal(got[col][:k].cpu(), wt[col]),
+                 f"[sim env] {name}: the launch's {col} differs from the plain chain in its "
+                 f"first {k} rounds")
+        rec[name] = dict(rounds=k, past_s=t_hold)
+    secs = time.perf_counter() - t0
+    total = sum(k for k, _ in cuts)
+    print(f"[sim env] the launch held against the plain chain on the CPU, fed its own draws: "
+          f"the first {total} rounds of its {len(names)} chains ("
+          + ", ".join(f"{name} {r['rounds']} past {r['past_s']:.1f} s" for name, r in rec.items())
+          + f"), every trace column equal bit for bit, in {secs:.2f} s")
+    return dict(chains=rec, rounds=total, seconds=secs)
+
+
+def phase_sim_ext(torch, RS, tenv, met, dev, card) -> tuple[dict, dict]:
+    """The chain's environment, fault and fleet modes: kernel = plain chain
+    on a check chain of each, then the main path's two launches ([sim
+    fleet], [sim env]), counted."""
+    from repro_torch.core import simulator as tsim
+    from repro_torch.kernels.sim_chain import kernel as SK
+
+    t0 = time.perf_counter()
+    print(f"[sim] {card}; the chain's environment, fault and fleet modes through sim_chain "
+          f"(its environment and fleet instances), seed {SEED}")
+    checks = sim_kernel_equals_plain(torch, tsim, sim_ext_check_groups(RS, tenv, dev), dev)
+    SK.reset_launches()
+    fleet = sim_fleet_sweep(torch, tsim, RS, met, dev)
+    env = sim_env_scenarios(torch, tsim, RS, tenv, met, dev)
+    launches = SK.launch_counts()
+    need(launches["sim_chain"] == 2,
+         f"[sim] sim_chain launched {launches['sim_chain']} times on the environment and fleet "
+         f"path, expected one for [sim fleet] and one for [sim env]")
+    secs = time.perf_counter() - t0
+    print(f"[sim] the environment and fleet modes: {len(checks)} kernel = plain launches, [sim "
+          f"fleet] and [sim env] in {secs:.1f} s; main-path launches {json.dumps(launches)}")
+    return dict(checks=checks, fleet=fleet, env=env, seconds=secs), launches
 
 
 def sim_line_bytes(args, T: int, n: int, mt: int, cap: int, S: int) -> int:
@@ -3097,6 +3383,22 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
             ts.append(e0.elapsed_time(e1))
         return float(np.median(ts))
 
+    def queued_ms(fn, reps):
+        """The median of reps event pairs queued behind a sleep, so that no
+        host work lies between a pair's two events (fn must not wait for the
+        stream)."""
+        fn()
+        torch.cuda.synchronize()
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(reps)]
+        torch.cuda._sleep(200_000_000)
+        for e0, e1 in evs:
+            e0.record()
+            fn()
+            e1.record()
+        torch.cuda.synchronize()
+        return float(np.median([e0.elapsed_time(e1) for e0, e1 in evs]))
+
     figs = sim_figures(RS, dev)
     fig8 = [run for _, run, _ in figs["fig8"]]
     splits, single, inputs = {}, {}, {}
@@ -3131,8 +3433,15 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
     import dataclasses
     cut = (dataclasses.replace(cfg, rounds=R), params, key)
     cut_args, _ = tsim.chain_inputs([cut], [{k: v[:R] for k, v in draws.items()}], dev)
-    ms = event_ms(lambda: SK.sim_chain(*cut_args, **shape), 20)
+    # ms: the launch alone (the kernel and its outputs' zero fill), queued;
+    # wrapper_ms: the wrapper in an event pair, with its host work and its
+    # read of the configs (which waits for the stream) inside the pair
     _, cut_trace = SK.sim_chain(*cut_args, **shape)
+    need(all(torch.equal(a, b) for a, b in zip(SK.launch_only(*cut_args, **shape)[1].values(),
+                                               cut_trace.values())),
+         "[times] sim_chain's launch alone differs from the wrapper's")
+    ms = queued_ms(lambda: SK.launch_only(*cut_args, **shape), SIM_LINE_REPS)
+    wrapper_ms = event_ms(lambda: SK.sim_chain(*cut_args, **shape), SIM_LINE_REPS)
     P = SIM_PLAIN_CARD_ROUNDS
     plain_cut = (dataclasses.replace(cfg, rounds=P), params, key)
     plain_args, _ = tsim.chain_inputs([plain_cut], [{k: v[:P] for k, v in draws.items()}], dev)
@@ -3147,8 +3456,20 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
     ops_ms = ops / 67e12 * 1e3  # f32 outside the tensor cores
     chain_ms = R * SIM_CHAIN_CYCLES / (mhz * 1e6) * 1e3
     full_chain_ms = cfg.rounds * SIM_CHAIN_CYCLES / (mhz * 1e6) * 1e3
-    rec = dict(ms=ms, plain_ms=plain_ms, plain_round_ms=plain_round_ms,
-               bound_ms=max(bytes_ms, ops_ms),
+    # the environment and fleet program (the EXT instances): Fig. 8's run on it,
+    # bit for bit the paper program's, and [sim fleet]'s six chains alone
+    ext_args, _ = tsim.chain_inputs([fig8[0]], [draws], dev, ext=True)
+    need(all(torch.equal(a, b) for a, b in zip(SK.sim_chain(*ext_args, **shape)[1].values(),
+                                               SK.sim_chain(*args, **shape)[1].values())),
+         "[times] the environment and fleet program on Fig. 8's run differs from the paper "
+         "program")
+    ext_ms = event_ms(lambda: SK.sim_chain(*ext_args, **shape), 3)
+    fruns = sim_fleet_runs(RS, dev)
+    fleet_args, fleet_shape = tsim.chain_inputs(
+        fruns, [tsim.draw_rounds(c, p, k, dev) for c, p, k in fruns], dev)
+    fleet_ms = event_ms(lambda: SK.sim_chain(*fleet_args, **fleet_shape), 3)
+    rec = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, plain_round_ms=plain_round_ms,
+               bound_ms=max(bytes_ms, ops_ms), ext_fig8_ms=ext_ms, fleet_sweep_ms=fleet_ms,
                bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
                ops=ops, chain_ms=chain_ms, rounds=R, full_rounds=cfg.rounds, full_ms=full_ms,
                full_chain_ms=full_chain_ms, batch_ms=batch_ms, batch_chains=len(fig8),
@@ -3160,11 +3481,18 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
           f"{SIM_CHAIN_CYCLES} cycles a round, {mhz:.0f} MHz); Fig. 8's {len(fig8)} chains in "
           f"one launch {batch_ms:.6f} ms; draw_rounds {draw_ms:.6f} ms, analyze "
           f"{analyze_ms:.6f} ms a run (host clock)")
-    print(f"[times] sim_chain at {R} rounds of that run: kernel {ms:.6f} ms, plain chain on "
+    print(f"[times] sim_chain at {R} rounds of that run: kernel {ms:.6f} ms (the launch "
+          f"alone, median of {SIM_LINE_REPS} queued event pairs; the wrapper with its host work "
+          f"in the pair {wrapper_ms:.6f} ms), plain chain on "
           f"the card {plain_ms:.6f} ms ({plain_round_ms:.6f} ms a round over {P} rounds), "
           f"bound {rec['bound_ms']:.9f} ms ({rec['bound_by']}: {nbytes} B at 3.35 TB/s = "
           f"{bytes_ms:.9f} ms; {ops} f32 operations at 67 TFLOP/s = {ops_ms:.9f} ms), chain "
           f"floor {chain_ms:.6f} ms, launch floor {floor_ms:.6f} ms, library call: none")
+    print(f"[times] sim_chain's environment and fleet program (its EXT instances) on that run: "
+          f"{ext_ms:.6f} ms against the paper program's {full_ms:.6f} ms "
+          f"({ext_ms / full_ms:.4f}x; the same trace bit for bit); [sim fleet]'s "
+          f"{len(fruns)} chains of {SIM_FLEET_ROUNDS} rounds (S = {SIM_FLEET_S}) in one launch "
+          f"{fleet_ms:.6f} ms")
     for label, r in single.items():
         print(f"[times] sim_chain, {label} (n={r['n']}): {r['rounds']} rounds {r['ms']:.6f} ms "
               f"({r['ms'] / r['rounds'] * 1e6:.3f} ns a round); bound "
@@ -4306,6 +4634,7 @@ def main() -> int:
     load, load_launches, load_pool_err = phase_load(torch, tr, tsl, tenv, tload, obs, trcv, chk,
                                                     D, K, CK, CR, met, speeds, dev, card, faults)
     sim, sim_launches = phase_sim(torch, RS, TH, dev, card)
+    sim_ext, sim_ext_launches = phase_sim_ext(torch, RS, tenv, met, dev, card)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
@@ -4379,18 +4708,21 @@ def main() -> int:
         real_turn_ms=pool_turn_times[("a", W)]["ms"]))
     # Fig. 8's static Rosella run cut to SIM_LINE_ROUNDS rounds, where the
     # plain chain on the card is timed too; full_ms: its 120,000 rounds,
-    # full_bound_ms: their bound; fig10_ms: Fig. 10a's known-speed run
+    # full_bound_ms: their bound; fig10_ms: Fig. 10a's known-speed run;
+    # fleet_sweep_ms: [sim fleet]'s launch (six chains of 60,000 rounds)
     kernels.append(dict(
         name="sim_chain", route="cuda", source=SIM_SOURCE, replaces=SIM_REPLACES,
-        launches=sim_launches["sim_chain"],
-        max_abs_err=max(c["max_abs_err"] for c in sim["checks"].values()), ms=sim_times["ms"],
+        launches=sim_launches["sim_chain"] + sim_ext_launches["sim_chain"],
+        max_abs_err=max(c["max_abs_err"] for checks in (sim["checks"], sim_ext["checks"])
+                        for c in checks.values()), ms=sim_times["ms"],
         plain_ms=sim_times["plain_ms"], bound_ms=sim_times["bound_ms"],
         bound_by=sim_times["bound_by"], library_ms=None, rounds=sim_times["rounds"],
         chain_ms=sim_times["chain_ms"], full_rounds=sim_times["full_rounds"],
         full_ms=sim_times["full_ms"],
         full_bound_ms=max(sim_times["runs"]["fig8 static/rosella"][k]
                           for k in ("bytes_ms", "ops_ms")),
-        fig10_ms=sim_times["runs"]["fig10 10a/ppot"]["ms"]))
+        fig10_ms=sim_times["runs"]["fig10 10a/ppot"]["ms"],
+        fleet_sweep_ms=sim_ext["fleet"]["launch_ms"], env_launch_ms=sim_ext["env"]["launch_ms"]))
     t = flash_times["main"]
     kernels.append(dict(
         name="flash_attention_fwd", route="cuda", source=FLASH_SOURCE,
@@ -4416,6 +4748,7 @@ def main() -> int:
     print(f"[summary] fleet {json.dumps(fleet)}")
     print(f"[summary] load {json.dumps(load)}")
     print(f"[summary] sim {json.dumps(sim)}")
+    print(f"[summary] sim environments and fleet {json.dumps(sim_ext)}")
     print(f"[summary] sim_chain times {json.dumps(sim_times)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")

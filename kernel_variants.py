@@ -17,7 +17,9 @@ it has been since the chain was ported; with the chain, the one-program
 loop's [scan a] and [scan e] also run whole on each checkout, each in a
 process of its own. Its chain simulator is read as it was ported, and its
 per-phase cycle split is taken by inserting this source's clock block and
-marks into it (``clocked_parent_source``); with ``sim``, a small probe
+marks into it (``clocked_parent_source``), or, from the redesigned kernel
+on (its source carries the clock block), through its own paper-mode entry
+and clocked build; with ``sim``, a small probe
 kernel also reads what one warp pays a step for the instruction classes
 the chain kernel is made of (``WARP_PROBE_SRC``). ``--kernels`` picks the
 sources (default all five).
@@ -273,6 +275,9 @@ PARENT_SIGNATURES = {
              "alias_pairing": (_P, _P, _P, _I, _P, _P, _P)},
     "chain": {"pool_chain": (_P,) * 6 + (_I, _I) + (_P,) * 4},
     "sim": {"sim_chain": (_P,) * 13 + (_I,) * 10 + (_P,) * 28 + (_P,)},
+    # the redesigned chain kernel's paper-mode entry, before its one entry of
+    # both modes: the ring stride and the tile's rounds after cap
+    "sim_tiled": {"sim_chain": (_P,) * 13 + (_I,) * 12 + (_P,) * 28 + (_P,)},
 }
 
 
@@ -552,7 +557,7 @@ _SIM_TILE_OUT = """    // the tile's trace rows out, by the whole warp: a round'
     for (int x = lane; x < rt; x += kThreads) {
       uint32_t rec[kRec];
       get_record<kRec>(o_rec + x * kRec, rec);
-      put_trace<MT>(tr, row0 + x, mt_, rec);
+      put_trace<MT, EXT>(tr, row0 + x, mt_, rec);
     }
     if (tq) stage_out(words(tr.q_real + row0 * n), words(w_q), rt * n, lane);
     if (tm) stage_out(words(tr.mu_hat + row0 * n), words(w_mu), rt * n, lane);
@@ -579,7 +584,7 @@ SIM_VARIANTS = [
              "auto ring = [&](int l, int i) { return i * cap + l; };"))),
     ("trace rows stored to device memory every round (not staged by tiles)",
      _edits(("put_record<kRec>(o_rec + r * kRec, rec);",
-             "put_trace<MT>(tr, row0 + r, mt_, rec);"),
+             "put_trace<MT, EXT>(tr, row0 + r, mt_, rec);"),
             ("reinterpret_cast<int*>(o_q + word_shift(tr.q_real + (tq ? row0 * n : 0)))",
              "tr.q_real + (tq ? row0 * n : 0)"),
             ("reinterpret_cast<float*>(o_mu + word_shift(tr.mu_hat + (tm ? row0 * n : 0)))",
@@ -596,18 +601,18 @@ SIM_VARIANTS = [
     ("the probing policies tested last in a job's policy ladder",
      lambda s: s.replace("              if (two_probes) {", "              if (false) {")
      .replace("""              } else {  // uniform
-                sel = jj[b];
+                sel = uw(b);
               }""", """              } else if (policy == UNIFORM) {
-                sel = jj[b];
+                sel = uw(b);
               } else {
                 const int j1 = probe(0, 2), j2 = probe(1, 3);
                 if (policy == PPOT_LL2) {
-                  const float w1 = ((float)qv(j1) + 1.0f) / fmaxf(mu_view[j1], 1e-9f);
-                  const float w2 = ((float)qv(j2) + 1.0f) / fmaxf(mu_view[j2], 1e-9f);
+                  const float w1 = ((float)qv(j1) + 1.0f) / fmaxf(mu_view_now[j1], 1e-9f);
+                  const float w2 = ((float)qv(j2) + 1.0f) / fmaxf(mu_view_now[j2], 1e-9f);
                   sel = w1 <= w2 ? j1 : j2;
                 } else {
                   sel = qv(j1) <= qv(j2) ? j1 : j2;
-                  if (policy == BANDIT && jj[mt_ + b] != 0) sel = jj[b];
+                  if (policy == BANDIT && jj[mt_ + b] != 0) sel = uw(b);
                 }
               }""")),
 ]
@@ -721,9 +726,11 @@ def clocked_parent_source(parent_src: str) -> str:
     return out
 
 
-def parent_sim_chain(torch, lib, args, shape):
-    """One launch of the ported chain kernel's C entry (its wrapper's call,
-    before the redesign): (final, trace)."""
+def parent_sim_chain(torch, lib, args, shape, tiled: bool = False):
+    """One launch of an earlier chain kernel's paper-mode C entry (its
+    wrapper's call): as ported, or ``tiled`` as redesigned, with the ring
+    stride and the tile's rounds, before the one entry of both modes:
+    (final, trace)."""
     from repro_torch.kernels.sim_chain import kernel as SK
     from repro_torch.kernels.sim_chain import ref as SR
 
@@ -739,8 +746,14 @@ def parent_sim_chain(torch, lib, args, shape):
     order = ("code", "worker", "n_tasks", "task_workers", "task_targets", "frontend",
              "view_gap", "sync_age", "now", "lam_hat", "killed_fake", "q_real", "mu_hat")
     ins = (conf_i, conf_f, sched, mu0, *(cols[k] for k in SK.COLS))
-    err = lib.load().sim_chain(*(t.data_ptr() for t in ins), C, T, n, mt,
-                               cols["j"].shape[2], sched.shape[1], S, cap, int(tq), int(tm),
+    J = cols["j"].shape[2]
+    tiling = ()
+    if tiled:
+        kw = dict(J=J, trace_queues=tq, trace_mu=tm)
+        rs = SK.ring_stride(n, mt, cap, S, **kw)
+        tiling = (rs, SK.tile_rounds(T, n, mt, cap, S, stride=rs, **kw))
+    err = lib.load().sim_chain(*(t.data_ptr() for t in ins), C, T, n, mt, J, sched.shape[1], S,
+                               cap, *tiling, int(tq), int(tm),
                                *(trace[k].data_ptr() for k in order),
                                *(v.data_ptr() for v in final.values()),
                                torch.cuda.current_stream().cuda_stream)
@@ -770,7 +783,8 @@ def warp_costs(torch, lib) -> dict:
 
 def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
     """The chain kernel at chip_smoke.py's split runs (Fig. 8's static
-    Rosella run, Fig. 10a's known-speed PPoT run), one chain a launch, and
+    Rosella run, Fig. 10a's known-speed PPoT run) and its kernels-line case
+    (Fig. 8's run cut to SIM_LINE_ROUNDS), one chain a launch, and
     at Fig. 9's ten chains in one launch (jobs of 1-4 tasks: the kernel's
     MT = kMaxMt body): the current source, each variant in turns with it
     (current, variant, variant, current) and, with a parent, the ported
@@ -778,7 +792,11 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
     held equal to the current kernel's bit for bit; and the per-phase split
     of the launch's slowest chain for the current kernel, each variant and
     the parent (their clocked builds, ``clocked`` in the order of
-    ``libs``)."""
+    ``libs``). Then the environment and fleet program on Fig. 8's run (in
+    turns with the paper program) and on [sim fleet]'s six chains, each
+    with its split."""
+    import dataclasses
+
     import chip_smoke as CS
     from repro_torch.configs import rosella_sim as RS
     from repro_torch.core import simulator as tsim
@@ -794,20 +812,20 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
     figs = CS.sim_figures(RS, dev)
     cases = {label: [run] for label, run in CS.sim_split_runs(figs).items()}
     cases["fig9 batch"] = [run for _, run, _ in figs["fig9"]]
+    # chip_smoke.py's kernels-line case: Fig. 8's run cut to SIM_LINE_ROUNDS
+    c8, p8, k8 = cases["fig8 static/rosella"][0]
+    cases[f"fig8 static/rosella, {CS.SIM_LINE_ROUNDS} rounds"] = [
+        (dataclasses.replace(c8, rounds=CS.SIM_LINE_ROUNDS), p8, k8)]
     for label, runs in cases.items():
         cfg = runs[0][0]
         args, shape = tsim.chain_inputs(runs, [tsim.draw_rounds(c, p, k, dev)
                                                for c, p, k in runs], dev)
-        ins = (*args[:4], *(args[4][k] for k in SK.COLS))
-        C, T = args[4]["dt"].shape
-        K, J = args[2].shape[1], args[4]["j"].shape[2]
+        C = args[4]["dt"].shape[0]
 
-        def current(lib=None):
-            if lib is None:
-                return SK.sim_chain(*args, **shape)
-            return SK._launch(lib, ins, dev, C, T, shape["n"], shape["mt"], J, K,
-                              shape["ring_cap"], shape["arrival_window"],
-                              shape["trace_queues"], shape["trace_mu"])
+        SK.sim_chain(*args, **shape)  # the wrapper's checks, once
+
+        def current(lib=None):  # the launch alone: nothing waits for the stream
+            return SK.launch_only(*args, **shape, lib=lib)
 
         want = current()
 
@@ -815,12 +833,15 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
             return all(torch.equal(g, w) for part in (0, 1) for g, w in
                        zip(got[part].values(), want[part].values()))
 
-        reps = 3
+        # the launches alone, queued behind the sleep: no host work between
+        # a pair's events; a short launch gets more reps
+        reps = 3 if cfg.rounds > CS.SIM_LINE_ROUNDS else CS.SIM_LINE_REPS
         row = {"rounds": cfg.rounds, "current": dict(ms=median_ms(current, reps))}
         others = [(name, lambda lb=lib: current(lb)) for name, lib in variants]
         if parent is not None:
-            others.append(("parent", lambda: parent_sim_chain(torch, parent["plain"], args,
-                                                              shape)))
+            others.append(("parent", lambda: current(parent["plain"]) if parent["entry"] == "one"
+                           else parent_sim_chain(torch, parent["plain"], args, shape,
+                                                 parent["entry"] == "tiled")))
         for name, fn in others:
             turns = [median_ms(f, reps) for f in (fn, current, current, fn)]
             row[name] = dict(ms=statistics.mean((turns[0], turns[3])),
@@ -829,8 +850,11 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
         for (name, _), lib in zip(libs, clocked):
             *_, recs = SK.clock_split(*args, **shape, lib=lib)
             row[name]["split"] = slowest(recs)
-        if parent is not None:
-            parent_sim_chain(torch, parent["clocked"], args, shape)
+        if parent is not None and parent["entry"] == "one":
+            *_, recs = SK.clock_split(*args, **shape, lib=parent["clocked"])
+            row["parent"]["split"] = slowest(recs)
+        elif parent is not None:
+            parent_sim_chain(torch, parent["clocked"], args, shape, parent["entry"] == "tiled")
             row["parent"]["split"] = slowest(SK.read_clocks(parent["clocked"], C))
         out[label] = row
         for name, r in row.items():
@@ -843,6 +867,44 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
                      if "current_same_call_ms" in r else "")
                   + (f"; split: {CS.sim_split_text(r['split'])}" if "split" in r else ""),
                   flush=True)
+    # the environment and fleet program (the EXT instances):
+    # Fig. 8's run on it (the paper's chain, the same trace bit for bit) in
+    # turns with the paper program, and [sim fleet]'s six chains; each split
+    # by phase through the current source's clocked build (in EXT the
+    # "rebuild" phase is the round's head after the clock: membership,
+    # crash, sync and the view's build)
+    fig8 = cases["fig8 static/rosella"]
+    for label, runs, ext in (("fig8 static/rosella on the EXT program", fig8, True),
+                             ("sim fleet sweep", CS.sim_fleet_runs(RS, dev), None)):
+        draws = [tsim.draw_rounds(c, p, k, dev) for c, p, k in runs]
+        args, shape = tsim.chain_inputs(runs, draws, dev, ext=ext)
+        fn = lambda a=args, sh=shape: SK.sim_chain(*a, **sh)  # noqa: E731
+        row = {"rounds": runs[0][0].rounds}
+        if ext:
+            pargs, _ = tsim.chain_inputs(runs, draws, dev)
+            paper = lambda: SK.sim_chain(*pargs, **shape)  # noqa: E731
+            same = all(torch.equal(g, w) for g, w in zip(fn()[1].values(),
+                                                         paper()[1].values()))
+            turns = [median_ms(f, 3) for f in (fn, paper, paper, fn)]
+            row["current"] = dict(ms=statistics.mean((turns[0], turns[3])),
+                                  paper_same_call_ms=statistics.mean(turns[1:3]), equal=same)
+        else:
+            row["current"] = dict(ms=median_ms(fn, 3))
+        conf_i, conf_f, sched, mu0, cols, xins = args
+        names = {**SK.COLS, **SK.XCOLS}
+        ins = (conf_i, conf_f, sched, mu0, *(cols[k] for k in names))
+        C, T = cols["dt"].shape
+        SK._launch(clocked[0], ins, dev, C, T, shape["n"], shape["mt"], cols["j"].shape[2],
+                   sched.shape[1], shape["ring_cap"], shape["arrival_window"],
+                   shape["trace_queues"], shape["trace_mu"], xins)
+        row["current"]["split"] = slowest(SK.read_clocks(clocked[0], C))
+        out[label] = row
+        r = row["current"]
+        print(f"[sim {label}] current: {r['ms']:.6f} ms for {len(runs)} chain(s) of "
+              f"{row['rounds']} rounds"
+              + (f" (the paper program in the same turns {r['paper_same_call_ms']:.6f} ms, "
+                 f"the same trace bit for bit: {r['equal']})" if ext else "")
+              + f"; split: {CS.sim_split_text(r['split'])}", flush=True)
     return out
 
 
@@ -891,13 +953,24 @@ def main() -> int:
             (n, _nvcc.CudaLibrary(p, bld._SIGNATURES, err, extra_flags=own))
             for n, p in variant_sources(path, variants, tmp)]
         if args.parent and kind == "sim":
-            clocked = tmp / "sim_chain_parent_clocked.cu"
-            clocked.write_text(clocked_parent_source((args.parent / path).read_text()))
-            sigs = PARENT_SIGNATURES[kind]
+            parent_src = (args.parent / path).read_text()
+            # its entry: today's one entry of both modes, the redesigned
+            # kernel's paper-mode entry (tiled), or the ported one's
+            entry = ("ported" if _CLOCK_BEGIN not in parent_src
+                     else "one" if "conf_x != nullptr" in parent_src else "tiled")
+            if entry == "ported":
+                clocked = tmp / "sim_chain_parent_clocked.cu"
+                clocked.write_text(clocked_parent_source(parent_src))
+                sigs = PARENT_SIGNATURES[kind]
+            else:
+                clocked = args.parent / path
+                sigs = (simbuild._SIGNATURES if entry == "one"
+                        else PARENT_SIGNATURES["sim_tiled"])
             parent[kind] = {"plain": _nvcc.CudaLibrary(args.parent / path, sigs, err, own),
                             "clocked": _nvcc.CudaLibrary(
                                 clocked, {**sigs, **simbuild.CLOCK_SIGNATURE}, err,
-                                simbuild.CLOCKED.flags[len(_nvcc.FLAGS):])}
+                                simbuild.CLOCKED.flags[len(_nvcc.FLAGS):]),
+                            "entry": entry}
         elif args.parent:
             parent[kind] = _nvcc.CudaLibrary(args.parent / path, PARENT_SIGNATURES[kind], err)
     probe = None
@@ -914,7 +987,7 @@ def main() -> int:
     extra = sim_clocked + ([probe] if probe else [])
     _nvcc.build_all(*(lib for row in libs.values() for _, lib in row), *extra,
                     *(lib for p in parent.values()
-                      for lib in (p.values() if isinstance(p, dict) else (p,))))
+                      for lib in ((p["plain"], p["clocked"]) if isinstance(p, dict) else (p,))))
 
     def median_ms(fn, reps):
         for _ in range(3):

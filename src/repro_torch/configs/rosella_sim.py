@@ -53,8 +53,9 @@ def make_sim(policy: str, speeds: np.ndarray, load: float, *, rounds: int = 120_
              fleet_herd_correction: bool = False, device=None):
     """(SimConfig, SimParams) for a paper experiment at task load ``load``
     (α, normalised by the mean tasks a job); ``device=None`` puts the params
-    on the CUDA card. The fleet arguments open S > 1, which ``simulate``
-    refuses until A8b."""
+    on the CUDA card. The fleet arguments open the fleet mode on any paper
+    workload: S frontends synced every ``fleet_sync_every`` rounds, with the
+    herd correction if asked."""
     speeds = np.asarray(speeds, dtype=np.float64)
     n = len(speeds)
     if task_probs is not None:

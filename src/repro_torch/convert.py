@@ -183,3 +183,30 @@ def sim_params_from_reference(d: dict, device=None):
     dev = resolve_device(device)
     return SimParams(**{k: torch.from_numpy(np.array(d[k], np.float32)).to(dev)
                         for k in SIM_PARAMS})
+
+
+#: the chain simulator's environment tracks, by the reference's field names
+ENV_SCHEDULE = ("lam_bp", "lam_val", "mu_bp", "mu_val", "act_bp", "act_val", "burst",
+                "stall_bp", "stall_val", "crash_t", "crash_w")
+
+
+def env_schedule_from_reference(d: dict | None, device=None):
+    """The port's ``core.simulator.EnvSchedule`` from the reference's
+    ``EnvSchedule`` leaves given as numpy arrays (name -> array or None, the
+    names in ``ENV_SCHEDULE``; ``d`` None for no environment) on ``device``
+    (``None``: the card): the breakpoints and rates as float32, the masks
+    as bool, the burst and the crashed workers as int32."""
+    if d is None:
+        return None
+    from repro_torch.core.simulator import EnvSchedule
+
+    dev = resolve_device(device)
+    dtypes = {"act_val": np.bool_, "stall_val": np.bool_, "burst": np.int32,
+              "crash_w": np.int32}
+
+    def t(k):
+        v = d.get(k)
+        return None if v is None else torch.from_numpy(
+            np.array(v, dtypes.get(k, np.float32))).to(dev)
+
+    return EnvSchedule(**{k: t(k) for k in ENV_SCHEDULE})

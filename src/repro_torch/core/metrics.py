@@ -426,8 +426,8 @@ def fleet_summary(
     retry_rate over the real copies launched).
 
     Serving callers pass ``run_fleet_simulation``'s (or the fleet scan's)
-    info fields directly; the chain simulator's trace form
-    (``fleet_summary_from_trace``) is ROADMAP queue A, A8b.
+    info fields directly; the chain simulator's trace goes through
+    ``fleet_summary_from_trace``.
     """
     from repro_torch.fleet import conflict as cfl
 
@@ -489,6 +489,36 @@ def fleet_summary(
             "timeout_rate": int(ledger.get("n_timeouts", 0)) / launched,
             "conserved": bool(ledger.get("conserved", True)),
         }
+    return out
+
+
+def fleet_summary_from_trace(trace, *, n_frontends: int, sync_every: int = 1,
+                             lam_hat_frontends=None, lam_true=None, ledger=None) -> dict:
+    """``fleet_summary`` over a chain trace (``core.simulator.simulate`` with
+    S frontends): the placement log is every active task of every arrival.
+    Trace rows are chain rounds and the sync fires on ``round % sync_every
+    == 0``, so a placement's sync epoch is its row over the cadence
+    (``sync_every <= 0``, unbounded staleness, is one epoch). The crash
+    track's counters (tasks and benchmark jobs emptied from crashed queues)
+    go under ``fault`` as ``chain_killed_tasks`` / ``chain_killed_fake``."""
+    code = _np(trace["code"])
+    arr = code == EV_ARRIVAL
+    fr = _np(trace["frontend"])[arr]
+    tw = _np(trace["task_workers"])[arr]  # [jobs, mt]
+    age = _np(trace["sync_age"], dtype=np.float64)[arr]
+    gaps = _np(trace["view_gap"])[arr]
+    rows = np.nonzero(arr)[0]
+    ep = rows // sync_every if sync_every > 0 else np.zeros_like(rows)
+    mt = tw.shape[1]
+    valid = (tw >= 0).ravel()  # one row a task
+    out = fleet_summary(np.repeat(fr, mt)[valid], tw.ravel()[valid],
+                        np.repeat(ep, mt)[valid], n_frontends=n_frontends,
+                        lam_hat_frontends=lam_hat_frontends, lam_true=lam_true,
+                        view_gaps=gaps, sync_ages=age, ledger=ledger)
+    if "killed" in trace and _np(trace["killed"]).size:
+        out.setdefault("fault", {})
+        out["fault"]["chain_killed_tasks"] = int(_np(trace["killed"]).sum())
+        out["fault"]["chain_killed_fake"] = int(_np(trace["killed_fake"]).sum())
     return out
 
 

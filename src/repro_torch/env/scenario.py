@@ -18,8 +18,9 @@ rate. It compiles to:
   * ``shift_times`` → the environment's shock instants, feeding the
     adaptation-time harness (``core/metrics.adaptation_report``).
 
-``to_sim`` (the compile for the chain simulator's environment mode) is not
-ported yet and raises (ROADMAP queue A, A8b).
+  * ``to_sim`` → the chain simulator's ``(SimConfig, SimParams,
+    EnvSchedule)``: the piecewise λ(t), μ(t) and membership (outage
+    windows merged in), the blackouts' stall track and the crash track.
 
 The registry maps names to factories: ``env.make("flash_crowd")``,
 ``env.make("churn_heavy", horizon=900.0)``, … — see the builtin catalog
@@ -402,14 +403,53 @@ class Scenario:
 
     # -- simulator compile --------------------------------------------------
 
-    def to_sim(self, policy: str, *, rounds: int = 120_000, seed: int = 0,
+    def to_sim(self, policy: str, *, rounds: int = 120_000, seed: int = 0, device=None,
                **cfg_kw):
-        """Compile for the chain simulator: ``(SimConfig, SimParams, env)``.
-        The chain's environment mode is not ported yet: raises."""
-        del policy, rounds, seed, cfg_kw
-        raise NotImplementedError(
-            f"Scenario.to_sim ({self.name!r}): the chain simulator's environment "
-            f"mode is not ported yet (ROADMAP queue A, A8b)")
+        """Compile for the chain simulator: ``(SimConfig, SimParams, env)``,
+        the params and the ``EnvSchedule`` on ``device`` (``None``: the
+        card). The null scenario returns ``env=None``: ``simulate`` then
+        runs the paper's own chain. Otherwise ``SimParams.lam`` is λmax
+        (the chain thins each arrival by λ(now)/λmax), the fault outage
+        windows are merged into the membership, blackouts add the stall
+        track and crashes the crash track. ``cfg_kw`` goes to
+        ``SimConfig`` (use_learner, the fleet's fields, ...)."""
+        import torch
+
+        from repro_torch.core import simulator as sim
+        from repro_torch.utils.device import resolve_device
+
+        speeds0 = np.asarray(self.speeds, float)
+        cfg = sim.SimConfig(n=self.n, policy=policy, rounds=rounds, **cfg_kw)
+        if self.is_null:
+            return cfg, sim.make_params(lam=self.rate, mu=speeds0, device=device), None
+
+        dev = resolve_device(device)
+        f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+        rate, (cap_bp, cap_val), memb, flt = self._compile_env(seed)
+        stall_bp = stall_val = crash_t = crash_w = None
+        if flt is not None:
+            fmask = prc.fault_outage_masks(self.n, flt)
+            memb = fmask if memb is None else prc.and_masks(memb, fmask)
+            ft0, ft1, fw, fkind = flt
+            bl = fkind == prc.FAULT_BLACKOUT
+            if bl.any():
+                sbp, sup = prc.fault_outage_masks(self.n, (ft0[bl], ft1[bl], fw[bl], fkind[bl]))
+                stall_bp = f32(sbp)
+                stall_val = torch.from_numpy(~np.asarray(sup, bool)).to(dev)  # in-window
+            cr = fkind == prc.FAULT_CRASH
+            if cr.any():
+                crash_t = f32(ft0[cr])
+                crash_w = torch.from_numpy(np.asarray(fw[cr], np.int32)).to(dev)
+        act_bp, act_val = memb if memb is not None else (np.zeros(1), np.ones((1, self.n), bool))
+        params = sim.make_params(lam=rate.max, mu=speeds0, mu_bar=float(speeds0.sum()),
+                                 device=dev)
+        env = sim.EnvSchedule(
+            lam_bp=f32(rate.bp), lam_val=f32(rate.val), mu_bp=f32(cap_bp),
+            mu_val=f32(cap_val), act_bp=f32(act_bp),
+            act_val=torch.from_numpy(np.asarray(act_val, bool)).to(dev),
+            burst=torch.tensor(int(self.probe_burst), dtype=torch.int32, device=dev),
+            stall_bp=stall_bp, stall_val=stall_val, crash_t=crash_t, crash_w=crash_w)
+        return cfg, params, env
 
 
 # ---------------------------------------------------------------------------

@@ -261,6 +261,14 @@ def vsplit(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([x0, y1], -1)
 
 
+def vfold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """int64 [R, 2]: ``fold_in(keys[r], data)`` for every r."""
+    k0, k1 = _cols(keys)
+    x1 = torch.full((1, 1), int(data) & M32, dtype=torch.int64, device=keys.device)
+    x0, y1 = _threefry_rounds(k0, k1, torch.zeros_like(x1), x1, _add_int, _rotl_t)
+    return torch.cat([x0, y1], -1)
+
+
 def vrandom_bits(keys: torch.Tensor, shape) -> torch.Tensor:
     """u32 bits (as int64) [R, *shape] of every key."""
     shape = _shape(shape)

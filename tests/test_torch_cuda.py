@@ -1309,15 +1309,178 @@ def test_sim_chain_kernel_equals_the_plain_chain(dev, case):
             assert (gt["code"] == 0).sum() > 0
 
 
-def test_sim_chain_refuses_what_one_block_cannot_hold(dev):
-    """The first n past the shared-memory limit at a ring of 128 (213: the
-    rings, the state and a tile of one round), and mt past MAX_MT."""
+#: the environment, fault and fleet modes: case -> [(label, kind, arguments)];
+#: kind "env" (a registry scenario at n = 5: scenario, policy, SimConfig
+#: fields), "jobs" (crash_storm with Fig. 9's jobs) or "fleet" (6.1's 30
+#: speeds: S, sync, herd, load balancer, SimConfig fields); each batch in one
+#: launch of SIM_EXT_ROUNDS rounds a chain
+SIM_EXT_CASES = {
+    "env_tracks": [(name, "env", (name, "ppot_sq2", {}))
+                   for name in ("flash_crowd", "reshuffle", "churn", "churn_heavy", "blackout",
+                                "crash_storm", "grey_failure", "diurnal", "speed_drift")],
+    "env_policies": [
+        ("cdf", "env", ("churn_heavy", "ppot_sq2", dict(use_alias=False))),
+        ("known", "env", ("crash_storm", "ppot_sq2", dict(use_learner=False,
+                                                          use_fake_jobs=False))),
+        ("sparrow", "env", ("churn_heavy", "sparrow", dict(use_learner=False))),
+        ("bandit", "env", ("crash_storm", "bandit", {})),
+        ("halo", "env", ("churn_heavy", "halo", dict(use_learner=False))),
+        ("pot", "env", ("blackout", "pot", dict(use_learner=False))),
+        ("uniform", "env", ("churn", "uniform", {})),
+        ("pss cdf", "env", ("churn_heavy", "pss", dict(use_alias=False))),
+        ("ll2", "env", ("churn_heavy", "ppot_ll2", dict(use_learner=False))),
+        ("churn S=4 sync 64 herd", "env", ("churn", "ppot_sq2", dict(
+            n_frontends=4, fleet_sync_every=64, fleet_herd_correction=True))),
+        ("crash_storm S=2 sync 0 sticky", "env", ("crash_storm", "ppot_sq2", dict(
+            n_frontends=2, fleet_sync_every=0, frontend_lb="sticky"))),
+    ],
+    "env_jobs": [("crash_storm jobs", "jobs", (True,)), ("churn jobs, fold 1", "jobs", (False,))],
+    # the scenarios at 6.1's 30 speeds and rate 0.8 x their sum, as [sim env]
+    # runs them: within 2,000 rounds (~96 s) each has 31 departures and more
+    # than 20 rejoins, crash_storm 31 crashes
+    "env_paper_cluster": [(name, "env30", (name, "ppot_sq2", {}))
+                          for name in ("crash_storm", "churn_heavy")],
+    "fleet": [
+        ("S=4 sync 4 herd", "fleet", (4, 4, True, "uniform", {})),
+        ("S=4 sync 4 weighted", "fleet", (4, 4, False, "weighted", {})),
+        ("S=4 sync 4 sticky", "fleet", (4, 4, False, "sticky", {})),
+        ("S=2 sync 0 herd", "fleet", (2, 0, True, "uniform", {})),
+        ("S=4 sync 64 cdf", "fleet", (4, 64, False, "uniform", dict(use_alias=False))),
+        ("S=4 sync 16 known", "fleet", (4, 16, True, "uniform", dict(use_learner=False,
+                                                                      use_fake_jobs=False))),
+        ("S=1 sync 8", "fleet", (1, 8, False, "uniform", {})),
+        ("S=1 sync 1 (the paper's chain)", "fleet", (1, 1, False, "uniform", {})),
+    ],
+}
+SIM_EXT_ROUNDS = 2000
+
+
+def _sim_ext_run(kind, args, i, dev):
+    """(cfg, params, key, env) of one SIM_EXT_CASES entry."""
+    import dataclasses
+
+    from repro_torch import env as tenv
     from repro_torch.configs import rosella_sim as RS
     from repro_torch.core import simulator as tsim
     from repro_torch.utils import prng as tprng
 
-    for n, mt in ((213, 1), (300, 1), (15, 9)):
+    key = tprng.PRNGKey(i)
+    if kind in ("env", "env30"):
+        scn, policy, kw = args
+        at = {}
+        if kind == "env30":
+            speeds = RS.tpch_speed_set(30, 0)
+            at = dict(speeds=tuple(speeds), rate=0.8 * float(speeds.sum()))
+        cfg, params, e = tenv.make(scn, **at).to_sim(policy, rounds=SIM_EXT_ROUNDS, device=dev,
+                                                      **kw)
+        return cfg, params, key, e
+    if kind == "jobs":
+        (bsc,) = args
+        scn = tenv.make("crash_storm" if bsc else "churn")
+        cfg, params, e = scn.to_sim("ppot_sq2", rounds=SIM_EXT_ROUNDS, device=dev, max_tasks=4,
+                                    constrained_frac=0.1, batch_self_correct=bsc)
+        params = tsim.make_params(lam=params.lam.item(), mu=np.asarray(scn.speeds, float),
+                                  mu_bar=float(np.sum(scn.speeds)),
+                                  task_probs=[0.4, 0.3, 0.2, 0.1], max_tasks=4, device=dev)
+        return cfg, params, key, e
+    S, se, herd, lb, kw = args
+    cfg, params = RS.make_sim("ppot_sq2", RS.tpch_speed_set(30, 0), 0.8, rounds=SIM_EXT_ROUNDS,
+                              n_frontends=S, fleet_sync_every=se, fleet_herd_correction=herd,
+                              device=dev)
+    if lb == "weighted":
+        params = dataclasses.replace(params, lb_weights=torch.tensor([6.0, 1.0, 1.0, 1.0],
+                                                                     device=params.lam.device))
+    return dataclasses.replace(cfg, frontend_lb=lb, **kw), params, key, None
+
+
+def _same_sim_state(gs, ws) -> None:
+    """Two chains' final states equal field by field (on the CPU)."""
+    for f in ("now", "q_real", "q_fake", "s_real", "busy_start"):
+        assert torch.equal(getattr(gs, f).cpu(), getattr(ws, f)), f
+    for f in ("samples", "stamps", "widx", "count", "epoch_start", "mu_hat"):
+        assert torch.equal(getattr(gs.learner, f).cpu(), getattr(ws.learner, f)), f
+    for f in ("times", "idx", "count", "lam_hat"):
+        assert torch.equal(getattr(gs.arr, f).cpu(), getattr(ws.arr, f)), f
+    assert (gs.fleet is None) == (ws.fleet is None)
+    if ws.fleet is not None:
+        assert torch.equal(gs.crash_i.cpu(), ws.crash_i)
+        for f in ("q_snap", "q_delta", "mu_view", "alias_p", "alias_a", "t_sync", "lam_global"):
+            assert torch.equal(getattr(gs.fleet, f).cpu(), getattr(ws.fleet, f)), f
+        for f in ("last_time", "mean_gap", "count"):
+            assert torch.equal(getattr(gs.fleet.arr, f).cpu(), getattr(ws.fleet.arr, f)), f
+
+
+@pytest.mark.parametrize("case", list(SIM_EXT_CASES))
+def test_sim_chain_ext_kernel_equals_the_plain_chain(dev, case):
+    """The environment, fault and fleet modes: the kernel (its environment
+    and fleet instances) and the plain chain on the CPU, fed the same draws
+    (drawn on the card), agree in every trace column and every field of the
+    final state (the fleet's and the crash track's too, the view's alias
+    table as the kernel froze it), bit for bit, in one launch a case."""
+    from repro_torch.core import simulator as tsim
+    from repro_torch.kernels.sim_chain import kernel as SCK
+
+    runs = [_sim_ext_run(kind, args, i, dev)
+            for i, (_, kind, args) in enumerate(SIM_EXT_CASES[case])]
+    draws = [tsim.draw_rounds(cfg, p, key, dev, e) for cfg, p, key, e in runs]
+    SCK.reset_launches()
+    got = tsim.simulate_many(runs, dev, draws)
+    torch.cuda.synchronize()
+    assert SCK.launch_counts()["sim_chain"] == 1
+    cpu_runs = [(cfg, p.to("cpu"), key, None if e is None else e.to("cpu"))
+                for cfg, p, key, e in runs]
+    want = tsim.simulate_many(cpu_runs, "cpu", [{k: v.cpu() for k, v in d.items()}
+                                                for d in draws])
+    for (label, _, _), (gs, gt), (ws, wt) in zip(SIM_EXT_CASES[case], got, want):
+        assert set(gt) == set(wt)
+        for name in wt:
+            assert torch.equal(gt[name].cpu(), wt[name]), (label, name)
+        _same_sim_state(gs, ws)
+        assert (gt["code"] == 0).sum() > 0
+    if case == "env_tracks":
+        killed = {label: int(tr["killed"].sum()) for (label, _, _), (_, tr) in
+                  zip(SIM_EXT_CASES[case], got)}
+        assert killed["crash_storm"] > 0 and got[0][1]["killed"].shape == (SIM_EXT_ROUNDS, 0)
+
+
+def test_sim_chain_ext_runs_the_paper_chain_as_the_paper_kernel(dev):
+    """A paper-mode chain in a batch with a fleet chain runs on the
+    environment and fleet kernel, and equals the paper kernel's run bit for
+    bit; the paper kernel's output keeps no fleet state."""
+    from repro_torch.configs import rosella_sim as RS
+    from repro_torch.core import simulator as tsim
+    from repro_torch.utils import prng as tprng
+
+    speeds = RS.tpch_speed_set(30, 0)
+    paper = RS.make_sim("ppot_sq2", speeds, 0.8, rounds=1500, volatile_phases=3,
+                        phase_period=20.0, device=dev) + (tprng.PRNGKey(4),)
+    fleet = RS.make_sim("ppot_sq2", speeds, 0.8, rounds=900, n_frontends=3, fleet_sync_every=5,
+                        device=dev) + (tprng.PRNGKey(5),)
+    (fa, ta), = tsim.simulate_many([paper], dev)
+    (fb, tb), _ = tsim.simulate_many([paper, fleet], dev)
+    for k in ta:
+        assert torch.equal(ta[k], tb[k]), k
+    assert fa.fleet is None and fb.fleet is None
+    for f in ("now", "q_real", "q_fake", "s_real", "busy_start"):
+        assert torch.equal(getattr(fa, f), getattr(fb, f)), f
+    for f in ("samples", "stamps", "widx", "count", "epoch_start", "mu_hat"):
+        assert torch.equal(getattr(fa.learner, f), getattr(fb.learner, f)), f
+
+
+def test_sim_chain_refuses_what_one_block_cannot_hold(dev):
+    """The first n past the shared-memory limit at a ring of 128 (213: the
+    rings, the state and a tile of one round; 205 with four frontends), and
+    mt past MAX_MT."""
+    from repro_torch.configs import rosella_sim as RS
+    from repro_torch.core import simulator as tsim
+    from repro_torch.utils import prng as tprng
+
+    for n, mt, S in ((213, 1, 1), (300, 1, 1), (15, 9, 1), (205, 1, 4)):
         cfg, params = RS.make_sim("ppot_sq2", np.ones(n), 0.5, rounds=10, max_tasks=mt,
+                                  n_frontends=S, fleet_sync_every=4 if S > 1 else 1,
                                   device=dev)
         with pytest.raises(ValueError, match="sim_chain"):
             tsim.simulate(cfg, params, tprng.PRNGKey(0), device=dev)
+    cfg, params = RS.make_sim("ppot_sq2", np.ones(204), 0.5, rounds=10, n_frontends=4,
+                              fleet_sync_every=4, device=dev)
+    tsim.simulate(cfg, params, tprng.PRNGKey(0), device=dev)

@@ -369,6 +369,15 @@ def test_what_is_not_ported_raises_naming_its_item(case):
         assert tmet.check_conservation(info["ledger"])[0]
         assert np.isfinite(resp).sum() == info["ledger"]["completed_tasks"] > 0
         return
+    if case == "to_sim":  # the chain's environment mode runs since A8b; inverted
+        from repro_torch.core import simulator as tsim
+        from repro_torch.utils import prng
+
+        cfg, params, e = tenv.make("churn").to_sim("ppot_sq2", rounds=300, device="cpu")
+        assert e is not None and cfg.n == 5 and e.act_val.shape[1] == 5
+        _, trace = tsim.simulate(cfg, params, prng.PRNGKey(0), e, device="cpu")
+        assert trace["code"].shape == (300,) and torch.isfinite(trace["now"]).all()
+        return
     if item == "A6":  # the fleet runs since A6; the case stays, inverted
         out = tenv.run_scenario(tenv.make("null", horizon=20.0), n_frontends=2,
                                 use_scan=True, device="cpu")

@@ -281,18 +281,27 @@ def test_draw_rounds_columns():
 
 @pytest.mark.parametrize("mode", ["env", "n_frontends", "sync", "observe"])
 def test_other_modes_raise_naming_a8b(mode):
+    """The environment and fleet modes (ROADMAP A8b) run now; only in-chain
+    telemetry is refused, naming A8c."""
     cfg, params = TRS.make_sim("ppot_sq2", ZIPF, 0.8, rounds=20, device="cpu")
     env = None
     if mode == "env":
-        env = tsim.EnvSchedule(*(torch.zeros(1),) * 7)
+        env = tsim.EnvSchedule(
+            lam_bp=torch.zeros(1), lam_val=params.lam.reshape(1), mu_bp=torch.zeros(1),
+            mu_val=params.mu_schedule[:1], act_bp=torch.zeros(1),
+            act_val=torch.ones(1, 15, dtype=torch.bool),
+            burst=torch.tensor(4, dtype=torch.int32))
     elif mode == "n_frontends":
         cfg = dataclasses.replace(cfg, n_frontends=2)
     elif mode == "sync":
         cfg = dataclasses.replace(cfg, fleet_sync_every=4)
     else:
         cfg = dataclasses.replace(cfg, observe=object())
-    with pytest.raises(NotImplementedError, match="A8b"):
-        tsim.simulate(cfg, params, prng.PRNGKey(0), env, device="cpu")
+        with pytest.raises(NotImplementedError, match="A8c"):
+            tsim.simulate(cfg, params, prng.PRNGKey(0), env, device="cpu")
+        return
+    final, trace = tsim.simulate(cfg, params, prng.PRNGKey(0), env, device="cpu")
+    assert trace["code"].shape == (20,) and final.fleet is not None
 
 
 def test_simulate_without_a_device_raises_without_a_card(monkeypatch):
@@ -372,6 +381,8 @@ def test_sim_chain_wrapper_constants_match_the_source():
     src = SB.SRC.read_text()
     assert int(re.search(r"constexpr int kStateArrays = (\d+);", src).group(1)) == \
         SK.STATE_ARRAYS
+    assert int(re.search(r"constexpr int kExtArrays = (\d+);", src).group(1)) == \
+        SK.EXT_ARRAYS
     assert int(re.search(r"constexpr int kMaxMt = (\d+);", src).group(1)) == SK.MAX_MT
     assert int(re.search(r"constexpr int kClockChains = (\d+);", src).group(1)) == \
         SK.CLOCK_CHAINS

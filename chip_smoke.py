@@ -181,6 +181,12 @@ SCENARIO_CDF = ("flash_crowd", "churn_heavy")
 SCENARIO_FIXED_REPLICAS = {"churn": "replica 1", "cotenant_shock": "replicas 0-1",
                            "grey_failure": "replicas 0-1"}
 SCENARIO_MIN_RHO = {"null": 0.9}
+# the [scenario] runs' clock, and [obs]'s churn cell's, whose pend_cap and
+# comp_cap the [scenario] churn cell sizes: 270 s of the registry's 360
+# (every scenario's events up to its second at 240 s fall inside it; cut
+# from 360 s to keep the script's total time when the [sim obs], [sim
+# theory] and [sim coupling] cells came)
+SCENARIO_HORIZON = 270.0
 # [faults]: the failure semantics (serving.recovery, the faulty turn of
 # serving.scanloop) at the scheduler cell, each fault scenario of the
 # registry on its own clock as the [scenario] cells build theirs: the host
@@ -1289,11 +1295,12 @@ def phase_scenarios(torch, tr, tsl, tenv, K, CK, chk, met, speeds, dev, card):
     t0 = time.perf_counter()
     rate = LOAD * float(speeds.sum())
     print(f"[scenarios] {card}; n={N_REPLICAS} (tpch_speed_set, sum {speeds.sum():.2f}), "
-          f"rate {rate:.3f}/s, batches of {BATCH}, async_mu=False, seed {SEED}")
+          f"rate {rate:.3f}/s, batches of {BATCH}, async_mu=False, seed {SEED}; "
+          f"{SCENARIO_HORIZON} s of each scenario's clock")
     cells, exact = {}, {}
     total = {w: 0 for w in PROFILE_NAMES}
     for name in SCENARIOS:
-        scn = tenv.make(name, speeds=tuple(speeds), rate=rate)
+        scn = tenv.make(name, speeds=tuple(speeds), rate=rate, horizon=SCENARIO_HORIZON)
         cells[name] = scenario_cell(torch, tr, tsl, tenv, K, CK, chk, met, scn, dev)
         runs = [cells[name]]
         for use_alias in (True, False):
@@ -1772,14 +1779,14 @@ def phase_obs(torch, tr, tsl, tenv, trcv, K, CK, speeds, dev, card, scenarios, f
     rate = LOAD * float(speeds.sum())
     print(f"[obs] {card}; n={N_REPLICAS} (tpch_speed_set, sum {speeds.sum():.2f}), rate "
           f"{rate:.3f}/s, batches of {BATCH}, alias, async_mu=False, seed {SEED}, windows of "
-          f"{OBS_WINDOW} turns, SequentialPool; crash_storm with recovery "
-          f"{json.dumps(FAULT_RECOVERY)}")
+          f"{OBS_WINDOW} turns, SequentialPool; churn over {SCENARIO_HORIZON} s, crash_storm "
+          f"over {FAULT_HORIZON} s with recovery {json.dumps(FAULT_RECOVERY)}")
     cells, total = {}, {w: 0 for w in PROFILE_NAMES}
     for name, rc, src in (("churn", None, scenarios["cells"]["churn"]),
                           ("crash_storm", trcv.RecoveryConfig(**FAULT_RECOVERY),
                            faults["cells"]["crash_storm alias"])):
         scn = tenv.make(name, speeds=tuple(speeds), rate=rate,
-                        **({"horizon": FAULT_HORIZON} if rc is not None else {}))
+                        horizon=FAULT_HORIZON if rc is not None else SCENARIO_HORIZON)
         caps = dict(pend_cap=src["pend_cap"], comp_cap=src["comp_cap"])
         need(src["graph_nodes"] == OBS_NODES_BEFORE[name], f"[obs {name}] the "
              f"{'[faults]' if rc else '[scenario]'} cell captured {src['graph_nodes']} nodes, "
@@ -3101,9 +3108,10 @@ def sim_fleet_runs(RS, dev) -> list:
     return runs
 
 
-def sim_fleet_sweep(torch, tsim, RS, met, dev) -> dict:
+def sim_fleet_sweep(torch, tsim, RS, met, dev) -> tuple[dict, tuple]:
     """[sim fleet]: benchmarks/fleet_scale.py's _staleness_sweep at its full
-    settings, six chains in one sim_chain launch."""
+    settings, six chains in one sim_chain launch; returns the record and
+    the launch's (runs, draws, outputs)."""
     from repro_torch.fleet import fleet_lam_hats
 
     lam = 0.8 * float(RS.tpch_speed_set(30, seed=SEED).sum())
@@ -3159,14 +3167,15 @@ def sim_fleet_sweep(torch, tsim, RS, met, dev) -> dict:
     for claim, ok in claims.items():
         print(f"[sim fleet] claim {claim}: {ok}")
     return dict(launch_ms=launch_ms, rounds=rounds, rounds_per_s=rounds / (launch_ms / 1e3),
-                draws_s=t1 - t0, analyze_s=t3 - t2, sweep=rec, claims=claims)
+                draws_s=t1 - t0, analyze_s=t3 - t2, sweep=rec, claims=claims), \
+        (runs, draws, outs)
 
 
-def sim_env_scenarios(torch, tsim, RS, tenv, met, dev) -> dict:
-    """[sim env]: every non-null registry scenario through to_sim at the
-    paper's cluster (6.1's 30 speeds, rate 0.8 x their sum) over the
-    registry's 360 s, each chain long enough to pass the horizon, all in one
-    sim_chain launch; crash_storm must kill jobs and churn none."""
+def sim_env_runs(tsim, RS, tenv, dev, observe=None, null: bool = False) -> tuple[list, list]:
+    """(names, runs) of the registry's scenarios through to_sim at the paper's
+    cluster (6.1's 30 speeds, rate 0.8 x their sum) over the registry's 360 s,
+    each chain long enough to pass the horizon (1.1·360·R + 1000 rounds),
+    with ``observe``; the null scenario only if ``null``."""
     import dataclasses
 
     from repro_torch.utils import prng
@@ -3176,13 +3185,24 @@ def sim_env_scenarios(torch, tsim, RS, tenv, met, dev) -> dict:
     runs, names = [], []
     for name in tenv.names():
         scn = tenv.make(name, speeds=tuple(speeds), rate=rate)
-        if scn.is_null:
+        if scn.is_null and not null:
             continue
-        cfg, params, e = scn.to_sim("ppot_sq2", rounds=1, device=dev)
+        cfg, params, e = scn.to_sim("ppot_sq2", rounds=1, device=dev, observe=observe)
         R = float(tsim.rates_of(cfg, params, e)[0])
         cfg = dataclasses.replace(cfg, rounds=int(np.ceil(SIM_ENV_HORIZON * R * 1.1)) + 1000)
         runs.append((cfg, params, prng.PRNGKey(SEED), e))
         names.append(name)
+    return names, runs
+
+
+def sim_env_scenarios(torch, tsim, RS, tenv, met, dev) -> tuple[dict, tuple]:
+    """[sim env]: every non-null registry scenario through to_sim at the
+    paper's cluster (``sim_env_runs``), all in one sim_chain launch;
+    crash_storm must kill jobs and churn none. Returns the record and the
+    launch's (names, runs, draws, outputs), which [sim obs] holds."""
+    speeds = RS.tpch_speed_set(30, seed=SEED)
+    rate = 0.8 * float(speeds.sum())
+    names, runs = sim_env_runs(tsim, RS, tenv, dev)
     t0 = time.perf_counter()
     draws = [tsim.draw_rounds(c, p, k, dev, e) for c, p, k, e in runs]
     torch.cuda.synchronize()
@@ -3221,9 +3241,8 @@ def sim_env_scenarios(torch, tsim, RS, tenv, met, dev) -> dict:
               f"mean {r['mean']:.6g} p50 {r['p50']:.6g} p99 {r['p99']:.6g}, censored "
               f"{r['censored']}, killed jobs {r['killed_jobs']} ({r['crashes']} crashes)")
     print("[sim env] crash_storm kills jobs, churn drains: True")
-    hold = sim_env_hold(torch, tsim, names, runs, draws, outs)
     return dict(launch_ms=launch_ms, rounds=rounds, rounds_per_s=rounds / (launch_ms / 1e3),
-                draws_s=t1 - t0, analyze_s=t3 - t2, scenarios=rec, hold=hold)
+                draws_s=t1 - t0, analyze_s=t3 - t2, scenarios=rec), (names, runs, draws, outs)
 
 
 def sim_env_hold_rounds(e, now: np.ndarray, rounds: int) -> tuple[int, float]:
@@ -3248,42 +3267,60 @@ def sim_env_hold_rounds(e, now: np.ndarray, rounds: int) -> tuple[int, float]:
     return min(rounds, max(SIM_EXT_CHECK_ROUNDS, k)), t_hold
 
 
-def sim_env_hold(torch, tsim, names, runs, draws, outs) -> dict:
-    """[sim env]'s launch itself held against the plain chain: the chain is
-    causal, so the plain chain on the CPU, fed each chain's first K draw
-    rows (``sim_env_hold_rounds``), must give the launch's first K rows of
-    every trace column bit for bit, at the shape the main path runs (n = 30,
-    the scenario's own tracks)."""
+def sim_obs_hold(torch, tsim, names, runs, draws, obs_outs, off_outs) -> dict:
+    """[sim obs]'s launch and the launches of the same chains with telemetry
+    off ([sim env]'s, [sim fleet]'s, the null chain's) held against one run
+    of the plain chain on the CPU with telemetry on: the chain is causal, so
+    the plain chain fed each chain's first K draw rows must give [sim obs]'s
+    first K rows of every trace column, window row and boundary flag, and
+    the off launch's of every other column, bit for bit, at the shape the
+    main path runs (n = 30, the scenario's own tracks). K
+    (``sim_env_hold_rounds``) passes the second change of each track and
+    the second crash; SIM_EXT_CHECK_ROUNDS for a chain without tracks."""
     import dataclasses
 
     t0 = time.perf_counter()
     cuts, cpu_runs, cpu_draws = [], [], []
-    for (cfg, p, key, e), d, (_, tr) in zip(runs, draws, outs):
-        k, t_hold = sim_env_hold_rounds(e, tr["now"].cpu().numpy(), cfg.rounds)
+    for (cfg, p, key, e), d, (_, tr) in zip(runs, draws, obs_outs):
+        k, t_hold = ((min(cfg.rounds, SIM_EXT_CHECK_ROUNDS), 0.0) if e is None
+                     else sim_env_hold_rounds(e, tr["now"].cpu().numpy(), cfg.rounds))
         cuts.append((k, t_hold))
-        cpu_runs.append((dataclasses.replace(cfg, rounds=k), p.to("cpu"), key, e.to("cpu")))
+        cpu_runs.append((dataclasses.replace(cfg, rounds=k), p.to("cpu"), key,
+                         None if e is None else e.to("cpu")))
         cpu_draws.append({name: v[:k].cpu() for name, v in d.items()})
     want = tsim.simulate_many(cpu_runs, "cpu", cpu_draws)
     rec = {}
-    for name, (k, t_hold), (_, got), (_, wt) in zip(names, cuts, outs, want):
+    for name, (k, t_hold), (_, got), (_, off), (_, wt) in zip(names, cuts, obs_outs, off_outs,
+                                                               want):
         for col in wt:
+            if col == "obs_row":
+                for f, a, b in zip(wt[col]._fields, got[col], wt[col]):
+                    need(torch.equal(a[:k].cpu(), b), f"[sim obs] {name}: the launch's window "
+                         f"row field {f} differs from the plain chain in its first {k} rounds")
+                continue
             need(torch.equal(got[col][:k].cpu(), wt[col]),
-                 f"[sim env] {name}: the launch's {col} differs from the plain chain in its "
+                 f"[sim obs] {name}: the launch's {col} differs from the plain chain in its "
                  f"first {k} rounds")
+            if col != "obs_flag":
+                need(torch.equal(off[col][:k].cpu(), wt[col]),
+                     f"[sim obs] {name}: the launch without telemetry's {col} differs from "
+                     f"the plain chain in its first {k} rounds")
         rec[name] = dict(rounds=k, past_s=t_hold)
     secs = time.perf_counter() - t0
     total = sum(k for k, _ in cuts)
-    print(f"[sim env] the launch held against the plain chain on the CPU, fed its own draws: "
-          f"the first {total} rounds of its {len(names)} chains ("
+    print(f"[sim obs] the launch and the launches without telemetry held against the plain "
+          f"chain with telemetry on the CPU, fed their own draws: the first {total} rounds of "
+          f"{len(names)} chains ("
           + ", ".join(f"{name} {r['rounds']} past {r['past_s']:.1f} s" for name, r in rec.items())
-          + f"), every trace column equal bit for bit, in {secs:.2f} s")
+          + f"): every trace column, window row and flag equal bit for bit, in {secs:.2f} s")
     return dict(chains=rec, rounds=total, seconds=secs)
 
 
-def phase_sim_ext(torch, RS, tenv, met, dev, card) -> tuple[dict, dict]:
+def phase_sim_ext(torch, RS, tenv, met, dev, card) -> tuple[dict, dict, dict]:
     """The chain's environment, fault and fleet modes: kernel = plain chain
     on a check chain of each, then the main path's two launches ([sim
-    fleet], [sim env]), counted."""
+    fleet], [sim env]), counted; returns the records, the launches and the
+    two launches' runs and outputs, which [sim obs] holds against."""
     from repro_torch.core import simulator as tsim
     from repro_torch.kernels.sim_chain import kernel as SK
 
@@ -3292,8 +3329,8 @@ def phase_sim_ext(torch, RS, tenv, met, dev, card) -> tuple[dict, dict]:
           f"(its environment and fleet instances), seed {SEED}")
     checks = sim_kernel_equals_plain(torch, tsim, sim_ext_check_groups(RS, tenv, dev), dev)
     SK.reset_launches()
-    fleet = sim_fleet_sweep(torch, tsim, RS, met, dev)
-    env = sim_env_scenarios(torch, tsim, RS, tenv, met, dev)
+    fleet, fleet_out = sim_fleet_sweep(torch, tsim, RS, met, dev)
+    env, env_out = sim_env_scenarios(torch, tsim, RS, tenv, met, dev)
     launches = SK.launch_counts()
     need(launches["sim_chain"] == 2,
          f"[sim] sim_chain launched {launches['sim_chain']} times on the environment and fleet "
@@ -3301,7 +3338,305 @@ def phase_sim_ext(torch, RS, tenv, met, dev, card) -> tuple[dict, dict]:
     secs = time.perf_counter() - t0
     print(f"[sim] the environment and fleet modes: {len(checks)} kernel = plain launches, [sim "
           f"fleet] and [sim env] in {secs:.1f} s; main-path launches {json.dumps(launches)}")
-    return dict(checks=checks, fleet=fleet, env=env, seconds=secs), launches
+    return dict(checks=checks, fleet=fleet, env=env, seconds=secs), launches, \
+        dict(fleet=fleet_out, env=env_out)
+
+
+# [sim obs]: the chain's in-chain telemetry (ROADMAP A8c) on [sim env]'s
+# chains, the null scenario's and [sim fleet]'s sync-16 chain: windows of
+# 256 rounds (~6-13 s of the chain's clock at 20-46 rounds/s), the detector
+# armed after 8 windows
+SIM_OBS_WINDOW = 256
+SIM_OBS_WARMUP = 8
+SIM_OBS_FLEET_SYNC = 16
+
+
+def sim_obs_runs(tsim, RS, tenv, obs, dev, kept) -> tuple:
+    """(names, runs, draws, off outputs, scenarios) of [sim obs]: the
+    registry's 12 scenarios (``sim_env_runs``, the null one too) and [sim
+    fleet]'s sync-16 chain, with telemetry; the draws and the outputs
+    without telemetry are [sim env]'s and [sim fleet]'s own (the null
+    chain's draws are made here, its output without telemetry is None)."""
+    import dataclasses
+
+    ocfg = obs.ObserveConfig(window_turns=SIM_OBS_WINDOW,
+                             detect=obs.DetectConfig(warmup_windows=SIM_OBS_WARMUP))
+    names, runs = sim_env_runs(tsim, RS, tenv, dev, observe=ocfg, null=True)
+    env_names, _, env_draws, env_outs = kept["env"]
+    draws, offs = [], []
+    for name, (cfg, p, k, e) in zip(names, runs):
+        if name in env_names:
+            i = env_names.index(name)
+            draws.append(env_draws[i])
+            offs.append(env_outs[i])
+        else:
+            draws.append(tsim.draw_rounds(cfg, p, k, dev, e))
+            offs.append(None)
+    f_runs, f_draws, f_outs = kept["fleet"]
+    i = SIM_FLEET_SETTINGS.index((SIM_OBS_FLEET_SYNC, False))
+    cfg, p, k = f_runs[i]
+    names.append(f"fleet S={SIM_FLEET_S} sync {SIM_OBS_FLEET_SYNC}")
+    runs.append((dataclasses.replace(cfg, observe=ocfg), p, k, None))
+    draws.append(f_draws[i])
+    offs.append(f_outs[i])
+    speeds = RS.tpch_speed_set(30, seed=SEED)
+    scns = {name: tenv.make(name, speeds=tuple(speeds), rate=0.8 * float(speeds.sum()))
+            for name in names if name in tenv.names()}
+    return names, runs, draws, offs, scns
+
+
+def phase_sim_obs(torch, RS, tenv, obs, met, dev, card, kept) -> tuple[dict, dict]:
+    """[sim obs]: the chain's in-chain telemetry in one counted launch of 13
+    chains (``sim_obs_runs``): each chain's windows, detections and
+    detection report against its scenario's shift events; n_resp and the
+    histograms' counts summed over the records equal the trace's real
+    completions. Held (a) card against card: every other column equals the
+    launches without telemetry ([sim env]'s, [sim fleet]'s, and the null
+    chain's, launched here); (b, c) against the plain chain with telemetry
+    on the CPU over each chain's first K rounds (``sim_obs_hold``)."""
+    import dataclasses
+
+    from repro_torch.core import simulator as tsim
+    from repro_torch.kernels.sim_chain import kernel as SK
+
+    t0 = time.perf_counter()
+    names, runs, draws, offs, scns = sim_obs_runs(tsim, RS, tenv, obs, dev, kept)
+    ocfg = runs[0][0].observe
+    print(f"[sim obs] {card}; the chain's in-chain telemetry through sim_chain's telemetry "
+          f"instances: windows of {ocfg.window_turns} rounds, {ocfg.hist_bins} bins, the "
+          f"detector armed after {ocfg.detect.warmup_windows} windows; {len(runs)} chains "
+          f"(the registry's {len(scns)} scenarios at 6.1's 30 speeds, rate 0.8·Σμ, "
+          f"{SIM_ENV_HORIZON} s, and [sim fleet]'s sync-{SIM_OBS_FLEET_SYNC} chain), seed {SEED}")
+    torch.cuda.synchronize()
+    SK.reset_launches()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    e0.record()
+    outs = tsim.simulate_many(runs, dev, draws)
+    e1.record()
+    torch.cuda.synchronize()
+    launch_ms = e0.elapsed_time(e1)
+    launches = SK.launch_counts()
+    need(launches["sim_chain"] == 1, f"[sim obs] sim_chain launched {launches['sim_chain']} "
+         "times, expected one")
+    t2 = time.perf_counter()
+    rec = {}
+    for name, (cfg, _, _, _), (_, tr) in zip(names, runs, outs):
+        recs = obs.windows.sim_records_from_trace(ocfg, tr)
+        done = int((tr["code"] == tsim.EV_REAL_DONE).sum())
+        resp = sum(r["n_resp"] for r in recs)
+        counts = sum(sum(r["hist"]) for r in recs)
+        need(resp == done == counts, f"[sim obs] {name}: n_resp {resp} and the histograms' "
+             f"counts {counts} against {done} real completions")
+        need(len(recs) == -(-cfg.rounds // ocfg.window_turns),
+             f"[sim obs] {name}: {len(recs)} windows for {cfg.rounds} rounds")
+        scn = scns.get(name)
+        rep = obs.detect.detection_report(
+            recs, shift_events=scn.shift_events(0) if scn is not None else (),
+            drifting=bool(scn.drifting) if scn is not None else False)
+        dets = [(d["label"], round(d["t"], 3)) for d in rep["detections"]]
+        rec[name] = dict(rounds=cfg.rounds, windows=len(recs), completions=done,
+                         detections=dets, n_shifts=rep["n_shifts"],
+                         n_detected_shifts=rep["n_detected_shifts"],
+                         false_alarms=rep["false_alarms"], repeats=rep["repeats"],
+                         mean_latency=rep["mean_latency"], max_latency=rep["max_latency"],
+                         kind_match_rate=rep["kind_match_rate"],
+                         p99_last=recs[-1]["p99"], q_mean_last=recs[-1]["q_mean"])
+    t3 = time.perf_counter()
+    # (a) card against card: the null chain without telemetry, launched here
+    i = names.index("null")
+    cfg, p, k, e = runs[i]
+    offs[i] = tsim.simulate_many([(dataclasses.replace(cfg, observe=None), p, k, e)], dev,
+                                 [draws[i]])[0]
+    for name, (_, got), (_, off) in zip(names, outs, offs):
+        for col in off:
+            need(torch.equal(got[col], off[col]), f"[sim obs] {name}: {col} differs from the "
+                 "launch without telemetry")
+    print(f"[sim obs] (a) every other trace column of the launch equals the launches without "
+          f"telemetry ([sim env]'s 11 chains, [sim fleet]'s sync-{SIM_OBS_FLEET_SYNC} chain, "
+          f"the null chain's), card against card, bit for bit")
+    hold = sim_obs_hold(torch, tsim, names, runs, draws, outs, offs)
+    rounds = sum(cfg.rounds for cfg, _, _, _ in runs)
+    print(f"[sim obs] one launch {launch_ms:.6f} ms, {rounds} rounds at "
+          f"{rounds / (launch_ms / 1e3):.1f} rounds/s over the launch (records and reports "
+          f"{t3 - t2:.3f} s)")
+    for name, r in rec.items():
+        print(f"[sim obs] {name}: {r['rounds']} rounds, {r['windows']} windows, "
+              f"{r['completions']} real completions (= n_resp = the histograms' counts); "
+              f"detections {r['detections']}; shifts {r['n_shifts']}, detected "
+              f"{r['n_detected_shifts']}, false alarms {r['false_alarms']}, repeats "
+              f"{r['repeats']}, mean latency {r['mean_latency']}, max {r['max_latency']}, "
+              f"kind match {r['kind_match_rate']}; last window p99 {r['p99_last']:.6g} "
+              f"q_mean {r['q_mean_last']:.6g}")
+    secs = time.perf_counter() - t0
+    print(f"[sim obs] in {secs:.1f} s (launch + reports {t3 - t1:.2f} s); main-path launches "
+          f"{json.dumps(launches)}")
+    return dict(launch_ms=launch_ms, rounds=rounds, rounds_per_s=rounds / (launch_ms / 1e3),
+                chains=rec, hold=hold, seconds=secs), launches
+
+
+# [sim theory] and [sim coupling]: benchmarks/theory_validation.py's three
+# checks and benchmarks/recovery_coupling.py's coupled pairs at their own
+# settings (seed 0); one launch a worker count (a launch's chains share n)
+SIM_R1_ROUNDS, SIM_R2_ROUNDS, SIM_R3_ROUNDS, SIM_COUPLING_ROUNDS = 150_000, 60_000, 80_000, \
+    120_000
+
+
+def sim_theory_runs(tsim, RS, dev) -> dict:
+    """label -> (cfg, params, key) of the §4 checks: R1 (Lemma 4's tail, 20
+    equal workers, load 0.8, PPoT and PSS, known speeds), R2 (learning
+    time, Zipf n = 10 and 40 at load 0.5, n = 10 at 0.85), R3 (recovery
+    from a cold μ̂, Zipf n = 10 and 40, load 0.8), and Proposition 1's
+    coupled pairs (n = 10 and 40 equal workers at 0.7·n: chain B steady,
+    chain A with a first phase of a quarter speed, 5% of the horizon, on
+    the same key)."""
+    from repro_torch.utils import prng
+
+    key = prng.PRNGKey(SEED)
+    out = {}
+    for name, policy in (("ppot", "ppot_sq2"), ("pss", "pss")):
+        out[f"r1 {name}"] = RS.make_sim(policy, np.ones(20), 0.8, rounds=SIM_R1_ROUNDS,
+                                        use_learner=False, use_fake_jobs=False, seed=SEED,
+                                        device=dev) + (key,)
+    for tag, n, load in (("n10_a50", 10, 0.5), ("n40_a50", 40, 0.5), ("n10_a85", 10, 0.85)):
+        out[f"r2 {tag}"] = RS.make_sim("ppot_sq2", RS.zipf_speeds(n, seed=SEED), load,
+                                       rounds=SIM_R2_ROUNDS, seed=SEED, device=dev) + (key,)
+    for n in (10, 40):
+        out[f"r3 n{n}"] = RS.make_sim("ppot_sq2", RS.zipf_speeds(n, seed=SEED), 0.8,
+                                      rounds=SIM_R3_ROUNDS, mu_hat0=np.ones(n), seed=SEED,
+                                      device=dev) + (key,)
+    for n in (10, 40):
+        speeds = np.ones(n)
+        lam = 0.7 * speeds.sum()
+        cfg = tsim.SimConfig(n=n, policy="ppot_sq2", rounds=SIM_COUPLING_ROUNDS,
+                             use_learner=False, use_fake_jobs=False)
+        total_time = SIM_COUPLING_ROUNDS / (lam + speeds.sum())
+        out[f"coupling n{n} B"] = (cfg, tsim.make_params(lam=lam, mu=speeds, device=dev), key)
+        out[f"coupling n{n} A"] = (cfg, tsim.make_params(
+            lam=lam, mu=speeds, mu_schedule=np.stack([speeds * 0.25] + [speeds] * 19),
+            phase_period=total_time / 20.0, device=dev), key)
+    return out
+
+
+def phase_sim_theory(torch, RS, TH, met, dev, card) -> tuple[dict, dict]:
+    """[sim theory] and [sim coupling]: the §4 checks and Proposition 1's
+    coupled pairs (``sim_theory_runs``), one counted launch a worker count;
+    every statistic from the card's launch, the claims printed, not
+    asserted, as the figures' are."""
+    from repro_torch.core import simulator as tsim
+    from repro_torch.kernels.sim_chain import kernel as SK
+
+    t0 = time.perf_counter()
+    runs = sim_theory_runs(tsim, RS, dev)
+    print(f"[sim theory] {card}; benchmarks/theory_validation.py's R1-R3 and "
+          f"benchmarks/recovery_coupling.py's pairs at their settings, seed {SEED}, through "
+          f"sim_chain, one launch a worker count")
+    by_n = {}
+    for label, run in runs.items():
+        by_n.setdefault(run[0].n, []).append(label)
+    torch.cuda.synchronize()
+    SK.reset_launches()
+    t1 = time.perf_counter()
+    tr, launch_ms = {}, {}
+    for n, labels in sorted(by_n.items()):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs = tsim.simulate_many([runs[lb] for lb in labels], dev)
+        e1.record()
+        torch.cuda.synchronize()
+        launch_ms[n] = e0.elapsed_time(e1)
+        tr.update({lb: o[1] for lb, o in zip(labels, outs)})
+    launches = SK.launch_counts()
+    need(launches["sim_chain"] == len(by_n), f"[sim theory] sim_chain launched "
+         f"{launches['sim_chain']} times, expected one a worker count ({len(by_n)})")
+    t2 = time.perf_counter()
+    for label, t in tr.items():
+        for col in ("now", "mu_hat"):
+            need(bool(torch.isfinite(t[col]).all()), f"[sim theory] {label}: {col} not finite")
+    # R1: the stationary tail against alpha^(2^k - 1) (PPoT) and alpha^k (PSS)
+    r1, tails = {}, {}
+    for name in ("ppot", "pss"):
+        tail = met.stationary_tail(tr[f"r1 {name}"])
+        tails[name] = tail
+        pred = (TH.ppot_tail if name == "ppot" else TH.pss_tail)(0.8, np.arange(len(tail)))
+        ks = list(range(1, min(len(tail), 5)))
+        err = float(np.max(np.abs(np.log10(np.clip(tail[ks], 1e-6, 1))
+                                  - np.log10(np.clip(pred[ks], 1e-6, 1)))))
+        r1[name] = dict(emp=[float(v) for v in tail[:5]], pred=[float(v) for v in pred[:5]],
+                        log10err=err)
+    k = 3
+    r1_claim = bool(tails["ppot"][min(k, len(tails["ppot"]) - 1)]
+                    < tails["pss"][min(k, len(tails["pss"]) - 1)] * 0.5 + 1e-9)
+    # R2: the first time the mean relative μ̂ error falls below 20%
+    r2 = {}
+    for tag, n in (("n10_a50", 10), ("n40_a50", 40), ("n10_a85", 10)):
+        t = tr[f"r2 {tag}"]
+        m = met.analyze(t, n=n, warmup_frac=0.0)
+        err = met.estimate_error(t, RS.zipf_speeds(n, seed=SEED))
+        idx = int(np.argmax(err < 0.2)) if (err < 0.2).any() else len(err) - 1
+        r2[tag] = float(m.times[idx])
+    r2_claims = {"flat in n (n=40 < 4 x n=10)": r2["n40_a50"] < 4.0 * r2["n10_a50"],
+                 "grows with load (0.85 > 0.5)": r2["n10_a85"] > r2["n10_a50"]}
+    # R3: from the mean queue's peak back to within 1.5x its final level
+    r3 = {}
+    for n in (10, 40):
+        m = met.analyze(tr[f"r3 n{n}"], n=n, warmup_frac=0.0)
+        mq, t = m.mean_queue, m.times
+        final = np.mean(mq[-len(mq) // 10:])
+        peak_i = int(np.argmax(mq[: len(mq) // 2]))
+        after = np.nonzero(mq[peak_i:] <= final * 1.5 + 0.5)[0]
+        r3[n] = float(t[peak_i + after[0]] - t[peak_i]) if after.size else float("inf")
+    r3_claim = r3[40] < 5.0 * max(r3[10], 1.0)
+    # Proposition 1: l0(t) = (1/n)·#{i : q_i != q'_i} of the coupled pair
+    cp = {}
+    for n in (10, 40):
+        qa = tr[f"coupling n{n} A"]["q_real"].cpu().numpy()
+        qb = tr[f"coupling n{n} B"]["q_real"].cpu().numpy()
+        ta = tr[f"coupling n{n} A"]["now"].cpu().numpy().astype(np.float64)
+        l0 = (qa != qb).mean(axis=1)
+        shock_end = int(np.searchsorted(ta, ta[-1] / 20.0))
+        tail = l0[shock_end:]
+        idx = int(np.argmax(tail <= 0.2)) if (tail <= 0.2).any() else len(tail) - 1
+        t_rec = float(ta[shock_end + idx] - ta[shock_end])
+        marks = [shock_end + int(f * (len(l0) - 1 - shock_end)) for f in (0, 0.1, 0.2, 0.4,
+                                                                          0.6, 0.8, 1.0)]
+        cp[n] = dict(l0_peak=float(l0[:shock_end + idx + 1].max()),
+                     l0_final=float(l0[-1000:].mean()), t_recover=t_rec,
+                     c_peak=int(qa.max()), shock_end_s=float(ta[shock_end]),
+                     decay=[(round(float(ta[i]), 3), float(l0[i])) for i in marks])
+    cp_claim = cp[40]["t_recover"] < 5.0 * max(cp[10]["t_recover"], 0.5)
+    t3 = time.perf_counter()
+    rounds = {n: sum(runs[lb][0].rounds for lb in labels) for n, labels in by_n.items()}
+    for n, labels in sorted(by_n.items()):
+        print(f"[sim theory] n={n}: {', '.join(labels)} in one launch {launch_ms[n]:.6f} ms "
+              f"({rounds[n]} rounds, {rounds[n] / (launch_ms[n] / 1e3):.1f} rounds/s over the "
+              f"launch)")
+    for name, r in r1.items():
+        print(f"[sim theory] R1 tail {name} (20 equal workers, load 0.8, {SIM_R1_ROUNDS} "
+              f"rounds, known speeds): P[q >= k] emp {[round(v, 6) for v in r['emp']]} pred "
+              f"{[round(v, 6) for v in r['pred']]} log10err {r['log10err']:.4f}")
+    print(f"[sim theory] R1 claim loglog vs log (ppot tail at k=3 < 0.5 x pss's): {r1_claim}")
+    print(f"[sim theory] R2 learning time (mean μ̂ error < 20%, Zipf, {SIM_R2_ROUNDS} rounds): "
+          + ", ".join(f"{tag} {v:.3f} s" for tag, v in r2.items()))
+    for claim, ok in r2_claims.items():
+        print(f"[sim theory] R2 claim {claim}: {ok}")
+    print(f"[sim theory] R3 recovery from a cold μ̂ (Zipf, load 0.8, {SIM_R3_ROUNDS} rounds): "
+          + ", ".join(f"n={n} {v:.3f} s" for n, v in r3.items()))
+    print(f"[sim theory] R3 claim n-independent (n=40 < 5 x n=10): {r3_claim}")
+    for n, r in cp.items():
+        print(f"[sim coupling] n={n} (equal workers, load 0.7, {SIM_COUPLING_ROUNDS} rounds, "
+              f"a quarter-speed first phase to {r['shock_end_s']:.3f} s): l0 peak "
+              f"{r['l0_peak']:.4f}, final {r['l0_final']:.4f}, t_recover (l0 <= 0.2) "
+              f"{r['t_recover']:.3f} s, c_peak {r['c_peak']}; l0 decay (t, l0) {r['decay']}")
+    print(f"[sim coupling] claim n-independent recovery (t40 < 5 x t10): {cp_claim} (t10 "
+          f"{cp[10]['t_recover']:.3f}, t40 {cp[40]['t_recover']:.3f})")
+    secs = time.perf_counter() - t0
+    print(f"[sim theory] in {secs:.1f} s (launches {t2 - t1:.2f} s, statistics {t3 - t2:.2f} s); "
+          f"main-path launches {json.dumps(launches)}")
+    return dict(launch_ms={str(n): v for n, v in launch_ms.items()}, r1=r1, r1_claim=r1_claim,
+                r2=r2, r2_claims=r2_claims, r3={str(n): v for n, v in r3.items()},
+                r3_claim=r3_claim, coupling={str(n): v for n, v in cp.items()},
+                coupling_claim=cp_claim, seconds=secs), launches
 
 
 def sim_line_bytes(args, T: int, n: int, mt: int, cap: int, S: int) -> int:
@@ -3468,8 +3803,34 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
     fleet_args, fleet_shape = tsim.chain_inputs(
         fruns, [tsim.draw_rounds(c, p, k, dev) for c, p, k in fruns], dev)
     fleet_ms = event_ms(lambda: SK.sim_chain(*fleet_args, **fleet_shape), 3)
+    # the telemetry instances: Fig. 8's run with [sim obs]'s telemetry, in
+    # turns with the same run without (off, on, on, off; launches alone,
+    # queued), the same trace bit for bit; its bound counts the rows written;
+    # and its split by phase through the clocked build
+    from repro_torch import obs
+
+    ocfg = obs.ObserveConfig(window_turns=SIM_OBS_WINDOW,
+                             detect=obs.DetectConfig(warmup_windows=SIM_OBS_WARMUP))
+    obs_args, _ = tsim.chain_inputs([(dataclasses.replace(cfg, observe=ocfg), params, key)],
+                                    [draws], dev)
+    _, obs_trace = SK.sim_chain(*obs_args, **shape)
+    need(all(torch.equal(obs_trace[k], v) for k, v in trace.items()),
+         "[times] Fig. 8's run with telemetry differs from the run without it")
+    turns = [queued_ms(fn, 3) for fn in (lambda: SK.launch_only(*args, **shape),
+                                         lambda: SK.launch_only(*obs_args, **shape),
+                                         lambda: SK.launch_only(*obs_args, **shape),
+                                         lambda: SK.launch_only(*args, **shape))]
+    obs_ms, off_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    obs_bytes = sim_line_bytes(args, cfg.rounds, cfg.n, cfg.max_tasks, cfg.ring_cap,
+                               cfg.arrival_window) + sum(
+        t.numel() * t.element_size() for t in list(obs_args[6].values()) + [obs_trace["obs"]])
+    obs_bound_ms = max(obs_bytes / HBM_BYTES_PER_S * 1e3, single["fig8 static/rosella"]["ops_ms"])
+    *_, obs_rec = SK.clock_split(*obs_args, **shape)
+    splits["fig8 static/rosella, telemetry on"] = sim_split(obs_rec[0])
     rec = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, plain_round_ms=plain_round_ms,
                bound_ms=max(bytes_ms, ops_ms), ext_fig8_ms=ext_ms, fleet_sweep_ms=fleet_ms,
+               obs_fig8_ms=obs_ms, obs_off_fig8_ms=off_ms, obs_fig8_bound_ms=obs_bound_ms,
+               obs_fig8_bytes=obs_bytes,
                bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
                ops=ops, chain_ms=chain_ms, rounds=R, full_rounds=cfg.rounds, full_ms=full_ms,
                full_chain_ms=full_chain_ms, batch_ms=batch_ms, batch_chains=len(fig8),
@@ -3493,6 +3854,11 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
           f"({ext_ms / full_ms:.4f}x; the same trace bit for bit); [sim fleet]'s "
           f"{len(fruns)} chains of {SIM_FLEET_ROUNDS} rounds (S = {SIM_FLEET_S}) in one launch "
           f"{fleet_ms:.6f} ms")
+    print(f"[times] sim_chain's telemetry instance on that run (windows of {SIM_OBS_WINDOW} "
+          f"rounds, the detector): {obs_ms:.6f} ms against {off_ms:.6f} ms without telemetry "
+          f"in the same turns ({obs_ms / off_ms:.4f}x; launches alone, queued; every other "
+          f"column the same bit for bit); bound {obs_bound_ms:.9f} ms ({obs_bytes} B with the "
+          f"rows written at 3.35 TB/s)")
     for label, r in single.items():
         print(f"[times] sim_chain, {label} (n={r['n']}): {r['rounds']} rounds {r['ms']:.6f} ms "
               f"({r['ms'] / r['rounds'] * 1e6:.3f} ns a round); bound "
@@ -3501,6 +3867,9 @@ def phase_sim_times(torch, dev, RS, mhz, floor_ms) -> dict:
               f"{r['ops_ms']:.9f} ms); chain floor {r['chain_ms']:.6f} ms")
         print(f"[times] sim_chain split, {label} (clocked build, lane 0's clock64()): "
               f"{sim_split_text(splits[label])}")
+    label = "fig8 static/rosella, telemetry on"
+    print(f"[times] sim_chain split, {label} (clocked build, lane 0's clock64()): "
+          f"{sim_split_text(splits[label])}")
     return rec
 
 
@@ -4634,7 +5003,10 @@ def main() -> int:
     load, load_launches, load_pool_err = phase_load(torch, tr, tsl, tenv, tload, obs, trcv, chk,
                                                     D, K, CK, CR, met, speeds, dev, card, faults)
     sim, sim_launches = phase_sim(torch, RS, TH, dev, card)
-    sim_ext, sim_ext_launches = phase_sim_ext(torch, RS, tenv, met, dev, card)
+    sim_ext, sim_ext_launches, sim_kept = phase_sim_ext(torch, RS, tenv, met, dev, card)
+    sim_obs, sim_obs_launches = phase_sim_obs(torch, RS, tenv, obs, met, dev, card, sim_kept)
+    del sim_kept
+    sim_th, sim_th_launches = phase_sim_theory(torch, RS, TH, met, dev, card)
     cfg, model, prefill = phase_prefill(torch, FK, dev)
     serve = phase_serve(torch, cfg, model, dev)
     prof_prefill, prof_decode = phase_model_profile(torch, cfg, model, dev)
@@ -4709,10 +5081,13 @@ def main() -> int:
     # Fig. 8's static Rosella run cut to SIM_LINE_ROUNDS rounds, where the
     # plain chain on the card is timed too; full_ms: its 120,000 rounds,
     # full_bound_ms: their bound; fig10_ms: Fig. 10a's known-speed run;
-    # fleet_sweep_ms: [sim fleet]'s launch (six chains of 60,000 rounds)
+    # fleet_sweep_ms: [sim fleet]'s launch (six chains of 60,000 rounds);
+    # obs_*: the telemetry instance on the 120,000 rounds, its bound with the
+    # rows written, and [sim obs]'s launch
     kernels.append(dict(
         name="sim_chain", route="cuda", source=SIM_SOURCE, replaces=SIM_REPLACES,
-        launches=sim_launches["sim_chain"] + sim_ext_launches["sim_chain"],
+        launches=sim_launches["sim_chain"] + sim_ext_launches["sim_chain"]
+        + sim_obs_launches["sim_chain"] + sim_th_launches["sim_chain"],
         max_abs_err=max(c["max_abs_err"] for checks in (sim["checks"], sim_ext["checks"])
                         for c in checks.values()), ms=sim_times["ms"],
         plain_ms=sim_times["plain_ms"], bound_ms=sim_times["bound_ms"],
@@ -4722,7 +5097,9 @@ def main() -> int:
         full_bound_ms=max(sim_times["runs"]["fig8 static/rosella"][k]
                           for k in ("bytes_ms", "ops_ms")),
         fig10_ms=sim_times["runs"]["fig10 10a/ppot"]["ms"],
-        fleet_sweep_ms=sim_ext["fleet"]["launch_ms"], env_launch_ms=sim_ext["env"]["launch_ms"]))
+        fleet_sweep_ms=sim_ext["fleet"]["launch_ms"], env_launch_ms=sim_ext["env"]["launch_ms"],
+        obs_full_ms=sim_times["obs_fig8_ms"], obs_off_full_ms=sim_times["obs_off_fig8_ms"],
+        obs_full_bound_ms=sim_times["obs_fig8_bound_ms"], obs_launch_ms=sim_obs["launch_ms"]))
     t = flash_times["main"]
     kernels.append(dict(
         name="flash_attention_fwd", route="cuda", source=FLASH_SOURCE,
@@ -4749,6 +5126,8 @@ def main() -> int:
     print(f"[summary] load {json.dumps(load)}")
     print(f"[summary] sim {json.dumps(sim)}")
     print(f"[summary] sim environments and fleet {json.dumps(sim_ext)}")
+    print(f"[summary] sim obs {json.dumps(sim_obs)}")
+    print(f"[summary] sim theory and coupling {json.dumps(sim_th)}")
     print(f"[summary] sim_chain times {json.dumps(sim_times)}")
     print(f"[summary] prefill {json.dumps(prefill)}")
     print(f"[summary] serve {json.dumps(serve)}")

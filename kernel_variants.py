@@ -18,8 +18,12 @@ loop's [scan a] and [scan e] also run whole on each checkout, each in a
 process of its own. Its chain simulator is read as it was ported, and its
 per-phase cycle split is taken by inserting this source's clock block and
 marks into it (``clocked_parent_source``), or, from the redesigned kernel
-on (its source carries the clock block), through its own paper-mode entry
-and clocked build; with ``sim``, a small probe
+on (its source carries the clock block), through its own entry and a
+clocked build whose clock block is this source's
+(``reclocked_parent_source``); the environment and fleet program is timed
+against the parent's too, where it has one, and the telemetry instance on
+Fig. 8's run against the same run without it and against the telemetry
+fold's variants (``SIM_OBS_VARIANTS``); with ``sim``, a small probe
 kernel also reads what one warp pays a step for the instruction classes
 the chain kernel is made of (``WARP_PROBE_SRC``). ``--kernels`` picks the
 sources (default all five).
@@ -278,6 +282,9 @@ PARENT_SIGNATURES = {
     # the redesigned chain kernel's paper-mode entry, before its one entry of
     # both modes: the ring stride and the tile's rounds after cap
     "sim_tiled": {"sim_chain": (_P,) * 13 + (_I,) * 12 + (_P,) * 28 + (_P,)},
+    # the one entry of the paper and the environment and fleet modes, before
+    # the telemetry's inputs, bins and rows
+    "sim_one": {"sim_chain": (_P,) * 30 + (_I,) * 18 + (_P,) * 14 + (_P,) * 26 + (_P,)},
 }
 
 
@@ -616,6 +623,25 @@ SIM_VARIANTS = [
                 }
               }""")),
 ]
+# The telemetry fold's variants (the OBS instances), timed on Fig. 8's run
+# with [sim obs]'s telemetry: design choices undone (equal results), and
+# diagnostics that leave a part out (wrong rows)
+_OBS_ROW_STORES = ("        int* ri = row + HB;\n",
+                   "        if (lane < kObsWords) rf[R_F32 + lane] = det_w;\n")
+SIM_OBS_VARIANTS = [
+    ("Σq and max q counted by warp reductions every round (no counting by events)",
+     _edits(("        if (w_turns == 0 || obs_recount) {  // Σq and max q counted over the workers",
+             "        if (true) {  // Σq and max q counted over the workers"))),
+    ("Σ|ĥ − m| recomputed every round (not only after μ̂, μ or the mask moved)",
+     _edits(("        if (mu_err_dirty) {  // Σ|ĥ − m|", "        if (true) {  // Σ|ĥ − m|"))),
+    ("diagnostic: no window row written (the scalars and the detector's words)",
+     _edits((_OBS_ROW_STORES[0], "        if (R < 0) {\n" + _OBS_ROW_STORES[0]),
+            (_OBS_ROW_STORES[1], _OBS_ROW_STORES[1] + "        }\n"))),
+    ("diagnostic: no histogram (no sample binned)",
+     _edits(("        if (svc_ok) {  // the sample's bin", "        if (R < 0) {  // the sample's bin"))),
+    ("diagnostic: no μ̂ error (Σ|ĥ − m| never computed)",
+     _edits(("        if (mu_err_dirty) {  // Σ|ĥ − m|", "        if (R < 0) {  // Σ|ĥ − m|"))),
+]
 # What one warp alone on its scheduler pays, in cycles a step of 256 (the
 # chain kernel's regime): a dependent f32 add, a dependent shared load, a
 # shared load with an add (broadcast, a word a lane), a shared store, a
@@ -712,6 +738,17 @@ PARENT_SIM_MARKS = [
 ]
 
 
+def reclocked_parent_source(parent_src: str) -> str:
+    """An earlier chain kernel that carries the clock block, with its block
+    replaced by the current source's, so that its clocked build's record has
+    the current phases and counts (those it does not mark stay 0)."""
+    src = (ROOT / SIM_SRC).read_text()
+    block = src[src.index(_CLOCK_BEGIN):src.index(_CLOCK_END) + len(_CLOCK_END)]
+    old = parent_src[parent_src.index(_CLOCK_BEGIN):
+                     parent_src.index(_CLOCK_END) + len(_CLOCK_END)]
+    return parent_src.replace(old, block, 1)
+
+
 def clocked_parent_source(parent_src: str) -> str:
     """The ported chain kernel with the current source's per-phase clock
     block and the marks above, so that its clocked build records the same
@@ -724,6 +761,52 @@ def clocked_parent_source(parent_src: str) -> str:
             raise SystemExit(f"the parent's sim_chain source has moved on: {old!r}")
         out = out.replace(old, new)
     return out
+
+
+def parent_sim_chain_one(torch, lib, args, shape):
+    """One launch of the earlier one entry of the paper and the environment
+    and fleet modes (before the telemetry's inputs): ``args`` the paper's
+    five, or six with the environment and fleet inputs: (final, trace)."""
+    from repro_torch.kernels.sim_chain import kernel as SK
+    from repro_torch.kernels.sim_chain import ref as SR
+
+    conf_i, conf_f, sched, mu0, cols = args[:5]
+    ext = args[5] if len(args) > 5 else None
+    n, mt, cap, S = shape["n"], shape["mt"], shape["ring_cap"], shape["arrival_window"]
+    tq, tm = shape["trace_queues"], shape["trace_mu"]
+    C, T = cols["dt"].shape
+    dev = cols["dt"].device
+    J, K = cols["j"].shape[2], sched.shape[1]
+    F = killed = None
+    if ext is not None:
+        cx = ext["conf_x"].cpu()
+        F = int(cx[:, SR.FRONTENDS].max())
+        killed = bool((cx[:, SR.ENV] * cx[:, SR.KCRASH]).any())
+    final = {k: torch.zeros((C,) + sh, dtype=dt, device=dev)
+             for k, (dt, sh) in SR.final_shapes(n, cap, S, F).items()}
+    trace = {k: torch.zeros((C,) + sh, dtype=dt, device=dev)
+             for k, (dt, sh) in SR.trace_shapes(T, n, mt, tq, tm, bool(killed)).items()}
+    kw = dict(J=J, trace_queues=tq, trace_mu=tm, frontends=F or 0)
+    rs = SK.ring_stride(n, mt, cap, S, **kw)
+    R = SK.tile_rounds(T, n, mt, cap, S, stride=rs, **kw)
+    ptr = lambda t: t.data_ptr()  # noqa: E731
+    names = SK.COLS | (SK.XCOLS if ext is not None else {})
+    ins = (conf_i, conf_f, sched, mu0, *(cols[k] for k in names))
+    if ext is None:
+        xptrs = (None,) * (len(SK.XCOLS) + len(SR.EXT))
+        lens, xfinal = [0] * 6, [None] * len(SK._FINAL_EXT)
+    else:
+        xptrs = tuple(ptr(ext[k]) for k in SR.EXT)
+        lens = [ext[k].shape[1] for k in ("lam_bp", "mu_bp", "act_bp", "stall_bp",
+                                           "crash_t")] + [F]
+        xfinal = [ptr(final[k]) for k in SK._FINAL_EXT]
+    base = [f for f in final if f not in SK._FINAL_EXT]
+    err = lib.load().sim_chain(
+        *map(ptr, ins), *xptrs, C, T, n, mt, J, K, S, cap, rs, R, int(tq), int(tm), *lens,
+        *(ptr(trace[k]) for k in SK._TRACE_ORDER), ptr(trace["killed"]) if killed else None,
+        *(ptr(final[k]) for k in base), *xfinal, torch.cuda.current_stream().cuda_stream)
+    lib.raise_on(err, "parent sim_chain")
+    return final, trace
 
 
 def parent_sim_chain(torch, lib, args, shape, tiled: bool = False):
@@ -781,7 +864,7 @@ def warp_costs(torch, lib) -> dict:
     return costs
 
 
-def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
+def time_sim(torch, libs, clocked, parent, median_ms, obs_libs=()) -> dict:
     """The chain kernel at chip_smoke.py's split runs (Fig. 8's static
     Rosella run, Fig. 10a's known-speed PPoT run) and its kernels-line case
     (Fig. 8's run cut to SIM_LINE_ROUNDS), one chain a launch, and
@@ -794,7 +877,10 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
     the parent (their clocked builds, ``clocked`` in the order of
     ``libs``). Then the environment and fleet program on Fig. 8's run (in
     turns with the paper program) and on [sim fleet]'s six chains, each
-    with its split."""
+    with its split, against the parent's where it has them; then the
+    telemetry instance on Fig. 8's run against the same run without it, and
+    each of ``obs_libs`` ((name, library, clocked library) of
+    SIM_OBS_VARIANTS) in turns with the telemetry instance, each split."""
     import dataclasses
 
     import chip_smoke as CS
@@ -808,6 +894,15 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
 
     def slowest(recs):
         return max((CS.sim_split(r) for r in recs), key=lambda x: x["cycles_per_round"])
+
+    def run_parent(lib, args, shape):
+        """The parent's launch of these inputs through its own entry."""
+        entry = parent["entry"]
+        if entry == "obs":  # the current entry
+            return SK.launch_only(*args, **shape, lib=lib)
+        if entry == "one":
+            return parent_sim_chain_one(torch, lib, args, shape)
+        return parent_sim_chain(torch, lib, args[:5], shape, entry == "tiled")
 
     figs = CS.sim_figures(RS, dev)
     cases = {label: [run] for label, run in CS.sim_split_runs(figs).items()}
@@ -839,9 +934,7 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
         row = {"rounds": cfg.rounds, "current": dict(ms=median_ms(current, reps))}
         others = [(name, lambda lb=lib: current(lb)) for name, lib in variants]
         if parent is not None:
-            others.append(("parent", lambda: current(parent["plain"]) if parent["entry"] == "one"
-                           else parent_sim_chain(torch, parent["plain"], args, shape,
-                                                 parent["entry"] == "tiled")))
+            others.append(("parent", lambda: run_parent(parent["plain"], args, shape)))
         for name, fn in others:
             turns = [median_ms(f, reps) for f in (fn, current, current, fn)]
             row[name] = dict(ms=statistics.mean((turns[0], turns[3])),
@@ -850,11 +943,8 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
         for (name, _), lib in zip(libs, clocked):
             *_, recs = SK.clock_split(*args, **shape, lib=lib)
             row[name]["split"] = slowest(recs)
-        if parent is not None and parent["entry"] == "one":
-            *_, recs = SK.clock_split(*args, **shape, lib=parent["clocked"])
-            row["parent"]["split"] = slowest(recs)
-        elif parent is not None:
-            parent_sim_chain(torch, parent["clocked"], args, shape, parent["entry"] == "tiled")
+        if parent is not None:
+            run_parent(parent["clocked"], args, shape)
             row["parent"]["split"] = slowest(SK.read_clocks(parent["clocked"], C))
         out[label] = row
         for name, r in row.items():
@@ -890,6 +980,23 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
                                   paper_same_call_ms=statistics.mean(turns[1:3]), equal=same)
         else:
             row["current"] = dict(ms=median_ms(fn, 3))
+        if parent is not None and parent["entry"] in ("one", "obs"):
+            # the parent's environment and fleet program in turns with it
+            launch = lambda a=args, sh=shape: SK.launch_only(*a, **sh)  # noqa: E731
+            want = launch()
+            par = lambda a=args, sh=shape: run_parent(parent["plain"], a, sh)  # noqa: E731
+            got = par()
+            turns = [median_ms(f, 3) for f in (par, launch, launch, par)]
+            row["parent"] = dict(
+                ms=statistics.mean((turns[0], turns[3])),
+                current_same_call_ms=statistics.mean(turns[1:3]),
+                equal=all(torch.equal(g, w) for part in (0, 1)
+                          for g, w in zip(got[part].values(), want[part].values())))
+            r = row["parent"]
+            print(f"[sim {label}] parent (its EXT program): {r['ms']:.6f} ms, current in the "
+                  f"same turns {r['current_same_call_ms']:.6f} ms "
+                  f"({r['current_same_call_ms'] / r['ms']:.4f}x), equal bit for bit: "
+                  f"{r['equal']}", flush=True)
         conf_i, conf_f, sched, mu0, cols, xins = args
         names = {**SK.COLS, **SK.XCOLS}
         ins = (conf_i, conf_f, sched, mu0, *(cols[k] for k in names))
@@ -905,6 +1012,53 @@ def time_sim(torch, libs, clocked, parent, median_ms) -> dict:
               + (f" (the paper program in the same turns {r['paper_same_call_ms']:.6f} ms, "
                  f"the same trace bit for bit: {r['equal']})" if ext else "")
               + f"; split: {CS.sim_split_text(r['split'])}", flush=True)
+    # the telemetry instance: Fig. 8's run with [sim obs]'s telemetry in
+    # turns with the same run without it (off, on, on, off), the launches
+    # alone; every other column the same bit for bit; split by phase
+    from repro_torch import obs
+
+    ocfg = obs.ObserveConfig(window_turns=CS.SIM_OBS_WINDOW,
+                             detect=obs.DetectConfig(warmup_windows=CS.SIM_OBS_WARMUP))
+    c8, p8, k8 = fig8[0]
+    draws = [tsim.draw_rounds(c8, p8, k8, dev)]
+    args, shape = tsim.chain_inputs([(c8, p8, k8)], draws, dev)
+    oargs, _ = tsim.chain_inputs([(dataclasses.replace(c8, observe=ocfg), p8, k8)], draws, dev)
+    SK.sim_chain(*oargs, **shape)
+    off = lambda: SK.launch_only(*args, **shape)  # noqa: E731
+    on = lambda: SK.launch_only(*oargs, **shape)  # noqa: E731
+    a, b = off(), on()
+    same = all(torch.equal(v, b[1][k]) for k, v in a[1].items()) and all(
+        torch.equal(v, b[0][k]) for k, v in a[0].items())
+    turns = [median_ms(f, 3) for f in (off, on, on, off)]
+    *_, recs = SK.clock_split(*oargs, **shape, lib=clocked[0])
+    *_, recs_off = SK.clock_split(*args, **shape, lib=clocked[0])
+    row = {"rounds": c8.rounds, "obs": dict(ms=statistics.mean(turns[1:3]),
+                                            split=slowest(recs)),
+           "off": dict(ms=statistics.mean((turns[0], turns[3])), split=slowest(recs_off)),
+           "equal": same}
+    out["fig8 static/rosella, telemetry on"] = row
+    on_s, off_s = row["obs"]["split"], row["off"]["split"]
+    print(f"[sim fig8 static/rosella, telemetry on] {row['obs']['ms']:.6f} ms against "
+          f"{row['off']['ms']:.6f} ms without it in the same turns "
+          f"({row['obs']['ms'] / row['off']['ms']:.4f}x), every other column equal bit for "
+          f"bit: {same}; {on_s['cycles_per_round'] - off_s['cycles_per_round']:.1f} cycles a "
+          f"round more ({on_s['cycles_per_round']:.1f} against "
+          f"{off_s['cycles_per_round']:.1f}), the obs phase {on_s['per_round']['obs']:.1f} "
+          f"cycles a round; split on: {CS.sim_split_text(on_s)}", flush=True)
+    for name, lib, clib in obs_libs:
+        fn = lambda lb=lib: SK.launch_only(*oargs, **shape, lib=lb)  # noqa: E731
+        got = fn()
+        turns = [median_ms(f, 3) for f in (fn, on, on, fn)]
+        *_, recs = SK.clock_split(*oargs, **shape, lib=clib)
+        r = dict(ms=statistics.mean((turns[0], turns[3])),
+                 current_same_call_ms=statistics.mean(turns[1:3]), split=slowest(recs),
+                 equal=all(torch.equal(g, w) for part in (0, 1)
+                           for g, w in zip(got[part].values(), b[part].values())))
+        row[name] = r
+        print(f"[sim fig8 static/rosella, telemetry on] {name}: {r['ms']:.6f} ms (the "
+              f"telemetry instance in the same turns {r['current_same_call_ms']:.6f} ms), equal "
+              f"bit for bit: {r['equal']}; obs phase {r['split']['per_round']['obs']:.1f} "
+              f"cycles a round, {r['split']['cycles_per_round']:.1f} in all", flush=True)
     return out
 
 
@@ -954,18 +1108,21 @@ def main() -> int:
             for n, p in variant_sources(path, variants, tmp)]
         if args.parent and kind == "sim":
             parent_src = (args.parent / path).read_text()
-            # its entry: today's one entry of both modes, the redesigned
-            # kernel's paper-mode entry (tiled), or the ported one's
+            # its entry: the one entry of every mode with the telemetry (obs)
+            # or before it (one), the redesigned kernel's paper-mode entry
+            # (tiled), or the ported one's; its clocked build with the
+            # current clock block (its phases and counts)
             entry = ("ported" if _CLOCK_BEGIN not in parent_src
+                     else "obs" if "conf_o" in parent_src
                      else "one" if "conf_x != nullptr" in parent_src else "tiled")
+            clocked = tmp / "sim_chain_parent_clocked.cu"
             if entry == "ported":
-                clocked = tmp / "sim_chain_parent_clocked.cu"
                 clocked.write_text(clocked_parent_source(parent_src))
                 sigs = PARENT_SIGNATURES[kind]
             else:
-                clocked = args.parent / path
-                sigs = (simbuild._SIGNATURES if entry == "one"
-                        else PARENT_SIGNATURES["sim_tiled"])
+                clocked.write_text(reclocked_parent_source(parent_src))
+                sigs = {"obs": simbuild._SIGNATURES, "one": PARENT_SIGNATURES["sim_one"],
+                        "tiled": PARENT_SIGNATURES["sim_tiled"]}[entry]
             parent[kind] = {"plain": _nvcc.CudaLibrary(args.parent / path, sigs, err, own),
                             "clocked": _nvcc.CudaLibrary(
                                 clocked, {**sigs, **simbuild.CLOCK_SIGNATURE}, err,
@@ -984,7 +1141,18 @@ def main() -> int:
                                      "sim_chain_error_string",
                                      simbuild.CLOCKED.flags[len(_nvcc.FLAGS):])
                    for _, lib in libs.get("sim", [])]
-    extra = sim_clocked + ([probe] if probe else [])
+    # the telemetry fold's variants, plain and clocked (their sources in a
+    # folder of their own: variant_sources names files by index)
+    (tmp / "obs").mkdir(exist_ok=True)
+    obs_variants = [(n, _nvcc.CudaLibrary(p, simbuild._SIGNATURES, "sim_chain_error_string",
+                                          extra_flags=simbuild.LIBRARY.flags[len(_nvcc.FLAGS):]),
+                     _nvcc.CudaLibrary(p, {**simbuild._SIGNATURES, **simbuild.CLOCK_SIGNATURE},
+                                       "sim_chain_error_string",
+                                       simbuild.CLOCKED.flags[len(_nvcc.FLAGS):]))
+                    for n, p in (variant_sources(SIM_SRC, SIM_OBS_VARIANTS, tmp / "obs")
+                                 if "sim" in kinds else [])]
+    extra = sim_clocked + ([probe] if probe else []) + [
+        lib for _, a, b in obs_variants for lib in (a, b)]
     _nvcc.build_all(*(lib for row in libs.values() for _, lib in row), *extra,
                     *(lib for p in parent.values()
                       for lib in ((p["plain"], p["clocked"]) if isinstance(p, dict) else (p,))))
@@ -1027,7 +1195,7 @@ def main() -> int:
             readings["scan"] = time_scan(args.parent)
     if "sim" in kinds:
         readings["sim_chain"] = time_sim(torch, libs["sim"], sim_clocked, parent.get("sim"),
-                                         median_ms)
+                                         median_ms, obs_variants)
         readings["sim_chain"]["warp_costs"] = warp_costs(torch, probe)
 
     # K4: q [B, S, H, D] in the model's layout, causal (hymba: window 1024)

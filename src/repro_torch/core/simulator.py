@@ -51,10 +51,20 @@ herd correction if asked; the views reconcile every ``fleet_sync_every``
 rounds. The trace's ``frontend`` / ``view_gap`` / ``sync_age`` columns
 feed ``core.metrics.fleet_summary_from_trace``.
 
+**In-chain telemetry** (``SimConfig.observe``, an ``obs.ObserveConfig``,
+in any mode): the windowed fold of ``obs.windows.observe_turn`` once a
+round, read-only on the chain (windows span ``window_turns`` rounds;
+arrivals and launches count the round's dispatched tasks, completions its
+real completion, whose exact service time is the histogram's one sample,
+kills the crash track's emptied queue), with the regime detector at the
+window boundaries. The trace gains the reference's ``obs_row`` (a
+``TelemetryCarry`` of [T, ...] tensors, each round's post-fold, pre-reset
+row) and ``obs_flag`` (bool [T]) for ``obs.windows.sim_records_from_trace``.
+
 The paper's own mode (no environment, one frontend synced every round)
 runs the program it always ran; the other modes run on the same kernel
-built with them (``kernels/sim_chain``). In-chain telemetry (``observe``)
-is ROADMAP queue A, A8c; ``simulate`` refuses it.
+built with them (``kernels/sim_chain``), and a batch with telemetry on the
+kernel's telemetry instances.
 """
 from __future__ import annotations
 
@@ -70,6 +80,7 @@ from repro_torch.core import policies as pol
 from repro_torch.fleet import state as flt
 from repro_torch.kernels.sim_chain import kernel as chain_kernel
 from repro_torch.kernels.sim_chain import ref as chain_ref
+from repro_torch.obs import windows as obw
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
 
@@ -124,8 +135,10 @@ class SimConfig:
     # how jobs split over the frontends: uniform, weighted (by
     # SimParams.lb_weights) or sticky (round-robin by job ordinal)
     frontend_lb: str = "uniform"
-    # in-chain telemetry (an obs.ObserveConfig) is A8c
-    observe: object = None
+    # in-chain telemetry: an obs.ObserveConfig folded once a round (windows
+    # of window_turns rounds), the trace gaining obs_row / obs_flag; None
+    # runs the chain without it
+    observe: "obw.ObserveConfig | None" = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,12 +245,11 @@ def uses_ext(cfg: SimConfig, env=None) -> bool:
 
 
 def refuse_other_modes(cfg: SimConfig, env=None, params: SimParams | None = None) -> None:
-    """Raise on what the chain does not run: in-chain telemetry (ROADMAP
-    A8c), and the reference's own refusals."""
-    if cfg.observe is not None:
-        raise NotImplementedError(
-            "simulate: observe is not ported yet: the chain's in-chain telemetry is "
-            "ROADMAP queue A, A8c")
+    """Raise on what the chain does not run: the reference's own refusals,
+    and an ``observe`` that is not an ``obs.ObserveConfig``."""
+    if cfg.observe is not None and not isinstance(cfg.observe, obw.ObserveConfig):
+        raise TypeError(f"observe must be an obs.ObserveConfig or None, got "
+                        f"{type(cfg.observe).__name__}")
     if cfg.n_frontends < 1:
         raise ValueError(f"n_frontends={cfg.n_frontends}: need at least one frontend")
     if cfg.frontend_lb not in LB_MODES:
@@ -507,6 +519,43 @@ def ext_config(cfg: SimConfig, params: SimParams, env: EnvSchedule | None) -> di
     return dict(conf_x=torch.tensor(cx, **i), conf_xf=torch.tensor(cxf, **f), **tracks)
 
 
+def obs_config(cfg: SimConfig, params: SimParams, bins: int) -> dict:
+    """One chain's telemetry inputs as the kernel takes them
+    (``kernels.sim_chain.ref.OBS``): conf_o i32[NO], conf_of f32[NOF] and
+    the histogram's thresholds padded with +inf to ``bins`` (the batch's
+    most); all zeros and +inf, with conf_o OBS_ON 0, without telemetry."""
+    dev = params.mu_bar.device
+    o, d = cfg.observe, None if cfg.observe is None else cfg.observe.detect
+    co = [0] * chain_ref.NO
+    cof = [0.0] * chain_ref.NOF
+    thr = np.full(bins, np.inf, np.float32)
+    if o is not None:
+        co[chain_ref.OBS_ON], co[chain_ref.WINDOW], co[chain_ref.BINS] = 1, o.window_turns, \
+            o.hist_bins
+        thr[:o.hist_bins - 1] = obw.hist_thresholds(o)
+        cof[chain_ref.INV_N] = float(f32(1.0 / cfg.n))
+    if d is not None:
+        co[chain_ref.DETECT], co[chain_ref.WARMUP], co[chain_ref.COOLDOWN] = \
+            1, d.warmup_windows, d.cooldown_windows
+        for k, v in ((chain_ref.EMA_ALPHA, d.ema_alpha), (chain_ref.REBASE_ALPHA,
+                                                          d.rebaseline_alpha),
+                     (chain_ref.K_SIGMA, d.k_sigma), (chain_ref.H_SIGMA, d.h_sigma),
+                     (chain_ref.ABS_FLOOR, d.abs_floor), (chain_ref.DECAY, d.cusum_decay),
+                     (chain_ref.CLIP_Z, d.clip_z), (chain_ref.SCALE_CLIP_Z, d.scale_clip_z)):
+            cof[k] = float(f32(v))
+        for i, v in enumerate(d.rel_floor):
+            cof[chain_ref.REL_FLOOR + i] = float(f32(v))
+    return dict(conf_o=torch.tensor(co, dtype=torch.int32, device=dev),
+                conf_of=torch.tensor(cof, dtype=torch.float32, device=dev),
+                obs_thr=torch.from_numpy(thr).to(dev))
+
+
+def obs_bins(runs) -> int | None:
+    """The most histogram bins of the runs' telemetry, None if none has it."""
+    bins = [r[0].observe.hist_bins for r in runs if r[0].observe is not None]
+    return max(bins) if bins else None
+
+
 def chain_shape(cfg: SimConfig) -> dict:
     """The shape-level statics a batch of chains must share."""
     return dict(n=cfg.n, mt=cfg.max_tasks, ring_cap=cfg.ring_cap,
@@ -535,7 +584,9 @@ def chain_inputs(runs, draws: "list[dict]", device, ext: bool | None = None) -> 
     fleet inputs (``ext_config``, each track padded to the longest) and
     every run's draws the extra columns (zeros where it has none): the
     environment and fleet program, which runs a paper-mode chain as the
-    paper's own program does."""
+    paper's own program does. Where any run has telemetry, args also gains
+    the environment and fleet inputs or None, then the telemetry inputs
+    (``obs_config``, one row a run)."""
     dev = resolve_device(device)
     runs = [_run_parts(r) for r in runs]
     shapes = {tuple(sorted(chain_shape(cfg).items())) for cfg, _, _, _ in runs}
@@ -565,6 +616,11 @@ def chain_inputs(runs, draws: "list[dict]", device, ext: bool | None = None) -> 
         xs = [ext_config(cfg, p, env) for (cfg, _, _, env), p in zip(runs, ps)]
         args += ({name: torch.stack([_pad_rows(x[name], max(y[name].shape[0] for y in xs))
                                      for x in xs]) for name in xs[0]},)
+    HB = obs_bins(runs)
+    if HB is not None:
+        os_ = [obs_config(cfg, p, HB) for (cfg, _, _, _), p in zip(runs, ps)]
+        args += (() if ext else (None,)) + (
+            {name: torch.stack([o[name] for o in os_]) for name in chain_ref.OBS},)
     return args, chain_shape(runs[0][0])
 
 
@@ -575,7 +631,8 @@ def simulate_many(runs, device=None, draws: "list[dict] | None" = None):
     rounds, params, environment, fleet and draws. ``draws`` (one
     ``draw_rounds`` dict a run) replaces the chains' own draws. Returns a
     list of (SimState, trace), each trace cut to its run's rounds (and
-    ``killed`` to width 0 where the run has no crash track)."""
+    ``killed`` to width 0 where the run has no crash track); a run with
+    telemetry has ``obs_row`` and ``obs_flag`` in its trace."""
     dev = resolve_device(device)
     runs = [_run_parts(r) for r in runs]
     for cfg, params, _, env in runs:
@@ -584,11 +641,16 @@ def simulate_many(runs, device=None, draws: "list[dict] | None" = None):
         draws = [draw_rounds(cfg, params, key, dev, env) for cfg, params, key, env in runs]
     args, shape = chain_inputs(runs, draws, dev)
     final, trace = chain_kernel.sim_chain(*args, **shape)
+    HB = obs_bins(runs)
     out = []
     for c, (cfg, _, _, env) in enumerate(runs):
         tr = {name: v[c, :cfg.rounds] for name, v in trace.items()}
         if env is None or env.crash_t is None:
             tr["killed"] = tr["killed"][:, :0]
+        words = tr.pop("obs", None)
+        if cfg.observe is not None:
+            tr["obs_row"], tr["obs_flag"] = obw.rows_from_words(words, HB,
+                                                                cfg.observe.hist_bins)
         out.append((_state_of({name: v[c] for name, v in final.items()}, cfg, env), tr))
     return out
 
@@ -625,7 +687,9 @@ def simulate(cfg: SimConfig, params: SimParams, key, env: EnvSchedule | None = N
     with the reference's trace columns: code, worker, n_tasks, task_workers
     [T, mt], task_targets [T, mt], frontend, view_gap, sync_age, now,
     lam_hat, killed [T, n] (width 0 without a crash track), killed_fake,
-    q_real [T, n] and mu_hat [T, n] (width 0 when not traced)."""
+    q_real [T, n] and mu_hat [T, n] (width 0 when not traced), and with
+    ``cfg.observe`` obs_row (a ``TelemetryCarry`` of [T, ...] tensors) and
+    obs_flag [T]."""
     return simulate_many([(cfg, params, key, env)], device)[0]
 
 

@@ -7,7 +7,10 @@
 // true; the one C entry sim_chain takes them when given conf_x): piecewise λ(t) / μ(t) / membership
 // with thinning, cold starts, rejoin bursts, blackouts and crashes, and S
 // frontends dispatching against stale views synced every fleet_sync_every
-// rounds, with the herd correction. Telemetry (observe) is not here. One
+// rounds, with the herd correction; and, in either, the in-chain telemetry
+// (OBS = true; SimConfig.observe): the window fold of obs.windows.
+// observe_turn once a round and the CUSUM detector of obs.detect at window
+// boundaries, each round's window row written out. One
 // block runs one chain for all its rounds; a launch takes a batch of
 // chains that share their shapes (n workers, mt slots a job, the learner
 // ring, the arrival window), each with its own policy, flags, rounds,
@@ -100,6 +103,36 @@
 // order (dispatch.active_choice). The new float sums (the kept μ̂ of a cold
 // start, the herd correction's Σμ, the fleet's Σλ̂) run left to right; the
 // λ̂ EMA step is one fused multiply-add (__fmaf_rn), as the reference's.
+//
+// The telemetry (OBS). A chain whose conf_o OBS_ON is set folds each round,
+// after the refresh, what the reference's round folds (the real
+// completion's service time as the histogram's one sample, the round's
+// dispatched tasks, its real completion, the crash's killed tasks, the true
+// queues, λ̂, μ̂ and the true μ under the active mask), then at a window
+// boundary the detector, then writes the window's row (the packed layout of
+// obs.windows.row_offsets: the histogram, the i32 fields and the boundary
+// flag, the f32 scalars, the detector's vectors) straight to device memory
+// from registers, then resets the window. The window's scalars are
+// registers alike in every lane; the histogram's thresholds and counts are
+// registers too, bin 32·k + l in slot k of lane l (up to kMaxBins bins),
+// so a sample's bin is the count of the thresholds at or below it
+// (obs.windows.hist_thresholds: a ballot a slot, no logarithm) and its
+// count is one add in its lane; the detector's vectors live in shared
+// memory, word l of them also in lane l's register for the rows. The
+// queues' Σq and max q under the mask are integer warp reductions only at a
+// window's first round and where the mask moved; elsewhere they follow
+// the round's events exactly (a placement adds its task and may raise the
+// max, a real completion and a crash take theirs away; the running max of
+// a window can only be raised by a placement). Σμ̂, Σμ and Σ|ĥ − m| run
+// lane-strided, then in a butterfly over 16, 8, 4, 2, 1 (ref.warp_sum,
+// which every lane ends with); their result only moves when μ̂, μ or the
+// mask does, so it is recomputed after a refresh, a phase or segment change
+// or a membership change only. In the paper's mode the queue mean adds to
+// the window's sum as one fused multiply-add, q_sum + Σq·(1/n), as the
+// reference's compiled chain does; under a mask it is Σq / max(#active,
+// 1). The detector runs a signal a lane (lanes 0-4), its four product-sums
+// fused (__fmaf_rn) where obs.detect.update_row fuses them; a ballot gives
+// the alarm and its kind.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -112,9 +145,9 @@
 // rebuilds and tiles; sim_chain_clocks copies the records of the first
 // kClockChains chains out. Without the macro the marks compile to nothing.
 enum { CK_SETUP, CK_HEAD, CK_ARRIVAL, CK_SERVICE, CK_FAKE, CK_REBUILD, CK_REFRESH, CK_TRACE,
-       CK_TILE, CK_BARRIER, CK_PHASES };
+       CK_TILE, CK_BARRIER, CK_OBS, CK_PHASES };
 enum { CN_ROUNDS = CK_PHASES, CN_ARRIVALS, CN_SERVICES, CN_FAKES, CN_REFRESHES, CN_REBUILDS,
-       CN_TILES, CK_SLOTS };
+       CN_TILES, CN_WINDOWS, CK_SLOTS };
 #ifdef SIM_CHAIN_CLOCKS
 constexpr int kClockChains = 64;
 __device__ unsigned long long sim_chain_clock_rec[kClockChains * CK_SLOTS];
@@ -168,6 +201,24 @@ enum { MU_BAR, PERIOD, NU_MAX, C0, C_WINDOW, THEORY_NUM, NF };
 enum { ENV, FRONTENDS, SYNC_EVERY, HERD, LB, KA, KC, KM, KS, KCRASH, BURST, NX };
 enum { LAM_MAX, NXF };
 enum { LB_UNIFORM, LB_WEIGHTED, LB_STICKY };
+// the telemetry (kernels/sim_chain/ref.py: conf_o, conf_of)
+enum { OBS_ON, WINDOW, BINS, DETECT, WARMUP, COOLDOWN, NO };
+enum { INV_N, EMA_ALPHA, REBASE_ALPHA, K_SIGMA, H_SIGMA, REL_FLOOR, ABS_FLOOR = REL_FLOOR + 5,
+       DECAY, CLIP_Z, SCALE_CLIP_Z, NOF };
+// obs.detect: the signals, the regime codes
+constexpr int kNsig = 5;
+enum { STABLE, LOAD_SHIFT, CAPACITY_SHIFT, MEMBERSHIP_SHIFT, FAILURE_STORM };
+// a packed row (obs.windows.PACK_I32, PACK_F32, PACK_DET): the i32 fields
+// (the boundary flag after them), the f32 scalars, the detector's vectors
+enum { R_N_RESP, R_ARRIVALS, R_LAUNCHED, R_COMPLETED, R_DIRTY, R_KILLED, R_RETRIED,
+       R_COLLISIONS, R_Q_MAX, R_TURNS, R_TURN_IDX, R_CUM_LAUNCHED, R_CUM_COMPLETED,
+       R_CUM_KILLED, R_N_ACTIVE, R_DET_WINS, R_DET_COOL, R_DET_REGIME, R_DET_FIRED,
+       R_DET_LAST_TURN, R_DET_COUNT, R_FLAG, R_I32 };
+enum { R_Q_SUM, R_MU_ERR_SUM, R_LAM_HAT, R_T_START, R_T_LAST, R_F32 };
+constexpr int kPackDet = 4;
+// the most histogram bins a chain takes: kMaxBins / 32 slots a lane
+constexpr int kMaxBins = 128;
+constexpr int kBinSlots = kMaxBins / 32;
 // core/policies.ALL_POLICIES, in order
 enum { UNIFORM, POT, PSS, PPOT_SQ2, PPOT_LL2, BANDIT, HALO, SPARROW };
 enum { EV_ARRIVAL, EV_REAL_DONE, EV_FAKE_DONE, EV_FAKE_DISPATCH, EV_SELF_LOOP };
@@ -221,6 +272,23 @@ struct Env {
   const int* __restrict__ crash_w;
   int Ka, Kc, Km, Ks, Kr;
 };
+
+// the telemetry inputs (ref.OBS), each chain's thresholds padded with +inf
+// to HB, and the rows it writes, [C][T][row_words(HB)]
+struct Obs {
+  const int* __restrict__ conf_o;
+  const float* __restrict__ conf_of;
+  const float* __restrict__ thr;
+  int* rows;
+  int HB;
+};
+
+// The words of a packed row (obs.windows.row_words), and the telemetry's
+// shared words (kernel.OBS_WORDS): the detector's vectors.
+__host__ __device__ constexpr int row_words(int HB) {
+  return (HB + R_I32 + R_F32 + kPackDet * kNsig + 3) & ~3;
+}
+constexpr int kObsWords = kPackDet * kNsig;
 
 struct Trace {
   int* code;
@@ -565,15 +633,23 @@ __device__ __forceinline__ int cdf_probe(const float* cdf, int n, float u, int l
   return c < n - 1 ? c : n - 1;
 }
 
+// Σ of the lanes' values in a butterfly over 16, 8, 4, 2, 1 (ref.warp_sum):
+// every lane ends with the same sum, addition being commutative
+__device__ __forceinline__ float butterfly_sum(float v) {
+#pragma unroll
+  for (int d = 16; d >= 1; d >>= 1) v = v + __shfl_xor_sync(kFull, v, d);
+  return v;
+}
+
 // MT: the slots a job, 1, or kMaxMt with mt at run time; EXT: the
 // environment and fleet modes (F: the batch's most frontends, rows of the
-// q_delta and EMA arrays)
-template <int MT, bool EXT>
+// q_delta and EMA arrays); OBS: the telemetry
+template <int MT, bool EXT, bool OBS>
 __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
     const int* __restrict__ conf_i, const float* __restrict__ conf_f,
     const float* __restrict__ mu_sched, const float* __restrict__ mu_hat0, Cols cols,
-    XCols xc, Env env, int T, int n, int mt, int J, int K, int S, int cap, int rs, int R,
-    int F, Trace tr, Final fin) {
+    XCols xc, Env env, Obs ob, int T, int n, int mt, int J, int K, int S, int cap, int rs,
+    int R, int F, Trace tr, Final fin) {
   const int c = blockIdx.x, lane = threadIdx.x;
   const int mt_ = MT == 1 ? 1 : mt;
   CLK_BEGIN();
@@ -617,6 +693,13 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
   const int* stall_val = EXT ? env.stall_val + (size_t)c * env.Ks * n : nullptr;
   const float* crash_t = EXT ? env.crash_t + (size_t)c * env.Kr : nullptr;
   const int* crash_w = EXT ? env.crash_w + (size_t)c * env.Kr : nullptr;
+  // the telemetry's configuration (OBS)
+  const int* co = OBS ? ob.conf_o + (size_t)c * NO : nullptr;
+  const float* cof = OBS ? ob.conf_of + (size_t)c * NOF : nullptr;
+  const bool obs_on = OBS && co[OBS_ON] != 0;
+  const int window = obs_on ? co[WINDOW] : 1;
+  const bool detect = obs_on && co[DETECT] != 0;
+  const int HB = OBS ? ob.HB : 0, RW = row_words(HB);
 
   // shared memory: the tile regions, the worker words, the table's stack
   // and pairs, the rings, the rest of the state, the arrival window (EXT:
@@ -670,6 +753,8 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
   float* ema_last = reinterpret_cast<float*>(q_delta + (size_t)F * n);
   float* ema_gap = ema_last + F;
   int* ema_cnt = reinterpret_cast<int*>(ema_gap + F);
+  // OBS: the detector's vectors [kPackDet][kNsig] (mean, scale, pos, neg)
+  float* o_det = EXT ? reinterpret_cast<float*>(ema_cnt + F) : arr_times + S;
   // slot l of worker i; rs, a multiple of 32 where the footprint allows,
   // puts every worker on the bank of its lane whatever slot it reads
   auto ring = [&](int l, int i) { return l * rs + i; };
@@ -705,6 +790,17 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
     __syncwarp();
     n_act = build_order(act, order, n, lane);
   }
+  // OBS: the histogram's thresholds and counts, bin 32·k + lane in slot k
+  float h_thr[kBinSlots];
+  int h_cnt[kBinSlots];
+#pragma unroll
+  for (int k = 0; k < kBinSlots; ++k) {
+    const int b = 32 * k + lane;
+    h_thr[k] = obs_on && b < HB ? ob.thr[(size_t)c * HB + b] : INFINITY;
+    h_cnt[k] = 0;
+  }
+  if (obs_on)  // the detector's state at zero (STABLE is 0)
+    for (int i = lane; i < kObsWords; i += kThreads) o_det[i] = 0.0f;
   __syncwarp();
   // the scalar state, the same in every lane; mu_lane: μ̂ of worker lane
   // while n <= 32; rebuild: the learner's view is to be built from μ̂
@@ -721,6 +817,21 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
   float t_sync = 0.0f, lam_global = 0.0f, herd_tot = 1.0f;
   int until_sync = 0;
   const float nu_den = fmaxf(nu_max, 1e-30f);
+  // OBS: the window's scalars (every lane alike): its counts, the queue
+  // and μ̂-error sums, λ̂ and its start; the global counters and gauges; the
+  // detector's alarm state; the rounds to the boundary; Σ|ĥ − m| of the
+  // current μ̂, μ and mask (mu_err_dirty: to be recomputed)
+  int w_resp = 0, w_arr = 0, w_comp = 0, w_kill = 0, w_qmax = 0, w_turns = 0, turn_idx = 0;
+  int cum_arr = 0, cum_comp = 0, cum_kill = 0, n_active = n;
+  int d_wins = 0, d_cool = 0, d_regime = STABLE, d_fired = STABLE, d_last = 0, d_count = 0;
+  float w_qsum = 0.0f, w_err = 0.0f, t_start = 0.0f, mu_err = 0.0f;
+  int until_window = window;
+  bool mu_err_dirty = true;
+  // the queues' Σq under the mask as of the round's fold; lane l < kObsWords
+  // holds word l of the detector's vectors; 1/n of the paper's mean
+  int q_tot = 0;
+  float det_w = 0.0f;
+  const float inv_n = obs_on ? cof[INV_N] : 0.0f;
   CLK(CK_SETUP);
 
   for (int t0 = 0; t0 < rounds; t0 += R) {
@@ -785,9 +896,10 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
             float m = sched[i];
             for (int k = 1; k < phases; ++k) m = fmaxf(m, sched[(size_t)k * n + i]);
             thr[i] = mu_now[i] / fmaxf(m, 1e-30f);
-            if (EXT || phase_view) mu_built[i] = mu_now[i];
+            if (EXT || OBS || phase_view) mu_built[i] = mu_now[i];
           }
           __syncwarp();
+          mu_err_dirty = true;
           if constexpr (EXT) {
             view_dirty = view_dirty || !use_learner;
             halo_dirty = policy == HALO;
@@ -805,6 +917,13 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
       }
       int frontend = -1, view_gap = 0, killed_fake = 0;
       float sync_age = 0.0f;
+      // OBS: the round's real completion's service time, its killed tasks,
+      // the change of Σq under the mask and the highest queue a placement
+      // left, and whether the mask moved (Σq and max q then recounted)
+      float svc = 0.0f;
+      bool svc_ok = false;
+      int killed_real = 0, obs_dq = 0, obs_qhi = 0;
+      bool obs_recount = false;
       if constexpr (EXT) {
         bool memb = false;
         if (has_env) {
@@ -854,6 +973,8 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
               n_act = build_order(act, order, n, lane);
               view_dirty = true;
               halo_dirty = policy == HALO;
+              mu_err_dirty = true;
+              obs_recount = true;
             }
           }
           if (ks > 0) {  // the stalled mask at now, after the cold start read the last
@@ -873,6 +994,8 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
             q_real[wc] = 0;
             wst[wc] = make_int4(0, ws.y + kreal, __float_as_int(now), ws.w);
             killed_fake = ws.x;
+            killed_real = kreal;
+            if (OBS && act[wc] != 0) obs_dq -= kreal;
             if (lane == 0) tr.killed[((size_t)c * T + t0 + r) * n + wc] = kreal;
             crash_i += 1;
             __syncwarp();
@@ -1094,6 +1217,16 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
             if constexpr (EXT) qdn[b] = qd[wb] + rank + 1;
           }
         }
+        if constexpr (OBS) {  // Σq and the window's max under the mask
+#pragma unroll
+          for (int b = 0; b < MT; ++b) {
+            if (b < mt_ && b < nt) {
+              const bool on = !(EXT && has_env) || act[w[b]] != 0;
+              obs_dq += on;
+              obs_qhi = max(obs_qhi, on ? qn[b] : 0);
+            }
+          }
+        }
         float ema_l = 0.0f, ema_g = 0.0f;
         int ema_c = 0;
         if constexpr (EXT) {  // the frontend's λ̂ EMA step (estimator.observe_arrivals_ema)
@@ -1129,6 +1262,9 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
         const int4 ws = wst[wv];
         const bool do_real = accept && qr > 0;
         const bool do_fake = accept && qr <= 0 && ws.x > 0;
+        svc = now - __int_as_float(ws.z);
+        svc_ok = do_real;
+        if constexpr (OBS) obs_dq -= do_real && (!(EXT && has_env) || act[wv] != 0);
         __syncwarp();  // every lane's reads before any lane's writes
         if (do_real || do_fake) {  // a completion: one branch, the rest selects
           const int slot = ws.w;
@@ -1244,6 +1380,7 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
         } else {
           rebuild = learner_view;
         }
+        mu_err_dirty = true;
         CLK(CK_REFRESH);
         CLK_COUNT(CN_REFRESHES);
       }
@@ -1256,6 +1393,167 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
           for (int i = lane; i < n; i += kThreads) w_q[r * n + i] = q_real[i];
         if (tm)
           for (int i = lane; i < n; i += kThreads) w_mu[r * n + i] = mu_hat[i];
+      }
+      if (obs_on) {  // the window fold, the detector at a boundary, the row, the reset
+        CLK(CK_TRACE);
+        const bool masked = EXT && has_env;
+        if (svc_ok) {  // the sample's bin: the thresholds at or below it
+          int bin = 0;
+#pragma unroll
+          for (int k = 0; k < kBinSlots; ++k)
+            if (32 * k < HB) bin += __popc(__ballot_sync(kFull, svc >= h_thr[k]));
+#pragma unroll
+          for (int k = 0; k < kBinSlots; ++k) h_cnt[k] += bin == 32 * k + lane;
+        }
+        int qm;
+        if (w_turns == 0 || obs_recount) {  // Σq and max q counted over the workers
+          int qs = 0;
+          qm = 0;
+          for (int i = lane; i < n; i += kThreads) {
+            const int q = !masked || act[i] != 0 ? q_real[i] : 0;
+            qs += q;
+            qm = max(qm, q);
+          }
+          q_tot = __reduce_add_sync(kFull, qs);
+          qm = __reduce_max_sync(kFull, qm);
+        } else {  // the round's events: exact, the window's max raised only by a placement
+          q_tot += obs_dq;
+          qm = obs_qhi;
+        }
+        if (mu_err_dirty) {  // Σ|ĥ − m| of the shares under the mask (ref.ObsFold)
+          float hs = 0.0f, ms = 0.0f;
+          for (int i = lane; i < n; i += kThreads) {
+            const bool a = !masked || act[i] != 0;
+            hs = hs + (a ? mu_hat[i] : 0.0f);
+            ms = ms + (a ? mu_built[i] : 0.0f);
+          }
+          const float dh = fmaxf(butterfly_sum(hs), 1e-12f);
+          const float dm = fmaxf(butterfly_sum(ms), 1e-12f);
+          float ds = 0.0f;
+          for (int i = lane; i < n; i += kThreads) {
+            const bool a = !masked || act[i] != 0;
+            ds = ds + fabsf((a ? mu_hat[i] : 0.0f) / dh - (a ? mu_built[i] : 0.0f) / dm);
+          }
+          mu_err = butterfly_sum(ds);
+          mu_err_dirty = false;
+        }
+        w_qsum = masked ? w_qsum + (float)q_tot / fmaxf((float)n_act, 1.0f)
+                        : __fmaf_rn((float)q_tot, inv_n, w_qsum);
+        const int comp = code == EV_REAL_DONE;
+        w_resp += svc_ok;
+        w_arr += nt;
+        w_comp += comp;
+        w_kill += killed_real;
+        w_qmax = max(w_qmax, qm);
+        w_err = w_err + mu_err;
+        w_turns += 1;
+        turn_idx += 1;
+        cum_arr += nt;
+        cum_comp += comp;
+        cum_kill += killed_real;
+        n_active = masked ? n_act : n;
+        const bool flag = --until_window == 0;
+        if (flag && detect) {  // obs.detect.update_row: a signal a lane
+          CLK_COUNT(CN_WINDOWS);
+          const int s = lane < kNsig ? lane : 0;
+          const float turns_f = fmaxf((float)w_turns, 1.0f);
+          const float x = s == 0   ? lam_hat
+                          : s == 1 ? w_err / turns_f
+                          : s == 2 ? w_qsum / turns_f
+                          : s == 3 ? (float)n_active
+                                   : (float)w_kill;  // killed + dirty + retried, these 0
+          const float mean = o_det[s], scale = o_det[kNsig + s];
+          const float pos = o_det[2 * kNsig + s], neg = o_det[3 * kNsig + s];
+          const bool first = d_wins == 0, warm = d_wins < co[WARMUP], cooling = d_cool > 0;
+          const float absf = cof[ABS_FLOOR];
+          const float mean0 = first ? x : mean;
+          const float scale_eff = fmaxf(fmaxf(scale, cof[REL_FLOOR + s] * fabsf(mean0)), absf);
+          const float z = (x - mean0) / scale_eff;
+          const float k = cof[K_SIGMA], h = cof[H_SIGMA], rho = cof[DECAY];
+          const float pos1 = fmaxf(__fmaf_rn(rho, pos, z) - k, 0.0f);
+          const float neg1 = fmaxf(__fmaf_rn(rho, neg, -z) - k, 0.0f);
+          const bool armed = !warm && !cooling;
+          const bool two = s == 0 || s == 2 || s == 3;  // obs.detect.TWO_SIDED
+          const unsigned bits =
+              __ballot_sync(kFull, lane < kNsig && armed && (pos1 > h || (two && neg1 > h)));
+          const bool fired = bits != 0u;
+          // label precedence: membership > failure > capacity > load
+          const int kind = bits & 8u    ? MEMBERSHIP_SHIFT
+                           : bits & 16u ? FAILURE_STORM
+                           : bits & 2u  ? CAPACITY_SHIFT
+                           : bits & 5u  ? LOAD_SHIFT
+                                        : STABLE;
+          const bool rb = warm || cooling || fired;
+          const float alpha = rb ? cof[REBASE_ALPHA] : cof[EMA_ALPHA];
+          const float clip = cof[CLIP_Z] * scale_eff;
+          float innov = x - mean0;
+          if (!rb) innov = fminf(fmaxf(innov, -clip), clip);
+          float dev = fabsf(x - mean0);
+          if (!rb) dev = fminf(dev, cof[SCALE_CLIP_Z] * scale_eff);
+          const float scale0 = first ? fmaxf(dev, absf) : scale;
+          const float mean1 = __fmaf_rn(alpha, innov, mean0);
+          const float scale1 = __fmaf_rn(alpha, dev - scale0, scale0);
+          const bool keep = armed && !fired;
+          __syncwarp();  // every lane's reads before the writes
+          if (lane < kNsig) {
+            o_det[s] = mean1;
+            o_det[kNsig + s] = scale1;
+            o_det[2 * kNsig + s] = keep ? pos1 : 0.0f;
+            o_det[3 * kNsig + s] = keep ? neg1 : 0.0f;
+          }
+          __syncwarp();  // the writes before each lane reads its word
+          if (lane < kObsWords) det_w = o_det[lane];
+          const int cool1 = fired ? co[COOLDOWN] : max(d_cool - 1, 0);
+          d_wins += 1;
+          d_regime = fired ? kind : (cool1 > 0 ? d_regime : STABLE);
+          d_fired = fired ? kind : STABLE;
+          if (fired) d_last = turn_idx;
+          d_count += fired;
+          d_cool = cool1;
+        }
+        // the row, straight to device memory: the histogram a slot a lane, the
+        // scalars (the same value from every lane, one store), the detector's
+        // vectors a word a lane
+        int* row = ob.rows + ((size_t)c * T + t0 + r) * RW;
+#pragma unroll
+        for (int k = 0; k < kBinSlots; ++k)
+          if (32 * k + lane < HB) row[32 * k + lane] = h_cnt[k];
+        int* ri = row + HB;
+        ri[R_N_RESP] = w_resp;
+        ri[R_ARRIVALS] = w_arr;
+        ri[R_LAUNCHED] = w_arr;
+        ri[R_COMPLETED] = w_comp;
+        ri[R_KILLED] = w_kill;
+        ri[R_Q_MAX] = w_qmax;
+        ri[R_TURNS] = w_turns;
+        ri[R_TURN_IDX] = turn_idx;
+        ri[R_CUM_LAUNCHED] = cum_arr;
+        ri[R_CUM_COMPLETED] = cum_comp;
+        ri[R_CUM_KILLED] = cum_kill;
+        ri[R_N_ACTIVE] = n_active;
+        ri[R_DET_WINS] = d_wins;
+        ri[R_DET_COOL] = d_cool;
+        ri[R_DET_REGIME] = d_regime;
+        ri[R_DET_FIRED] = d_fired;
+        ri[R_DET_LAST_TURN] = d_last;
+        ri[R_DET_COUNT] = d_count;
+        ri[R_FLAG] = flag;
+        float* rf = reinterpret_cast<float*>(ri + R_I32);
+        rf[R_Q_SUM] = w_qsum;
+        rf[R_MU_ERR_SUM] = w_err;
+        rf[R_LAM_HAT] = lam_hat;
+        rf[R_T_START] = t_start;
+        rf[R_T_LAST] = now;
+        if (lane < kObsWords) rf[R_F32 + lane] = det_w;
+        if (flag) {  // the reset, after the row: the window's fields, its start
+#pragma unroll
+          for (int k = 0; k < kBinSlots; ++k) h_cnt[k] = 0;
+          w_resp = w_arr = w_comp = w_kill = w_qmax = w_turns = 0;
+          w_qsum = w_err = 0.0f;
+          t_start = now;
+          until_window = window;
+        }
+        CLK(CK_OBS);
       }
       __syncwarp();  // this round's accesses before the next round's
       CLK(CK_TRACE);
@@ -1334,9 +1632,9 @@ __global__ void __launch_bounds__(kThreads, 1) sim_chain_kernel(
 }
 
 // The block's dynamic shared memory (kernel.smem_bytes); F > 0: the
-// environment and fleet modes with F frontends.
+// environment and fleet modes with F frontends; HB > 0: the telemetry.
 size_t smem_bytes(int n, int mt, int J, int S, int cap, int rs, int R, int trace_queues,
-                  int trace_mu, int F) {
+                  int trace_mu, int F, int HB) {
   const bool ext = F > 0;
   size_t w = 6 * (size_t)col_words(R, 1) + col_words(R, mt) + col_words(R, 4 * mt) +
              col_words(R, J) + col_words(R, rec_words(mt == 1 ? 1 : kMaxMt, ext)) +
@@ -1345,26 +1643,29 @@ size_t smem_bytes(int n, int mt, int J, int S, int cap, int rs, int R, int trace
   if (ext)
     w += 3 * (size_t)col_words(R, 1) + col_words(R, mt) + col_words(R, J) +
          (size_t)kExtArrays * n + (size_t)F * n + 3 * (size_t)F;
+  if (HB > 0) w += kObsWords;
   return 4 * w;
 }
 
-template <bool EXT>
+template <bool EXT, bool OBS>
 int launch(const int* conf_i, const float* conf_f, const float* mu_sched, const float* mu_hat0,
-           Cols cols, XCols xc, Env env, int C, int T, int n, int mt, int J, int K, int S,
-           int cap, int rs, int R, int trace_queues, int trace_mu, int F, Trace tr, Final fin,
-           cudaStream_t stream) {
+           Cols cols, XCols xc, Env env, Obs ob, int C, int T, int n, int mt, int J, int K,
+           int S, int cap, int rs, int R, int trace_queues, int trace_mu, int F, Trace tr,
+           Final fin, cudaStream_t stream) {
   if (C < 1 || n < 1 || mt < 1 || mt > kMaxMt || J < 2 * mt || K < 1 || S < 1 || cap < 1 ||
-      rs < n || R < 1 || (EXT && F < 1))
+      rs < n || R < 1 || (EXT && F < 1) ||
+      (OBS && (ob.HB < 2 || ob.HB > kMaxBins || ob.rows == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n, mt, J, S, cap, rs, R, trace_queues, trace_mu, EXT ? F : 0);
-  auto kernel = mt == 1 ? sim_chain_kernel<1, EXT> : sim_chain_kernel<kMaxMt, EXT>;
+  const size_t smem =
+      smem_bytes(n, mt, J, S, cap, rs, R, trace_queues, trace_mu, EXT ? F : 0, OBS ? ob.HB : 0);
+  auto kernel = mt == 1 ? sim_chain_kernel<1, EXT, OBS> : sim_chain_kernel<kMaxMt, EXT, OBS>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<C, kThreads, smem, stream>>>(conf_i, conf_f, mu_sched, mu_hat0, cols, xc, env, T, n,
-                                        mt, J, K, S, cap, rs, R, F, tr, fin);
+  kernel<<<C, kThreads, smem, stream>>>(conf_i, conf_f, mu_sched, mu_hat0, cols, xc, env, ob, T,
+                                        n, mt, J, K, S, cap, rs, R, F, tr, fin);
   return (int)cudaGetLastError();
 }
 
@@ -1376,10 +1677,13 @@ extern "C" {
 // j), the environment and fleet modes' draw columns (u_thin, fe, u_pin,
 // u_jfake, uj), conf_x / conf_xf and the tracks (ref.EXT's order), the
 // shapes, the tracks' padded lengths (Ka, Kc, Km, Ks, Kr) and the batch's
-// most frontends F, the trace columns, the killed column (null without a
-// crash track), the final state and the EXT final state. With conf_x null
-// the EXT pointers are null and their counts 0, and the paper mode's
-// program runs; else the environment and fleet modes'.
+// most frontends F, the telemetry's inputs (conf_o, conf_of, obs_thr) and
+// its most bins HB, the trace columns, the killed column (null without a
+// crash track), the window rows (null without telemetry), the final state
+// and the EXT final state. With conf_x null the EXT pointers are null and
+// their counts 0, and the paper mode's program runs; else the environment
+// and fleet modes'. With conf_o null (HB 0) the program folds no
+// telemetry; else its OBS instance runs.
 int sim_chain(const int* conf_i, const float* conf_f, const float* mu_sched,
               const float* mu_hat0, const float* dt, const int* ev, const float* u_svc,
               const float* u_fake, const int* j_fake, const int* n_tasks, const int* pins,
@@ -1388,12 +1692,14 @@ int sim_chain(const int* conf_i, const float* conf_f, const float* mu_sched,
               const float* conf_xf, const float* lam_bp, const float* lam_val,
               const float* mu_bp, const float* mu_val, const float* act_bp, const int* act_val,
               const float* stall_bp, const int* stall_val, const float* crash_t,
-              const int* crash_w, int C, int T, int n, int mt, int J, int K, int S, int cap,
+              const int* crash_w, const int* conf_o, const float* conf_of,
+              const float* obs_thr, int C, int T, int n, int mt, int J, int K, int S, int cap,
               int rs, int R, int trace_queues, int trace_mu, int Ka, int Kc, int Km, int Ks,
-              int Kr, int F, int* t_code, int* t_worker, int* t_n_tasks, int* t_task_workers,
-              int* t_task_targets, int* t_frontend, int* t_view_gap, float* t_sync_age,
-              float* t_now, float* t_lam_hat, int* t_killed_fake, int* t_q_real,
-              float* t_mu_hat, int* t_killed, float* f_now, int* f_q_real, int* f_q_fake,
+              int Kr, int F, int HB, int* t_code, int* t_worker, int* t_n_tasks,
+              int* t_task_workers, int* t_task_targets, int* t_frontend, int* t_view_gap,
+              float* t_sync_age, float* t_now, float* t_lam_hat, int* t_killed_fake,
+              int* t_q_real, float* t_mu_hat, int* t_killed, int* t_obs, float* f_now,
+              int* f_q_real, int* f_q_fake,
               int* f_s_real, float* f_busy_start, float* f_arr_times, int* f_arr_idx,
               int* f_arr_count, float* f_lam_hat, float* f_samples, float* f_stamps,
               int* f_widx, int* f_count, float* f_epoch_start, float* f_mu_hat, int* f_crash_i,
@@ -1415,9 +1721,12 @@ int sim_chain(const int* conf_i, const float* conf_f, const float* mu_sched,
             f_arr_count, f_lam_hat, f_samples, f_stamps, f_widx, f_count, f_epoch_start,
             f_mu_hat, f_crash_i, f_q_snap, f_q_delta, f_mu_view, f_ema_last, f_ema_gap,
             f_ema_count, f_t_sync, f_lam_global, f_alias_p, f_alias_a};
-  auto run = ext ? launch<true> : launch<false>;
-  return run(conf_i, conf_f, mu_sched, mu_hat0, cols, xc, env, C, T, n, mt, J, K, S, cap, rs,
-             R, trace_queues, trace_mu, ext ? F : 0, tr, fin, stream);
+  const bool obs = conf_o != nullptr;
+  Obs ob{conf_o, conf_of, obs_thr, obs ? t_obs : nullptr, obs ? HB : 0};
+  auto run = ext ? (obs ? launch<true, true> : launch<true, false>)
+                 : (obs ? launch<false, true> : launch<false, false>);
+  return run(conf_i, conf_f, mu_sched, mu_hat0, cols, xc, env, ob, C, T, n, mt, J, K, S, cap,
+             rs, R, trace_queues, trace_mu, ext ? F : 0, tr, fin, stream);
 }
 
 const char* sim_chain_error_string(int err) {

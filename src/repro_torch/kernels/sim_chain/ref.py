@@ -25,7 +25,12 @@ within a round (``src/repro/core/simulator.py:553-735``):
      learner ring) or a benchmark dispatch (to an active worker);
   5. the learner refresh every ``learner_refresh`` rounds, after the
      branch;
-  6. the trace row, after the refresh.
+  6. the trace row, after the refresh;
+  7. with telemetry (``OBS``), the window fold of the round
+     (``ObsFold``: its real completion's service time, its dispatched
+     tasks, its killed tasks, the true queues, λ̂, μ̂ and μ(now) under the
+     active mask), the detector at a window boundary, the window's row,
+     then the reset.
 
 Every float reduction runs left to right in f32: Σμ and the cumulative
 sum of the alias scaling and the CDF (numpy's ``accumulate``, a plain
@@ -50,6 +55,8 @@ from repro_torch.core import estimator as est
 from repro_torch.core import learner as lrn
 from repro_torch.core import policies as pol
 from repro_torch.kernels.ppot_dispatch import ref as pref
+from repro_torch.obs import detect as obd
+from repro_torch.obs import windows as obw
 
 f32 = np.float32
 
@@ -81,6 +88,23 @@ EXT = {"conf_x": (torch.int32, None), "conf_xf": (torch.float32, None),
        "stall_bp": (torch.float32, None), "stall_val": (torch.int32, "n"),
        "crash_t": (torch.float32, None), "crash_w": (torch.int32, None)}
 
+# conf_o fields (i32) of the in-chain telemetry: whether the chain folds it,
+# the window in rounds, the histogram's bins, whether the detector runs, its
+# warm-up and cool-down windows
+OBS_ON, WINDOW, BINS, DETECT, WARMUP, COOLDOWN = range(6)
+NO = 6
+# conf_of fields (f32): 1/n (the paper mean's factor), the detector's EMA
+# and re-baseline rates, k, h, the five relative scale floors, the absolute
+# floor, the CUSUM decay and the two clips
+INV_N, EMA_ALPHA, REBASE_ALPHA, K_SIGMA, H_SIGMA = range(5)
+REL_FLOOR = 5  # five entries, one a signal
+ABS_FLOOR, DECAY, CLIP_Z, SCALE_CLIP_Z = range(10, 14)
+NOF = 14
+#: the telemetry inputs of a batch (``core.simulator.obs_config``): conf_o,
+#: conf_of and the histogram's thresholds (``obs.windows.hist_thresholds``,
+#: padded with +inf to the batch's most bins)
+OBS = {"conf_o": torch.int32, "conf_of": torch.float32, "obs_thr": torch.float32}
+
 EV_ARRIVAL, EV_REAL_DONE, EV_FAKE_DONE, EV_FAKE_DISPATCH, EV_SELF_LOOP = range(5)
 
 #: the trace columns: name -> (dtype, per-round width: None scalar, "mt",
@@ -97,9 +121,11 @@ TRACE = {
 
 
 def trace_shapes(T: int, n: int, mt: int, trace_queues: bool, trace_mu: bool,
-                 killed: bool = False) -> dict:
+                 killed: bool = False, obs_bins: int | None = None) -> dict:
     """name -> (dtype, shape of one chain's column); ``killed`` [T, n] with
-    a crash track, else [T, 0]."""
+    a crash track, else [T, 0]; with telemetry (``obs_bins``: the batch's
+    most histogram bins) the packed window rows ``obs`` [T, W]
+    (``obs.windows.row_words``)."""
     width = {None: (), "mt": (mt,), "n": (n,), 0: ((n,) if killed else (0,))}
     out = {}
     for name, (dt, w) in TRACE.items():
@@ -107,6 +133,8 @@ def trace_shapes(T: int, n: int, mt: int, trace_queues: bool, trace_mu: bool,
         if (name == "q_real" and not trace_queues) or (name == "mu_hat" and not trace_mu):
             shape = (T, 0)
         out[name] = (dt, shape)
+    if obs_bins is not None:
+        out["obs"] = (torch.int32, (T, obw.row_words(obs_bins)))
     return out
 
 
@@ -236,10 +264,15 @@ def _probe_draws(policy: str, u: torch.Tensor, j: torch.Tensor, mt: int, view: _
 
 def run_chain(ci: list, cf: list, mu_sched: torch.Tensor, mu_hat0: torch.Tensor,
               cols: dict, *, n: int, mt: int, ring_cap: int, arrival_window: int,
-              trace_queues: bool, trace_mu: bool, x: dict | None = None):
+              trace_queues: bool, trace_mu: bool, x: dict | None = None,
+              o: dict | None = None):
     """One chain: (final dict, trace dict) for its own rounds; ``x`` the
     chain's environment and fleet inputs (``EXT``, conf_x and conf_xf as
-    lists), None in the paper's own mode."""
+    lists), None in the paper's own mode; ``o`` its telemetry inputs
+    (``OBS``, conf_o and conf_of as lists, and ``HB``, the batch's most
+    bins), None in a batch without telemetry: the trace then has no
+    ``obs`` column, and a chain of a batch with it that folds none leaves
+    its rows zero."""
     dev = mu_sched.device
     i32 = torch.int32
     policy = pol.ALL_POLICIES[ci[POLICY]]
@@ -296,6 +329,11 @@ def run_chain(ci: list, cf: list, mu_sched: torch.Tensor, mu_hat0: torch.Tensor,
     tq = torch.zeros((T, n if trace_queues else 0), dtype=i32, device=dev)
     tm = torch.zeros((T, n if trace_mu else 0), dtype=torch.float32, device=dev)
     lanes = torch.arange(cap, device=dev)
+    ofold = tobs = None
+    if o is not None:
+        tobs = np.zeros((T, obw.row_words(o["HB"])), np.int32)
+        if o["conf_o"][OBS_ON]:
+            ofold = ObsFold(o["conf_o"], o["conf_of"], o["obs_thr"].cpu().numpy(), o["HB"], n)
 
     if ext:  # the fleet: one snapshot, view μ and sync time for all S frontends
         F = x["conf_x"][FRONTENDS]
@@ -326,6 +364,7 @@ def run_chain(ci: list, cf: list, mu_sched: torch.Tensor, mu_hat0: torch.Tensor,
         ev = evs[t]
         nt, worker, code = 0, -1, EV_SELF_LOOP
         frontend, view_gap, sync_age, killed_fake = -1, 0, f32(0.0), 0
+        svc, svc_ok, kl = f32(0.0), False, 0
         memb = False
         if env:
             act_new = act_val[env_segment(act_bp, now)]
@@ -350,7 +389,7 @@ def run_chain(ci: list, cf: list, mu_sched: torch.Tensor, mu_hat0: torch.Tensor,
             if crash_i < len(crash_t) and now >= crash_t[crash_i]:
                 w = int(crash_w[crash_i])
                 kreal, killed_fake = int(q_real[w]), int(q_fake[w])
-                killed[t, w] = kreal
+                killed[t, w] = kl = kreal
                 q_real[w], q_fake[w] = 0, 0
                 s_real[w] += kreal
                 busy[w] = float(now)
@@ -428,6 +467,7 @@ def run_chain(ci: list, cf: list, mu_sched: torch.Tensor, mu_hat0: torch.Tensor,
             has_real, has_fake = q_real[w].item() > 0, q_fake[w].item() > 0
             do_real = accept and has_real
             do_fake = accept and not has_real and has_fake
+            svc, svc_ok = f32(now - f32(busy[w].item())), do_real
             if do_real or do_fake:
                 slot = widx[w].item()
                 samples[w, slot] = float(f32(now - f32(busy[w].item())))
@@ -467,12 +507,18 @@ def run_chain(ci: list, cf: list, mu_sched: torch.Tensor, mu_hat0: torch.Tensor,
             tq[t] = q_real
         if trace_mu:
             tm[t] = mu_hat
+        if ofold is not None:
+            tobs[t] = ofold.step(now, svc, svc_ok, nt, int(code == EV_REAL_DONE), kl,
+                                q_real.cpu().numpy(), lam_hat, mu_hat.cpu().numpy(),
+                                mu_now.cpu().numpy(), act.cpu().numpy() if env else None)
 
     as_t = lambda v, dt: torch.tensor(v, dtype=dt, device=dev)  # noqa: E731
     trace = {name: as_t(v, torch.float32 if name in ("now", "lam_hat", "sync_age") else i32)
              for name, v in sc.items()}
     trace.update(task_workers=tw, task_targets=tt, q_real=tq, mu_hat=tm,
                  killed=killed if ext else torch.zeros((T, 0), dtype=i32, device=dev))
+    if tobs is not None:
+        trace["obs"] = torch.from_numpy(tobs).to(dev)
     final = {
         "now": as_t(float(now), torch.float32), "q_real": q_real, "q_fake": q_fake,
         "s_real": s_real, "busy_start": busy, "arr_times": arr_times,
@@ -536,13 +582,163 @@ def _refresh(samples, stamps, widx, count, epoch, mu_hat, lcfg, lam_hat, now, la
     return torch.where(too_slow, 0.0, mu_new)
 
 
-def sim_chain_ref(conf_i, conf_f, mu_sched, mu_hat0, cols: dict, ext: dict | None = None, *,
-                  n: int, mt: int, ring_cap: int, arrival_window: int, trace_queues: bool,
-                  trace_mu: bool):
+def warp_sum(x: np.ndarray) -> np.float32:
+    """Σx in the kernel's fixed order: lane l of a 32-lane warp adds x[l],
+    x[l + 32], ... from +0, then the lanes pair up across 16, 8, 4, 2 and 1
+    (a butterfly: lane l adds lane l ^ d's value to its own), each add one
+    f32 rounding. Addition is commutative, so every lane of the kernel ends
+    with this one value."""
+    x = np.asarray(x, np.float32)
+    a = np.zeros(32, np.float32)
+    for base in range(0, x.shape[0], 32):
+        c = x[base:base + 32]
+        a[:c.shape[0]] = a[:c.shape[0]] + c
+    lanes = np.arange(32)
+    for d in (16, 8, 4, 2, 1):
+        a = a + a[lanes ^ d]
+    return a[0]
+
+
+#: a packed row's i32 group: name -> index (``obs.windows.PACK_I32``, then the flag)
+_I = {f: j for j, f in enumerate(obw.PACK_I32)}
+_FLAG = len(obw.PACK_I32)
+#: the fields a window boundary zeroes in the i32 and f32 groups
+_RESET_I = [_I[f] for f in obw.WINDOW_FIELDS if f in _I]
+_TWO = np.array(obd.TWO_SIDED)
+
+
+class ObsFold:
+    """The in-chain telemetry of one chain (``obs.windows.observe_turn`` once
+    a round, the reference's ``SimConfig.observe``), in numpy f32 with every
+    operation rounded once as the kernel's: the window state as a packed
+    row (``obs.windows.row_offsets`` at the batch's ``HB`` bins) and
+    ``step`` one round's fold, the detector at a boundary, the row and the
+    reset. The sums over workers run in ``warp_sum``'s order; Σq is exact
+    (integers). In the paper's mode (no active mask) the window's queue sum
+    adds the mean as one fused multiply-add, q_sum + Σq·(1/n), as the
+    reference's compiled chain does; under a mask it adds Σq / max(#active,
+    1). The histogram bins a sample by the count of thresholds at or below
+    it (``obs.windows.hist_thresholds``). The detector is
+    ``obs.detect.update_row`` with the same four fused multiply-adds."""
+
+    def __init__(self, co: list, cof: list, thr: np.ndarray, HB: int, n: int):
+        self.window, self.bins, self.detect = co[WINDOW], co[BINS], bool(co[DETECT])
+        self.warmup, self.cooldown = co[WARMUP], co[COOLDOWN]
+        self.cf = [f32(v) for v in cof]
+        self.rel = np.array(cof[REL_FLOOR:REL_FLOOR + obd.NSIG], np.float32)
+        self.thr = np.asarray(thr[:self.bins - 1], np.float32)
+        self.off = obw.row_offsets(HB)
+        self.n = n
+        self.row = np.zeros(obw.row_words(HB), np.int32)
+        o = self.off
+        self.hist = self.row[:HB]
+        self.ints = self.row[o["i32"]:o["i32"] + _FLAG + 1]
+        self.fl = self.row[o["f32"]:o["f32"] + len(obw.PACK_F32)].view(np.float32)
+        self.det = self.row[o["det"]:o["det"] + 4 * obd.NSIG].view(np.float32).reshape(
+            4, obd.NSIG)
+        self.ints[_I["det_regime"]] = self.ints[_I["det_fired"]] = obd.STABLE
+
+    def step(self, now, svc, svc_ok: bool, arrived: int, completed: int, killed: int,
+             q: np.ndarray, lam_hat, mu_hat: np.ndarray, mu_true: np.ndarray,
+             act: np.ndarray | None) -> np.ndarray:
+        """One round's fold; returns the row (post-fold, pre-reset)."""
+        ints, fl, cf = self.ints, self.fl, self.cf
+        if svc_ok:
+            self.hist[int((f32(svc) >= self.thr).sum())] += 1
+        if act is None:
+            h, m = mu_hat, mu_true
+            q_sum = est.fma_f32(f32(int(q.sum())), cf[INV_N], fl[0])
+            q_hi, n_active = int(q.max()), self.n
+        else:
+            h = np.where(act, mu_hat, f32(0.0)).astype(np.float32)
+            m = np.where(act, mu_true, f32(0.0)).astype(np.float32)
+            nact = max(f32(int(act.sum())), f32(1.0))
+            q_sum = f32(fl[0] + f32(f32(int(q[act].sum())) / nact))
+            q_hi, n_active = int(np.where(act, q, 0).max()), int(act.sum())
+        tiny = f32(1e-12)
+        h = h / max(warp_sum(h), tiny)
+        m = m / max(warp_sum(m), tiny)
+        err = warp_sum(np.abs(h - m))
+        for f, v in (("n_resp", int(svc_ok)), ("arrivals", arrived), ("launched", arrived),
+                     ("completed", completed), ("killed", killed), ("turns", 1),
+                     ("turn_idx", 1), ("cum_launched", arrived), ("cum_completed", completed),
+                     ("cum_killed", killed)):
+            ints[_I[f]] += v
+        ints[_I["q_max"]] = max(int(ints[_I["q_max"]]), q_hi)
+        ints[_I["n_active"]] = n_active
+        fl[0] = q_sum
+        fl[1] = f32(fl[1] + err)
+        fl[2], fl[4] = f32(lam_hat), f32(now)
+        flag = ints[_I["turn_idx"]] % self.window == 0
+        ints[_FLAG] = int(flag)
+        if flag and self.detect:
+            self._detect()
+        row = self.row.copy()
+        if flag:  # the reset, after the row
+            self.hist[:] = 0
+            ints[_RESET_I] = 0
+            fl[0] = fl[1] = f32(0.0)
+            fl[3] = fl[4]
+        return row
+
+    def _detect(self) -> None:
+        """``obs.detect.update_row`` on the window just folded."""
+        ints, fl, cf, (mean, scale, pos, neg) = self.ints, self.fl, self.cf, self.det
+        turns = max(f32(int(ints[_I["turns"]])), f32(1.0))
+        x = np.array([fl[2], f32(fl[1] / turns), f32(fl[0] / turns),
+                      f32(int(ints[_I["n_active"]])),
+                      f32(int(ints[_I["killed"]] + ints[_I["dirty"]] + ints[_I["retried"]]))],
+                     np.float32)
+        wins, cool = int(ints[_I["det_wins"]]), int(ints[_I["det_cool"]])
+        first, warm, cooling = wins == 0, wins < self.warmup, cool > 0
+        mean0 = x.copy() if first else mean.copy()
+        scale_eff = np.maximum(np.maximum(scale, self.rel * np.abs(mean0)), cf[ABS_FLOOR])
+        z = (x - mean0) / scale_eff
+        fma = lambda a, b, c: np.array([est.fma_f32(a[i] if np.ndim(a) else a, b[i], c[i])  # noqa: E731
+                                        for i in range(obd.NSIG)], np.float32)
+        k, rho, h = cf[K_SIGMA], cf[DECAY], cf[H_SIGMA]
+        pos1 = np.maximum(fma(rho, pos, z) - k, f32(0.0))
+        neg1 = np.maximum(fma(rho, neg, -z) - k, f32(0.0))
+        armed = not warm and not cooling
+        sig = ((pos1 > h) | (_TWO & (neg1 > h))) & armed
+        fired = bool(sig.any())
+        kind = (obd.MEMBERSHIP_SHIFT if sig[3] else obd.FAILURE_STORM if sig[4]
+                else obd.CAPACITY_SHIFT if sig[1] else obd.LOAD_SHIFT if sig[0] or sig[2]
+                else obd.STABLE)
+        rb = warm or cooling or fired
+        alpha = cf[REBASE_ALPHA] if rb else cf[EMA_ALPHA]
+        clip = cf[CLIP_Z] * scale_eff
+        innov = x - mean0
+        if not rb:
+            innov = np.minimum(np.maximum(innov, -clip), clip)
+        dev = np.abs(x - mean0)
+        if not rb:
+            dev = np.minimum(dev, cf[SCALE_CLIP_Z] * scale_eff)
+        scale0 = np.maximum(dev, cf[ABS_FLOOR]) if first else scale.copy()
+        mean[:] = fma(alpha, innov, mean0)
+        scale[:] = fma(alpha, dev - scale0, scale0)
+        keep = armed and not fired
+        pos[:] = pos1 if keep else f32(0.0)
+        neg[:] = neg1 if keep else f32(0.0)
+        cool1 = self.cooldown if fired else max(cool - 1, 0)
+        ints[_I["det_wins"]] = wins + 1
+        ints[_I["det_cool"]] = cool1
+        ints[_I["det_regime"]] = kind if fired else (
+            int(ints[_I["det_regime"]]) if cool1 > 0 else obd.STABLE)
+        ints[_I["det_fired"]] = kind if fired else obd.STABLE
+        if fired:
+            ints[_I["det_last_turn"]] = ints[_I["turn_idx"]]
+        ints[_I["det_count"]] += int(fired)
+
+
+def sim_chain_ref(conf_i, conf_f, mu_sched, mu_hat0, cols: dict, ext: dict | None = None,
+                  obs: dict | None = None, *, n: int, mt: int, ring_cap: int,
+                  arrival_window: int, trace_queues: bool, trace_mu: bool):
     """Every chain of the batch, one after another: (final, trace), each a
     dict of tensors with the chain axis leading; a chain's trace rows past
     its own rounds are zeros. ``ext``: the batch's environment and fleet
-    inputs (``EXT``), None in the paper's own mode."""
+    inputs (``EXT``), None in the paper's own mode; ``obs``: its telemetry
+    inputs (``OBS``), None without telemetry."""
     C, T = cols["dt"].shape
     dev = cols["dt"].device
     kw = dict(n=n, mt=mt, ring_cap=ring_cap, arrival_window=arrival_window,
@@ -551,19 +747,24 @@ def sim_chain_ref(conf_i, conf_f, mu_sched, mu_hat0, cols: dict, ext: dict | Non
     if ext is not None:
         F = int(ext["conf_x"][:, FRONTENDS].max())
         killed = bool((ext["conf_x"][:, ENV] * ext["conf_x"][:, KCRASH]).any())
+    HB = None if obs is None else obs["obs_thr"].shape[1]
     final = {name: torch.zeros((C,) + shape, dtype=dt, device=dev)
              for name, (dt, shape) in final_shapes(n, ring_cap, arrival_window, F).items()}
     trace = {name: torch.zeros((C,) + shape, dtype=dt, device=dev)
              for name, (dt, shape) in trace_shapes(T, n, mt, trace_queues, trace_mu,
-                                                   bool(killed)).items()}
+                                                   bool(killed), HB).items()}
     ci_all, cf_all = conf_i.tolist(), conf_f.tolist()
     for c in range(C):
         x = None
         if ext is not None:
             x = {name: v[c] for name, v in ext.items()}
             x["conf_x"], x["conf_xf"] = x["conf_x"].tolist(), x["conf_xf"].tolist()
+        o = None
+        if obs is not None:
+            o = dict(conf_o=obs["conf_o"][c].tolist(), conf_of=obs["conf_of"][c].tolist(),
+                     obs_thr=obs["obs_thr"][c], HB=HB)
         f, tr = run_chain(ci_all[c], cf_all[c], mu_sched[c], mu_hat0[c],
-                          {name: v[c] for name, v in cols.items()}, x=x, **kw)
+                          {name: v[c] for name, v in cols.items()}, x=x, o=o, **kw)
         for name, v in f.items():
             final[name][c][tuple(slice(0, d) for d in v.shape)] = v
         for name, v in tr.items():

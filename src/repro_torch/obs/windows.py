@@ -153,6 +153,83 @@ class TelemetryCarry(NamedTuple):
     det_count: torch.Tensor  # i32 total alarms fired
 
 
+#: the window state packed in four groups (the one-program loop's carry and
+#: the chain simulator's rows share the layout): the histogram, the i32
+#: fields (a row appends the boundary flag), the f32 scalars and the
+#: detector's f32[NSIG] vectors
+PACK_F32 = ("q_sum", "mu_err_sum", "lam_hat", "t_start", "t_last")
+PACK_DET = ("det_mean", "det_scale", "det_pos", "det_neg")
+PACK_I32 = tuple(f for f in TelemetryCarry._fields if f not in ("hist",) + PACK_F32 + PACK_DET)
+
+
+def row_words(hist_bins: int) -> int:
+    """The words of one packed row: ``hist_bins`` of the histogram, the i32
+    fields and the boundary flag, the f32 scalars and the detector's
+    vectors, padded to 16 bytes (``row_offsets``)."""
+    return (hist_bins + len(PACK_I32) + 1 + len(PACK_F32) + len(PACK_DET) * _detect.NSIG
+            + 3) // 4 * 4
+
+
+def row_offsets(hist_bins: int) -> dict:
+    """Where each group of a packed row starts: hist, i32 (the flag at
+    i32 + len(PACK_I32)), f32, det (f32[len(PACK_DET), NSIG], row-major)."""
+    i32 = hist_bins
+    f32 = i32 + len(PACK_I32) + 1
+    return {"hist": 0, "i32": i32, "f32": f32, "det": f32 + len(PACK_F32)}
+
+
+def rows_from_words(words: torch.Tensor, hist_bins: int, own_bins: int | None = None):
+    """Packed rows i32[T, row_words(hist_bins)] (a chain simulator's trace
+    column ``obs``) → (TelemetryCarry of [T, ...] tensors, bool[T] boundary
+    flags), each field a view of ``words``; ``own_bins`` (the chain's own
+    ``hist_bins``, at most the layout's) cuts the histogram."""
+    off = row_offsets(hist_bins)
+    nb = hist_bins if own_bins is None else own_bins
+    i32 = words[..., off["i32"]:off["i32"] + len(PACK_I32) + 1]
+    f32 = words[..., off["f32"]:off["f32"] + len(PACK_F32)].view(torch.float32)
+    det = words[..., off["det"]:off["det"] + len(PACK_DET) * _detect.NSIG].view(torch.float32)
+    det = det.reshape(det.shape[:-1] + (len(PACK_DET), _detect.NSIG))
+    rows = TelemetryCarry(
+        hist=words[..., :nb], **{f: i32[..., j] for j, f in enumerate(PACK_I32)},
+        **{f: f32[..., j] for j, f in enumerate(PACK_F32)},
+        **{f: det[..., j, :] for j, f in enumerate(PACK_DET)})
+    return rows, i32[..., len(PACK_I32)] != 0
+
+
+@functools.lru_cache(maxsize=None)
+def _thresholds(cfg: "ObserveConfig") -> tuple:
+    f32 = torch.float32
+    lo = torch.tensor(float(np.float32(cfg.hist_lo)), dtype=f32)
+    inv = torch.tensor(float(np.float32(1.0 / math.log(bin_ratio(cfg)))), dtype=f32)
+
+    def bins(bits: np.ndarray) -> np.ndarray:  # _hist_fold's bin of each f32 bit pattern
+        r = torch.maximum(torch.from_numpy(bits.view(np.float32).copy()), lo)
+        idx = torch.floor(torch.log(r / lo) * inv).to(torch.int32)
+        return idx.clamp(0, cfg.hist_bins - 1).numpy()
+
+    k = np.arange(1, cfg.hist_bins, dtype=np.int64)
+    ends = np.array([cfg.hist_lo, 2.0 * cfg.hist_hi], np.float32).view(np.int32)
+    a = np.full(k.shape, ends[0], np.int64)  # bin < k
+    b = np.full(k.shape, ends[1], np.int64)  # bin >= k
+    top = bins(b.astype(np.int32)) >= k
+    while (b - a > 1).any():
+        m = (a + b) // 2
+        up = bins(m.astype(np.int32)) >= k
+        a, b = np.where(up, a, m), np.where(up, m, b)
+    out = b.astype(np.int32).view(np.float32)
+    return tuple(float(v) if t else float("inf") for v, t in zip(out, top))
+
+
+def hist_thresholds(cfg: "ObserveConfig") -> np.ndarray:
+    """f32[hist_bins - 1]: threshold k - 1 is the least f32 sample that
+    ``_hist_fold``'s formula (torch's ``log`` on the CPU) puts in bin k or
+    above, found by bisection over the f32 bit patterns from ``hist_lo`` to
+    2·``hist_hi`` (+inf if none there). A sample's bin is then the count of thresholds at or
+    below it, with no logarithm: the chain simulator's fold bins so, the
+    plain chain and its kernel alike."""
+    return np.asarray(_thresholds(cfg), np.float32)
+
+
 #: the fields a window boundary resets (``reset_window``); the rest carry on
 WINDOW_FIELDS = ("hist", "n_resp", "arrivals", "launched", "completed", "dirty", "killed",
                  "retried", "collisions", "q_sum", "q_max", "mu_err_sum", "turns")

@@ -135,10 +135,7 @@ _PEND = ("p_done", "p_start", "p_rep", "p_seq", "p_valid", "p_task", "p_arrv", "
 #: device tensors, so a turn stacks and copies four groups, not 31 fields:
 #: the histogram, the f32 scalars, the detector's f32[NSIG] vectors, and the
 #: i32 scalars (with the boundary flag appended in a turn's row)
-_TC_F32 = ("q_sum", "mu_err_sum", "lam_hat", "t_start", "t_last")
-_TC_DET = ("det_mean", "det_scale", "det_pos", "det_neg")
-_TC_I32 = tuple(f for f in obw.TelemetryCarry._fields
-                if f not in ("hist",) + _TC_F32 + _TC_DET)
+_TC_F32, _TC_DET, _TC_I32 = obw.PACK_F32, obw.PACK_DET, obw.PACK_I32
 
 
 def _precompute_workload(arrival_rate, horizon, request_cost, speed_schedule,

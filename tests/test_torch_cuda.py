@@ -1484,3 +1484,85 @@ def test_sim_chain_refuses_what_one_block_cannot_hold(dev):
     cfg, params = RS.make_sim("ppot_sq2", np.ones(204), 0.5, rounds=10, n_frontends=4,
                               fleet_sync_every=4, device=dev)
     tsim.simulate(cfg, params, tprng.PRNGKey(0), device=dev)
+
+
+#: the telemetry instances' cases: name -> [(label, SIM_EXT_CASES kind, its
+#: arguments, the observe config's window and detector warm-up, or None)];
+#: "paper" is Fig. 8's smoke chain (n = 30, Rosella, 6000 rounds)
+SIM_OBS_CASES = {
+    "churn n=30": [("churn", "env30", ("churn", "ppot_sq2", {}), (64, 4))],
+    "crash_storm n=30": [("crash_storm", "env30", ("crash_storm", "ppot_sq2", {}), (64, 4))],
+    "churn_heavy n=30": [("churn_heavy", "env30", ("churn_heavy", "ppot_sq2", {}), (32, 2))],
+    "fig8 smoke": [("fig8", "paper", (6000,), (64, 4))],
+    "S=4 sync 16": [("S=4 sync 16", "fleet", (4, 16, False, "uniform", {}), (64, 4))],
+    "mixed": [("churn", "env30", ("churn", "ppot_sq2", {}), (64, 4)),
+              ("churn off", "env30", ("churn", "ppot_sq2", {}), None),
+              ("fig8 24 bins", "paper", (1500,), (16, None)),
+              ("S=4 sync 16", "fleet", (4, 16, False, "uniform", {}), (32, 8))],
+}
+
+
+def _sim_obs_run(kind, args, obs_args, i, dev):
+    """(cfg, params, key, env) of one SIM_OBS_CASES entry, with its telemetry."""
+    import dataclasses
+
+    from repro_torch import obs as tobs
+    from repro_torch.configs import rosella_sim as RS
+    from repro_torch.utils import prng as tprng
+
+    if kind == "paper":
+        cfg, params = RS.make_sim("ppot_sq2", RS.tpch_speed_set(30, 0), 0.8, rounds=args[0],
+                                  device=dev)
+        run = (cfg, params, tprng.PRNGKey(i), None)
+    else:
+        run = _sim_ext_run(kind, args, i, dev)
+    if obs_args is None:
+        return run
+    window, warmup = obs_args
+    det = None if warmup is None else tobs.DetectConfig(warmup_windows=warmup)
+    ocfg = tobs.ObserveConfig(window_turns=window, detect=det,
+                              hist_bins=24 if warmup is None else 64)
+    return (dataclasses.replace(run[0], observe=ocfg),) + run[1:]
+
+
+@pytest.mark.parametrize("case", list(SIM_OBS_CASES))
+def test_sim_chain_obs_kernel_equals_the_plain_chain(dev, case):
+    """The telemetry instances: the kernel and the plain chain on the CPU,
+    fed the same draws, agree in every trace column, every window row field
+    and boundary flag, and every field of the final state, bit for bit, in
+    one launch a case (a chain without telemetry beside ones with it has no
+    rows); and every other column equals the same launch with telemetry
+    off."""
+    import dataclasses
+
+    from repro_torch.core import simulator as tsim
+    from repro_torch.kernels.sim_chain import kernel as SCK
+
+    runs = [_sim_obs_run(kind, args, o, i, dev)
+            for i, (_, kind, args, o) in enumerate(SIM_OBS_CASES[case])]
+    draws = [tsim.draw_rounds(cfg, p, key, dev, e) for cfg, p, key, e in runs]
+    SCK.reset_launches()
+    got = tsim.simulate_many(runs, dev, draws)
+    torch.cuda.synchronize()
+    assert SCK.launch_counts()["sim_chain"] == 1
+    cpu_runs = [(cfg, p.to("cpu"), key, None if e is None else e.to("cpu"))
+                for cfg, p, key, e in runs]
+    want = tsim.simulate_many(cpu_runs, "cpu", [{k: v.cpu() for k, v in d.items()}
+                                                for d in draws])
+    off = tsim.simulate_many([(dataclasses.replace(r[0], observe=None),) + r[1:] for r in runs],
+                             dev, draws)
+    for (label, _, _, o), (gs, gt), (ws, wt), (_, ot) in zip(SIM_OBS_CASES[case], got, want,
+                                                              off):
+        assert set(gt) == set(wt)
+        assert ("obs_row" in gt) == (o is not None)
+        for name in wt:
+            if name == "obs_row":
+                for f, a, b in zip(wt[name]._fields, gt[name], wt[name]):
+                    assert torch.equal(a.cpu(), b), (label, f)
+            else:
+                assert torch.equal(gt[name].cpu(), wt[name]), (label, name)
+        for name in ot:
+            assert torch.equal(gt[name], ot[name]), (label, name)
+        _same_sim_state(gs, ws)
+        if o is not None:
+            assert int(gt["obs_flag"].sum()) == gt["code"].shape[0] // o[0]

@@ -6,16 +6,12 @@ tests/test_faults.py:
 
 (i) an inert ``RecoveryConfig`` is bit-exact to the plain paths, host and
 scan (``null``, ``churn``);
-(ii) with recovery armed (``RECOVERY``: timeout x8, budget 2, retry_cap 4,
-spec_cap 2, ratio 3) the host recovery loop and the faulty scan agree
-float for float on crash_storm, blackout and grey_failure, on both probe
-streams: responses (NaN = lost), μ̂ trace, ``free_at``, the final
-learner and key, every ledger entry; the ledger conserves and the
-capacities do not overflow;
-(iii) retries rescue crash losses; the ledger conserves over random fault
-schedules and budgets; stalled completions never reach the learner;
-churn departures drain; pending overflow raises by default and
-``pend_cap=None`` sizes itself;
+(ii) host against scan on every fault scenario with recovery armed is
+tests/test_torch_faults_scan.py, and the fault columns without recovery
+with the retries' rescue tests/test_torch_faults_bare.py;
+(iii) the ledger conserves over random fault schedules and budgets;
+stalled completions never reach the learner; churn departures drain;
+pending overflow raises by default and ``pend_cap=None`` sizes itself;
 (iv) against the reference: the port's host recovery loop against
 ``repro.serving.recovery.run_workload_recovery`` and the port's faulty
 scan against the reference's (under the ``ref_scan`` alias of
@@ -71,6 +67,23 @@ def _run(name, *, use_scan, recovery=None, seed=0, use_alias=True, policy="ppot_
         seed=seed, recovery=recovery, use_alias=use_alias, policy=policy, device="cpu")
 
 
+def shared_runs():
+    """A cache of ``_run``'s results for one test module: a run that several
+    of its tests read (never write) is made once."""
+    cache = {}
+
+    def run(name, **kw):
+        key = (name, repr(sorted(kw.items())))
+        if key not in cache:
+            cache[key] = _run(name, **kw)
+        return cache[key]
+
+    return run
+
+
+_shared = shared_runs()
+
+
 def _ref(name, *, use_scan=False, use_alias=True, policy="ppot_sq2"):
     return jenv.run_scenario(jenv.make(name), use_scan=use_scan, sequential_pool=True,
                              arrival_batch=K, seed=0, recovery=REF_RECOVERY,
@@ -106,7 +119,7 @@ def ref_scan(monkeypatch):
 @pytest.mark.parametrize("name", ["null", "churn"])
 def test_inert_recovery_bit_exact_host(name):
     a = _run(name, use_scan=False)
-    b = _run(name, use_scan=False, recovery=trcv.INERT_RECOVERY)
+    b = _shared(name, use_scan=False, recovery=trcv.INERT_RECOVERY)
     np.testing.assert_array_equal(a["responses"], b["responses"])
     np.testing.assert_array_equal(a["mu_trace"], b["mu_trace"])
     np.testing.assert_array_equal(a["pool"].free_at, b["pool"].free_at)
@@ -119,7 +132,7 @@ def test_inert_recovery_bit_exact_host(name):
 def test_inert_recovery_bit_exact_scan(name):
     a = _run(name, use_scan=True)
     b = _run(name, use_scan=True, recovery=trcv.INERT_RECOVERY)
-    h = _run(name, use_scan=False, recovery=trcv.INERT_RECOVERY)
+    h = _shared(name, use_scan=False, recovery=trcv.INERT_RECOVERY)
     np.testing.assert_array_equal(a["responses"], b["responses"])
     np.testing.assert_array_equal(a["mu_trace"], b["mu_trace"])
     np.testing.assert_array_equal(a["pool"].free_at, b["pool"].free_at)
@@ -128,65 +141,8 @@ def test_inert_recovery_bit_exact_scan(name):
 
 
 # ---------------------------------------------------------------------------
-# (ii) host against scan on every fault scenario, recovery armed
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("use_alias", [True, False], ids=["alias", "icdf"])
-@pytest.mark.parametrize("name", FAULT_SCENARIOS)
-def test_fault_host_scan_parity(name, use_alias):
-    h = _run(name, use_scan=False, recovery=RECOVERY, use_alias=use_alias)
-    s = _run(name, use_scan=True, recovery=RECOVERY, use_alias=use_alias)
-    _same(h, s)
-    ok, residuals = tmet.check_conservation(s["info"]["ledger"])
-    assert ok, residuals
-    assert s["info"]["flush_overflow"] == s["info"]["pend_overflow"] == 0
-    led = s["info"]["ledger"]
-    assert led["n_timeouts"] > 0 and led["n_retries"] > 0 and led["n_spec"] > 0
-    assert np.isfinite(s["responses"]).sum() == led["completed_tasks"]
-    if name == "crash_storm":
-        assert led["copies_real_killed"] > 0
-    if name == "blackout":
-        assert led["n_stalled"] > 0
-
-
-@pytest.mark.parametrize("name", ["crash_storm", "blackout"])
-def test_faults_without_recovery_host_scan_parity(name):
-    """The fault columns alone (no ``recovery``: the inert config), chunked
-    scan against one chunk and against the host loop."""
-    h = _run(name, use_scan=False)
-    s = _run(name, use_scan=True)
-    _same(h, s)
-    wl = tenv.make(name).compile_serving(seed=0, arrival_batch=K)
-    sp = np.asarray(tenv.make(name).speeds)
-    router = tr.RosellaRouter(5, mu_bar=float(sp.sum()), seed=0, async_mu=False, device="cpu")
-    resp, mu, info = tsl.run_workload_scan(
-        router, tr.SequentialPool(sp), wl.times, wl.costs, wl.speeds, active_np=wl.active,
-        rejoin_np=wl.rejoin, burst_np=wl.burst, fake_cost=0.25, kill_np=wl.kill_at,
-        stall_np=wl.stall_at, stall_dur_np=wl.stall_dur, chunk_turns=9)
-    np.testing.assert_array_equal(resp, s["responses"])
-    np.testing.assert_array_equal(mu, s["mu_trace"])
-    assert info["ledger"] == s["info"]["ledger"]
-
-
-# ---------------------------------------------------------------------------
 # (iii) the recovery layer's contract
 # ---------------------------------------------------------------------------
-
-
-def test_retry_rescues_crash_losses():
-    bare = _run("crash_storm", use_scan=True)
-    armed = _run("crash_storm", use_scan=True, recovery=RECOVERY)
-    lb, la = bare["info"]["ledger"], armed["info"]["ledger"]
-    assert lb["lost_tasks"] > 0 and lb["copies_real_killed"] > 0
-    assert np.isnan(bare["responses"]).sum() == lb["lost_tasks"]
-    assert la["lost_tasks"] < lb["lost_tasks"]
-    assert la["lost_tasks"] <= 1
-    assert la["n_retries"] > 0
-    rep = tmet.fault_report(armed["responses"], la, horizon=360.0)
-    assert rep["conserved"]
-    assert rep["retry_amplification"] > 1.0
-    assert rep["throughput"] >= rep["goodput"]
 
 
 def test_conservation_random_fault_schedules():

@@ -37,6 +37,7 @@ from repro.core import dispatch as rdsp
 from repro.core import metrics as rmet
 from repro.core import policies as rpol
 from repro.core import simulator as rsim
+from repro_torch import obs as tobs
 from repro_torch.configs import rosella_sim as TRS
 from repro_torch.core import metrics as tmet
 from repro_torch.core import simulator as tsim
@@ -281,8 +282,9 @@ def test_draw_rounds_columns():
 
 @pytest.mark.parametrize("mode", ["env", "n_frontends", "sync", "observe"])
 def test_other_modes_raise_naming_a8b(mode):
-    """The environment and fleet modes (ROADMAP A8b) run now; only in-chain
-    telemetry is refused, naming A8c."""
+    """The modes that were refused run now: the environment and fleet modes
+    (ROADMAP A8b) and in-chain telemetry (A8c), whose trace gains the
+    reference's ``obs_row`` and ``obs_flag``."""
     cfg, params = TRS.make_sim("ppot_sq2", ZIPF, 0.8, rounds=20, device="cpu")
     env = None
     if mode == "env":
@@ -296,9 +298,11 @@ def test_other_modes_raise_naming_a8b(mode):
     elif mode == "sync":
         cfg = dataclasses.replace(cfg, fleet_sync_every=4)
     else:
-        cfg = dataclasses.replace(cfg, observe=object())
-        with pytest.raises(NotImplementedError, match="A8c"):
-            tsim.simulate(cfg, params, prng.PRNGKey(0), env, device="cpu")
+        cfg = dataclasses.replace(cfg, observe=tobs.ObserveConfig(window_turns=8))
+        final, trace = tsim.simulate(cfg, params, prng.PRNGKey(0), env, device="cpu")
+        assert {"obs_row", "obs_flag"} <= set(trace) and final.fleet is None
+        assert trace["obs_flag"].shape == (20,) and int(trace["obs_flag"].sum()) == 2
+        assert trace["obs_row"].hist.shape == (20, 64)
         return
     final, trace = tsim.simulate(cfg, params, prng.PRNGKey(0), env, device="cpu")
     assert trace["code"].shape == (20,) and final.fleet is not None

@@ -48,6 +48,7 @@ from repro.core import policies as rpol
 from repro.core import simulator as rsim
 from repro_torch import convert
 from repro_torch import env as tenv
+from repro_torch import obs as tobs
 from repro_torch.core import metrics as tmet
 from repro_torch.core import simulator as tsim
 from repro_torch.utils import prng
@@ -399,10 +400,17 @@ def test_sim_crash_kills_churn_drains():
 
 
 def test_observe_is_refused_naming_a8c():
-    cfg, params, e = tenv.make("churn").to_sim("ppot_sq2", rounds=50, device="cpu")
-    cfg = dataclasses.replace(cfg, observe=object())
-    with pytest.raises(NotImplementedError, match="A8c"):
-        tsim.simulate(cfg, params, prng.PRNGKey(0), e, device="cpu")
+    """Once refused (ROADMAP A8c), telemetry now runs: churn's chain through
+    ``to_sim(observe=...)`` in its environment yields window records, the
+    membership gauge following the scenario's departures."""
+    ocfg = tobs.ObserveConfig(window_turns=50, detect=tobs.DetectConfig(warmup_windows=2))
+    cfg, params, e = tenv.make("churn").to_sim("ppot_sq2", rounds=3000, device="cpu",
+                                               observe=ocfg)
+    _, trace = tsim.simulate(cfg, params, prng.PRNGKey(0), e, device="cpu")
+    recs = tobs.windows.sim_records_from_trace(ocfg, trace)
+    assert len(recs) == 60 and all("regime" in r for r in recs)
+    assert min(r["n_active"] for r in recs) < cfg.n == max(r["n_active"] for r in recs)
+    assert sum(r["n_resp"] for r in recs) == int((trace["code"] == tsim.EV_REAL_DONE).sum())
 
 
 def test_env_draw_columns():

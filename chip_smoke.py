@@ -258,6 +258,16 @@ FLEET_EXACT = ((True, 1), (True, 8), (False, 8))
 FLEET_ENV = (("cotenant_shock", dict(sync_every=4, frozen_mu=True)), ("churn_heavy", {}),
              ("crash_storm", {}))
 FLEET_PEND_CAP, FLEET_ENV_PEND_CAP = 16384, 32768
+# [fleet mesh]: the collective fleet (fleet.sync.FrontendMesh, one process a
+# rank over torch.distributed): a one-rank NCCL group made through a
+# FileStore in a temporary directory (NCCL takes one rank a device, and the
+# machine has one card), so D = 1 holds the S = FLEET_S frontends as local
+# rows. [fleet]'s FLEET_EXACT cases through run_fleet_simulation_scan(mesh=),
+# each equal bit for bit to [fleet]'s stacked scan of the same case
+# (responses, μ̂, placements, epochs, sync gaps); the collectives are
+# captured in the patterns' graphs. MESH_COLLECTIVE_REPS times one sync
+# round's collectives at the turn's shapes, eagerly, in an event pair
+MESH_COLLECTIVE_REPS = 200
 # [load]: the streaming load harness (repro_torch.load) at the shape of the
 # reference's benchmarks/loadtest.py:45-64, written out here: 64 workers (the
 # speed tile x 8, capacity 76), base rate 40 under its Azure-shaped stream
@@ -1982,14 +1992,15 @@ def fleet_launches(K, CK, info) -> dict:
     return {w: eager.get(w, 0) + graphs[w] for w in PROFILE_NAMES}
 
 
-def fleet_profile(torch, tsl, cfg, rows: int, router, pool, cols: dict, dev) -> dict:
+def fleet_profile(torch, tsl, cfg, rows: int, router, pool, cols: dict, dev,
+                  mesh=None) -> dict:
     """Turns 1 to FLEET_PROFILE_TURNS of a fleet run again, from the fresh
     ``router`` and ``pool`` (turn 0 replayed before the profiler starts), on
     the runner (and graphs) the run captured: device busy ms and idle share
     a turn, launches a turn by wrapper, held to the graphs' kernel nodes for
     the patterns the window replays (a session that misses a record is run
     again)."""
-    run = tsl.fleet_runner(cfg, str(dev), rows)
+    run = tsl.fleet_runner(cfg, str(dev), rows, mesh)
     W = FLEET_PROFILE_TURNS
     first = {name: a[:1] for name, a in cols.items()}
     window = {name: a[1:W + 1] for name, a in cols.items()}
@@ -2047,11 +2058,13 @@ def fleet_scan_record(tag, info, wall, T, requests, prof, launches, summ) -> dic
 
 
 def fleet_exact(torch, tr, tsl, K, CK, met, speeds, dev, use_alias: bool,
-                sync_every: int) -> tuple[dict, dict]:
+                sync_every: int) -> tuple[dict, dict, tuple]:
     """(a) One cell through the host fleet loop and the fleet scan, both on
     the card, on a SequentialPool: equal bit for bit in responses, μ̂ trace,
     free_at, the agreed snapshot, each frontend's queue view and μ̂ (front
-    and learner), the placement log and the sync gaps."""
+    and learner), the placement log and the sync gaps. Returns the record,
+    the launches, and the scan's (responses, μ̂ trace, info) for [fleet
+    mesh]."""
     S, rate = FLEET_S, LOAD * float(speeds.sum())
     kw = dict(arrival_rate=rate, horizon=FLEET_TURNS * BATCH / rate, seed=SEED,
               arrival_batch=BATCH, sync_every=sync_every)
@@ -2107,7 +2120,8 @@ def fleet_exact(torch, tr, tsl, K, CK, met, speeds, dev, use_alias: bool,
     rec = fleet_scan_record(f"exact {tag}", info, wall, T, len(resp_s), prof, launches, summ)
     rec.update(host_turns_per_s=T / wall_h, host_decisions_per_s=len(resp_h) / wall_h,
                host_launches=host_launches)
-    return rec, {w: launches[w] + host_launches.get(w, 0) for w in PROFILE_NAMES}
+    return (rec, {w: launches[w] + host_launches.get(w, 0) for w in PROFILE_NAMES},
+            (resp_s, mu_s, info))
 
 
 def fleet_s1(torch, tr, tsl, K, CK, met, speeds, dev) -> dict:
@@ -2268,19 +2282,19 @@ def fleet_obs(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev) -> dict:
 
 
 def phase_fleet(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev, card):
-    """The [fleet] cells; returns the records and the phase's launches by
-    wrapper."""
+    """The [fleet] cells; returns the records, the phase's launches by
+    wrapper and the FLEET_EXACT scans' results by case."""
     t0 = time.perf_counter()
     rate = LOAD * float(speeds.sum())
     print(f"[fleet] {card}; n={N_REPLICAS} (tpch_speed_set, sum {speeds.sum():.2f}), rate "
           f"{rate:.3f}/s, batches of {BATCH} over S={FLEET_S} frontends "
           f"({BATCH // FLEET_S} each), async_mu=False, seed {SEED}")
     total = {w: 0 for w in PROFILE_NAMES}
-    exact = {}
+    exact, stacked = {}, {}
     for use_alias, sync_every in FLEET_EXACT:
         t1 = time.perf_counter()
-        rec, launches = fleet_exact(torch, tr, tsl, K, CK, met, speeds, dev, use_alias,
-                                    sync_every)
+        rec, launches, stacked[(use_alias, sync_every)] = fleet_exact(
+            torch, tr, tsl, K, CK, met, speeds, dev, use_alias, sync_every)
         rec["seconds"] = time.perf_counter() - t1
         exact[f"{'alias' if use_alias else 'icdf'} sync_every={sync_every}"] = rec
         for w in PROFILE_NAMES:
@@ -2309,7 +2323,122 @@ def phase_fleet(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev, card):
     cell_s = {k: round(v, 1) for k, v in cell_s.items()}
     print(f"[fleet] {len(exact)} exact cells, S=1, {len(env_cells)} scenario cells and "
           f"telemetry in {secs:.1f} s ({json.dumps(cell_s)}); launches {json.dumps(total)}")
-    return dict(exact=exact, s1=s1, env=env_cells, obs=tele, seconds=secs), total
+    return dict(exact=exact, s1=s1, env=env_cells, obs=tele, seconds=secs), total, stacked
+
+
+def mesh_collective_ms(torch, mesh, S: int, n: int, kf: int, mf: int, dev) -> dict:
+    """One sync round's collectives at the fleet turn's shapes (the queue
+    deltas' all-reduce, the μ̂ rows', λ̂ and gaps' gathers) and one turn's
+    placements gather, each timed eagerly over MESH_COLLECTIVE_REPS calls in
+    an event pair on the card."""
+    from repro_torch.fleet import sync as fsync
+
+    _, Sl = mesh.rows(S)
+    q = torch.zeros((Sl, n), dtype=torch.int32, device=dev)
+    mu = torch.ones((Sl, n), dtype=torch.float32, device=dev)
+    lam = torch.ones(Sl, dtype=torch.float32, device=dev)
+    snap = torch.zeros(n, dtype=torch.int32, device=dev)
+    pw = torch.zeros((Sl, mf + kf), dtype=torch.int32, device=dev)
+    sync = fsync.make_fleet_scan_sync(mesh)
+    counts = mesh.counts.copy()
+    out = {}
+    for name, fn in (("sync round", lambda: sync(q, q, snap, mu, lam)),
+                     ("placements", lambda: mesh.all_gather_rows(pw, "placements"))):
+        for _ in range(10):
+            fn()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        for _ in range(MESH_COLLECTIVE_REPS):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out[name] = e0.elapsed_time(e1) / MESH_COLLECTIVE_REPS
+    mesh.counts.clear()
+    mesh.counts.update(counts)
+    return out
+
+
+def phase_fleet_mesh(torch, tr, tsl, K, CK, met, speeds, dev, card, stacked):
+    """[fleet mesh]: [fleet]'s FLEET_EXACT cases through the collective fleet
+    on a one-rank NCCL mesh, each held bit for bit to [fleet]'s stacked scan
+    of the case; returns the records and the launches by wrapper."""
+    import tempfile
+
+    from repro_torch.fleet import sync as fsync
+
+    t0 = time.perf_counter()
+    S, rate = FLEET_S, LOAD * float(speeds.sum())
+    total = {w: 0 for w in PROFILE_NAMES}
+    cells = {}
+    with tempfile.TemporaryDirectory() as tmp, fsync.file_store_mesh(
+            Path(tmp) / "store", 0, 1, dev, timeout_s=120) as mesh:
+        print(f"[fleet mesh] {card}; a {mesh.size}-rank {torch.distributed.get_backend()} group "
+              f"through a FileStore (NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}), "
+              f"S={S} frontends as {mesh.rows(S)[1]} local rows, n={N_REPLICAS}, batches of "
+              f"{BATCH}, async_mu=False, seed {SEED}")
+        for use_alias, sync_every in FLEET_EXACT:
+            tag = f"{'alias' if use_alias else 'icdf'} sync_every={sync_every}"
+            kw = dict(arrival_rate=rate, horizon=FLEET_TURNS * BATCH / rate, seed=SEED,
+                      arrival_batch=BATCH, sync_every=sync_every)
+            resp_n, mu_n, info_n = stacked[(use_alias, sync_every)]
+            T = info_n["turns"]
+            rm, pm = fleet_router(tr, speeds, S, dev, use_alias), tr.SequentialPool(speeds)
+            K.reset_launches()
+            CK.reset_launches()
+            mesh.counts.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            resp_m, mu_m, info = tsl.run_fleet_simulation_scan(
+                rm, pm, pend_cap=FLEET_PEND_CAP, chunk_turns=T, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = fleet_launches(K, CK, info)
+            need(info["replays"] == info["turns"] == T, f"[fleet mesh {tag}] the turns were not "
+                 f"graph replays ({info['replays']} of {T})")
+            for part, ok in (
+                    ("responses", np.array_equal(resp_n, resp_m)),
+                    ("mu trace", np.array_equal(mu_n, mu_m)),
+                    ("placements", np.array_equal(info_n["workers"], info["workers"])),
+                    ("epochs", np.array_equal(info_n["epochs"], info["epochs"])),
+                    ("sync gaps", np.array_equal(info_n["sync_gaps"], info["sync_gaps"]))):
+                need(ok, f"[fleet mesh {tag}] the mesh scan's {part} differ from [fleet]'s "
+                     f"stacked scan")
+            syncs = -(-T // sync_every)
+            coll = info["collectives"]
+            need(all(coll.get(k, 0) == syncs for k in fsync.SYNC_KINDS)
+                 and coll.get("placements", 0) == T,
+                 f"[fleet mesh {tag}] collectives {coll} for {syncs} sync turns of {T}")
+            in_graph = {label: g["collectives"] for label, g in info["graphs"].items()}
+            need(all(in_graph.values()), f"[fleet mesh {tag}] a pattern's graph holds no "
+                 f"collective: {in_graph}")
+            cfg = tsl.fleet_scan_config(rm, BATCH, pend_cap=FLEET_PEND_CAP, sync_every=sync_every)
+            cols = dict(zip(("times", "costs", "speeds"), tsl._precompute_workload(
+                rate, kw["horizon"], 1.0, None, SEED, BATCH, speeds)))
+            prof = fleet_profile(torch, tsl, cfg, T,
+                                 lambda: fleet_router(tr, speeds, S, dev, use_alias),
+                                 lambda: tr.SequentialPool(speeds), cols, dev, mesh)
+            summ = fleet_summary_of(met, info, S, rate)
+            rec = fleet_scan_record(f"mesh {tag}", info, wall, T, len(resp_m), prof, launches,
+                                    summ)
+            rec.update(collectives=coll, graph_collectives=in_graph)
+            print(f"[fleet mesh {tag}] responses, mu trace, placements, epochs and sync gaps "
+                  f"equal to [fleet]'s stacked scan over {T} turns; collectives of the run "
+                  f"{json.dumps(coll)}, inside the graphs by pattern {json.dumps(in_graph)}")
+            cells[tag] = rec
+            for w in PROFILE_NAMES:
+                total[w] += launches[w]
+        coll_ms = mesh_collective_ms(torch, mesh, S, N_REPLICAS, BATCH // S, tr.MAX_FAKE,
+                                     dev)
+        tsl.fleet_runner.cache_clear()  # the graphs with the group's collectives go first
+    for w in ("ppot_dispatch_fused_alias", "ppot_dispatch_fused", "alias_table", "pool_chain"):
+        need(total[w] > 0, f"[fleet mesh] {w} was never launched")
+    secs = time.perf_counter() - t0
+    print(f"[fleet mesh] {card}; collectives eagerly, {MESH_COLLECTIVE_REPS} calls each: one "
+          f"sync round's four {coll_ms['sync round']:.6f} ms, one turn's placements gather "
+          f"{coll_ms['placements']:.6f} ms; in the runs they ran inside the graphs; "
+          f"{len(cells)} cells in {secs:.1f} s; launches {json.dumps(total)}")
+    return dict(cells=cells, collective_ms=coll_ms, seconds=secs), total
 
 
 # ---------------------------------------------------------------------------
@@ -4998,8 +5127,12 @@ def main() -> int:
                                       scenarios, faults)
     policies, policy_launches = phase_policies(torch, tr, tenv, D, P, prng, K, CK, chk, met,
                                                speeds, dev, card)
-    fleet, fleet_launches_ = phase_fleet(torch, tr, tsl, tenv, obs, K, CK, met, speeds, dev,
-                                         card)
+    fleet, fleet_launches_, fleet_stacked = phase_fleet(torch, tr, tsl, tenv, obs, K, CK, met,
+                                                        speeds, dev, card)
+    fleet_mesh, mesh_launches = phase_fleet_mesh(torch, tr, tsl, K, CK, met, speeds, dev, card,
+                                                 fleet_stacked)
+    del fleet_stacked
+    fleet_launches_ = {w: fleet_launches_[w] + mesh_launches[w] for w in PROFILE_NAMES}
     load, load_launches, load_pool_err = phase_load(torch, tr, tsl, tenv, tload, obs, trcv, chk,
                                                     D, K, CK, CR, met, speeds, dev, card, faults)
     sim, sim_launches = phase_sim(torch, RS, TH, dev, card)
@@ -5123,6 +5256,7 @@ def main() -> int:
     print(f"[summary] obs {json.dumps(obs_res)}")
     print(f"[summary] policies {json.dumps(policies)}")
     print(f"[summary] fleet {json.dumps(fleet)}")
+    print(f"[summary] fleet mesh {json.dumps(fleet_mesh)}")
     print(f"[summary] load {json.dumps(load)}")
     print(f"[summary] sim {json.dumps(sim)}")
     print(f"[summary] sim environments and fleet {json.dumps(sim_ext)}")

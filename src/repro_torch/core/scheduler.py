@@ -33,6 +33,11 @@ table, the frozen views of the one-program fleet. Both forms share the
 choice of μ̂ (``_route_mu``), the draws and the route (``_draw_and_route``).
 The fleet's S serving turns (the reference's ``serve_step_fleet``, a vmap
 that is bit-identical per row to S calls) are S calls of either form.
+
+Distributed mode (paper §5): ``schedule_shard`` / ``make_sharded_schedule``
+run one scheduler state a process of a ``fleet.sync.FrontendMesh`` and
+average μ̂ and the queue views over the mesh after every batch, "they need
+only synchronize the estimates of worker speeds regularly".
 """
 from __future__ import annotations
 
@@ -137,6 +142,46 @@ class RosellaScheduler:
     @property
     def mu_hat(self) -> torch.Tensor:
         return self.state.learner.mu_hat
+
+
+def init_rosella_shards(num_shards: int, n: int, lcfg: lrn.LearnerConfig,
+                        mu_init: float = 1.0, device=None) -> list[RosellaState]:
+    """``num_shards`` fresh states, one a rank of the mesh, in rank order."""
+    return [init_rosella(n, lcfg, mu_init, device) for _ in range(num_shards)]
+
+
+def sync_shard_estimates(mesh, state: RosellaState) -> RosellaState:
+    """Average μ̂ and the queue view over the mesh's ranks (paper §5). The
+    ranks' rows are gathered in rank order and averaged there, so every
+    rank holds the same bits as a mean over the stacked rows; the view is
+    rounded back to integers."""
+    mu = mesh.all_gather_rows(state.learner.mu_hat[None], "pmean").mean(0)
+    q = mesh.all_gather_rows(state.q_view.to(torch.float32)[None], "pmean").mean(0)
+    return state.replace(learner=state.learner.replace(mu_hat=mu),
+                         q_view=torch.round(q).to(torch.int32))
+
+
+def schedule_shard(mesh, state: RosellaState, key, now, m: int,
+                   policy: str = pol.PPOT_SQ2) -> tuple[torch.Tensor, RosellaState]:
+    """One frontend step on this rank of ``mesh``: place a local batch of
+    ``m`` jobs through the dispatch engine, then average μ̂ and q̂ over the
+    ranks. Returns (workers[m], state')."""
+    workers, state = schedule(state, key, now, m, policy)
+    return workers, sync_shard_estimates(mesh, state)
+
+
+def make_sharded_schedule(mesh, m: int, policy: str = pol.PPOT_SQ2):
+    """The multi-frontend scheduler over ``mesh`` (a ``fleet.sync.FrontendMesh``
+    with one scheduler state a rank): ``fn(state, key, now) -> (workers[m],
+    state')``, called on every rank with the rank's own state and key. Each
+    rank runs the batched engine against its own queue view, then the
+    estimates sync over the ranks."""
+
+    def fn(state: RosellaState, key, now):
+        mesh.check_device(state.q_view)
+        return schedule_shard(mesh, state, key, now, m, policy)
+
+    return fn
 
 
 def absorb_completions(q_view: torch.Tensor, workers: torch.Tensor) -> torch.Tensor:

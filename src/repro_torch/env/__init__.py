@@ -14,8 +14,9 @@ model and ``env/processes.py`` for the process library.
 
 Catalog: ``env.names()`` — null, reshuffle, flash_crowd, diurnal,
 cotenant_shock, speed_drift, churn, churn_heavy, trace_replay,
-crash_storm, blackout, grey_failure. Fault scenarios compile; running
-them waits for the failure semantics (ROADMAP queue A, A4).
+crash_storm, blackout, grey_failure. The fault scenarios run through both
+loops with the failure semantics of ``serving.recovery`` (``run_scenario(...,
+recovery=...)``; the fault columns alone without it).
 """
 from repro_torch.env.processes import (
     FAULT_BLACKOUT,

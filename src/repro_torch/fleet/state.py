@@ -14,11 +14,14 @@ of the fleet does not see between synchronisations:
     completion reports to the next sync, a harsher staleness regime;
   * a μ̂ view frozen at the last sync, with its alias table.
 
-Two layouts live here. ``FleetSimState`` is the simulator's stacked form:
-every field carries a leading frontend axis of size S, and a frontend is
-updated with a masked select, no per-frontend Python. ``FleetServeCarry``
+Three layouts live here. ``FleetSimState`` is the simulator's stacked
+form: every field carries a leading frontend axis of size S, and a frontend
+is updated with a masked select, no per-frontend Python. ``FleetServeCarry``
 is the serving fleet's whole state as the one-program fleet turn carries
 it (``serving.scanloop``): S full routers plus the fleet's sync agreement.
+``FleetFrontend`` is one frontend of the collective fleet
+(``fleet.sync.make_fleet_step`` / ``make_fleet_sync``), the state one
+process of a ``fleet.sync.FrontendMesh`` holds for itself.
 
 Tensors live on the caller's device; the λ̂ streams are the estimator's
 device form (0-d tensors become [S] vectors).
@@ -33,6 +36,7 @@ import torch
 from repro_torch.core import dispatch as dsp
 from repro_torch.core import estimator as est
 from repro_torch.core import learner as lrn
+from repro_torch.core import scheduler as rs
 from repro_torch.utils.device import resolve_device
 
 #: EMA window of the per-frontend arrival estimators: the serving router's
@@ -113,6 +117,49 @@ def observe_frontend_arrival(fleet: FleetSimState, f: int, now, m: int = 1) -> F
 def fleet_lam_hats(fleet: FleetSimState) -> torch.Tensor:
     """Per-frontend λ̂ estimates, f32[S]."""
     return est.lam_hat_ema(fleet.arr)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetFrontend:
+    """One frontend of the collective fleet: the runtime scheduler state
+    (whose ``q_view`` is this frontend's stale view, the snapshot agreed at
+    the last sync plus its own placements since) and what the sync needs to
+    rebuild the global queues from per-frontend deltas."""
+
+    core: rs.RosellaState
+    q_snap: torch.Tensor  # i32[n] the view agreed at the last sync
+    alias_p: torch.Tensor  # f32[n] frozen alias table (thresholds) of the merged μ̂
+    # adopted at the last sync: the coordination-free step samples through
+    # it, and only the sync rebuilds it
+    alias_a: torch.Tensor  # i32[n] frozen alias table (partners)
+    lam_global: torch.Tensor  # f32 0-d merged fleet λ̂ from the last sync
+    t_sync: np.float32  # time of the last sync
+
+    def replace(self, **kw) -> "FleetFrontend":
+        return dataclasses.replace(self, **kw)
+
+
+def frontend_shard_table(ff: FleetFrontend) -> dsp.AliasTable:
+    """The frontend's frozen alias table (the μ̂ of its last sync)."""
+    return dsp.AliasTable(prob=ff.alias_p, alias=ff.alias_a)
+
+
+def init_fleet_frontends(S: int, n: int, lcfg: lrn.LearnerConfig, mu_init: float = 1.0,
+                         device=None) -> list[FleetFrontend]:
+    """S fresh frontends, in frontend order: rank r of a mesh with one
+    frontend a rank takes entry r. ``device=None`` is the CUDA card and
+    raises without one."""
+
+    def one() -> FleetFrontend:
+        core = rs.init_rosella(n, lcfg, mu_init, device)
+        t0 = dsp.build_alias_table(core.learner.mu_hat)
+        dev = core.q_view.device
+        return FleetFrontend(core=core, q_snap=torch.zeros(n, dtype=torch.int32, device=dev),
+                             alias_p=t0.prob, alias_a=t0.alias,
+                             lam_global=torch.zeros((), dtype=torch.float32, device=dev),
+                             t_sync=np.float32(0.0))
+
+    return [one() for _ in range(S)]
 
 
 @dataclasses.dataclass

@@ -56,7 +56,7 @@ rows into records after its one copy back. ``observe=None`` captures the
 turn node for node as without telemetry.
 
 The frontend fleet (``run_fleet_workload_scan``, ``run_fleet_simulation_scan``,
-the reference's one-program fleet with ``mesh=None``) runs ``_fleet_turn``:
+the reference's one-program fleet) runs ``_fleet_turn``:
 S frontends, each a full router state on a leading axis of the carry, own
 contiguous k / S slices of each batch and reconcile every ``sync_every``
 turns; their submissions share one pending set (tagged with the placing
@@ -64,7 +64,10 @@ frontend, to which each completion returns) and one replica chain. The
 reference's conditionals (the sync round, a membership change that rebuilds
 frozen alias tables) are known on the host before each turn, so each
 pattern is captured as a graph of its own (``FleetRunner``) and the turn
-replays the graph of its pattern.
+replays the graph of its pattern. With ``mesh=`` (a ``fleet.sync.FrontendMesh``,
+one process a rank) each rank serves its own frontend rows, the sync rounds
+are the mesh's collectives and the turn's placements are gathered for the
+shared pool; the collectives are captured in the graphs with the rest.
 
 The numpy side of the workload is drawn up front with the same
 ``RandomState`` call sequence as ``run_simulation``; the key stream and
@@ -109,6 +112,7 @@ from repro_torch.core import scheduler as rs
 from repro_torch.dist import straggler as strg
 from repro_torch.fleet import conflict as cfl
 from repro_torch.fleet import state as fst
+from repro_torch.fleet import sync as fsync
 from repro_torch.kernels.pool_chain import kernel as pool_kernel
 from repro_torch.obs import detect as obd
 from repro_torch.obs import export as oex
@@ -128,6 +132,11 @@ CHUNK_MAX_BYTES = 64 << 20
 WARMUP_TURNS = 2
 _INT32_MAX = 2**31 - 1
 _LEARNER = tuple(f.name for f in dataclasses.fields(lrn.LearnerState))
+#: the fleet carry's per-frontend fields (with the packed telemetry ``tc_*``):
+#: a rank of a mesh holds its own rows of these, and the whole of the rest
+_FLEET_FRONTEND_FIELDS = _LEARNER + ("q_view", "arr_last", "arr_gap", "arr_count", "key",
+                                     "mu_front", "mu_pend", "herd_scale", "herd_applied",
+                                     "last_fake", "tab_p", "tab_a")
 #: the in-flight columns of the faulty turn's carry, in its compaction order
 _PEND = ("p_done", "p_start", "p_rep", "p_seq", "p_valid", "p_task", "p_arrv", "p_cost",
          "p_dead", "p_att", "p_dup", "p_learn", "p_to", "p_retry")
@@ -1232,13 +1241,14 @@ def _drive_scan(router: rt.RosellaRouter, pool: rt.SimulatedPool, chunks, *,
 # The one-program fleet: S frontends, the environment and the pool in one turn
 # ---------------------------------------------------------------------------
 
-def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
+def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool,
+                mesh: fsync.FrontendMesh | None = None):
     """One turn of the S-frontend fleet on the carry ``c`` and the workload
-    row ``x``: the reference's fleet scan body (``mesh=None``), in its
-    order: the fault subset (stall, kill), the membership transition, the
-    sync round, each frontend's flush from the shared pending set, the herd
-    correction, the μ̂ front-buffer flips, the S serving turns, the shared
-    replica chain, the pending append with each submission's frontend.
+    row ``x``: the reference's fleet scan body, in its order: the fault
+    subset (stall, kill), the membership transition, the sync round, each
+    frontend's flush from the shared pending set, the herd correction, the
+    μ̂ front-buffer flips, the S serving turns, the shared replica chain,
+    the pending append with each submission's frontend.
 
     The reference's three conditionals are host decisions here, known
     before the turn: ``sync`` (the turn index is a multiple of
@@ -1250,9 +1260,22 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
     i32[k] (``"workers"``), the sync's view gaps i32[S] (``"gaps"``) and,
     when the configuration observes, the per-frontend ``obs.TurnObs``
     (``"tobs"``). The chain writes ``free_at`` and ``chain_max`` in place,
-    the faulty turn's fold writes ``resp``."""
+    the faulty turn's fold writes ``resp``.
+
+    With a ``mesh`` the carry's per-frontend fields hold this rank's local
+    rows only (``mesh.rows``); the shared environment (the pending set, the
+    pool, the sync agreement, the ledger) is whole on every rank, and every
+    rank runs it alike. Each rank flushes, corrects and serves its own rows
+    (``fleet.sync.make_fleet_serve_stage``, no collective), the sync round
+    reconciles over the mesh (``fleet.sync.make_fleet_scan_sync``, the only
+    scheduler collectives), and the turn's fake jobs and placements are
+    gathered before the shared chain: the environment's data motion, the
+    requests reaching the replicas. ``mesh=None`` is the stacked fleet, all
+    rows local and no collective.""" 
     S, n, k, P, C, mf = cfg.S, cfg.n, cfg.k, cfg.pend_cap, cfg.comp_cap, cfg.max_fake
     kf = k // S
+    r0, Sl = (0, S) if mesh is None else mesh.rows(S)
+    loc = slice(r0, r0 + Sl)
     faulty = cfg.recovery is not None
     frozen_tables = cfg.frozen_mu and cfg.use_alias
     i32, inf = torch.int32, float("inf")
@@ -1293,7 +1316,7 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
     # -- membership: every frontend cold-starts the rejoined workers, and a
     #    change turn flips every μ̂ front buffer (and, under frozen tables,
     #    rebuilds each masked table): no frontend can route offline after
-    learners = [lrn.LearnerState(**{f: c[f][s] for f in _LEARNER}) for s in range(S)]
+    learners = [lrn.LearnerState(**{f: c[f][s] for f in _LEARNER}) for s in range(Sl)]
     mu_front, mu_pend = c["mu_front"], c["mu_pend"]
     tab_p, tab_a = (c["tab_p"], c["tab_a"]) if frozen_tables else (None, None)
     if cfg.churn:
@@ -1303,7 +1326,7 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
         mu_front = torch.where(changed, mu_now, mu_front)
         mu_pend = mu_pend & ~changed
         if rebuild:
-            tbs = [dsp.build_alias_table(mu_front[s], active_t) for s in range(S)]
+            tbs = [dsp.build_alias_table(mu_front[s], active_t) for s in range(Sl)]
             tab_p, tab_a = torch.stack([t.prob for t in tbs]), torch.stack([t.alias for t in tbs])
     else:
         active_t, burst_t = None, torch.empty(0, dtype=i32, device=dev)
@@ -1313,23 +1336,21 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
     #    onto the agreed snapshot, μ̂ merges, the λ̂ streams sum (a numeric
     #    no-op on the views at S = 1)
     arr = est.EmaArrivalState(c["arr_last"], c["arr_gap"], c["arr_count"])
-    lam_f = est.lam_hat_ema(arr)  # f32[S], before the serve, as the host loop reads it
+    lam_f = est.lam_hat_ema(arr)  # f32[Sl], before the serve, as the host loop reads it
     q_view, herd_applied, q_snap = c["q_view"], c["herd_applied"], c["q_snap"]
     t_sync, lam_global = c["t_sync"], c["lam_global"]
     gaps = None
     if sync:
-        qs = q_view - herd_applied
-        global_q = (q_snap + (qs - q_snap[None]).sum(0, dtype=i32)).clamp(min=0)
-        gaps = (qs - global_q[None]).abs().sum(1, dtype=i32)
-        mu_merged = lrn.sync_estimates(mu_now)
-        q_view, q_snap = global_q[None].expand(S, n), global_q
+        global_q, mu_merged, gaps, lam_sum = fsync.make_fleet_scan_sync(mesh)(
+            q_view, herd_applied, q_snap, mu_now, lam_f)
+        q_view, q_snap = global_q[None].expand(Sl, n), global_q
         herd_applied = torch.zeros_like(herd_applied)
-        mu_front = mu_merged[None].expand(S, n)
+        mu_front = mu_merged[None].expand(Sl, n)
         mu_pend = torch.zeros_like(mu_pend)
         if frozen_tables:
             tb = dsp.build_alias_table(mu_merged, active_t)
-            tab_p, tab_a = tb.prob[None].expand(S, n), tb.alias[None].expand(S, n)
-        t_sync, lam_global = t32, lam_f.sum()
+            tab_p, tab_a = tb.prob[None].expand(Sl, n), tb.alias[None].expand(Sl, n)
+        t_sync, lam_global = t32, lam_sum
 
     # -- each frontend flushes its own due completions from the shared
     #    pending set: oldest done first, ties in insertion order, all S
@@ -1346,6 +1367,8 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
     comp_t = torch.where(rank_ok, (p_done[sel] - p_start[sel]).float(), 0.0)
     comp_now64 = torch.where(rank_ok, p_done[sel], -inf).amax(1)
     comp_now32 = torch.where(n_due_f > 0, comp_now64, t64).float()
+    if mesh is not None:  # every rank flushes the shared set; each serves its own rows
+        comp_w, comp_t, comp_now32 = comp_w[loc], comp_t[loc], comp_now32[loc]
     over_flush = c["over_flush"] + (n_due_f - C).clamp(min=0).sum(dtype=i32)
     tobs_f = {}
     if faulty:
@@ -1368,12 +1391,12 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
             def per_frontend(mask):
                 return torch.zeros(S, dtype=i32, device=dev).index_add_(0, fr_l, mask.to(i32))
 
-            tobs_f = dict(killed=per_frontend(killed & is_real),
-                          dirty=per_frontend(dirty & is_real),
-                          completed=per_frontend(clean & is_real), lat=lat,
-                          ok=dr[None, :] & (p_fr[None, :] == fr_ids[:, None]))
+            tobs_f = dict(killed=per_frontend(killed & is_real)[loc],
+                          dirty=per_frontend(dirty & is_real)[loc],
+                          completed=per_frontend(clean & is_real)[loc], lat=lat,
+                          ok=(dr[None, :] & (p_fr[None, :] == fr_ids[:, None]))[loc])
         p_valid = p_valid & ~due
-        q_view = (q_view - drain.view(S, n)).clamp(min=0)
+        q_view = (q_view - drain.view(S, n)[loc]).clamp(min=0)
     else:
         flushed = torch.zeros((S, P), dtype=torch.bool, device=dev).scatter(1, sel, rank_ok)
         p_valid = p_valid & ~flushed.any(0)
@@ -1384,7 +1407,7 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
     if cfg.herd:
         dt = t32 - t_sync
         extra = torch.stack([cfl.expected_peer_placements(lam_f[s], dt, mu_front[s], S)
-                             for s in range(S)])
+                             for s in range(Sl)])
         want = torch.round(c["herd_scale"][:, None] * extra).to(i32)
         q_view = q_view + (want - herd_applied)
         herd_applied = want
@@ -1392,18 +1415,15 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
     # -- each frontend's μ̂ front-buffer flip (a pending refresh is always
     #    its own learner's μ̂), then its serving turn
     mu_front = torch.where(mu_pend[:, None], mu_now, mu_front)
-    outs = [rs.serve_step_device(
-        q_view[s], learners[s], est.EmaArrivalState(arr.last_time[s], arr.mean_gap[s],
-                                                    arr.count[s]),
-        cfg.lcfg, c["key"][s], comp_w[s], comp_t[s], (t32, c["last_fake"][s], comp_now32[s]),
-        kf, cfg.policy, mf, cfg.use_alias, active_t,
-        mu_hat=mu_front[s] if cfg.frozen_mu else None,
-        table=dsp.AliasTable(tab_p[s], tab_a[s]) if frozen_tables else None)
-        for s in range(S)]
-    fake_js, workers, q_view = (torch.stack([o[j] for o in outs]) for j in range(3))
-    learner = {f: torch.stack([getattr(o[3], f) for o in outs]) for f in _LEARNER}
-    arr2 = [o[4] for o in outs]
-    key = torch.stack([o[5] for o in outs])
+    serve = fsync.make_fleet_serve_stage(mesh, kf, cfg.policy, max_fake=mf,
+                                         use_fresh_mu=not cfg.frozen_mu,
+                                         use_alias=cfg.use_alias, churn=cfg.churn)
+    fake_js, workers, q_view, learner, arr2, key = serve(
+        q_view, learners, arr, mu_front, c["key"], comp_w, comp_t, c["last_fake"], comp_now32,
+        t32, cfg.lcfg, dsp.AliasTable(tab_p, tab_a) if frozen_tables else None, active_t)
+    if mesh is not None:  # every rank's fake jobs and placements, for the shared chain
+        both = mesh.all_gather_rows(torch.cat([fake_js, workers], 1), "placements")
+        fake_js, workers = both[:, :mf], both[:, mf:]
 
     # -- the shared replica chain: every frontend's fakes (frontend order),
     #    the probe burst, then all reals in global arrival order
@@ -1442,8 +1462,8 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
         return ext[:P]
 
     new = dict(
-        q_view=q_view, key=key, mu_front=mu_front, mu_pend=n_due_f > 0,
-        herd_applied=herd_applied, last_fake=t32.expand(S), q_snap=q_snap, t_sync=t_sync,
+        q_view=q_view, key=key, mu_front=mu_front, mu_pend=n_due_f[loc] > 0,
+        herd_applied=herd_applied, last_fake=t32.expand(Sl), q_snap=q_snap, t_sync=t_sync,
         lam_global=lam_global, arr_last=torch.stack([a.last_time for a in arr2]),
         arr_gap=torch.stack([a.mean_gap for a in arr2]),
         arr_count=torch.stack([a.count for a in arr2]),
@@ -1471,12 +1491,13 @@ def _fleet_turn(cfg: ScanConfig, c: dict, x: dict, sync: bool, rebuild: bool):
                 q_view=q_view[s], lam_hat=lam_post[s], mu_hat=learner["mu_hat"][s],
                 mu_true=mu_true, active=active_t, launched=kf_t,
                 completed=tobs_f["completed"][s], dirty=tobs_f["dirty"][s],
-                killed=tobs_f["killed"][s], retried=z, collisions=coll[s]) for s in range(S)]
+                killed=tobs_f["killed"][s], retried=z, collisions=coll[r0 + s])
+                for s in range(Sl)]
         else:
             extra["tobs"] = [obw.plain_turn_obs(
-                cfg.observe, t=t32, resp=resp.view(S, kf)[s], arrivals_k=kf,
+                cfg.observe, t=t32, resp=resp.view(S, kf)[r0 + s], arrivals_k=kf,
                 q_view=q_view[s], lam_hat=lam_post[s], mu_hat=learner["mu_hat"][s],
-                mu_true=speeds64, active=active_t, collisions=coll[s]) for s in range(S)]
+                mu_true=speeds64, active=active_t, collisions=coll[r0 + s]) for s in range(Sl)]
     return new, resp, mu_front[0], extra
 
 
@@ -1494,11 +1515,21 @@ class FleetRunner:
     replays the graph of its pattern, chosen on the host from the turn
     index and the membership column (``replays`` by pattern; ``graphs``:
     each pattern's node count and kernel nodes by name). On the CPU the
-    step runs eagerly."""
+    step runs eagerly.
 
-    def __init__(self, cfg: ScanConfig, device, rows: int):
-        self.cfg, self.device, self.rows = cfg, torch.device(device), rows
-        S, n, P, cap = cfg.S, cfg.n, cfg.pend_cap, cfg.lcfg.ring_cap
+    With a ``mesh`` (``fleet.sync.FrontendMesh``) the runner is one rank's:
+    its carry holds the rank's local frontend rows and the whole shared
+    environment, its graphs hold the turn's collectives (``collectives``:
+    each pattern's by kind, added to ``mesh.counts`` at each replay), and
+    the μ̂ sample rows are frontend 0's, broadcast from rank 0 after each
+    chunk."""
+
+    def __init__(self, cfg: ScanConfig, device, rows: int,
+                 mesh: fsync.FrontendMesh | None = None):
+        self.cfg, self.device, self.rows, self.mesh = cfg, torch.device(device), rows, mesh
+        n, P, cap = cfg.n, cfg.pend_cap, cfg.lcfg.ring_cap
+        r0, S = (0, cfg.S) if mesh is None else mesh.rows(cfg.S)
+        self.local = slice(r0, r0 + S)  # S here is the rank's row count
         f32, f64, i32, b = torch.float32, torch.float64, torch.int32, torch.bool
 
         def z(shape, dt, fill=0):
@@ -1548,7 +1579,7 @@ class FleetRunner:
         self.emit = ocfg is None or ocfg.emit_responses
         if self.emit:
             ys.update(mu=(np.float32, (n,)), workers=(np.int32, (cfg.k,)),
-                      gaps=(np.int32, (S,)))
+                      gaps=(np.int32, (cfg.S,)))
             if not self.faulty:
                 ys["resp"] = (np.float64, (cfg.k,))
         if ocfg is not None:
@@ -1565,7 +1596,11 @@ class FleetRunner:
         self.graphs: dict = {}
         self.graph_nodes: dict = {}
         self.graph_kernels: dict = {}
+        self.collectives: dict = {}
         self.replays = {p: 0 for p in self.patterns}
+        #: the carry's per-frontend fields (leading axis: the local rows)
+        self.frontend_fields = [f for f in self.carry
+                                if f in _FLEET_FRONTEND_FIELDS or f.startswith("tc_")]
         self.capture_s = None
         if self.device.type == "cuda":
             self._capture()
@@ -1577,7 +1612,7 @@ class FleetRunner:
         cfg = self.cfg
         idx = self.turn.view(1)
         x = {name: v.index_select(0, idx)[0] for name, v in self.xs.col.items()}
-        new, resp, mu, extra = _fleet_turn(cfg, self.carry, x, *pattern)
+        new, resp, mu, extra = _fleet_turn(cfg, self.carry, x, *pattern, mesh=self.mesh)
         row = {}
         if self.emit:
             row.update(mu=mu, workers=extra["workers"])
@@ -1607,6 +1642,7 @@ class FleetRunner:
     def _capture(self) -> None:
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
+        counts = None if self.mesh is None else self.mesh.counts.copy()
         for pattern in self.patterns:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(cur)
@@ -1616,29 +1652,38 @@ class FleetRunner:
                     self.turn.zero_()
             cur.wait_stream(side)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
+            if self.mesh is not None:
+                self.mesh.counts.clear()
             with torch.cuda.graph(graph):
                 self.step(pattern)
             graph.instantiate()
             torch.cuda.synchronize(self.device)
             self.graphs[pattern] = graph
             self.graph_nodes[pattern], self.graph_kernels[pattern] = _graph_nodes(graph)
+            if self.mesh is not None:
+                self.collectives[pattern] = dict(self.mesh.counts)
+        if self.mesh is not None:  # the warm-up turns and the captures issue no turn's
+            self.mesh.counts.clear()
+            self.mesh.counts.update(counts)
         self.capture_s = time.perf_counter() - t0
 
     def load(self, router, pool: rt.SimulatedPool) -> None:
         """Copy a ``FleetRouter``'s and the pool's state into the carry."""
-        c = self.carry
+        c, loc = self.carry, self.local
         fc = fst.fleet_serve_carry(router, self.device, self.frozen_tables)
         for f in _LEARNER:
-            c[f].copy_(getattr(fc.learner, f))
+            c[f].copy_(getattr(fc.learner, f)[loc])
         for f in ("q_view", "key", "mu_front", "mu_pend", "herd_scale", "herd_applied",
-                  "last_fake", "q_snap", "t_sync", "lam_global"):
+                  "last_fake"):
+            c[f].copy_(getattr(fc, f)[loc])
+        for f in ("q_snap", "t_sync", "lam_global"):
             c[f].copy_(getattr(fc, f))
-        c["arr_last"].copy_(fc.arr.last_time)
-        c["arr_gap"].copy_(fc.arr.mean_gap)
-        c["arr_count"].copy_(fc.arr.count)
+        c["arr_last"].copy_(fc.arr.last_time[loc])
+        c["arr_gap"].copy_(fc.arr.mean_gap[loc])
+        c["arr_count"].copy_(fc.arr.count[loc])
         if self.frozen_tables:
-            c["tab_p"].copy_(fc.tables.prob)
-            c["tab_a"].copy_(fc.tables.alias)
+            c["tab_p"].copy_(fc.tables.prob[loc])
+            c["tab_a"].copy_(fc.tables.alias[loc])
         c["free_at"].copy_(torch.from_numpy(np.asarray(pool.free_at, np.float64)))
         c["p_done"].fill_(float("inf"))
         for f in ("chain_max", "p_start", "p_rep", "p_seq", "p_fr", "p_valid", "seq_ctr",
@@ -1663,7 +1708,8 @@ class FleetRunner:
     def run_rows(self, columns: dict, turn0: int) -> np.ndarray:
         """Run the chunk's turns (numpy columns [T, ...], T <= rows; its first
         turn is global turn ``turn0``) from the carry; returns the T result
-        rows as a numpy record array (one copy back)."""
+        rows as a numpy record array (one copy back), on a mesh as a dict of
+        its columns with every frontend's rows."""
         T = len(columns["times"])
         if not 0 < T <= self.rows:
             raise ValueError(f"a chunk of {T} turns for {self.rows} rows")
@@ -1675,16 +1721,40 @@ class FleetRunner:
             if self.graphs:
                 self.graphs[pattern].replay()
                 self.replays[pattern] += 1
+                if self.mesh is not None:
+                    self.mesh.counts.update(self.collectives[pattern])
             else:
                 self.step(pattern)
-        return self.ys.get(T)
+        ys = self.ys.get(T)
+        if self.mesh is None:
+            return ys
+        # on a mesh: the μ̂ sample is frontend 0's, on rank 0; the telemetry
+        # rows are each rank's frontends', gathered in frontend order
+        out = {name: ys[name] for name in ys.dtype.names}
+        if self.emit:
+            mu = self.ys.col["mu"][:T].contiguous()
+            out["mu"] = self.mesh.broadcast(mu, "trace").cpu().numpy()
+        for name in out:
+            if name.startswith("tc_"):
+                rows = self.ys.col[name][:T].transpose(0, 1).contiguous()
+                out[name] = self.mesh.all_gather_rows(rows, "telemetry").transpose(
+                    0, 1).cpu().numpy()
+        return out
+
+    def full_carry(self) -> dict:
+        """The carry with every frontend's rows (gathered over the mesh)."""
+        if self.mesh is None:
+            return self.carry
+        return {f: self.mesh.all_gather_rows(t, "write_back") if f in self.frontend_fields
+                else t for f, t in self.carry.items()}
 
 
 @functools.lru_cache(maxsize=8)
-def fleet_runner(cfg: ScanConfig, device: str, rows: int) -> FleetRunner:
+def fleet_runner(cfg: ScanConfig, device: str, rows: int,
+                 mesh: fsync.FrontendMesh | None = None) -> FleetRunner:
     """One fleet runner (its patterns' graphs on CUDA) per configuration,
-    device and chunk size."""
-    return FleetRunner(cfg, device, rows)
+    device, chunk size and mesh."""
+    return FleetRunner(cfg, device, rows, mesh)
 
 
 def fleet_scan_config(router, k: int, *, churn: bool = False, burst_cap: int = 0,
@@ -1751,21 +1821,31 @@ def run_fleet_workload_scan(
     ``observe`` folds each frontend's windowed telemetry every turn:
     fleet-aggregate records in ``info["windows"]`` (streamed to
     ``obs_sink``), per-frontend ones in ``info["windows_frontends"]``;
-    ``emit_responses=False`` returns the window streams only. ``mesh``, the
-    collective form over several devices, is ROADMAP queue A, A6b, and
-    raises.
+    ``emit_responses=False`` returns the window streams only.
+
+    ``mesh`` (a ``fleet.sync.FrontendMesh``, called on every rank with the
+    same arguments) shards the frontends over the mesh's processes: rank r
+    serves the frontend rows ``mesh.rows(S)``, the sync rounds run the
+    mesh's collectives (``fleet.sync.SYNC_KINDS``, on sync turns only) and
+    the turn's placements are gathered for the shared pool, which every
+    rank runs alike. Every rank returns the stacked run's results, bit for
+    bit, and its router ends with every frontend's state;
+    ``info["collectives"]`` counts the run's collectives by kind. The
+    router's device must be the mesh's.
 
     Returns ``(response_times, mu_trace, info)`` with ``run_fleet_simulation``'s
     info keys, the overflow counters and the graphs' records."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_fleet_workload_scan(mesh=...): the collective fleet over several devices "
-            "is not ported yet (ROADMAP queue A, A6b)")
     T, k = times_np.shape
     n, S = router.n, router.S
     if k % S != 0:
         raise ValueError(f"arrival_batch={k} must divide evenly over S={S} frontends on the "
                          "scan path")
+    if mesh is not None:
+        if not isinstance(mesh, fsync.FrontendMesh):
+            raise TypeError(f"mesh= takes a fleet.sync.FrontendMesh, not {type(mesh).__name__}")
+        mesh.rows(S)
+        mesh.check_device(router.frontends[0].q_view)
+        colls0 = mesh.counts.copy()
     kf = k // S
     frs = router.frontends
     if active_np is None and frs[0].active is not None:
@@ -1811,7 +1891,7 @@ def run_fleet_workload_scan(
             chunk_turns = auto_chunk_turns(T, k, n, churn=churn, burst_cap=burst_cap,
                                            faulty=faulty, pend_cap=pend_cap)
         step = max(int(chunk_turns), 1)
-        run = fleet_runner(cfg, str(router.device), min(step, T))
+        run = fleet_runner(cfg, str(router.device), min(step, T), mesh)
         replays0 = dict(run.replays)
         run.load(router, pool)
         for ci, s in enumerate(range(0, T, step)):
@@ -1840,7 +1920,7 @@ def run_fleet_workload_scan(
             "epochs": np.repeat(np.arange(T, dtype=np.int64) // sync_every, k),
             "sync_gaps": gaps.astype(np.int64) if S > 1 else np.zeros((0, S))}
     if run is not None:
-        c = run.carry
+        c = run.full_carry()
         info.update(flush_overflow=int(c["over_flush"].item()),
                     pend_overflow=int(c["over_pend"].item()),
                     longest_chain=int(c["chain_max"].item()))
@@ -1850,6 +1930,7 @@ def run_fleet_workload_scan(
             replays=sum(replays.values()),
             graphs={_pattern_label(p): dict(nodes=run.graph_nodes.get(p),
                                             kernels=dict(run.graph_kernels.get(p, {})),
+                                            collectives=run.collectives.get(p, {}),
                                             replays=replays[p]) for p in run.patterns})
         launches: dict[str, int] = {}
         for p in run.patterns:
@@ -1872,7 +1953,9 @@ def run_fleet_workload_scan(
                 windows_f.append(tail_f)
                 if obs_sink is not None:
                     obs_sink([tail])
-        _write_back_fleet(router, pool, run, active_np[-1] if churn else None)
+        _write_back_fleet(router, pool, c, active_np[-1] if churn else None)
+    if mesh is not None:
+        info["collectives"] = dict(mesh.counts - colls0)
     info["lam_hats"] = router.lam_hats
     if observe is not None:
         info["windows"] = windows
@@ -1890,10 +1973,10 @@ def _pattern_label(pattern) -> str:
     return ("sync" if sync else "no sync") + (" + rebuild" if rebuild else "")
 
 
-def _write_back_fleet(router: rt.FleetRouter, pool: rt.SimulatedPool, run: FleetRunner,
+def _write_back_fleet(router: rt.FleetRouter, pool: rt.SimulatedPool, c: dict,
                       active_last) -> None:
-    """The final carry back into the ``FleetRouter``'s frontends and the pool."""
-    c = run.carry
+    """The final carry (every frontend's rows) back into the ``FleetRouter``'s
+    frontends and the pool."""
     mu_pend = c["mu_pend"].cpu().numpy()
     for s, fr in enumerate(router.frontends):
         fr.q_view = c["q_view"][s].clone()
@@ -1934,14 +2017,12 @@ def run_fleet_simulation_scan(
 ):
     """Drop-in for ``run_fleet_simulation`` with every turn on the device
     (the same workload draws, so host and scan fleets see the same
-    arrivals); ``arrival_batch`` a multiple of S. Returns
-    ``(response_times, mu_trace, info)``."""
+    arrivals); ``arrival_batch`` a multiple of S; ``mesh`` as
+    ``run_fleet_workload_scan``'s. Returns ``(response_times, mu_trace,
+    info)``."""
     wl = _precompute_workload(arrival_rate, horizon, request_cost, speed_schedule, seed,
                               arrival_batch, pool.speeds)
     if wl is None:
-        if mesh is not None:
-            raise NotImplementedError("run_fleet_simulation_scan(mesh=...): ROADMAP queue A, "
-                                      "A6b")
         S = router.S
         return np.empty(0), np.zeros((0, router.n)), {
             "turns": 0, "flush_overflow": 0, "pend_overflow": 0,

@@ -1063,6 +1063,50 @@ def test_fleet_scan_on_the_card_equals_the_cpu_and_the_host_fleet_loop(dev, mode
                                                                    b.learner.mu_hat)
 
 
+@pytest.mark.parametrize("stream,sync_every,frozen",
+                         [("alias", 1, False), ("icdf", 1, False), ("alias", 4, True)])
+def test_mesh_fleet_scan_on_the_card_equals_the_stacked_scan(dev, tmp_path, stream, sync_every,
+                                                             frozen):
+    """The collective fleet on a one-rank NCCL mesh (a FileStore in a
+    temporary directory) at tests/test_torch_fleet_mesh.py's size (n = 4,
+    S = 4, batches of 8, 80 s): equal bit for bit to the stacked fleet scan
+    on the card, every turn a replay of a graph that holds the sync's
+    collectives; the sync kinds ran once a sync turn."""
+    from repro_torch.fleet import sync as fsync
+    from repro_torch.serving import router as tr
+    from repro_torch.serving import scanloop as tsl
+
+    speeds = np.array([0.25, 0.5, 1.0, 2.0])
+    kw = dict(arrival_rate=3.0, horizon=80.0, seed=1, arrival_batch=8, sync_every=sync_every,
+              frozen_mu=frozen)
+
+    def fleet():
+        return (tr.FleetRouter(4, 4, mu_bar=float(speeds.sum()), seed=0, async_mu=False,
+                               use_alias=stream == "alias", device=dev),
+                tr.SequentialPool(speeds))
+
+    rn, pn = fleet()
+    resp_n, mu_n, info_n = tsl.run_fleet_simulation_scan(rn, pn, **kw)
+    rm, pm = fleet()
+    with fsync.file_store_mesh(tmp_path / "store", 0, 1, dev, timeout_s=60) as mesh:
+        resp_m, mu_m, info = tsl.run_fleet_simulation_scan(rm, pm, mesh=mesh, **kw)
+        tsl.fleet_runner.cache_clear()
+    T = info["turns"]
+    assert info["replays"] == T == info_n["turns"] > 20
+    np.testing.assert_array_equal(resp_m, resp_n)
+    np.testing.assert_array_equal(mu_m, mu_n)
+    np.testing.assert_array_equal(pm.free_at, pn.free_at)
+    for key in ("workers", "epochs", "sync_gaps", "frontends", "lam_hats"):
+        np.testing.assert_array_equal(info[key], info_n[key], err_msg=key)
+    for a, b in zip(rm.frontends, rn.frontends):
+        assert torch.equal(a.q_view, b.q_view) and torch.equal(a.learner.mu_hat,
+                                                               b.learner.mu_hat)
+        assert a.key == b.key
+    for kind in fsync.SYNC_KINDS:
+        assert info["collectives"][kind] == -(-T // sync_every)
+    assert all(g["collectives"] for g in info["graphs"].values())
+
+
 @pytest.mark.parametrize("n,bc", [(1024, 4096), (64, 256)])
 def test_pool_turn_kernel_at_a_stream_burst_width(dev, n, bc):
     """The turn form at a churn stream's fixed burst width (n x probe_burst,

@@ -15,6 +15,7 @@ separate operations part from it by up to some hundred ulps in the CUSUM
 accumulators, near zero)."""
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import math
 
 import numpy as np

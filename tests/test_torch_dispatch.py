@@ -6,6 +6,7 @@ whatever the order and both ``make_cdf``s give the same bits; alias
 tables are the reference's, handed to both. Where a float reduction feeds
 a result from general inputs, the bar is a stated tolerance: XLA's CPU
 reductions sum in another order than torch's."""
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import os
 import subprocess
 import sys

@@ -11,6 +11,7 @@ step where the reference's two largest logits lie within ``NEAR_TIE``
 (f32 logits of the two packages differ by up to ~3e-6, so such a step
 could pick either token); the test names any such step.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import types
 
 import numpy as np

@@ -20,6 +20,7 @@ the learner's float sum parts the two (``EXACT_MU_TURNS``) and within
 (v) what is not ported yet raises and names its ROADMAP queue A item (the
 items ported since, A3, A4, A5 and A6, now run).
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import dataclasses
 
 import jax

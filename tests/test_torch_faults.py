@@ -6,28 +6,25 @@ tests/test_faults.py:
 
 (i) an inert ``RecoveryConfig`` is bit-exact to the plain paths, host and
 scan (``null``, ``churn``);
-(ii) host against scan on every fault scenario with recovery armed is
-tests/test_torch_faults_scan.py, and the fault columns without recovery
-with the retries' rescue tests/test_torch_faults_bare.py;
+(ii) the fault scenarios with recovery armed, host against scan and each
+against the reference (the port's host recovery loop against
+``repro.serving.recovery.run_workload_recovery``, the port's faulty scan
+against the reference's), are tests/test_torch_faults_scan.py, which makes
+each port run once for all three comparisons; the fault columns without
+recovery with the retries' rescue are tests/test_torch_faults_bare.py;
 (iii) the ledger conserves over random fault schedules and budgets;
 stalled completions never reach the learner; churn departures drain;
 pending overflow raises by default and ``pend_cap=None`` sizes itself;
-(iv) against the reference: the port's host recovery loop against
-``repro.serving.recovery.run_workload_recovery`` and the port's faulty
-scan against the reference's (under the ``ref_scan`` alias of
-``jax.experimental.enable_x64``, as in tests/test_torch_env.py), on both
-streams: responses and every ledger entry equal, μ̂ exact until the
-measured turn at which the learner's float sum parts the two
-(``EXACT_MU_TURNS``) and within ``MU_ULPS`` after; ``fault_report`` and
-``check_conservation`` equal on the same inputs. The other seven policies
-are held to the reference's host loop (its scan draws float64 threefry
-uniforms, ROADMAP queue C) and to the port's own host loop;
+(iv) against the reference: the other seven policies are held to the
+reference's host loop (its scan draws float64 threefry uniforms, ROADMAP
+queue C) and to the port's own host loop, responses and every ledger entry
+equal, μ̂ exact for the first turns and within ``MU_ULPS`` after;
+``fault_report`` and ``check_conservation`` equal on the same inputs;
 (v) the widened serve (``RosellaRouter.serve_turn_recovery``, the
 scheduler's ``m_route``/``slots``) and the queue-view edits against the
 reference's router.
 """
-import jax
-import jax.experimental
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch
@@ -49,10 +46,6 @@ RECOVERY = trcv.RecoveryConfig(**ARMED)
 REF_RECOVERY = jrcv.RecoveryConfig(**ARMED)
 FAULT_SCENARIOS = ["crash_storm", "blackout", "grey_failure"]
 MU_ULPS = 8  # the learner's float sum (test_torch_router)
-#: the turn at which the port parts from the reference in μ̂'s last bits
-#: (learner float sums), measured at seed 0 on all three fault scenarios,
-#: host against host and scan against scan; responses stay equal
-EXACT_MU_TURNS = {"alias": 8, "icdf": 10}
 
 
 def ulps(a, b) -> int:
@@ -100,15 +93,6 @@ def _same(a, b):
     assert torch.equal(a["router"].q_view, b["router"].q_view)
     assert a["router"].key == b["router"].key
     assert a["info"]["ledger"] == b["info"]["ledger"]
-
-
-@pytest.fixture
-def ref_scan(monkeypatch):
-    """The reference scan loop on jax 0.9, which has ``jax.enable_x64(True)``
-    where the reference imports ``jax.experimental.enable_x64``."""
-    monkeypatch.setattr(jax.experimental, "enable_x64",
-                        lambda: jax.enable_x64(True), raising=False)
-    return jenv
 
 
 # ---------------------------------------------------------------------------
@@ -280,48 +264,6 @@ def test_task_cap_and_telemetry_raise():
 # ---------------------------------------------------------------------------
 # (iv) against the reference
 # ---------------------------------------------------------------------------
-
-
-def _assert_reference_bars(ref, port, exact_turns):
-    """Responses (NaN = lost) and every ledger entry equal; μ̂ equal for
-    ``exact_turns`` turns, zero where the reference's is, within MU_ULPS."""
-    np.testing.assert_array_equal(port["responses"], ref["responses"])
-    assert port["info"]["ledger"] == ref["info"]["ledger"]
-    mu_r, mu_t = np.asarray(ref["mu_trace"]), port["mu_trace"]
-    assert mu_r.shape == mu_t.shape and len(mu_r) > exact_turns
-    first = next((i for i in range(len(mu_r)) if not np.array_equal(mu_r[i], mu_t[i])),
-                 len(mu_r))
-    assert first == exact_turns
-    np.testing.assert_array_equal(mu_r == 0, mu_t == 0)
-    assert ulps(mu_r, mu_t) <= MU_ULPS
-    np.testing.assert_array_equal(port["pool"].free_at, ref["pool"].free_at)
-    rep_r = jmet.fault_report(ref["responses"], ref["info"]["ledger"], horizon=360.0)
-    rep_t = tmet.fault_report(port["responses"], port["info"]["ledger"], horizon=360.0)
-    assert rep_r.keys() == rep_t.keys()
-    for key in rep_r:
-        assert rep_r[key] == rep_t[key] or (np.isnan(rep_r[key]) and np.isnan(rep_t[key])), key
-    assert (tmet.check_conservation(port["info"]["ledger"])
-            == jmet.check_conservation(ref["info"]["ledger"]) == (True, {
-                "tasks": 0, "real_copies": 0, "fakes": 0}))
-
-
-@pytest.mark.parametrize("use_alias", [True, False], ids=["alias", "icdf"])
-@pytest.mark.parametrize("name", FAULT_SCENARIOS)
-def test_host_recovery_loop_matches_the_reference(name, use_alias):
-    port = _run(name, use_scan=False, recovery=RECOVERY, use_alias=use_alias)
-    ref = _ref(name, use_alias=use_alias)
-    _assert_reference_bars(ref, port, EXACT_MU_TURNS["alias" if use_alias else "icdf"])
-
-
-@pytest.mark.parametrize("use_alias", [True, False], ids=["alias", "icdf"])
-@pytest.mark.parametrize("name", FAULT_SCENARIOS)
-def test_faulty_scan_matches_the_reference_scan(ref_scan, name, use_alias):
-    port = _run(name, use_scan=True, recovery=RECOVERY, use_alias=use_alias)
-    ref = ref_scan.run_scenario(ref_scan.make(name), use_scan=True, sequential_pool=True,
-                                arrival_batch=K, seed=0, recovery=REF_RECOVERY,
-                                use_alias=use_alias)
-    assert ref["info"]["pend_overflow"] == port["info"]["pend_overflow"] == 0
-    _assert_reference_bars(ref, port, EXACT_MU_TURNS["alias" if use_alias else "icdf"])
 
 
 @pytest.mark.parametrize("policy", [p for p in tpol.ALL_POLICIES if p != "ppot_sq2"])

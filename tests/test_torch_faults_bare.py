@@ -7,6 +7,7 @@ with recovery armed against the same scan without, which shares the first
 test's run (``shared_runs``): retries rescue all but a task of the crash
 losses, the ledger conserves.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 

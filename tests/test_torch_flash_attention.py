@@ -7,6 +7,7 @@ Inputs come from numpy with a seed. Tolerances are those of
 differ between XLA and torch), 2e-2 in bfloat16 (p and the output are
 rounded to bf16 at other points: the kernel's p is unnormalised, the
 oracle's normalised)."""
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -18,6 +18,7 @@ The bars:
     herd gain vector of ones equal to ``True``, a zeroed gain changing the
     routing.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch

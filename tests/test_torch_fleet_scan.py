@@ -22,6 +22,7 @@ ulps (within ``MU_ERR_ULPS`` here too), moves its detector baselines more
 (measured 2.9e-6 beyond ``DET_RTOL``·|x|); every alarm field is equal.
 (iii) What the fleet refuses, as the reference does.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import functools
 
 import jax
@@ -332,8 +333,8 @@ def test_fleet_stream_only_and_sink_see_the_same_windows():
 
 def test_fleet_refusals():
     """As the reference: the fleet needs the scan, a FleetRouter, no
-    recovery and S | k; ``mesh=`` names ROADMAP A6b; no card, no default
-    device."""
+    recovery and S | k; ``mesh=`` takes a ``fleet.sync.FrontendMesh``
+    (tests/test_torch_fleet_mesh.py runs it); no card, no default device."""
     scn = tenv.make("null", horizon=20.0)
     kw = dict(arrival_batch=K, n_frontends=2, device="cpu")
     with pytest.raises(ValueError, match="use_scan=True"):
@@ -350,7 +351,7 @@ def test_fleet_refusals():
         tsl.run_fleet_simulation_scan(r, p, arrival_rate=3.0, horizon=20.0, seed=0,
                                       arrival_batch=8)
     r, p = _fleet(2)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    with pytest.raises(TypeError, match="FrontendMesh"):
         tsl.run_fleet_simulation_scan(r, p, mesh=object(), **KW)
     resp, mu, info = tsl.run_fleet_simulation_scan(r, p, arrival_rate=3.0, horizon=0.0,
                                                    seed=0, arrival_batch=4)

@@ -7,6 +7,7 @@ window parameters (f32 scalar arithmetic, one IEEE operation at a time on
 both sides). Within a stated
 tolerance: μ̂ from ``refresh_estimates``, whose per-worker sample mean is
 a float reduction that XLA orders differently from torch."""
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import dataclasses
 
 import jax

@@ -25,6 +25,7 @@ integer and float operations in the same order.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import dataclasses
 import math
 from types import SimpleNamespace

@@ -28,6 +28,7 @@ the parity class of tests/test_torch_scanloop.py:
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import dataclasses
 import math
 

@@ -13,6 +13,7 @@ files are collected.
 Tolerance of the logits: atol = rtol = 2e-5 (f32; matmul reduction order,
 rsqrt and sin/cos differ by ulps between XLA and torch; measured up to
 3e-6 on logits of size ~3)."""
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import contextlib
 import dataclasses
 import sys

@@ -40,6 +40,7 @@ at most 1 ulp apart, ``mu_err_sum`` at most 8.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import json
 import math
 

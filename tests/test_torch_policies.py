@@ -21,6 +21,7 @@ Exact wherever both sides see the same CDF or alias table: μ̂ sits on a
 order) or the reference's table is handed to both. μ̂ after a learner
 refresh is a float sum that XLA orders differently: within MU_ULPS.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import itertools
 
 import jax

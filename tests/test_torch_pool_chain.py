@@ -15,6 +15,7 @@ CPU path of ``kernel.pool_turn``) against the reference's assembly plus
 
 NaN compares equal to NaN at the same place; everything else is exact.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ The CUDA kernels themselves are held to these plain versions on the card
 Both sides get the same inputs, made by numpy from a seed: the same cdf or
 alias table, the same queue and the same uniforms. The work is compares,
 gathers and integer counts, so every comparison is exact."""
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

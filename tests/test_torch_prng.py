@@ -1,5 +1,6 @@
 """The port's key stream against jax.random and the reference's counter-hash
 uniforms: integer-only work, so every comparison is exact."""
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import jax
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ benchmark draws, the routed workers and the queue view are exact; the
 learner rings are exact; μ̂ is within the learner's stated ulps.
 (ii) Free-running: both from the same seed, with nothing shared.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ turns and within MU_ULPS after, the bars of ``test_torch_router.py``;
 (iv) chunked equal to unchunked, ``auto_chunk_turns`` equal to the
 reference's, and churn placements only on active replicas.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import jax
 import jax.experimental
 import jax.numpy as jnp

@@ -16,6 +16,7 @@ Parity classes:
     f32 leaves built by the same operations; the default μ̄ sums left to
     right, which is XLA's order for n <= 32).
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import dataclasses
 
 import jax

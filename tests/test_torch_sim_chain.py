@@ -25,6 +25,7 @@ Parity classes:
   * Fig. 8's smoke statistics through ``analyze``: job and censored counts
     equal, mean / p50 / p95 within REL_TOL.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import dataclasses
 
 import jax

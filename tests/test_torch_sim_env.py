@@ -34,6 +34,7 @@ Parity classes:
   * the reference's own assertions on the port: churn masks placements,
     the MMPP's burst rate, crash_storm kills jobs and churn none.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import dataclasses
 
 import jax

@@ -31,6 +31,7 @@ Parity classes (as tests/test_torch_sim_env.py's):
     ``fleet_summary_from_trace`` against the reference's function on the
     same trace: integers equal, floats within 1e-12.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import dataclasses
 
 import jax

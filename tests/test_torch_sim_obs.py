@@ -43,6 +43,7 @@ the window's sum as one fused multiply-add, q_sum + Σq·(1/n); under an
 active mask it divides (Σq / #active) and adds: ``q_sum`` is exact in
 both forms.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import dataclasses
 
 import jax

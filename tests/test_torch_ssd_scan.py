@@ -12,6 +12,7 @@ float32 and 5e-2 in bfloat16 against the oracle and the Pallas kernel,
 
 ``repro.models`` imports only on jax 0.9 with the shim of
 ``tests/test_torch_model.py``, applied inside the ``ref`` fixture."""
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import types
 
 import jax.numpy as jnp

@@ -13,6 +13,7 @@ fixture (see tests/test_torch_model.py).
 Tolerance: atol = rtol = 2e-5 on logits and states, the dense family's
 bar (f32; matmul reduction order, exp, softplus and rsqrt differ by ulps
 between XLA and torch)."""
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import types
 
 import numpy as np

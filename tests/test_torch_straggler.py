@@ -9,6 +9,7 @@ copies, must equal the reference's jnp twin on random, tied and masked μ̂
 nothing for m = 0. The last two
 tests mirror tests/test_router_and_straggler.py.
 """
+import torch_threads  # noqa: F401  (one torch thread a test worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -57,6 +57,13 @@ on the card. Then it drives the port's two paths:
     SSD-scan launch per layer) and served by four engines behind the
     router, and a full-width hymba-1.5b prefilled at B=2, S=4096 (one
     flash-attention and one SSD-scan launch per layer);
+  * the MoE, VLM and encoder-decoder families: moonshot-v1-16b-a3b at its
+    published widths, 8 layers deep, prefilled at B=4, S=4096 (one
+    flash-attention launch per layer at head dim 128) and served by four
+    engines behind the router, each row's experts routed alone (held to a
+    one-slot engine); the expert routers at benchmarks/moe_balance.py's
+    settings; phi3.5-moe, pixtral-12b and whisper-medium prefilled and
+    decoded at their published widths; one decode with the int8 cache;
 
 and times each kernel. Every phase is a hard failure: the script exits
 non-zero and prints no result line. The last line of standard output is
@@ -234,8 +241,13 @@ POLICY_HORIZON = 180.0
 # at these cells before the telemetry fold (OBS_NODES_BEFORE, measured on the
 # H100). Then the reference's detection pins on
 # the card's scan at the scenario's own size (n = 5, batches of 8, 360 s)
+# OBS_HORIZON cuts depth only: crash_storm (crashes from the start) runs 180 s
+# of its clock on the capacities of its 360 s [faults] cell; churn keeps
+# [scenario]'s 270 s (at 180 s its replica would not rejoin, and its turn
+# would capture one node fewer than the pinned OBS_NODES_BEFORE)
 OBS_WINDOW = 16
 OBS_CHUNK = 37
+OBS_HORIZON = {"churn": SCENARIO_HORIZON, "crash_storm": 180.0}
 OBS_NODES_BEFORE = {"churn": 866, "crash_storm": 1355}
 OBS_PIN_BATCH = 8
 # [fleet]: the frontend fleet (serving.router.FleetRouter, run_fleet_simulation,
@@ -354,6 +366,55 @@ SSM_PREFILL_TOL = 0.5
 SSM_PREFILL_F32_TOL = 5e-4
 SSM_SERVE_REQUESTS = 32
 SSM_REUSE_CHECKS = 4
+# the MoE family (ROADMAP A10a): moonshot-v1-16b-a3b at its published widths
+# (d 2048, 16 heads of 128, 64 experts top-6, 2 shared, moe_dff 1408, vocab
+# 163840), depth cut to MOE_LAYERS (its dense first layer and 7 MoE layers,
+# ~9.7 GB of bf16 parameters), prefilled at B=4, S=4096 (one K4 launch a
+# layer at D = 128), its f32 twin at MOE_F32_LAYERS; then served by four
+# engines behind the router, MOE_SERVE_REQUESTS requests; the per-row check
+# holds MOE_ROW_CHECKS requests to a one-slot engine
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS, MOE_F32_LAYERS = 8, 2
+MOE_B, MOE_S = 4, 4096
+# last-position logits of the bf16 kernel path against the bf16 plain path on
+# the kernel path's expert routes (moe.RouteTape), here and for [prefill zoo]:
+# bf16 rounding at other points in every layer. Every run prints the floor
+# (the plain path against itself at attention chunks of 256) beside it. Each
+# arch has its own bar, twice the larger of its reading and its floor, both
+# measured on an H100 and the same in every run: moonshot 0.2188 against a
+# floor of 0.25 at |logit| up to 4.84 (16 bf16 ulps there), phi3.5-moe 0.0469
+# against 0.0391, pixtral 0.0703 against 0.0781; whisper runs no K4 (1500
+# frames, 448 positions: below the chunked path's 2048), so its two paths
+# run the same operations and read 0 (bar: 4 bf16 ulps at |logit| 2..4).
+# Free-running, one token whose gates the two roundings part takes another
+# expert and an overflowing expert then drops other tokens: the plain path
+# against itself at chunks of 256 read 3.39 on moonshot's last logits, so
+# that difference is printed, not held. bf16 logits tie exactly (1/32 apart
+# at 4..8, 163840 of them), so a last-position argmax of 4 rows is printed,
+# not held. These bars catch a model-level fault; K4's bf16 body at each of
+# these shapes is held elementwise by [flash] (its prefill-shape cases)
+MOE_PREFILL_TOL = {MOE_ARCH: 0.5, "phi3.5-moe-42b-a6.6b": 0.1, "pixtral-12b": 0.16,
+                   "whisper-medium": 0.0625}
+# the f32 twin's logits at every position on the kernel path's routes
+# (measured 3.5e-5 on an H100, mean |logit| 0.80), and the share of
+# positions whose argmax agrees
+MOE_F32_TOL = 2e-4
+MOE_F32_AGREE = 0.999
+MOE_SERVE_REQUESTS = 32
+MOE_ROW_CHECKS = 4
+# the per-row check in f32: a one-slot run's step whose two largest logits
+# lie this close may pick either token once a 4-row step's rounding (f32,
+# ~1e-5 of logits near 1) moves them
+MOE_NEAR_TIE_F32 = 1e-3
+# benchmarks/moe_balance.py's settings
+MOE_BALANCE = dict(T=8192, E=64, k=6, seed=0)
+# [prefill zoo]: (arch, layers (None: full depth), B, S) at published widths;
+# pixtral's prefix holds its 1024 patch embeddings, whisper's encoder its
+# 1500 frames (the decoder's 448 positions are whisper's own limit)
+ZOO = (("phi3.5-moe-42b-a6.6b", 2, 4, 4096), ("pixtral-12b", 4, 2, 4096),
+       ("whisper-medium", None, 4, 448))
+ZOO_STEPS = 4
+KVQ_TOKENS = 16
 
 
 class SmokeFailure(Exception):
@@ -1789,14 +1850,14 @@ def phase_obs(torch, tr, tsl, tenv, trcv, K, CK, speeds, dev, card, scenarios, f
     rate = LOAD * float(speeds.sum())
     print(f"[obs] {card}; n={N_REPLICAS} (tpch_speed_set, sum {speeds.sum():.2f}), rate "
           f"{rate:.3f}/s, batches of {BATCH}, alias, async_mu=False, seed {SEED}, windows of "
-          f"{OBS_WINDOW} turns, SequentialPool; churn over {SCENARIO_HORIZON} s, crash_storm "
-          f"over {FAULT_HORIZON} s with recovery {json.dumps(FAULT_RECOVERY)}")
+          f"{OBS_WINDOW} turns, SequentialPool; churn over {OBS_HORIZON['churn']} s, "
+          f"crash_storm over {OBS_HORIZON['crash_storm']} s with recovery "
+          f"{json.dumps(FAULT_RECOVERY)}")
     cells, total = {}, {w: 0 for w in PROFILE_NAMES}
     for name, rc, src in (("churn", None, scenarios["cells"]["churn"]),
                           ("crash_storm", trcv.RecoveryConfig(**FAULT_RECOVERY),
                            faults["cells"]["crash_storm alias"])):
-        scn = tenv.make(name, speeds=tuple(speeds), rate=rate,
-                        horizon=FAULT_HORIZON if rc is not None else SCENARIO_HORIZON)
+        scn = tenv.make(name, speeds=tuple(speeds), rate=rate, horizon=OBS_HORIZON[name])
         caps = dict(pend_cap=src["pend_cap"], comp_cap=src["comp_cap"])
         need(src["graph_nodes"] == OBS_NODES_BEFORE[name], f"[obs {name}] the "
              f"{'[faults]' if rc else '[scenario]'} cell captured {src['graph_nodes']} nodes, "
@@ -4021,8 +4082,9 @@ def phase_flash(torch, FK, FO, FR, dev):
     """K4 against its plain version on the card: the shapes of
     tests/test_kernels.py in f32 and bf16, the decode offset, a window
     whose late rows see no key, GQA through ``ops``, and the prefill
-    shapes of smollm-360m and of hymba-1.5b (window 1024, 25/5 heads).
-    Returns the largest error."""
+    shapes of smollm-360m, of hymba-1.5b (window 1024, 25/5 heads) and,
+    at D = 128, of moonshot, phi3.5-moe and pixtral. Returns the largest
+    error."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rand(*shape, dtype):
@@ -4056,14 +4118,21 @@ def phase_flash(torch, FK, FO, FR, dev):
         cases.append((f"ops strided views B=1 S=333 H=8 Hkv=2 D=32 window=50", dt, "ops",
                       (qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]),
                       dict(causal=True, window=50, q_offset=0)))
-    # the prefill shapes: smollm-360m's, and hymba-1.5b's windowed attention
-    for label, B, S, H, Hkv, window in (("prefill", PREFILL_B, PREFILL_S, 15, 5, 0),
-                                        ("prefill B=1", 1, 2048, 15, 5, 0),
-                                        ("hymba prefill", HYMBA_B, HYMBA_S, 25, 5, 1024)):
+    # the prefill shapes in bf16, the body the served models run: smollm-360m's,
+    # hymba-1.5b's windowed attention, and at D = 128 (the 64-key tile)
+    # moonshot's, phi3.5-moe's and pixtral's (ZOO)
+    zoo_b = {arch: B for arch, _layers, B, _S in ZOO}
+    for label, B, S, H, Hkv, D, window in (
+            ("prefill", PREFILL_B, PREFILL_S, 15, 5, 64, 0),
+            ("prefill B=1", 1, 2048, 15, 5, 64, 0),
+            ("hymba prefill", HYMBA_B, HYMBA_S, 25, 5, 64, 1024),
+            (f"{MOE_ARCH} prefill", MOE_B, MOE_S, 16, 16, 128, 0),
+            ("phi3.5-moe prefill", zoo_b["phi3.5-moe-42b-a6.6b"], 4096, 32, 8, 128, 0),
+            ("pixtral prefill", zoo_b["pixtral-12b"], 4096, 32, 8, 128, 0)):
         bf = torch.bfloat16
-        cases.append((f"ops {label} shape B={B} S={S} H={H} Hkv={Hkv} D=64 window={window}",
-                      bf, "ops", (rand(B, S, H, 64, dtype=bf), rand(B, S, Hkv, 64, dtype=bf),
-                                  rand(B, S, Hkv, 64, dtype=bf)),
+        cases.append((f"ops {label} shape B={B} S={S} H={H} Hkv={Hkv} D={D} window={window}",
+                      bf, "ops", (rand(B, S, H, D, dtype=bf), rand(B, S, Hkv, D, dtype=bf),
+                                  rand(B, S, Hkv, D, dtype=bf)),
                       dict(causal=True, window=window, q_offset=0)))
     worst = worst_row = 0.0
     for name, dt, route, (q, k, v), kw in cases:
@@ -4692,6 +4761,498 @@ def phase_ssm_profile(torch, cfg, model, dev, steps: int = 10):
 
 
 # ---------------------------------------------------------------------------
+# the model zoo's MoE, VLM and encoder-decoder families (ROADMAP A10a)
+# ---------------------------------------------------------------------------
+
+
+def load_summary(stats: "list[dict]") -> dict:
+    """The MoE line's numbers over a prefill's layers (``RouteTape.stats``)."""
+    stats = [{k: float(v) for k, v in s.items()} for s in stats]
+    return dict(layers=len(stats), capacity=stats[0]["capacity"],
+                max_load=max(s["max_load"] for s in stats),
+                mean_load=float(np.mean([s["mean_load"] for s in stats])),
+                overflow_frac=float(np.mean([s["overflow_frac"] for s in stats])),
+                overflow_max=max(s["overflow_frac"] for s in stats))
+
+
+def zoo_inputs(torch, cfg, B: int, S: int, dev, seed: int = SEED) -> dict:
+    """A prefill batch from the seed: tokens, and the stub frontends'
+    embeddings (pixtral's patches, whisper's frames) as N(0, 1) bf16."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)}
+    if cfg.family == "vlm":
+        b["patch_embeds"] = torch.randn(B, cfg.n_patches, cfg.d_model, generator=gen,
+                                        device=dev).to(torch.bfloat16)
+    if cfg.family == "encdec":
+        b["frame_embeds"] = torch.randn(B, cfg.enc_len, cfg.d_model, generator=gen,
+                                        device=dev).to(torch.bfloat16)
+    return b
+
+
+def zoo_prefill(torch, FK, dev, cfg, model, batch, tag: str, want_flash: int) -> dict:
+    """One prefill through ``api.prefill`` with the K4 launches counted (and
+    an MoE model's routes taped, ``moe.RouteTape``), timed (host clock, 5
+    calls), its last-position logits against the plain paths on the card
+    on the same routes, and the floor of that check: the plain path against
+    itself with attention chunks of 256 instead of 512 (the same function
+    rounded otherwise). Also the plain path on its own routes (``free``)
+    and how many tokens' routes it changed."""
+    import dataclasses
+
+    from repro_torch.models import api
+    from repro_torch.models import moe as MOE
+
+    B, S = batch["tokens"].shape
+    tape = MOE.RouteTape()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FK.reset_launches()
+    with tape.recording():
+        logits = api.prefill(cfg, model, batch)
+        torch.cuda.synchronize()
+    flash = FK.launch_counts()["flash_attention_fwd"]
+    peak = torch.cuda.max_memory_allocated()
+    need(flash == want_flash, f"{tag} {flash} flash-attention launches, expected {want_flash}")
+    need(logits.shape == (B, 1, cfg.vocab) and logits.dtype == torch.bfloat16,
+         f"{tag} logits {logits.dtype}{list(logits.shape)}")
+    need(bool(torch.isfinite(logits).all()), f"{tag} non-finite logits")
+    ms = host_median_ms(torch, lambda: api.prefill(cfg, model, batch), reps=5)
+    with api.plain_paths():
+        with tape.replaying():
+            plain = api.prefill(cfg, model, batch)
+        flips = tape.flips
+        with tape.replaying():
+            plain256 = api.prefill(dataclasses.replace(cfg, attn_chunk=256), model, batch)
+        free = api.prefill(cfg, model, batch)
+        torch.cuda.synchronize()
+    err = (logits.float() - plain.float()).abs().max().item()
+    floor = (plain256.float() - plain.float()).abs().max().item()
+    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    agree_floor = (plain256.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    out = dict(flash_launches=flash, ms=ms, tok_s=B * S / (ms / 1e3), peak=peak, err=err,
+               floor=floor, agree=agree, agree_floor=agree_floor,
+               logit_max=logits.float().abs().max().item())
+    if tape.stats:
+        out["moe"] = load_summary(tape.stats)
+        out.update(route_flips=flips, free_err=(logits.float() - free.float()).abs().max().item(),
+                   free_agree=(logits.argmax(-1) == free.argmax(-1)).float().mean().item())
+    return out, logits
+
+
+def zoo_greedy_steps(torch, cfg, model, batch, steps: int, enc_out=None) -> dict:
+    """``steps`` greedy ``decode_fn`` steps from an empty cache, from the
+    prompt's first token, each row routed alone (the engine's decode): ms a
+    step (host clock) and finite logits."""
+    from repro_torch.models import api
+
+    B = batch["tokens"].shape[0]
+    cache = api.init_cache(cfg, B, steps + 1, batch["tokens"].device)
+    tok = batch["tokens"][:, :1]
+    ts = []
+    for t in range(steps):
+        b = {"tokens": tok, "pos": t}
+        if enc_out is not None:
+            b["enc_out"] = enc_out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.decode_fn(cfg, model, b, cache, per_row=True)
+        tok = torch.argmax(logits[:, -1:], -1)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+        need(bool(torch.isfinite(logits).all()), f"[decode {cfg.arch}] non-finite logits at "
+             f"step {t}")
+    return dict(steps=steps, step_ms=float(np.median(ts[1:] if steps > 1 else ts)))
+
+
+def phase_moe_prefill(torch, FK, dev):
+    """moonshot-v1-16b-a3b at its published widths, MOE_LAYERS deep: a
+    prefill at B=4, S=4096 through ``api.prefill``, one K4 launch a layer
+    at D = 128, held against the plain paths; the MoE line (expert loads of
+    every MoE layer, the capacity, the overflow); then the same model in
+    f32 at MOE_F32_LAYERS, its hidden states at every position and its
+    last-position logits against the plain paths."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MOE
+
+    cfg = configs.get_config(MOE_ARCH, n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch = zoo_inputs(torch, cfg, MOE_B, MOE_S, dev)
+    tag = f"[prefill {MOE_ARCH}]"
+    out, logits = zoo_prefill(torch, FK, dev, cfg, model, batch, tag, cfg.n_layers)
+    m = out["moe"]
+    need(m["layers"] == cfg.n_layers - cfg.first_k_dense, f"{tag} {m['layers']} MoE layers ran")
+    print(f"{tag} published widths (d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"D={cfg.d_head} experts {cfg.n_experts} top-{cfg.top_k} shared {cfg.n_shared} "
+          f"moe_dff {cfg.moe_dff} V={cfg.vocab}, bf16), depth cut to {cfg.n_layers} "
+          f"({cfg.first_k_dense} dense + {cfg.n_layers - cfg.first_k_dense} MoE), "
+          f"{nbytes / 1e9:.3f} GB of parameters (init {init_s:.2f} s), B={MOE_B} S={MOE_S}: "
+          f"flash launches {out['flash_launches']} (D={cfg.d_head}), {out['ms']:.3f} ms per "
+          f"prefill ({out['tok_s']:.1f} tokens/s), peak memory {out['peak'] / 2**30:.3f} GiB; "
+          f"last-position logits vs the plain path on the kernel path's expert routes: max "
+          f"abs err {out['err']:.4f} (tol {MOE_PREFILL_TOL[MOE_ARCH]}, |logit| max "
+          f"{out['logit_max']:.3f}; the plain path against itself at attention chunks of "
+          f"256: {out['floor']:.4f}), argmax agreement {out['agree']:.2f} (the plain path at "
+          f"chunks of 256: {out['agree_floor']:.2f}); the plain path on its own routes "
+          f"(routes of {out['route_flips']} of {MOE_B * MOE_S} tokens differ in some layer): "
+          f"max abs err {out['free_err']:.4f}, argmax agreement {out['free_agree']:.2f}")
+    print(f"[moe {MOE_ARCH}] prefill's {m['layers']} MoE layers, {MOE_B * MOE_S} tokens, "
+          f"top-{cfg.top_k} of {cfg.n_experts}: capacity {m['capacity']} a layer, max expert "
+          f"load {m['max_load']:.0f}, mean {m['mean_load']:.1f}, overflow fraction "
+          f"{m['overflow_frac']:.6f} (mean over the layers; largest {m['overflow_max']:.6f})")
+    need(out["err"] <= MOE_PREFILL_TOL[MOE_ARCH], f"{tag} logits differ from the plain path "
+         f"by {out['err']} (tol {MOE_PREFILL_TOL[MOE_ARCH]})")
+    del logits
+
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS, dtype="float32",
+                                param_dtype="float32")
+    model32 = api.init_params(cfg32, SEED, dev)
+    toks = batch["tokens"]
+    tape = MOE.RouteTape()
+
+    @torch.no_grad()
+    def hidden():
+        return LM.forward(cfg32, model32, toks)
+
+    FK.reset_launches()
+    with tape.recording():
+        got_h = hidden()
+        torch.cuda.synchronize()
+    need(FK.launch_counts()["flash_attention_fwd"] == cfg32.n_layers,
+         f"{tag} the f32 model did not go through the kernel in every layer")
+    with api.plain_paths(), tape.replaying():
+        want_h = hidden()
+        torch.cuda.synchronize()
+    err_h = (got_h - want_h).abs().max().item()
+    # logits at every position, a batch row at a time ([S, V] f32 is 2.7 GB)
+    err_l, same, mean_l = 0.0, 0, 0.0
+    with torch.no_grad():
+        for b in range(MOE_B):
+            gl = LM.logits_head(cfg32, model32, got_h[b])
+            wl = LM.logits_head(cfg32, model32, want_h[b])
+            err_l = max(err_l, (gl - wl).abs().max().item())
+            same += int((gl.argmax(-1) == wl.argmax(-1)).sum())
+            mean_l += wl.abs().mean().item() / MOE_B
+            del gl, wl
+    agree = same / (MOE_B * MOE_S)
+    out.update(err_f32_hidden=err_h, err_f32_logits=err_l, agree_f32=agree,
+               f32_route_flips=tape.flips, init_s=init_s, param_bytes=nbytes)
+    print(f"{tag} f32 model at {cfg32.n_layers} layers vs the plain path on the kernel path's "
+          f"routes: hidden states at all {MOE_B}x{MOE_S} positions max abs err {err_h:.3e}, "
+          f"logits at all positions max abs err {err_l:.3e} (tol {MOE_F32_TOL}, mean |logit| "
+          f"{mean_l:.3f}), argmax agreement {agree:.6f} (bar {MOE_F32_AGREE}); the plain "
+          f"path's own routes differ in {tape.flips} tokens")
+    need(math.isfinite(err_h) and err_l <= MOE_F32_TOL, f"{tag} f32 logits differ from the "
+         f"plain path by {err_l} (tol {MOE_F32_TOL})")
+    need(agree >= MOE_F32_AGREE, f"{tag} f32 argmax agreement {agree} (bar {MOE_F32_AGREE})")
+    del got_h, want_h, model32
+    torch.cuda.empty_cache()
+    return cfg, model, out
+
+
+def moe_recording_engine_class(Engine):
+    base = recording_engine_class(Engine)
+
+    class MoeRecordingEngine(base):
+        """A recording engine that also keeps, per request, its logits at
+        each generated token and the fewest other requests active beside
+        it at any of its decode steps."""
+
+        def step(self):
+            act = [i for i in range(self.n_slots) if self.active[i]]
+            rids = {i: self.slots[i].rid for i in act}
+            done = super().step()
+            if self.last_logits is not None:
+                for i in act:
+                    rec = self.log[rids[i]]
+                    rec.setdefault("logits", []).append(self.last_logits[i, -1].float().cpu())
+                    rec["company"] = min(rec.get("company", self.n_slots), len(act) - 1)
+            return done
+    return MoeRecordingEngine
+
+
+def solo_tokens(torch, Engine, cfg, model, prompt, n_new: int) -> dict:
+    """One request decoded alone in a one-slot engine: its record (tokens,
+    logits at each generated token)."""
+    alone = Engine(cfg, model, n_slots=1, max_len=256)
+    alone.try_admit_batch([(0, prompt, n_new)])
+    while alone.active.any():
+        alone.step()
+    return alone.log[0]
+
+
+def rows_against_solo(torch, Engine, cfg, model, recs, n_new: int) -> dict:
+    """Each (rid, record) of a request decoded beside others, against the
+    same request alone in a one-slot engine: equal in every token, or the
+    first step where the two part with the one-slot run's top-2 logit gap
+    and the two runs' largest logit difference there; the largest logit
+    difference over the steps both runs share."""
+    equal, parted, diffs = [], [], []
+    for rid, rec in recs:
+        solo = solo_tokens(torch, Engine, cfg, model, rec["prompt"], n_new)
+        for i, (g, w) in enumerate(zip(rec["tokens"], solo["tokens"])):
+            d = float((rec["logits"][i] - solo["logits"][i]).abs().max())
+            diffs.append(d)
+            if g != w:
+                gap = float(torch.topk(solo["logits"][i], 2).values.diff().abs())
+                parted.append((rid, i, gap, d))
+                break
+        else:
+            equal.append(rid)
+    return dict(equal=equal, parted=parted, logit_diff_max=max(diffs))
+
+
+def phase_moe_serve(torch, cfg, model, dev, K):
+    """Four moonshot engines behind the router (``_run_engine_executor``):
+    every request completes, μ̂ ranks the replicas, and the router launched
+    K1 and ``alias_table`` (counted from its construction); served requests
+    against each alone in a one-slot engine (bf16: a 4-row step and a 1-row
+    step round their products otherwise, so greedy tokens may part at a
+    near-tie; reported). Then the per-row routing check in f32 (the model
+    at MOE_F32_LAYERS, published widths): 2 x 4 requests decoded in a full
+    4-slot engine, each against itself alone in a one-slot engine, equal
+    token for token but where the one-slot run's two largest logits lie
+    within MOE_NEAR_TIE_F32, at least MOE_ROW_CHECKS of them in every
+    token; and one joint decode step (``decode_fn`` without ``per_row``:
+    the rows share the experts' capacity) against the per-row step."""
+    import dataclasses
+    import types
+
+    from repro_torch.launch import serve as S
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.router import RosellaRouter
+
+    tag = f"[serve {cfg.arch}]"
+    Engine = moe_recording_engine_class(ContinuousBatchingEngine)
+    engines = [Engine(cfg, model, n_slots=4, max_len=256) for _ in SERVE_SLOWDOWNS]
+    rates = S.engine_rates(engines, SERVE_SLOWDOWNS, SERVE_NEW)
+    # the router's launches from its construction on: its alias table is
+    # built there, and a refreshed μ̂ is adopted (the table rebuilt) only at
+    # the next route; the executor routes all requests before the first
+    # completes, so the run's own launches are its K1 routes
+    torch.cuda.synchronize()
+    K.reset_launches()
+    router = RosellaRouter(len(engines), float(sum(rates)), seed=SEED, device=dev)
+    args = types.SimpleNamespace(requests=MOE_SERVE_REQUESTS, arrival_batch=SERVE_BATCH,
+                                 n_new=SERVE_NEW)
+    t0 = time.perf_counter()
+    lat = S._run_engine_executor(args, cfg, engines, list(SERVE_SLOWDOWNS), router,
+                                 np.random.RandomState(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    for name in ("ppot_dispatch_fused_alias", "alias_table"):
+        need(launches[name] > 0, f"{tag} the router launched {name} no time "
+             f"(launches {launches})")
+    need(len(lat) == MOE_SERVE_REQUESTS, f"{tag} {len(lat)} of {MOE_SERVE_REQUESTS} completed")
+    need(not any(e.active.any() for e in engines), f"{tag} a slot is still active")
+    mu = router.mu_hat
+    need(min(mu[0], mu[3]) > mu[2], f"{tag} μ̂ {mu} does not rank the 1x replicas above the "
+         f"5x one")
+    served = sorted(((rec["company"], rid, rec) for e in engines for rid, rec in e.log.items()
+                     if rid >= 0), key=lambda t: (-t[0], t[1]))
+    shared = [(rid, rec) for comp, rid, rec in served if comp >= 1]
+    bf16 = rows_against_solo(torch, Engine, cfg, model, shared[:2 * MOE_ROW_CHECKS], SERVE_NEW)
+    tok_s = MOE_SERVE_REQUESTS * SERVE_NEW / wall
+    out = dict(n=len(lat), mean_ms=lat.mean() * 1e3, p95_ms=np.percentile(lat, 95) * 1e3,
+               tok_s=tok_s, mu=mu.tolist(), shared=len(shared), bf16_solo=bf16,
+               launches=launches)
+    print(f"{tag} {len(engines)} engines (slowdowns {list(SERVE_SLOWDOWNS)}, 4 slots, max_len "
+          f"256, {cfg.n_layers} layers, bf16) behind RosellaRouter (ppot_sq2): {len(lat)} "
+          f"requests in {wall:.3f} s, router launches {launches}, latency mean "
+          f"{out['mean_ms']:.3f} ms p95 "
+          f"{out['p95_ms']:.3f} ms, decode {tok_s:.1f} tokens/s; μ̂ "
+          f"{[round(float(x), 3) for x in mu]} vs true speeds "
+          f"{[round(1.0 / s, 3) for s in SERVE_SLOWDOWNS]}; {len(shared)} requests decoded "
+          f"beside others at every step, {len(bf16['equal']) + len(bf16['parted'])} of them "
+          f"against a one-slot engine: {len(bf16['equal'])} equal in all {SERVE_NEW} tokens, "
+          f"parted (rid, step, one-slot top-2 gap, logit difference) {bf16['parted']}, logits "
+          f"apart by at most {bf16['logit_diff_max']:.4f}")
+
+    # the per-row check, in f32
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS, dtype="float32",
+                                param_dtype="float32")
+    model32 = api.init_params(cfg32, SEED, dev)
+    rng = np.random.RandomState(SEED + 1)
+    recs = []
+    for b in range(2):
+        full = Engine(cfg32, model32, n_slots=4, max_len=256)
+        reqs = [(4 * b + i, rng.randint(1, cfg.vocab, size=4 + i), SERVE_NEW) for i in range(4)]
+        need(all(full.try_admit_batch(reqs)), f"{tag} the f32 engine refused a request")
+        while full.active.any():
+            full.step()
+        recs += [(rid, full.log[rid]) for rid, _p, _n in reqs]
+    need(all(rec["company"] == 3 for _rid, rec in recs), f"{tag} an f32 request was decoded "
+         f"beside fewer than 3 others")
+    f32 = rows_against_solo(torch, Engine, cfg32, model32, recs, SERVE_NEW)
+    for rid, i, gap, d in f32["parted"]:
+        need(gap < MOE_NEAR_TIE_F32, f"{tag} f32 request {rid} decoded beside 3 others parts "
+             f"from its one-slot run at step {i}, top-2 gap {gap} (near-tie bar "
+             f"{MOE_NEAR_TIE_F32}): its experts were not routed as alone")
+    need(len(f32["equal"]) >= MOE_ROW_CHECKS, f"{tag} only {len(f32['equal'])} f32 requests "
+         f"equal to their one-slot runs")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(1, cfg.vocab, (4, 1), generator=gen, device=dev)
+    cache = api.init_cache(cfg32, 4, 8, dev)
+    per_row, _ = api.decode_fn(cfg32, model32, {"tokens": toks, "pos": 0}, cache, per_row=True)
+    joint, _ = api.decode_fn(cfg32, model32, {"tokens": toks, "pos": 0}, cache)
+    moved = (per_row - joint).abs().max().item()
+    out.update(f32_rows=f32, joint_moved=moved)
+    print(f"{tag} per-row routing, f32 at {cfg32.n_layers} layers: {len(recs)} requests decoded "
+          f"in full 4-slot engines, each against itself alone in a one-slot engine: "
+          f"{len(f32['equal'])} equal in all {SERVE_NEW} tokens, parted at near-ties "
+          f"{f32['parted']} (bar {MOE_NEAR_TIE_F32}), logits apart by at most "
+          f"{f32['logit_diff_max']:.3e}; a joint decode step (the 4 rows sharing the experts' "
+          f"capacity) moves the logits by {moved:.4f}")
+    need(moved > 1e-2 and moved > 100 * f32["logit_diff_max"], f"{tag} the joint decode moved "
+         f"the f32 logits by {moved}, not far beyond a row's rounding "
+         f"({f32['logit_diff_max']})")
+    del model32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_balance(torch, dev):
+    """``benchmarks/moe_balance.py``'s settings on the card: T tokens, E
+    experts, top-k, gates softmax(N(0, 1.5²) + linspace(2, 0, E)) from
+    ``PRNGKey(seed)``; ``topk_route`` integer-equal to its CPU run on the
+    same gates, ``ppot_route`` (key ``fold_in(PRNGKey(seed), 1)``), each
+    one's ``expert_load_stats``, and the reference's claim: ppot's overflow
+    below top-k's."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.utils import prng
+
+    T, E, k, seed = (MOE_BALANCE[x] for x in ("T", "E", "k", "seed"))
+    cfg = ModelConfig(arch="bench", family="moe", n_layers=1, d_model=64, n_heads=1,
+                      n_kv_heads=1, d_head=64, d_ff=0, vocab=16, n_experts=E, top_k=k,
+                      moe_dff=64, capacity_factor=1.25)
+    key = prng.PRNGKey(seed)
+    logits = prng.normal(key, (T, E), dev) * 1.5 + torch.linspace(2, 0, E, device=dev)[None]
+    gates = torch.softmax(logits, -1)
+    out = {}
+    for name, route in (("topk", lambda g: MOE.topk_route(cfg, g)),
+                        ("ppot", lambda g: MOE.ppot_route(cfg, g, prng.fold_in(key, 1)))):
+        idx, w = route(gates)
+        ms = event_median_ms(torch, lambda: route(gates), reps=20)
+        cpu_idx, _ = route(gates.cpu())
+        stats = {kk: float(v) for kk, v in MOE.expert_load_stats(cfg, gates, idx).items()}
+        same = float((idx.cpu() == cpu_idx).all(-1).float().mean())
+        out[name] = dict(stats, ms=ms, cpu_rows_equal=same)
+        print(f"[moe balance] {name}: T={T} E={E} top-{k}: max load {stats['max_load']:.0f}, "
+              f"mean {stats['mean_load']:.1f}, capacity {stats['capacity']:.0f}, overflow "
+              f"fraction {stats['overflow_frac']:.6f}; {ms:.6f} ms on the card (event pairs); "
+              f"rows equal to the CPU run on the same gates {same:.6f}")
+    need(out["topk"]["cpu_rows_equal"] == 1.0, "[moe balance] topk_route on the card differs "
+         "from its CPU run on the same gates")
+    red = (out["topk"]["max_load"] - out["ppot"]["max_load"]) / max(out["topk"]["max_load"], 1)
+    ok = out["ppot"]["overflow_frac"] < out["topk"]["overflow_frac"]
+    out.update(claim=ok, max_load_reduction=red)
+    print(f"[moe balance] claim (ppot overflow below top-k's): {ok}; max load reduction "
+          f"{red:.2%}")
+    need(ok, "[moe balance] ppot's overflow is not below top-k's")
+    return out
+
+
+def phase_zoo(torch, FK, dev):
+    """phi3.5-moe, pixtral-12b and whisper-medium at their published
+    widths, depth cut as ZOO lists: a prefill each (held against the plain
+    paths as ``zoo_prefill`` does) and ZOO_STEPS greedy decode steps."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.models import encdec as ED
+
+    out = {}
+    for arch, layers, B, S in ZOO:
+        over = {} if layers is None else dict(n_layers=layers)
+        cfg = configs.get_config(arch, **over)
+        model = api.init_params(cfg, SEED, dev)
+        batch = zoo_inputs(torch, cfg, B, S, dev)
+        tag = f"[prefill {arch}]"
+        attn = cfg.n_layers if max(S, cfg.enc_len) >= 2048 else 0
+        rec, logits = zoo_prefill(torch, FK, dev, cfg, model, batch, tag, attn)
+        enc = None
+        if cfg.family == "encdec":
+            enc = ED.encode(cfg, model, batch["frame_embeds"])
+        rec.update(zoo_greedy_steps(torch, cfg, model, batch, ZOO_STEPS, enc))
+        extra = ""
+        if cfg.family == "vlm":
+            extra = f", {cfg.n_patches} patch embeddings"
+        if cfg.family == "encdec":
+            extra = (f", frames [{B}, {cfg.enc_len}, {cfg.d_model}], {cfg.n_enc_layers} "
+                     f"encoder layers")
+        moe = rec.get("moe")
+        if moe:
+            extra += (f"; MoE capacity {moe['capacity']}, max load {moe['max_load']:.0f}, "
+                      f"overflow fraction {moe['overflow_frac']:.6f}; the plain path on its "
+                      f"own routes ({rec['route_flips']} tokens' routes differ): max abs err "
+                      f"{rec['free_err']:.4f}, argmax agreement {rec['free_agree']:.2f}")
+        print(f"{tag} published widths (d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+              f"D={cfg.d_head} V={cfg.vocab}, bf16), {cfg.n_layers} layers, B={B} S={S}{extra}: "
+              f"flash launches {rec['flash_launches']}, {rec['ms']:.3f} ms per prefill "
+              f"({rec['tok_s']:.1f} tokens/s), peak memory {rec['peak'] / 2**30:.3f} GiB; "
+              f"last-position logits vs the plain path (an MoE model on the kernel path's routes): "
+              f"max abs err {rec['err']:.4f} (tol "
+              f"{MOE_PREFILL_TOL[arch]}, |logit| max {rec['logit_max']:.3f}; the plain path at "
+              f"attention chunks of 256: {rec['floor']:.4f}), argmax agreement "
+              f"{rec['agree']:.2f} (floor {rec['agree_floor']:.2f}); {ZOO_STEPS} greedy "
+              f"decode steps, {rec['step_ms']:.3f} ms a step")
+        need(rec["err"] <= MOE_PREFILL_TOL[arch], f"{tag} logits differ from the plain path "
+             f"by {rec['err']} (tol {MOE_PREFILL_TOL[arch]})")
+        out[arch] = rec
+        del model, logits, enc
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kv_quant(torch, dev):
+    """One int8 ``kv_quant`` decode: smollm-360m at its published widths in
+    f32, KVQ_TOKENS tokens a row through ``decode_fn`` with the int8 cache,
+    against the full-precision forward over the same tokens: within 5% of
+    its largest |logit| (the bar of tests/test_arch_smoke.py)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.models import lm as LM
+
+    cfg = dataclasses.replace(configs.get_config("smollm-360m"), dtype="float32",
+                              param_dtype="float32")
+    model = api.init_params(cfg, SEED, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab, (2, KVQ_TOKENS), generator=gen, device=dev)
+    with torch.no_grad():
+        full = LM.logits_head(cfg, model, LM.forward(cfg, model, toks))
+    cfg_q = dataclasses.replace(cfg, kv_quant=True)
+    cache = api.init_cache(cfg_q, 2, KVQ_TOKENS, dev)
+    outs = []
+    for t in range(KVQ_TOKENS):
+        lg, cache = api.decode_fn(cfg_q, model, {"tokens": toks[:, t:t + 1], "pos": t}, cache)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, 1)
+    rel = ((full - dec).abs().max() / full.abs().max()).item()
+    qbytes = sum(a.numel() * a.element_size() for c in cache for k, a in c["attn"].items()
+                 if k != "len")
+    fbytes = sum(2 * a.numel() * 2 for c in cache for k, a in c["attn"].items() if k == "k_q")
+    print(f"[kv_quant] smollm-360m published widths, f32, int8 cache: {KVQ_TOKENS} decode steps "
+          f"on 2 rows against the full-precision forward: max |err| / max |logit| {rel:.5f} "
+          f"(bar 0.05); cache {qbytes} B against {fbytes} B in bf16")
+    need(math.isfinite(rel) and rel < 0.05, f"[kv_quant] the int8-cache decode is {rel} of the "
+         f"largest logit from the forward (bar 0.05)")
+    del model
+    torch.cuda.empty_cache()
+    return dict(rel=rel, cache_bytes=qbytes, bf16_bytes=fbytes)
+
+
+# ---------------------------------------------------------------------------
 # times
 # ---------------------------------------------------------------------------
 
@@ -4954,13 +5515,15 @@ def phase_table_build(torch, K, R, D, dev, calls: int = 20):
 
 
 def phase_flash_times(torch, FK, FR, dev):
-    """K4 alone at the prefill's shape and at a smaller one (B=1, S=2048),
+    """K4 alone at smollm's prefill shape, at a smaller one (B=1, S=2048)
+    and at moonshot's prefill shape (16 heads of 128: the 64-key tile),
     with its plain version, its bound and the library's fused attention
     (``scaled_dot_product_attention``, causal, GQA) on the same tensors."""
     out = {}
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for label, B, S in (("main", PREFILL_B, PREFILL_S), ("small", 1, 2048)):
-        H, Hkv, D = 15, 5, 64
+    for label, B, S, H, Hkv, D in (("main", PREFILL_B, PREFILL_S, 15, 5, 64),
+                                   ("small", 1, 2048, 15, 5, 64),
+                                   ("d128", MOE_B, MOE_S, 16, 16, 128)):
         q = torch.randn(B * H, S, D, generator=gen, device=dev).to(torch.bfloat16)
         k, v = (torch.randn(B * Hkv, S, D, generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(2))
@@ -4978,10 +5541,12 @@ def phase_flash_times(torch, FK, FR, dev):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(ops_ms, bytes_ms),
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes", flops=flops,
-                   bytes=nbytes, before_ms=BEFORE_MS["flash_attention_fwd"][label])
+                   bytes=nbytes, before_ms=BEFORE_MS["flash_attention_fwd"].get(label))
         out[label] = rec
+        before = ("" if rec["before_ms"] is None
+                  else f" (before the redesign {rec['before_ms']:.6f} ms)")
         print(f"[times] flash_attention_fwd {label} (B={B} S={S} H={H}/{Hkv} D={D} bf16 causal): "
-              f"kernel {ms:.6f} ms (before the redesign {rec['before_ms']:.6f} ms), plain "
+              f"kernel {ms:.6f} ms{before}, plain "
               f"{plain_ms:.6f} ms, bound {rec['bound_ms']:.6f} ms "
               f"({rec['bound_by']}: {flops} FLOPs at 989 TFLOP/s = {ops_ms:.6f} ms, "
               f"{nbytes} B at 3.35 TB/s = {bytes_ms:.6f} ms), library "
@@ -5153,6 +5718,17 @@ def main() -> int:
                                                     HYMBA_B, HYMBA_S)
     hprof_prefill = prefill_profile(torch, hcfg, hmodel, dev, HYMBA_B, HYMBA_S)
     del hmodel
+    torch.cuda.empty_cache()
+    t_zoo = time.perf_counter()
+    moe_cfg, moe_model, moe_prefill = phase_moe_prefill(torch, FK, dev)
+    moe_serve = phase_moe_serve(torch, moe_cfg, moe_model, dev, K)
+    del moe_model
+    torch.cuda.empty_cache()
+    moe_balance = phase_moe_balance(torch, dev)
+    zoo = phase_zoo(torch, FK, dev)
+    kvq = phase_kv_quant(torch, dev)
+    print(f"[zoo] the MoE, VLM and encoder-decoder phases in "
+          f"{time.perf_counter() - t_zoo:.1f} s")
     per_turn, copies, idle = phase_turn_cost(torch, tr, speeds)
     times, floor_ms, mhz = phase_times(torch, K, R, D, build, dev)
     pool_times = phase_pool_chain_times(torch, CK, CR, pool_build, dev, mhz, floor_ms,
@@ -5189,7 +5765,9 @@ def main() -> int:
     total = {name: sum(r["launches"][name] for r in main_runs.values())
              + scenario_launches[name] + fault_launches[name] + policy_launches[name]
              + obs_launches[name] + fleet_launches_[name] + load_launches[name]
+             + moe_serve["launches"][name]
              for name in REPLACES}
+    # moe_serve_launches: [serve moonshot-v1-16b-a3b]'s router's launches
     kernels = []
     for name in REPLACES:
         t = times[(name, 1024, BATCH)]
@@ -5197,7 +5775,7 @@ def main() -> int:
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=total[name], max_abs_err=chk.max_err[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=None))
+            library_ms=None, moe_serve_launches=moe_serve["launches"][name]))
     # the array form at (1024, 136), the scheduler cell's turn size with a
     # planted 30-step chain: a fixed case, so the line compares from run to
     # run; real_turn_ms: the turn form in place on real turn 50 of [scan a]
@@ -5233,12 +5811,21 @@ def main() -> int:
         fleet_sweep_ms=sim_ext["fleet"]["launch_ms"], env_launch_ms=sim_ext["env"]["launch_ms"],
         obs_full_ms=sim_times["obs_fig8_ms"], obs_off_full_ms=sim_times["obs_off_fig8_ms"],
         obs_full_bound_ms=sim_times["obs_fig8_bound_ms"], obs_launch_ms=sim_obs["launch_ms"]))
-    t = flash_times["main"]
+    # launches: every prefill phase's (smollm, hymba, moonshot, the zoo); the
+    # d128_* keys: moonshot's prefill shape (16 heads of 128) and its count
+    t, t128 = flash_times["main"], flash_times["d128"]
+    flash_launches = {"smollm-360m": prefill["launches"],
+                      "hymba-1.5b": hymba_prefill["flash_launches"],
+                      MOE_ARCH: moe_prefill["flash_launches"],
+                      **{arch: r["flash_launches"] for arch, r in zoo.items()}}
     kernels.append(dict(
         name="flash_attention_fwd", route="cuda", source=FLASH_SOURCE,
-        replaces=FLASH_REPLACES, launches=prefill["launches"], max_abs_err=flash_err,
-        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], library_ms=t["library_ms"]))
+        replaces=FLASH_REPLACES, launches=sum(flash_launches.values()),
+        max_abs_err=flash_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"], launches_by_phase=flash_launches,
+        d128_launches=moe_prefill["flash_launches"], d128_ms=t128["ms"],
+        d128_plain_ms=t128["plain_ms"], d128_bound_ms=t128["bound_ms"],
+        d128_bound_by=t128["bound_by"], d128_library_ms=t128["library_ms"]))
     t = ssd_times["main"]
     kernels.append(dict(
         name="ssd_scan", route="cuda", source=SSD_SOURCE, replaces=SSD_REPLACES,
@@ -5273,6 +5860,11 @@ def main() -> int:
           f"{json.dumps(mprof_decode)}")
     print(f"[summary] prefill hymba-1.5b {json.dumps(hymba_prefill)}")
     print(f"[summary] profile hymba-1.5b prefill {json.dumps(hprof_prefill)}")
+    print(f"[summary] prefill {MOE_ARCH} {json.dumps(moe_prefill)}")
+    print(f"[summary] serve {MOE_ARCH} {json.dumps(moe_serve)}")
+    print(f"[summary] moe balance {json.dumps(moe_balance)}")
+    print(f"[summary] prefill zoo {json.dumps(zoo)}")
+    print(f"[summary] kv_quant {json.dumps(kvq)}")
     print(f"[summary] launches/turn {per_turn:.1f}, copies/turn {copies:.1f}, "
           f"idle share {idle:.4f}, launch floor {floor_ms:.6f} ms")
     print(f"[summary] build_alias_table per call "

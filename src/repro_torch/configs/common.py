@@ -43,9 +43,7 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Smoke-test config: same family/wiring, tiny dims, CPU-friendly (the
-    dense, ssm and hybrid families'; the other families' extra sizes come
-    with them)."""
+    """Smoke-test config: same family/wiring, tiny dims, CPU-friendly."""
     small = dict(
         n_layers=2,
         d_model=64,
@@ -61,9 +59,17 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         loss_chunk=32,
         scan_layers=True,
     )
+    if cfg.family == "moe":
+        small.update(n_experts=4, top_k=2, moe_dff=64,
+                     n_shared=min(cfg.n_shared, 1),
+                     first_k_dense=min(cfg.first_k_dense, 1), d_ff=128)
     if cfg.family in ("ssm", "hybrid"):
         small.update(ssm_state=16, ssm_headdim=16, ssm_chunk=32)
     if cfg.family == "hybrid":
         small.update(attn_window=32)
+    if cfg.family == "encdec":
+        small.update(n_enc_layers=2, enc_len=32)
+    if cfg.family == "vlm":
+        small.update(n_patches=8)
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

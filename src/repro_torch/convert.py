@@ -76,83 +76,137 @@ def load_router_state(router, d: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _layer_leaf(tree: dict, name: str, i: int, n_layers: int) -> np.ndarray:
-    """Layer i's leaf ``name``: a stacked [L, ...] array under
-    ``layers.<name>`` (``scan_layers=True``) or ``layers.<i>.<name>``."""
-    if f"layers.{name}" in tree:
-        a = np.asarray(tree[f"layers.{name}"])
+def _layer_leaf(tree: dict, name: str, i: int, n_layers: int,
+                stack: str = "layers") -> np.ndarray:
+    """Layer i's leaf ``name`` of the layer stack ``stack``: a stacked
+    [L, ...] array under ``<stack>.<name>`` (``scan_layers=True``) or
+    ``<stack>.<i>.<name>``."""
+    if f"{stack}.{name}" in tree:
+        a = np.asarray(tree[f"{stack}.{name}"])
         if a.shape[0] != n_layers:
-            raise ValueError(f"layers.{name}: {a.shape[0]} layers, expected {n_layers}")
+            raise ValueError(f"{stack}.{name}: {a.shape[0]} layers, expected {n_layers}")
         return a[i]
-    return np.asarray(tree[f"layers.{i}.{name}"])
+    return np.asarray(tree[f"{stack}.{i}.{name}"])
 
 
-def _layer_keys(tree: dict, n_layers: int) -> set:
-    """The names under which ``_layer_leaf`` finds layer leaves."""
+def _layer_keys(tree: dict, n_layers: int, stack: str = "layers") -> set:
+    """The names under which ``_layer_leaf`` finds leaves of ``stack``."""
     keys = set()
     for key in tree:
-        if key.startswith("layers."):
-            rest = key[len("layers."):]
+        if key.startswith(f"{stack}."):
+            rest = key[len(stack) + 1:]
             head, _, tail = rest.partition(".")
             keys.add(tail if head.isdigit() and int(head) < n_layers else rest)
     return keys
 
 
-def lm_params_from_numpy(cfg, tree: dict, device=None):
-    """The port's model (``models.lm``) holding the JAX package's
-    parameters, given as numpy arrays under their dotted key paths
-    (``embed``, ``final_norm.scale``, ``layers.attn.wq``, ``layers.ssm.A_log``,
-    ...), stacked or per layer. Raises on a missing, unknown or misshapen
+def _params_from_numpy(model, tree: dict, stacks: dict):
+    """Copy ``tree``'s leaves into ``model``'s parameters. ``stacks``: the
+    layer stacks (name -> number of layers) whose leaves may come stacked;
+    every other leaf, ``prefix_layers.<i>.<name>`` too, sits under the
+    parameter's own name. Raises on a missing, unknown or misshapen
     leaf."""
-    model = model_api.init_params(cfg, 0, device)
     used = set()
     for name, p in model.named_parameters():
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            a = _layer_leaf(tree, rest, int(i), cfg.n_layers)
-            used.add(f"layers.{rest}")
+        stack, _, rest = name.partition(".")
+        if stack in stacks:
+            i, _, rest = rest.partition(".")
+            a = _layer_leaf(tree, rest, int(i), stacks[stack], stack)
+            used.add(f"{stack}.{rest}")
         else:
             a = np.asarray(tree[name])
             used.add(name)
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {a.shape}, expected {tuple(p.shape)}")
         p.data.copy_(torch.from_numpy(np.array(a, np.float32)).to(p.dtype))
-    top = {k for k in tree if not k.startswith("layers.")}
-    layer = {f"layers.{k}" for k in _layer_keys(tree, cfg.n_layers)}
-    if (top | layer) - used:
-        raise ValueError(f"leaves the port has no place for: {sorted((top | layer) - used)}")
+    have = {k for k in tree if k.partition(".")[0] not in stacks}
+    for stack, n in stacks.items():
+        have |= {f"{stack}.{k}" for k in _layer_keys(tree, n, stack)}
+    if have - used:
+        raise ValueError(f"leaves the port has no place for: {sorted(have - used)}")
     return model
 
 
+def lm_params_from_numpy(cfg, tree: dict, device=None):
+    """The port's model (``models.lm``) holding the JAX package's
+    parameters, given as numpy arrays under their dotted key paths
+    (``embed``, ``final_norm.scale``, ``layers.attn.wq``, ``layers.ssm.A_log``,
+    ``layers.moe.wg`` [L, E, d, f], ``layers.moe.shared.wg``,
+    ``prefix_layers.0.mlp.wu``, ``patch_proj``, ...), the main layers
+    stacked or per layer. Raises on a missing, unknown or misshapen
+    leaf."""
+    model = model_api.init_params(cfg, 0, device)
+    return _params_from_numpy(model, tree, {"layers": len(model.layers)})
+
+
+def encdec_params_from_numpy(cfg, tree: dict, device=None):
+    """The port's encoder-decoder (``models.encdec``) holding the JAX
+    package's parameters (``embed``, ``dec_pos``, ``enc_norm.scale``,
+    ``enc_layers.attn.wq``, ``dec_layers.cross_attn.wk``, ...), the layers
+    stacked or per layer."""
+    model = model_api.init_params(cfg, 0, device)
+    return _params_from_numpy(model, tree, {"enc_layers": cfg.n_enc_layers,
+                                            "dec_layers": cfg.n_layers})
+
+
 _CACHE_LEAVES = {"attn": ("k", "v", "len"), "ssm": ("conv_x", "conv_bc", "h")}
+_QUANT_LEAVES = ("k_q", "k_s", "v_q", "v_s", "len")
+
+
+def _attn_cache_from(cfg, leaf, where: str, dev) -> dict:
+    """One attention cache ({k, v, len} or the int8 form) from
+    ``leaf(name)``; each row's ``len`` is the layer's ``len``."""
+    dt = model_layers.DTYPES[cfg.dtype]
+    names = ("k_q", "v_q", "k_s", "v_s") if cfg.kv_quant else ("k", "v")
+    got = {name: leaf(name) for name in names}
+    k = got[names[0]]
+    shapes = {name: a.shape for name, a in got.items()}
+    want = {name: k.shape[:3] if name.endswith("_s") else k.shape for name in names}
+    if k.shape[2:] != (cfg.n_kv_heads, cfg.d_head) or shapes != want:
+        raise ValueError(f"{where}: {shapes}")
+    n = int(leaf("len"))
+    t = lambda a, dtype: torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)  # noqa: E731
+    dtypes = {"k": dt, "v": dt, "k_q": torch.int8, "v_q": torch.int8,
+              "k_s": torch.bfloat16, "v_s": torch.bfloat16}
+    out = {name: t(a, dtypes[name]) for name, a in got.items()}
+    out["len"] = torch.full((k.shape[0],), n, dtype=torch.long, device=dev)
+    return out
 
 
 def lm_cache_from_numpy(cfg, tree: dict, device=None) -> list:
-    """The port's decode cache (one nested dict per layer) from the JAX
-    package's cache, as numpy arrays under ``layers.attn.k`` / ``.v`` /
-    ``.len`` and ``layers.ssm.conv_x`` / ``.conv_bc`` / ``.h`` (stacked) or
-    ``layers.<i>.attn.k`` / ...; each row's ``len`` is the layer's ``len``.
-    Raises on a missing, unknown or misshapen leaf."""
+    """The port's decode cache (one nested dict per layer, the prefix
+    layers first) from the JAX package's cache, as numpy arrays under
+    ``layers.attn.k`` / ``.v`` / ``.len`` (or ``.k_q`` / ``.k_s`` / ``.v_q`` /
+    ``.v_s`` / ``.len`` with ``kv_quant``) and ``layers.ssm.conv_x`` /
+    ``.conv_bc`` / ``.h`` (stacked) or ``layers.<i>.attn.k`` / ..., and
+    ``prefix.<i>.attn.k`` / ... for the moe family's dense prefix; each
+    row's ``len`` is the layer's ``len``. Raises on a missing, unknown or
+    misshapen leaf."""
     dev = resolve_device(device)
     dt = model_layers.DTYPES[cfg.dtype]
-    parts = model_lm.LAYER_PARTS[model_lm._layer_kind(cfg)]
-    want = {f"{part}.{leaf}" for part in parts for leaf in _CACHE_LEAVES[part]}
-    have = _layer_keys(tree, cfg.n_layers) | {k for k in tree if not k.startswith("layers.")}
+    prefix, main, n_prefix = model_lm.layer_kinds(cfg)
+    n_main = cfg.n_layers - n_prefix
+    leaves = dict(_CACHE_LEAVES, attn=_QUANT_LEAVES if cfg.kv_quant else _CACHE_LEAVES["attn"])
+    want = {f"{part}.{leaf}" for part in model_lm.LAYER_PARTS[main] for leaf in leaves[part]}
+    want |= {f"prefix.{i}.{part}.{leaf}" for i in range(n_prefix)
+             for part in model_lm.LAYER_PARTS[prefix] for leaf in leaves[part]}
+    have = _layer_keys(tree, n_main) | {k for k in tree if not k.startswith("layers.")}
     if have - want:
         raise ValueError(f"cache leaves the port has no place for: {sorted(have - want)}")
     t = lambda a, dtype: torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)  # noqa: E731
     out = []
     for i in range(cfg.n_layers):
-        leaf = lambda name: _layer_leaf(tree, name, i, cfg.n_layers)  # noqa: E731
+        if i < n_prefix:
+            kind = prefix
+            leaf = lambda name: np.asarray(tree[f"prefix.{i}.{name}"])  # noqa: E731
+        else:
+            kind = main
+            leaf = lambda name: _layer_leaf(tree, name, i - n_prefix, n_main)  # noqa: E731
         c = {}
-        if "attn" in parts:
-            k, v = leaf("attn.k"), leaf("attn.v")
-            n = int(leaf("attn.len"))
-            if k.shape != v.shape or k.shape[2:] != (cfg.n_kv_heads, cfg.d_head):
-                raise ValueError(f"layer {i}: k {k.shape}, v {v.shape}")
-            c["attn"] = {"k": t(k, dt), "v": t(v, dt),
-                         "len": torch.full((k.shape[0],), n, dtype=torch.long, device=dev)}
-        if "ssm" in parts:
+        if "attn" in model_lm.LAYER_PARTS[kind]:
+            c["attn"] = _attn_cache_from(cfg, lambda name: leaf(f"attn.{name}"),
+                                         f"layer {i}", dev)
+        if "ssm" in model_lm.LAYER_PARTS[kind]:
             conv_x, conv_bc, h = leaf("ssm.conv_x"), leaf("ssm.conv_bc"), leaf("ssm.h")
             batch = h.shape[0]
             shapes = {"conv_x": (batch, cfg.d_conv - 1, cfg.d_inner),
@@ -167,6 +221,19 @@ def lm_cache_from_numpy(cfg, tree: dict, device=None) -> list:
                         "h": t(h, torch.float32)}
         out.append(c)
     return out
+
+
+def encdec_cache_from_numpy(cfg, tree: dict, device=None) -> list:
+    """The port's encoder-decoder decode cache (one {k, v, len} a decoder
+    layer) from the JAX package's, as numpy arrays under ``layers.k`` /
+    ``.v`` / ``.len`` (stacked) or ``layers.<i>.k`` / ...."""
+    dev = resolve_device(device)
+    have = _layer_keys(tree, cfg.n_layers) | {k for k in tree if not k.startswith("layers.")}
+    if have - set(_CACHE_LEAVES["attn"]):
+        raise ValueError(f"cache leaves the port has no place for: "
+                         f"{sorted(have - set(_CACHE_LEAVES['attn']))}")
+    return [_attn_cache_from(cfg, lambda name: _layer_leaf(tree, name, i, cfg.n_layers),
+                             f"layer {i}", dev) for i in range(cfg.n_layers)]
 
 
 #: the chain simulator's params, by the reference's field names

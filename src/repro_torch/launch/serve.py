@@ -14,7 +14,10 @@ folds the batch's completions back in one call.
       --replicas 4 --requests 200 --arrival-batch 8 [--executor engine] \\
       [--device cpu]
 
-``--device`` defaults to ``cuda`` and raises without a card.
+``--arch`` takes every decoder-only arch of the registry (the dense, moe,
+vlm, ssm and hybrid families; the engine and the replicas drive no
+encoder-decoder). ``--device`` defaults to ``cuda`` and raises without a
+card.
 """
 from __future__ import annotations
 

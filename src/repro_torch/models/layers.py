@@ -1,4 +1,5 @@
-"""Model building blocks of the dense family.
+"""Model building blocks: norms, rope, sinusoidal positions, attention
+(self, cross, with a bf16 or int8 decode cache) and the MLP.
 
 Each block has an ``init_*`` that returns an ``nn.Module`` holding its
 parameters (random, from an explicit ``torch.Generator``) and an
@@ -6,8 +7,8 @@ parameters (random, from an explicit ``torch.Generator``) and an
 package's layout (``x @ w`` with ``w`` [d_in, d_out]), so a JAX parameter
 tree carries across leaf for leaf (``convert.lm_params_from_numpy``).
 
-Left for later slices: the custom-VJP backward of the chunked attention
-(training), the int8 ``kv_quant`` cache and ``sincos_positions`` (encdec).
+Left for the training slice: the custom-VJP backward of the chunked
+attention.
 """
 from __future__ import annotations
 
@@ -108,12 +109,24 @@ def apply_rope(cfg: ModelConfig, x, positions):
     return torch.cat([y1.to(x.dtype), y2.to(x.dtype), x_pass], dim=-1)
 
 
+def sincos_positions(d: int, length: int, device=None):
+    """Whisper-style fixed sinusoidal table [length, d], f32."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    expo = 2 * dim / torch.full_like(dim, d)  # a true division on the card too
+    ang = pos / torch.pow(torch.full_like(dim, 10000.0), expo)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal / sliding-window, chunked online softmax)
+# Attention (GQA, causal / sliding-window / cross, chunked online softmax)
 # ---------------------------------------------------------------------------
 
 
-def init_attention(cfg: ModelConfig, gen: torch.Generator) -> nn.Module:
+def init_attention(cfg: ModelConfig, gen: torch.Generator, cross: bool = False) -> nn.Module:
+    """A cross-attention block has the same leaves (its k, v project the
+    encoder's output)."""
+    del cross
     d, dq, dkv, pdt = cfg.d_model, cfg.d_qkv, cfg.d_kv, _pdtype(cfg)
     p = nn.Module()
     p.wq = dense_init(gen, (d, dq), pdt)
@@ -229,59 +242,95 @@ def plain_attention(q, k, v, *, q_pos, k_pos, causal, window):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def _kv_quantize(x):
+    """[B, S, H, D] -> (int8 values, per-(B, S, H) bf16 scales): the scale
+    amax / 127 in f32 divides the values, rounded half to even, and is
+    kept in bf16."""
+    xf = x.float()
+    amax = xf.abs().amax(-1)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _cache_write(a, rows, cols, new):
+    """A copy of cache leaf ``a`` with ``new`` written at (rows, cols)."""
+    out = a.clone()
+    out[rows, cols] = new.to(a.dtype)
+    return out
+
+
 def attention_apply(cfg: ModelConfig, p: nn.Module, x, *, positions,
-                    causal: bool = True, window: int | None = None, cache=None):
+                    causal: bool = True, window: int | None = None, kv_x=None,
+                    kv_positions=None, cache=None):
     """Attention block: qkv proj -> (qk_norm) -> rope -> attention -> out.
 
     positions: [S] shared by the batch, or [B, S] per row (decode with a
     cache), or the host integer ``p0`` of contiguous positions ``p0 +
-    arange(S)``. The chunked path (S >= 2048) needs them
-    contiguous (its mask depends only on ``qpos - kpos``, so it runs at
-    ``q_offset`` 0), and a tensor cannot be checked for that without
-    reading it back from the device, so it takes only ``p0`` and raises on
-    a tensor.
+    arange(S)``. The chunked path (S or Skv >= 2048) needs them
+    contiguous where its mask reads them (causal or windowed; its mask
+    depends only on ``qpos - kpos``, so it runs at ``q_offset`` 0), and a
+    tensor cannot be checked for that without reading it back from the
+    device, so there it takes only ``p0`` and raises on a tensor.
 
-    cache: optional dict(k=[B, Smax, Hkv, D], v=..., len=i64[B]). Each row
-    writes its new k/v at its own ``len`` (clamped so the S new positions
-    fit) and attends over keys ``kpos < len + S`` with ``kpos <=`` its
-    position. Returns (out, new_cache); the cache is not written in place.
+    kv_x: cross attention, keys and values projected from ``kv_x`` [B, Skv,
+    d] at ``kv_positions`` (default: ``positions``), with no rope.
+
+    cache: optional dict(k=[B, Smax, Hkv, D], v=..., len=i64[B]), or with
+    ``cfg.kv_quant`` dict(k_q, v_q int8 [B, Smax, Hkv, D], k_s, v_s bf16
+    [B, Smax, Hkv], len). Each row writes its new k/v at its own ``len``
+    (clamped so the S new positions fit) and attends over keys ``kpos <
+    len + S`` with ``kpos <=`` its position. Returns (out, new_cache); the
+    cache is not written in place.
     """
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    window = cfg.attn_window if window is None else window
+    window = (cfg.attn_window if window is None else window) or 0
     dt = _dtype(cfg)
+    kv_src = x if kv_x is None else kv_x
+    Skv = kv_src.shape[1]
+    chunked = cache is None and (S >= 2048 or Skv >= 2048)
     if isinstance(positions, int):
         positions = positions + torch.arange(S, device=x.device)
-    elif cache is None and S >= 2048:
-        raise ValueError(f"the chunked attention path (S={S} >= 2048) needs contiguous "
-                         f"positions: pass their first one as the host integer p0")
+    elif chunked and (causal or window):
+        raise ValueError(f"the chunked attention path (S={S}, Skv={Skv} >= 2048) needs "
+                         f"contiguous positions: pass their first one as the host integer p0")
+    kv_pos = positions if kv_positions is None else kv_positions
+    if isinstance(kv_pos, int):
+        kv_pos = kv_pos + torch.arange(Skv, device=x.device)
 
     q = (x @ p.wq.to(dt)).reshape(B, S, H, D)
-    k = (x @ p.wk.to(dt)).reshape(B, S, Hkv, D)
-    v = (x @ p.wv.to(dt)).reshape(B, S, Hkv, D)
+    k = (kv_src @ p.wk.to(dt)).reshape(B, Skv, Hkv, D)
+    v = (kv_src @ p.wv.to(dt)).reshape(B, Skv, Hkv, D)
     if cfg.qk_norm:
         q = rms_head_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_head_norm(k, p.k_norm, cfg.norm_eps)
-    q = apply_rope(cfg, q, positions)
-    k = apply_rope(cfg, k, positions)
+    if kv_x is None:  # self-attention: rope on q and k
+        q = apply_rope(cfg, q, positions)
+        k = apply_rope(cfg, k, kv_pos)
 
     new_cache = None
     if cache is not None:
-        if "k" not in cache:
-            raise NotImplementedError("the int8 kv_quant cache is not ported yet "
-                                      "(ROADMAP queue A, A10)")
         idx = cache["len"]
-        Smax = cache["k"].shape[1]
+        Smax = cache["k_q" if cfg.kv_quant else "k"].shape[1]
         rows = torch.arange(B, device=x.device)[:, None]
         cols = idx.clamp(0, Smax - S)[:, None] + torch.arange(S, device=x.device)
-        ck = cache["k"].clone()
-        cv = cache["v"].clone()
-        ck[rows, cols] = k.to(ck.dtype)
-        cv[rows, cols] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv, "len": idx + S}
+        if cfg.kv_quant:
+            # int8 cache: per-(position, head) scales, half the bytes of bf16
+            (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
+            new_cache = {"k_q": _cache_write(cache["k_q"], rows, cols, kq),
+                         "k_s": _cache_write(cache["k_s"], rows, cols, ks),
+                         "v_q": _cache_write(cache["v_q"], rows, cols, vq),
+                         "v_s": _cache_write(cache["v_s"], rows, cols, vs), "len": idx + S}
+            ck = (new_cache["k_q"].float() * new_cache["k_s"][..., None].float()).to(dt)
+            cv = (new_cache["v_q"].float() * new_cache["v_s"][..., None].float()).to(dt)
+        else:
+            ck = _cache_write(cache["k"], rows, cols, k)
+            cv = _cache_write(cache["v"], rows, cols, v)
+            new_cache = {"k": ck, "v": cv, "len": idx + S}
         kpos = torch.arange(Smax, device=x.device)
         qpos = positions if positions.dim() == 2 else positions[None]  # [B|1, S]
-        ok = _attn_ok(qpos, kpos, True, window or 0)
+        ok = _attn_ok(qpos, kpos, True, window)
         ok = ok & (kpos[None, :] < (idx + S)[:, None])[:, None, :]
         kk = _repeat_kv(ck.to(dt), H // Hkv)
         vv = _repeat_kv(cv.to(dt), H // Hkv)
@@ -289,11 +338,11 @@ def attention_apply(cfg: ModelConfig, p: nn.Module, x, *, positions,
         s = s.masked_fill(~ok[:, None], float("-inf"))
         prob = torch.softmax(s, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", prob, vv)
-    elif S >= 2048:
-        out = chunked_attention(cfg, q, k, v, causal=causal, window=window or 0)
+    elif chunked:
+        out = chunked_attention(cfg, q, k, v, causal=causal, window=window)
     else:
-        out = plain_attention(q, k, v, q_pos=positions, k_pos=positions,
-                              causal=causal, window=window or 0)
+        out = plain_attention(q, k, v, q_pos=positions, k_pos=kv_pos, causal=causal,
+                              window=window)
 
     out = out.reshape(B, S, H * D) @ p.wo.to(dt)
     return out, new_cache

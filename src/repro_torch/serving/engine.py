@@ -12,6 +12,11 @@ their row, and every active slot advances one token per engine tick.
     length injected; here one batched step takes ``pos`` i64[n_slots],
     each row writes its k/v at its own index and attends over ``kpos <=
     pos_row``.
+  * MoE rows are routed alone (``api.decode_fn(per_row=True)``): each
+    row's token gets its own expert capacity, ppot counts and draws, as
+    each slot's does under the reference's vmap. Routed jointly, the rows
+    of a step would share one capacity (1 slot an expert for moonshot's
+    64 experts top-6 at 4 slots) and drop each other's tokens.
   * A step computes every row; only the active rows are merged back
     (``_merge_rows``), so an idle row's cache and position stay as they
     were.
@@ -68,6 +73,7 @@ class ContinuousBatchingEngine:
         self.last_tok = torch.zeros(n_slots, 1, dtype=torch.long, device=self.device)
         self.active = np.zeros(n_slots, bool)
         self.slots = [Slot() for _ in range(n_slots)]
+        self.last_logits = None  # [n_slots, 1, V] of the last tick
 
     def _admit_replay_multi(self, model, toks, pos, last_tok, cache):
         """Replay token steps ``toks`` i64[T, n_slots] (time-major; -1 =
@@ -150,6 +156,7 @@ class ContinuousBatchingEngine:
         act = torch.from_numpy(self.active).to(self.device)
         self.cache = _merge_rows(cache, self.cache, act)
         self.pos = torch.where(act, pos, self.pos)
+        self.last_logits = logits
         nxt = torch.argmax(logits[:, -1], dim=-1)
         self.last_tok = torch.where(act[:, None], nxt[:, None], self.last_tok)
 
@@ -179,7 +186,8 @@ def _batched_decode(cfg: ModelConfig, model, tokens, pos, cache):
     Returns (logits [B, 1, V], new_cache, pos + 1)."""
     rows = [{part: dict(c, len=pos) if part == "attn" else c for part, c in layer.items()}
             for layer in cache]
-    logits, new = api.decode_fn(cfg, model, {"tokens": tokens, "pos": pos}, rows)
+    logits, new = api.decode_fn(cfg, model, {"tokens": tokens, "pos": pos}, rows,
+                                per_row=True)
     new = [{part: dict(c, len=old["attn"]["len"]) if part == "attn" else c
             for part, c in layer.items()} for layer, old in zip(new, cache)]
     return logits, new, pos + 1

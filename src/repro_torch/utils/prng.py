@@ -241,6 +241,24 @@ def exponential(key: Key, shape, device=None) -> torch.Tensor:
     return -torch.log1p(-uniform(key, shape, device))
 
 
+#: the largest float32 below -1's neighbour towards 0: the lower end of the
+#: open interval ``normal`` maps through erfinv
+_F32_NEG_ONE_UP = -0.99999994
+
+
+def normal(key: Key, shape, device=None) -> torch.Tensor:
+    """f32 N(0, 1) draws, ``jax.random.normal(key, shape)``: sqrt(2) ·
+    erfinv(u) of a uniform u on (nextafter(-1, 0), 1), which JAX draws as
+    ``max(lo, f * 2 + lo)`` from the [0, 1) uniform f (its span 1 - lo
+    rounds to 2 in f32). Its ``erfinv`` is torch's, which may differ from
+    XLA's in the last bits."""
+    lo = torch.tensor(_F32_NEG_ONE_UP, dtype=torch.float32)
+    u = uniform(key, shape, device)
+    u = torch.maximum(u * 2.0 + lo.to(u.device), lo.to(u.device))
+    return torch.erfinv(u) * torch.tensor(math.sqrt(2.0), dtype=torch.float32,
+                                          device=u.device)
+
+
 # -- the same draws for a batch of keys ----------------------------------------
 #
 # Each ``v*`` function takes keys as an int64 tensor [R, 2] and returns the

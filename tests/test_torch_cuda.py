@@ -1610,3 +1610,174 @@ def test_sim_chain_obs_kernel_equals_the_plain_chain(dev, case):
         _same_sim_state(gs, ws)
         if o is not None:
             assert int(gt["obs_flag"].sum()) == gt["code"].shape[0] // o[0]
+
+
+# ---------------------------------------------------------------------------
+# the MoE, VLM and encoder-decoder families, the int8 cache
+# ---------------------------------------------------------------------------
+
+#: moonshot's routing (64 experts, top-6, 2 shared) at small widths, with
+#: head dim 32 so that the chunked attention path takes the kernel
+MOE_SMALL = dict(n_experts=64, top_k=6, n_shared=2, moe_dff=32, d_head=32)
+
+
+def _small(arch, **over):
+    from repro_torch import configs
+
+    return configs.reduced(configs.get_config(arch), **over)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("router", ["topk", "ppot"])
+def test_cuda_moe_layer_equals_the_cpu(dev, router, per_row):
+    """The MoE layer on the card against the CPU on the same parameters and
+    input (f32): the top-k route integer-equal on the same gates, the
+    expert computation on the same routes within 1e-5, the layer within
+    1e-5 where no token's k-th and (k+1)-th gates lie within 8 ulps
+    (counted: 0)."""
+    from repro_torch.models import api
+    from repro_torch.models import moe as TM
+
+    cfg = _small("moonshot-v1-16b-a3b", router=router, **MOE_SMALL)
+    model = api.init_params(cfg, 0, "cpu")
+    p = model.layers[0].moe
+    x = torch.from_numpy(np.random.RandomState(1).randn(8, 3, cfg.d_model).astype(np.float32))
+    gates = torch.softmax(x.reshape(24, -1) @ p.router, -1)
+    s = gates.sort(-1, descending=True).values
+    ulps = (s[:, cfg.top_k - 1].view(torch.int32) - s[:, cfg.top_k].view(torch.int32)).abs()
+    assert int((ulps <= 8).sum()) == 0
+    idx, w = TM.topk_route(cfg, gates)
+    cidx, cw = TM.topk_route(cfg, gates.to(dev))
+    assert torch.equal(cidx.cpu(), idx) and torch.equal(cw.cpu(), w)
+    cap = TM.capacity(cfg, 3, cfg.n_experts)
+    want = TM.expert_compute(cfg, p, x, idx.view(8, 3, -1), w.view(8, 3, -1), cap, groups=8)
+    pd = model.to(dev).layers[0].moe
+    got = TM.expert_compute(cfg, pd, x.to(dev), cidx.view(8, 3, -1), cw.view(8, 3, -1), cap,
+                            groups=8)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    model = model.cpu()
+    want, _ = TM.moe_apply(cfg, model.layers[0].moe, x, per_row=per_row)
+    got, _ = TM.moe_apply(cfg, model.to(dev).layers[0].moe, x.to(dev), per_row=per_row)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_cuda_moe_prefill_launches_flash_once_per_layer(dev):
+    """moonshot-v1-16b-a3b at its published widths, 3 layers (the dense one
+    and 2 MoE), B=1, S=2048: one K4 launch a layer at head dim 128; bf16
+    last-position logits within chip_smoke.py's bar of the plain path, and
+    the f32 model's hidden states within its f32 bar, each on the kernel
+    path's expert routes (free-running, one route two roundings part moves
+    which tokens an overflowing expert drops: ``moe.RouteTape``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import api
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as TM
+
+    cfg = configs.get_config("moonshot-v1-16b-a3b", n_layers=3)
+    model = api.init_params(cfg, 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (1, 2048), generator=gen, device=dev)
+    tape = TM.RouteTape()
+    fk.reset_launches()
+    with tape.recording():
+        got = api.prefill(cfg, model, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert fk.launch_counts()["flash_attention_fwd"] == cfg.n_layers
+    with tape.replaying(), api.plain_paths():
+        want = api.prefill(cfg, model, {"tokens": toks})
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 0.5
+    del model
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32", param_dtype="float32")
+    model32 = api.init_params(cfg32, 0)
+    with torch.no_grad():
+        with tape.recording():
+            h = LM.forward(cfg32, model32, toks)
+        with tape.replaying(), api.plain_paths():
+            hp = LM.forward(cfg32, model32, toks)
+    assert (h - hp).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("router", ["topk", "ppot"])
+def test_cuda_engine_routes_rows_alone(dev, router):
+    """At moonshot's routing (f32): 4 requests decoded together in a 4-slot
+    engine give each one's tokens alone in a one-slot engine, and a joint
+    decode step (the rows sharing the capacity) moves the logits."""
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    cfg = _small("moonshot-v1-16b-a3b", router=router, **MOE_SMALL)
+    model = api.init_params(cfg, 0, dev)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab, size=3 + i) for i in range(4)]
+
+    def run(eng, reqs):
+        assert all(eng.try_admit_batch(reqs))
+        out = {}
+        while eng.active.any():
+            out.update(dict(eng.step()))
+        return out
+
+    full = run(ContinuousBatchingEngine(cfg, model, n_slots=4, max_len=32),
+               [(i, p, 6) for i, p in enumerate(prompts)])
+    for i, p in enumerate(prompts):
+        alone = run(ContinuousBatchingEngine(cfg, model, n_slots=1, max_len=32), [(i, p, 6)])
+        assert alone[i] == full[i], i
+    toks = torch.from_numpy(np.stack([p[:1] for p in prompts])).to(dev)
+    cache = api.init_cache(cfg, 4, 8, dev)
+    a, _ = api.decode_fn(cfg, model, {"tokens": toks, "pos": 0}, cache, per_row=True)
+    b, _ = api.decode_fn(cfg, model, {"tokens": toks, "pos": 0}, cache)
+    assert (a - b).abs().max().item() > 1e-2
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "moonshot-v1-16b-a3b", "pixtral-12b",
+                                  "whisper-medium"])
+def test_cuda_new_families_equal_the_cpu(dev, arch):
+    """Small configs (f32, head dim 32) on the card against the CPU on the
+    same parameters: a prefill at S = 2048 (K4 in every layer; whisper's
+    encoder at 2048 frames, which its decoder's cross attention reads
+    through K4 too) and 6 decode steps with the int8 cache (bf16
+    cache for whisper), logits within 1e-4."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import api
+    from repro_torch.models import encdec as ED
+
+    over = dict(MOE_SMALL) if arch.startswith("moonshot") else dict(d_head=32)
+    if arch == "whisper-medium":
+        over["enc_len"] = 2048
+    cfg = _small(arch, **over)
+    model = api.init_params(cfg, 0, "cpu")
+    rng = np.random.RandomState(5)
+    S = 16 if arch == "whisper-medium" else 2048
+    batch = {"tokens": rng.randint(0, cfg.vocab, (2, S))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.randn(2, cfg.n_patches, cfg.d_model).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = rng.randn(2, cfg.enc_len, cfg.d_model).astype(np.float32)
+    want = api.prefill(cfg, model, batch)
+    model = model.to(dev)
+    fk.reset_launches()
+    got = api.prefill(cfg, model, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    # whisper: the encoder's self-attention and the decoder's cross attention
+    n_attn = cfg.n_enc_layers + cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+    assert fk.launch_counts()["flash_attention_fwd"] == n_attn
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    cfg_q = dataclasses.replace(cfg, kv_quant=cfg.family != "encdec")
+    enc = None
+    if cfg.family == "encdec":
+        enc = ED.encode(cfg, model.cpu(), torch.as_tensor(batch["frame_embeds"]))
+    caches = {d: api.init_cache(cfg_q, 2, 8, d) for d in ("cpu", dev)}
+    for t in range(6):
+        outs = {}
+        for d in ("cpu", dev):
+            b = {"tokens": torch.as_tensor(batch["tokens"][:, t:t + 1], device=d), "pos": t}
+            if enc is not None:
+                b["enc_out"] = enc.to(d)
+            outs[d], caches[d] = api.decode_fn(cfg_q, model.to(d), b, caches[d], per_row=True)
+        torch.testing.assert_close(outs[dev].cpu(), outs["cpu"], atol=1e-4, rtol=1e-4)

@@ -75,6 +75,7 @@ and refuses to run without a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -102,6 +103,9 @@ PPOT_BEFORE_MS = {
     "ppot_dispatch_fused": {1024: 0.017152, 2048: 0.031776},
     "ppot_dispatch": {1024: 0.016832, 2048: 0.030976},
     "alias_table": {1024: 0.081632, 2048: 0.158192},  # the pairing walk alone
+    # K1 before it drew its own uniforms (the unkeyed kernel; in a graph
+    # replay of [scan a] 0.002161 ms)
+    "ppot_dispatch_fused_alias": {1024: 0.006176, 2048: 0.007296},
 }
 # The walk's serial chain, in cycles a step, each dependent instruction at
 # least the 4-cycle issue-to-use latency of an f32 add. "sub": the floor that
@@ -129,12 +133,32 @@ POOL_CASES = ((4, 24, False), (1024, 136, False), (1024, 0, False), (16384, 4096
               (16384, 4096, True))
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:105"
+# each kernel line's name (its launch count's) -> the TPU kernel it replaces.
+# ppot_dispatch_fused_alias is K1 as the engine launches it, keyed: it also
+# replaces the reference's counter-hash draws (src/repro/core/dispatch.py:
+# 268-285, _uniform_quad); the unkeyed entry runs the same kernel on given
+# uniforms, as the Pallas kernel takes them
 REPLACES = {
     "ppot_dispatch_fused_alias": "src/repro/kernels/ppot_dispatch/kernel.py:211",
+    "ppot_dispatch_fused_alias_unkeyed": "src/repro/kernels/ppot_dispatch/kernel.py:211",
     "ppot_dispatch_fused": "src/repro/kernels/ppot_dispatch/kernel.py:242",
     "ppot_dispatch": "src/repro/kernels/ppot_dispatch/kernel.py:126",
     "alias_table": "src/repro/core/dispatch.py:108-195",
 }
+# the wrapper (in repro_torch.kernels.ppot_dispatch.kernel) that counts each
+# kernel line's launches
+WRAPPERS = {"ppot_dispatch_fused_alias": "ppot_dispatch_fused_alias_keyed",
+            "ppot_dispatch_fused_alias_unkeyed": "ppot_dispatch_fused_alias",
+            "ppot_dispatch_fused": "ppot_dispatch_fused", "ppot_dispatch": "ppot_dispatch",
+            "alias_table": "alias_table"}
+# [serve moonshot-v1-16b-a3b]'s router: its replicas and its batch (the
+# engines and SERVE_BATCH below), the shape its K1 launches run at
+MOE_ROUTER_SHAPE = (4, 4)
+# the device key [times] times K1 under, and K1's operations a job: the
+# counter hash's ~30 u32 operations, four conversions and scalings, the two
+# probes and the select
+K1_KEY = (0x9E3779B9, 0x7F4A7C15)
+K1_OPS = 40
 # the masks every PPoT kernel is held on: none, 10% of the workers off, a
 # single worker on, all off
 
@@ -156,6 +180,11 @@ SCAN_MODES = {"a": (True, False), "b": (False, False), "c": (False, True),
 # the whole script near 400 s)
 SCAN_TURNS, SCAN_MIN_TURNS, SCAN_TOL = 1550, 1500, 0.15
 SCAN_PROFILE_TURNS = 50
+# [scan a]'s captured turn before K1 drew its own uniforms (its nodes on the
+# H100): the keyed K1 takes out exactly the chain it replaced, bar K1
+# itself (the counter hash's kernels and the copy of q; [times] captures and
+# counts that chain)
+SCAN_A_NODES_BEFORE = 816
 # The profiler on the H100 now and then drops a graph kernel's record, at a
 # random point of a session (one replay's K1, table and chain, or one
 # kernel alone): a session whose per-turn counts miss the graph's nodes is
@@ -189,11 +218,12 @@ SCENARIO_FIXED_REPLICAS = {"churn": "replica 1", "cotenant_shock": "replicas 0-1
                            "grey_failure": "replicas 0-1"}
 SCENARIO_MIN_RHO = {"null": 0.9}
 # the [scenario] runs' clock, and [obs]'s churn cell's, whose pend_cap and
-# comp_cap the [scenario] churn cell sizes: 270 s of the registry's 360
+# comp_cap the [scenario] churn cell sizes: 250 s of the registry's 360
 # (every scenario's events up to its second at 240 s fall inside it; cut
 # from 360 s to keep the script's total time when the [sim obs], [sim
-# theory] and [sim coupling] cells came)
-SCENARIO_HORIZON = 270.0
+# theory] and [sim coupling] cells came, and from 270 s when a run on a
+# slow host passed 1000 s)
+SCENARIO_HORIZON = 250.0
 # [faults]: the failure semantics (serving.recovery, the faulty turn of
 # serving.scanloop) at the scheduler cell, each fault scenario of the
 # registry on its own clock as the [scenario] cells build theirs: the host
@@ -239,16 +269,19 @@ POLICY_HORIZON = 180.0
 # windows with a JsonlSink line a window, crash_storm's windows against its
 # ledger. With observe=None the captured turns keep the node counts they had
 # at these cells before the telemetry fold (OBS_NODES_BEFORE, measured on the
-# H100). Then the reference's detection pins on
+# H100: 866 and 1355 then, less the nodes the keyed K1 took out of the turn,
+# 74 of the plain turn and 83 of the faulty one, counted by name against
+# the turns before it by kernel_variants.py --parent). Then the reference's
+# detection pins on
 # the card's scan at the scenario's own size (n = 5, batches of 8, 360 s)
 # OBS_HORIZON cuts depth only: crash_storm (crashes from the start) runs 180 s
 # of its clock on the capacities of its 360 s [faults] cell; churn keeps
-# [scenario]'s 270 s (at 180 s its replica would not rejoin, and its turn
+# [scenario]'s 250 s (at 180 s its replica would not rejoin, and its turn
 # would capture one node fewer than the pinned OBS_NODES_BEFORE)
 OBS_WINDOW = 16
 OBS_CHUNK = 37
 OBS_HORIZON = {"churn": SCENARIO_HORIZON, "crash_storm": 180.0}
-OBS_NODES_BEFORE = {"churn": 866, "crash_storm": 1355}
+OBS_NODES_BEFORE = {"churn": 792, "crash_storm": 1272}
 OBS_PIN_BATCH = 8
 # [fleet]: the frontend fleet (serving.router.FleetRouter, run_fleet_simulation,
 # the one-program fleet turn) at the scheduler cell with the batch of BATCH
@@ -504,23 +537,53 @@ class KernelChecks:
 
     def plain(self, name):
         R = self.R
-        return {"ppot_dispatch_fused_alias": R.ppot_dispatch_fused_alias_ref,
+        return {"ppot_dispatch_fused_alias": R.ppot_dispatch_fused_alias_keyed_ref,
+                "ppot_dispatch_fused_alias_unkeyed": R.ppot_dispatch_fused_alias_ref,
                 "ppot_dispatch_fused": R.ppot_dispatch_fused_ref,
                 "ppot_dispatch": R.ppot_dispatch_ref,
                 "alias_table": R.alias_table_ref}[name]
 
     def wrap(self, name, every: int):
-        """A stand-in for kernel.<name> that runs the kernel and, on every
-        ``every``-th call, its plain version on the same device tensors."""
-        fn, plain, calls = getattr(self.K, name), self.plain(name), [0]
+        """A stand-in for the wrapper of kernel line ``name`` that runs the
+        kernel and, on every ``every``-th call, its plain version on the
+        same device tensors."""
+        fn, plain, calls = getattr(self.K, WRAPPERS[name]), self.plain(name), [0]
 
-        def checked(*args):
-            out = fn(*args)
+        def checked(*args, **kw):
+            out = fn(*args, **kw)
             calls[0] += 1
             if calls[0] % every == 1:
-                self.compare(name, out, plain(*args))
+                self.compare(name, out, plain(*args, **kw))
             return out
         return checked
+
+    @contextlib.contextmanager
+    def checking(self, every: int):
+        """Every wrapper replaced by its ``wrap`` for the block."""
+        saved = {attr: getattr(self.K, attr) for attr in WRAPPERS.values()}
+        for name, attr in WRAPPERS.items():
+            setattr(self.K, attr, self.wrap(name, every))
+        try:
+            yield
+        finally:
+            for attr, fn in saved.items():
+                setattr(self.K, attr, fn)
+
+
+def hold_keyed(torch, chk, prob, alias, q, B: int, seed: int, dev) -> None:
+    """The keyed K1 against its plain version on the same tables and queue:
+    a host key and a device key with any bits set, without and with a
+    slot mask (a fifth of the slots off)."""
+    from repro_torch.utils import prng
+
+    rng = np.random.RandomState(seed)
+    act = torch.from_numpy(rng.rand(B) < 0.8).to(dev)
+    hk = prng.split(prng.PRNGKey(seed))[1]
+    for key in (hk, prng.device_key(hk, dev)):
+        for a in (None, act):
+            chk.compare("ppot_dispatch_fused_alias",
+                        chk.K.ppot_dispatch_fused_alias_keyed(prob, alias, q, key, B, a),
+                        chk.R.ppot_dispatch_fused_alias_keyed_ref(prob, alias, q, key, B, a))
 
 
 def phase_kernels(torch, chk, D, dev):
@@ -545,7 +608,8 @@ def phase_kernels(torch, chk, D, dev):
                 p = D.scaled_weights(mu_t, act)
                 prob, alias = K.alias_table(p, act)
                 chk.compare("alias_table", (prob, alias), R.alias_table_ref(p, act))
-                chk.compare("ppot_dispatch_fused_alias",
+                hold_keyed(torch, chk, prob, alias, q, B, n + B, dev)
+                chk.compare("ppot_dispatch_fused_alias_unkeyed",
                             K.ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2),
                             R.ppot_dispatch_fused_alias_ref(prob, alias, q, u1, v1, u2, v2))
                 chk.compare("ppot_dispatch_fused", K.ppot_dispatch_fused(cdf, q, u1, u2),
@@ -553,7 +617,8 @@ def phase_kernels(torch, chk, D, dev):
                 chk.compare("ppot_dispatch", K.ppot_dispatch(cdf, q, u1, u2),
                             R.ppot_dispatch_ref(cdf, q, u1, u2))
     print(f"[kernels] {len(shapes) * 3 * len(R.MASKS)} shape/μ̂/mask cases (masks {R.MASKS}): "
-          f"every kernel equal to its plain version (workers, q_after, prob, alias)")
+          f"every kernel equal to its plain version (workers, q_after, prob, alias); the "
+          f"keyed K1 under a host key and a device key, with and without slots")
 
 
 # ---------------------------------------------------------------------------
@@ -624,10 +689,7 @@ def run_mode(torch, tr, K, chk, speeds, mode: str, dev):
         act = np.ones(N_REPLICAS, bool)
         act[off] = False
         router.membership_at = (horizon / 2, act)
-    saved = {name: getattr(K, name) for name in REPLACES}
-    for name in REPLACES:
-        setattr(K, name, chk.wrap(name, CHECK_EVERY))
-    try:
+    with chk.checking(CHECK_EVERY):
         K.reset_launches()
         t0 = time.perf_counter()
         resp, mu_trace = tr.run_simulation(
@@ -637,9 +699,6 @@ def run_mode(torch, tr, K, chk, speeds, mode: str, dev):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
-    finally:
-        for name, fn in saved.items():
-            setattr(K, name, fn)
     return router, resp, mu_trace, wall, counts
 
 
@@ -724,12 +783,19 @@ def phase_turn_cost(torch, tr, speeds, timed_turns: int = 300, prof_turns: int =
 
 # the wrapper that launched a kernel, from the kernel's name as the profiler
 # gives it (demangled, spaces dropped) or as the driver does (mangled)
-PROFILE_NAMES = {"ppot_dispatch_fused_alias": ("ppot_kernel<true,true>",
-                                               "ppot_kernelILb1ELb1E"),
-                 "ppot_dispatch_fused": ("ppot_kernel<false,true>", "ppot_kernelILb0ELb1E"),
-                 "ppot_dispatch": ("ppot_kernel<false,false>", "ppot_kernelILb0ELb0E"),
+PROFILE_NAMES = {"ppot_dispatch_fused_alias": ("ppot_kernel_alias<true>",
+                                               "ppot_kernel_aliasILb1E"),
+                 "ppot_dispatch_fused_alias_unkeyed": ("ppot_kernel_alias<false>",
+                                                       "ppot_kernel_aliasILb0E"),
+                 "ppot_dispatch_fused": ("ppot_kernel_cdf<true>", "ppot_kernel_cdfILb1E"),
+                 "ppot_dispatch": ("ppot_kernel_cdf<false>", "ppot_kernel_cdfILb0E"),
                  "alias_table": ("alias_table_kernel",) * 2,
                  "pool_chain": ("pool_chain_kernel",) * 2}
+
+
+# the wrappers the serving paths launch: every one but the unkeyed K1, which
+# takes its uniforms as arguments and which no engine path calls
+PATH_WRAPPERS = tuple(w for w in PROFILE_NAMES if w != "ppot_dispatch_fused_alias_unkeyed")
 
 
 def wrapper_of(kernel_name: str):
@@ -1194,10 +1260,7 @@ def scenario_host(torch, tr, tenv, K, chk, scn, dev, *, use_alias, sequential, w
     router.speeds = speeds0
     pool = counting_pool((tr.SequentialPool if sequential else tr.SimulatedPool)(speeds0))
     router.pool = pool
-    saved = {name: getattr(K, name) for name in REPLACES}
-    for name in REPLACES:
-        setattr(K, name, chk.wrap(name, CHECK_EVERY))
-    try:
+    with chk.checking(CHECK_EVERY):
         K.reset_launches()
         t0 = time.perf_counter()
         if wl is None:
@@ -1211,9 +1274,6 @@ def scenario_host(torch, tr, tenv, K, chk, scn, dev, *, use_alias, sequential, w
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = K.launch_counts()
-    finally:
-        for name, fn in saved.items():
-            setattr(K, name, fn)
     most = max(router.most_pending, pool.submitted - router.flushed)
     caps = dict(comp_cap=_pow2_at_least(1.25 * max(router.max_due, 1)),
                 pend_cap=_pow2_at_least(1.25 * max(most, 1)), max_due=router.max_due,
@@ -1387,7 +1447,7 @@ def phase_scenarios(torch, tr, tsl, tenv, K, CK, chk, met, speeds, dev, card):
         for w in names:
             need(exact[key]["host"][w] > 0 and exact[key]["scan"][w] > 0,
                  f"[scenario {key}] {w} was not launched by both loops")
-    for w in PROFILE_NAMES:
+    for w in PATH_WRAPPERS:
         need(total[w] > 0, f"[scenarios] {w} was never launched")
     secs = time.perf_counter() - t0
     print(f"[scenarios] {len(cells)} scenarios, {len(exact)} exact pairs in {secs:.1f} s; "
@@ -1404,10 +1464,7 @@ def fault_host(torch, tenv, K, chk, scn, dev, router, recovery):
     """``run_scenario``'s host recovery loop over ``scn`` on the card, its
     kernels held to their plain versions every CHECK_EVERY calls. Returns
     the run, its wall clock and its launches by wrapper."""
-    saved = {name: getattr(K, name) for name in REPLACES}
-    for name in REPLACES:
-        setattr(K, name, chk.wrap(name, CHECK_EVERY))
-    try:
+    with chk.checking(CHECK_EVERY):
         K.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1416,9 +1473,6 @@ def fault_host(torch, tenv, K, chk, scn, dev, router, recovery):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = K.launch_counts()
-    finally:
-        for name, fn in saved.items():
-            setattr(K, name, fn)
     return out, wall, launches
 
 
@@ -2546,10 +2600,13 @@ def same_final_state(torch, tag, ra, pa, rb, pb) -> None:
         need(ok, f"{tag} the final {part} differs")
 
 
-def load_kernels(torch, chk, CK, CR, D, dev, mu, n_fault: int, bc: int, R: int) -> float:
+def load_kernels(torch, chk, CK, CR, D, dev, mu, n_fault: int, bc: int, R: int,
+                 route: int) -> float:
     """The [load] path's kernels on the card at its shapes, against their
     plain versions: K1-K3 and the table at n = 64 on the full run's final μ̂
-    (unmasked and 20% masked) with batches of LOAD_BATCH; the replica chain
+    (unmasked and 20% masked) with batches of LOAD_BATCH; the keyed K1 also
+    at the fault stream's widened route (n = ``n_fault``, ``route`` slots,
+    with and without a slot mask); the replica chain
     of a [load] turn (n = 64: 8 benchmark slots and the batch) and of the
     fault stream's turn (n = ``n_fault``, the stream's fixed burst width
     ``bc``, -1 but for three rejoins, and a tail of ``R``). Returns
@@ -2564,7 +2621,8 @@ def load_kernels(torch, chk, CK, CR, D, dev, mu, n_fault: int, bc: int, R: int) 
         p = D.scaled_weights(mu, act)
         prob, alias = K.alias_table(p, act)
         chk.compare("alias_table", (prob, alias), Rf.alias_table_ref(p, act))
-        chk.compare("ppot_dispatch_fused_alias",
+        hold_keyed(torch, chk, prob, alias, q, LOAD_BATCH, SEED + n, dev)
+        chk.compare("ppot_dispatch_fused_alias_unkeyed",
                     K.ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2),
                     Rf.ppot_dispatch_fused_alias_ref(prob, alias, q, u1, v1, u2, v2))
         cdf = Rf.make_cdf(mu) if act is None else D.masked_cdf(mu, act)
@@ -2572,6 +2630,11 @@ def load_kernels(torch, chk, CK, CR, D, dev, mu, n_fault: int, bc: int, R: int) 
                     Rf.ppot_dispatch_fused_ref(cdf, q, u1, u2))
         chk.compare("ppot_dispatch", K.ppot_dispatch(cdf, q, u1, u2),
                     Rf.ppot_dispatch_ref(cdf, q, u1, u2))
+    rk = np.random.RandomState(SEED + n_fault)  # apart from the chain cases' draws
+    mu_f = torch.from_numpy(rk.rand(n_fault).astype(np.float32) * 5).to(dev)
+    prob_f, alias_f = K.alias_table(D.scaled_weights(mu_f))
+    q_f = torch.from_numpy(rk.randint(0, 50, n_fault).astype(np.int32)).to(dev)
+    hold_keyed(torch, chk, prob_f, alias_f, q_f, route, SEED + n_fault, dev)
     err, shapes = 0.0, []
     for nn, b, r in ((n, 0, 0), (n_fault, bc, R)):
         fake = rng.randint(0, nn, 8).astype(np.int32)
@@ -2592,8 +2655,10 @@ def load_kernels(torch, chk, CK, CR, D, dev, mu, n_fault: int, bc: int, R: int) 
         err = max(err, held_equal(torch, f"[load] pool_turn {shapes[-1]}",
                                   ("start", "done", "sub_w", "act", "free_at", "resp"), got,
                                   want))
-    print(f"[load] kernels at the path's shapes equal to their plain versions: K1, K2, K3 and "
+    print(f"[load] kernels at the path's shapes equal to their plain versions: K1 (keyed, "
+          f"host and device keys, with and without slots; and unkeyed), K2, K3 and "
           f"alias_table at n={n} on the full run's final mu (unmasked and 20% masked), "
+          f"the keyed K1 at the fault stream's route (n={n_fault}, {route} slots), "
           f"batches of {LOAD_BATCH}; pool_turn at {shapes[0]} and at {shapes[1]} (the fault "
           f"stream's burst width {bc} and tail {R}; one launch holds up to "
           f"{CK.max_steps(n_fault)} steps at n={n_fault})")
@@ -2853,7 +2918,8 @@ def phase_load(torch, tr, tsl, tenv, tload, obs, trcv, chk, D, K, CK, CR, met, s
         total[w] += launches[w]
     rc = trcv.RecoveryConfig(**FAULT_RECOVERY)
     err = load_kernels(torch, chk, CK, CR, D, dev, full.pop("mu_final"), len(speeds),
-                       fault["burst_cap"], rc.retry_cap + rc.spec_cap)
+                       fault["burst_cap"], rc.retry_cap + rc.spec_cap,
+                       LOAD_BATCH + rc.retry_cap)
     secs = time.perf_counter() - t0
     print(f"[load] the full run, {len(parity)} chunked = monolithic checks and the fault "
           f"stream in {secs:.1f} s; launches {json.dumps(total)}")
@@ -5009,7 +5075,7 @@ def rows_against_solo(torch, Engine, cfg, model, recs, n_new: int) -> dict:
     return dict(equal=equal, parted=parted, logit_diff_max=max(diffs))
 
 
-def phase_moe_serve(torch, cfg, model, dev, K):
+def phase_moe_serve(torch, cfg, model, dev, chk):
     """Four moonshot engines behind the router (``_run_engine_executor``):
     every request completes, μ̂ ranks the replicas, and the router launched
     K1 and ``alias_table`` (counted from its construction); served requests
@@ -5029,6 +5095,8 @@ def phase_moe_serve(torch, cfg, model, dev, K):
     from repro_torch.models import api
     from repro_torch.serving.engine import ContinuousBatchingEngine
     from repro_torch.serving.router import RosellaRouter
+
+    K = chk.K
 
     tag = f"[serve {cfg.arch}]"
     Engine = moe_recording_engine_class(ContinuousBatchingEngine)
@@ -5052,6 +5120,10 @@ def phase_moe_serve(torch, cfg, model, dev, K):
     for name in ("ppot_dispatch_fused_alias", "alias_table"):
         need(launches[name] > 0, f"{tag} the router launched {name} no time "
              f"(launches {launches})")
+    # the keyed K1 at the router's shape, on its final table and queue view
+    need((router.n, SERVE_BATCH) == MOE_ROUTER_SHAPE, f"{tag} the router's shape moved")
+    hold_keyed(torch, chk, router.table_front.prob, router.table_front.alias, router.q_view,
+               SERVE_BATCH, SEED, dev)
     need(len(lat) == MOE_SERVE_REQUESTS, f"{tag} {len(lat)} of {MOE_SERVE_REQUESTS} completed")
     need(not any(e.active.any() for e in engines), f"{tag} a slot is still active")
     mu = router.mu_hat
@@ -5275,13 +5347,9 @@ def event_median_ms(torch, launch, reps: int = 200) -> float:
     return float(np.median([e0.elapsed_time(e1) for e0, e1 in evs]))
 
 
-def graph_call_ms(torch, launch, reps: int = 50) -> float:
-    """Median device time of one call of many small launches, as the
-    one-program loop runs it: the call captured once as a CUDA graph, then
-    an event pair around each of ``reps`` replays queued behind a spin, so
-    that the pairs time the device and not the host. (Queued as separate
-    launches, a call of hundreds of kernels fills the stream's launch queue
-    and the pairs would time the host.)"""
+def captured(torch, launch):
+    """``launch`` warmed up on a side stream, then captured once as a CUDA
+    graph, kept so that its nodes can be read (``scanloop._graph_nodes``)."""
     cur = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(cur)
@@ -5289,10 +5357,21 @@ def graph_call_ms(torch, launch, reps: int = 50) -> float:
         for _ in range(2):
             launch()
     cur.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         launch()
-    return event_median_ms(torch, graph.replay, reps)
+    graph.instantiate()
+    return graph
+
+
+def graph_call_ms(torch, launch, reps: int = 50) -> float:
+    """Median device time of one call of many small launches, as the
+    one-program loop runs it: the call captured once as a CUDA graph, then
+    an event pair around each of ``reps`` replays queued behind a spin, so
+    that the pairs time the device and not the host. (Queued as separate
+    launches, a call of hundreds of kernels fills the stream's launch queue
+    and the pairs would time the host.)"""
+    return event_median_ms(torch, captured(torch, launch).replay, reps)
 
 
 def host_median_ms(torch, fn, reps: int = 20) -> float:
@@ -5355,8 +5434,14 @@ def phase_times(torch, K, R, D, build, dev):
         pp, pa = torch.empty_like(prob), torch.empty_like(alias)
         P = lambda t: t.data_ptr()  # noqa: E731
         logn = int(np.ceil(np.log2(n)))
+        key = torch.tensor(K1_KEY, dtype=torch.int64, device=dev)
         cases = {
             "ppot_dispatch_fused_alias": (
+                lambda: lib.ppot_fused_alias_keyed(P(prob), P(alias), P(q), P(key), 0, 0, None,
+                                                   n, B, P(w), P(qa), stream),
+                lambda: R.ppot_dispatch_fused_alias_keyed_ref(prob, alias, q, key, B),
+                k1_bytes(n, B), K1_OPS * B),
+            "ppot_dispatch_fused_alias_unkeyed": (
                 lambda: lib.ppot_fused_alias(P(prob), P(alias), P(q), P(u1), P(v1), P(u2),
                                              P(v2), n, B, P(w), P(qa), stream),
                 lambda: R.ppot_dispatch_fused_alias_ref(prob, alias, q, u1, v1, u2, v2),
@@ -5408,6 +5493,69 @@ def phase_times(torch, K, R, D, build, dev):
                   f"library call: none")
     print("[times] library_ms: no single PyTorch call computes these functions")
     return out, floor_ms, mhz
+
+
+def k1_bytes(n: int, B: int) -> int:
+    """The keyed K1's bytes: prob, alias and q read (12n), the key (16),
+    workers and q_after written (4B + 4n); its uniforms never touch device
+    memory."""
+    return 16 * n + 4 * B + 16
+
+
+def phase_k1_times(torch, K, R, D, build, tsl, prng, dev, floor_ms) -> dict:
+    """The keyed K1 against the chain it replaced on the engine's path
+    (``prng.uniform_quad`` of the device key, ``q.clone()`` as the seed of
+    q_after, the unkeyed K1), each captured as one graph and replayed in
+    turns (chain, keyed, keyed, chain), at K1's [times] shapes and at
+    [serve moonshot-v1-16b-a3b]'s router shape, where the keyed kernel is
+    also timed alone; the graphs' nodes and their results equal."""
+    lib = build.load()
+    out = {}
+    for n, B in ((1024, BATCH), (2048, 16384), MOE_ROUTER_SHAPE):
+        rng = np.random.RandomState(n + B)
+        mu = torch.from_numpy(rng.rand(n).astype(np.float32) * 5).to(dev)
+        q = torch.from_numpy(rng.randint(0, 50, n).astype(np.int32)).to(dev)
+        prob, alias = K.alias_table(D.scaled_weights(mu))
+        key = torch.tensor(K1_KEY, dtype=torch.int64, device=dev)
+
+        def keyed():
+            return K.ppot_dispatch_fused_alias_keyed(prob, alias, q, key, B)
+
+        def chain():
+            u1, u2, v1, v2 = prng.uniform_quad(key, B, dev)
+            w, qa = torch.empty(B, dtype=torch.int32, device=dev), q.clone()
+            lib.ppot_fused_alias(*(t.data_ptr() for t in (prob, alias, q, u1, v1, u2, v2)), n,
+                                 B, w.data_ptr(), qa.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+            return w, qa
+
+        gk, gc = captured(torch, keyed), captured(torch, chain)
+        nodes = {"keyed": tsl._graph_nodes(gk)[0], "chain": tsl._graph_nodes(gc)[0]}
+        got, want = keyed(), chain()
+        torch.cuda.synchronize()
+        need(all(torch.equal(a, b) for a, b in zip(got, want)),
+             f"[times] K1 at n={n} B={B}: the keyed kernel differs from the chain it replaced")
+        turns = [event_median_ms(torch, g.replay, 100) for g in (gc, gk, gk, gc)]
+        rec = dict(graph_ms=(turns[1] + turns[2]) / 2, chain_graph_ms=(turns[0] + turns[3]) / 2,
+                   graph_nodes=nodes["keyed"], chain_graph_nodes=nodes["chain"])
+        if (n, B) == MOE_ROUTER_SHAPE:
+            w, qa = torch.empty(B, dtype=torch.int32, device=dev), torch.empty_like(q)
+            rec["ms"] = event_median_ms(torch, lambda: lib.ppot_fused_alias_keyed(
+                prob.data_ptr(), alias.data_ptr(), q.data_ptr(), key.data_ptr(), 0, 0, None, n,
+                B, w.data_ptr(), qa.data_ptr(), torch.cuda.current_stream().cuda_stream))
+            rec["plain_ms"] = event_median_ms(
+                torch, lambda: R.ppot_dispatch_fused_alias_keyed_ref(prob, alias, q, key, B))
+            rec["bound_ms"] = max(k1_bytes(n, B) / HBM_BYTES_PER_S,
+                                  K1_OPS * B / F32_OPS_PER_S) * 1e3
+        out[(n, B)] = rec
+        print(f"[times] K1 keyed n={n} B={B} in a graph: {rec['graph_ms']:.6f} ms a replay "
+              f"({rec['graph_nodes']} node) against the chain it replaced (uniform_quad + "
+              f"clone + unkeyed K1) {rec['chain_graph_ms']:.6f} ms "
+              f"({rec['chain_graph_nodes']} nodes), in turns; equal results"
+              + (f"; alone {rec['ms']:.6f} ms, plain {rec['plain_ms']:.6f} ms, bound "
+                 f"{rec['bound_ms']:.9f} ms (bytes), launch floor {floor_ms:.6f} ms"
+                 if "ms" in rec else ""))
+    return out
 
 
 def phase_pool_chain_times(torch, CK, CR, cbuild, dev, mhz, floor_ms, real_turns):
@@ -5721,7 +5869,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_zoo = time.perf_counter()
     moe_cfg, moe_model, moe_prefill = phase_moe_prefill(torch, FK, dev)
-    moe_serve = phase_moe_serve(torch, moe_cfg, moe_model, dev, K)
+    moe_serve = phase_moe_serve(torch, moe_cfg, moe_model, dev, chk)
     del moe_model
     torch.cuda.empty_cache()
     moe_balance = phase_moe_balance(torch, dev)
@@ -5731,6 +5879,18 @@ def main() -> int:
           f"{time.perf_counter() - t_zoo:.1f} s")
     per_turn, copies, idle = phase_turn_cost(torch, tr, speeds)
     times, floor_ms, mhz = phase_times(torch, K, R, D, build, dev)
+    k1_times = phase_k1_times(torch, K, R, D, build, tsl, prng, dev, floor_ms)
+    chain = k1_times[(N_REPLICAS, BATCH)]["chain_graph_nodes"] - 1
+    a = scan_cells["a"]
+    need(a["graph_nodes"] == SCAN_A_NODES_BEFORE - chain
+         and a["graph_kernels"]["ppot_dispatch_fused_alias"] == 1
+         and a["graph_kernels"]["ppot_dispatch_fused_alias_unkeyed"] == 0,
+         f"[scan a] the turn captured {a['graph_nodes']} nodes ({a['graph_kernels']}), not the "
+         f"{SCAN_A_NODES_BEFORE} before the keyed K1 less the {chain} nodes of the chain it "
+         f"replaced, with one keyed K1 node")
+    print(f"[scan a] the turn's graph: {a['graph_nodes']} nodes = {SCAN_A_NODES_BEFORE} before "
+          f"the keyed K1 less the {chain} other nodes of the chain it replaced; one keyed K1 "
+          f"node")
     pool_times = phase_pool_chain_times(torch, CK, CR, pool_build, dev, mhz, floor_ms,
                                         real_turns)
     sim_times = phase_sim_times(torch, dev, RS, mhz, floor_ms)
@@ -5771,11 +5931,24 @@ def main() -> int:
     kernels = []
     for name in REPLACES:
         t = times[(name, 1024, BATCH)]
+        # the keyed K1's large_*: (2048, 16384); by_shape: each shape's
+        # replay of one graph of the kernel against one of the chain it
+        # replaced (uniform_quad + clone + unkeyed K1), and the kernel alone
+        # at [serve moonshot]'s router shape; before_ms: the unkeyed kernel
+        # that the engine launched before (PPOT_BEFORE_MS)
+        k1 = {} if name != "ppot_dispatch_fused_alias" else dict(
+            large_ms=times[(name, 2048, 16384)]["ms"],
+            large_bound_ms=times[(name, 2048, 16384)]["bound_ms"],
+            before_ms=PPOT_BEFORE_MS[name][1024],
+            by_shape={f"{n}x{B}": rec for (n, B), rec in k1_times.items()})
+        if name == "ppot_dispatch_fused_alias_unkeyed":
+            k1 = dict(note="K1 on given uniforms, the Pallas kernel's contract: held to its "
+                      "plain version here; no serving path calls it")
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=total[name], max_abs_err=chk.max_err[name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=None, moe_serve_launches=moe_serve["launches"][name]))
+            library_ms=None, moe_serve_launches=moe_serve["launches"][name], **k1))
     # the array form at (1024, 136), the scheduler cell's turn size with a
     # planted 30-step chain: a fixed case, so the line compares from run to
     # run; real_turn_ms: the turn form in place on real turn 50 of [scan a]

@@ -11,11 +11,16 @@ the kernels of another checkout of this repository (``git archive`` of an
 earlier commit unpacked into DIR) are built and timed on the same inputs,
 in turns with the current ones (parent, current, current, parent). Its
 K4/K5 entry points are read as they were before their redesign, its PPoT
-ones as they were before the alias-table kernel (``alias_pairing`` walks a
-stack built by tensor ops), its pool chain's array form (``pool_chain``) as
-it has been since the chain was ported; with the chain, the one-program
-loop's [scan a] and [scan e] also run whole on each checkout, each in a
-process of its own. Its chain simulator is read as it was ported, and its
+ones as they were before K1 drew its own uniforms (``ppot_fused_alias`` on
+given uniforms, K2, K3, ``alias_table``): the keyed K1 is timed alone
+against the parent's K1 and, one graph each, against the parent's engine
+path (the counter-hash draws, the copy of q, its K1). Its pool chain's
+array form (``pool_chain``) is read as it has been since the chain was
+ported. With the PPoT kernels or the chain, the one-program loop's [scan a]
+and [scan e] also run whole on each checkout, each run in a process of its
+own, ten pairs in turns, and their captured turns and the turns whose node
+counts the tests and chip_smoke.py pin are compared node by node, kernel
+nodes by name. Its chain simulator is read as it was ported, and its
 per-phase cycle split is taken by inserting this source's clock block and
 marks into it (``clocked_parent_source``), or, from the redesigned kernel
 on (its source carries the clock block), through its own entry and a
@@ -188,23 +193,20 @@ _LOOKAHEAD_WALK = """  if (threadIdx.x == 0) {
 
 def _l1_search(s: str) -> str:
     """K2/K3 search the cdf and read q through L1 (__ldg) with nothing
-    staged; the alias kernel (K1) keeps its staging."""
+    staged (K2's histogram stays in shared memory)."""
     edits = [
         ("    const float ca = cdf[min(a + step, n) - 1];\n"
          "    const float cb = cdf[min(b + step, n) - 1];\n",
          "    const float ca = __ldg(cdf + min(a + step, n) - 1);\n"
          "    const float cb = __ldg(cdf + min(b + step, n) - 1);\n"),
-        ("    s_tab[i] = tab[i];\n    s_q[i] = q[i];\n",
-         "    if (ALIAS) {\n      s_tab[i] = tab[i];\n      s_q[i] = q[i];\n    }\n"),
+        ("    s_cdf[i] = cdf[i];\n    s_q[i] = q[i];\n", ""),
         ("  __syncthreads();\n\n  const int b = blockIdx.x",
-         "  if (ALIAS || FOLD) __syncthreads();\n\n  const int b = blockIdx.x"),
-        ("cdf_probe2(s_tab, n, u1[b], u2[b], j1, j2);",
-         "cdf_probe2(tab, n, u1[b], u2[b], j1, j2);"),
+         "  if (FOLD) __syncthreads();\n\n  const int b = blockIdx.x"),
+        ("cdf_probe2(s_cdf, n, u1[b], u2[b], j1, j2);",
+         "cdf_probe2(cdf, n, u1[b], u2[b], j1, j2);"),
         ("const int w = s_q[j1] <= s_q[j2] ? j1 : j2;",
-         "const int w = (ALIAS ? s_q[j1] : __ldg(q + j1)) <= (ALIAS ? s_q[j2] : __ldg(q + j2))"
-         " ? j1 : j2;"),
-        ("(size_t)n * 4 * (2 + (ALIAS ? 1 : 0) + (FOLD ? 1 : 0))",
-         "(size_t)n * 4 * (ALIAS ? 3 + (FOLD ? 1 : 0) : (FOLD ? 3 : 0))"),
+         "const int w = __ldg(q + j1) <= __ldg(q + j2) ? j1 : j2;"),
+        ("(size_t)n * 4 * (2 + (FOLD ? 1 : 0))", "(size_t)n * 4 * (FOLD ? 3 : 0)"),
     ]
     for a, b in edits:
         if s.count(a) != 1:
@@ -273,10 +275,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_SIGNATURES = {
     "flash": {"flash_attention_fwd": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _I, _I, _I, _P)},
     "ssd": {"ssd_scan": (_P,) * 7 + (_I,) * 9 + (_P,)},
+    # before K1 drew its own uniforms: its one entry on given uniforms
+    # (q_after seeded by the caller), K2, K3 and the one-launch table
     "ppot": {"ppot_fused_alias": (_P,) * 7 + (_I, _I, _P, _P, _P),
              "ppot_fused_cdf": (_P,) * 4 + (_I, _I, _P, _P, _P),
              "ppot_select_cdf": (_P,) * 4 + (_I, _I, _P, _P),
-             "alias_pairing": (_P, _P, _P, _I, _P, _P, _P)},
+             "alias_table": (_P, _P, _I, _P, _P, _P)},
     "chain": {"pool_chain": (_P,) * 6 + (_I, _I) + (_P,) * 4},
     "sim": {"sim_chain": (_P,) * 13 + (_I,) * 10 + (_P,) * 28 + (_P,)},
     # the redesigned chain kernel's paper-mode entry, before its one entry of
@@ -301,12 +305,63 @@ def variant_sources(path: str, variants, tmp: Path) -> list[tuple[str, Path]]:
     return out
 
 
+def k1_against_parent(torch, pl, cur, prob, alias, q, n: int, B: int, median_ms) -> dict:
+    """The keyed K1 against the parent's engine path it replaced: the
+    parent's kernel alone (on given uniforms) against the keyed kernel
+    alone, and, each captured as one graph, the parent's chain
+    (``prng.uniform_quad`` of a device key, ``q.clone()`` as the seed of
+    q_after, its K1) against the keyed kernel; in turns (parent, current,
+    current, parent), the two graphs' results equal."""
+    import chip_smoke as CS
+    from repro_torch.utils import prng
+
+    dev = q.device
+    key = torch.tensor(CS.K1_KEY, dtype=torch.int64, device=dev)
+    u1, u2, v1, v2 = prng.uniform_quad(key, B, dev)
+    w, qa = torch.empty(B, dtype=torch.int32, device=dev), q.clone()
+    P = lambda t: t.data_ptr()  # noqa: E731
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def parent_alone():
+        pl.ppot_fused_alias(P(prob), P(alias), P(q), P(u1), P(v1), P(u2), P(v2), n, B, P(w),
+                            P(qa), stream())
+
+    def keyed_alone():
+        cur.ppot_fused_alias_keyed(P(prob), P(alias), P(q), P(key), 0, 0, None, n, B, P(w),
+                                   P(qa), stream())
+
+    def parent_chain():
+        c1, c2, d1, d2 = prng.uniform_quad(key, B, dev)
+        wc, qc = torch.empty(B, dtype=torch.int32, device=dev), q.clone()
+        pl.ppot_fused_alias(P(prob), P(alias), P(q), P(c1), P(d1), P(c2), P(d2), n, B, P(wc),
+                            P(qc), stream())
+        return wc, qc
+
+    def keyed():
+        wk, qk = torch.empty(B, dtype=torch.int32, device=dev), torch.empty_like(q)
+        cur.ppot_fused_alias_keyed(P(prob), P(alias), P(q), P(key), 0, 0, None, n, B, P(wk),
+                                   P(qk), stream())
+        return wk, qk
+
+    alone = [median_ms(f, 200) for f in (parent_alone, keyed_alone, keyed_alone, parent_alone)]
+    gp, gk = CS.captured(torch, parent_chain), CS.captured(torch, keyed)
+    turns = [median_ms(g.replay, 200) for g in (gp, gk, gk, gp)]
+    got, want = keyed(), parent_chain()
+    torch.cuda.synchronize()
+    return {"parent": dict(ms=statistics.mean((alone[0], alone[3])),
+                           current_same_call_ms=statistics.mean(alone[1:3]),
+                           graph_ms=statistics.mean((turns[0], turns[3])),
+                           current_graph_ms=statistics.mean(turns[1:3]),
+                           equal=all(torch.equal(a, b) for a, b in zip(got, want)))}
+
+
 def time_ppot(torch, libs, parent, median_ms) -> dict:
     """K2/K3 and the alias-table kernel against their variants, each in turns
     with the current source (current, variant, variant, current), at
-    chip_smoke.py's [times] shapes; with a parent, its K1-K3 and its pairing
-    walk the same way, and its whole table build (tensor ops for the stack
-    order and the mask pass around its walk) against build_alias_table."""
+    chip_smoke.py's [times] shapes; with a parent (a checkout from before K1
+    drew its own uniforms), its unkeyed K1, K2, K3 and table kernels the
+    same way, and the keyed K1 against the parent's engine path
+    (``k1_against_parent``)."""
     import chip_smoke as CS
     from repro_torch.core import dispatch as D
     from repro_torch.kernels.ppot_dispatch import ref as R
@@ -362,47 +417,21 @@ def time_ppot(torch, libs, parent, median_ms) -> dict:
                     current_same_call_ms=statistics.mean((turns[0], turns[3])), equal=equal)
         if parent is not None:
             pl = parent.load()
-            stack, ns0 = R.stack_order(p)
             old = {
-                "ppot_dispatch_fused_alias": lambda: pl.ppot_fused_alias(
+                "ppot_dispatch_fused_alias_unkeyed": lambda lib: lib.ppot_fused_alias(
                     P(prob), P(alias), P(q), P(u1), P(v1), P(u2), P(v2), n, B, P(w), P(qa),
                     stream),
-                "ppot_dispatch_fused": lambda: pl.ppot_fused_cdf(
-                    P(cdf), P(q), P(u1), P(u2), n, B, P(w), P(qa), stream),
-                "ppot_dispatch": lambda: pl.ppot_select_cdf(
-                    P(cdf), P(q), P(u1), P(u2), n, B, P(w), stream),
-                "alias_table": lambda: pl.alias_pairing(
-                    P(p), P(stack), P(ns0), n, P(pp), P(pa), stream),
+                "ppot_dispatch_fused": calls["ppot_dispatch_fused"][0],
+                "ppot_dispatch": calls["ppot_dispatch"][0],
+                "alias_table": calls["alias_table"][0],
             }
-            new = dict(calls, ppot_dispatch_fused_alias=(
-                lambda lib: lib.ppot_fused_alias(P(prob), P(alias), P(q), P(u1), P(v1), P(u2),
-                                                 P(v2), n, B, P(w), P(qa), stream),))
             for name, fn in old.items():
-                nf = lambda: new[name][0](cur)  # noqa: E731
-                turns = [median_ms(f, 200) for f in (fn, nf, nf, fn)]
+                turns = [median_ms(lambda lb=lb: fn(lb), 200) for lb in (pl, cur, cur, pl)]
                 row.setdefault(name, {})["parent"] = dict(
                     ms=statistics.mean((turns[0], turns[3])),
                     current_same_call_ms=statistics.mean(turns[1:3]))
-
-            def parent_build(a):
-                pw = D.scaled_weights(mu, a)
-                st, k = R.stack_order(pw)
-                pr, al = torch.empty_like(pw), torch.empty(n, dtype=torch.int32, device=dev)
-                pl.alias_pairing(P(pw), P(st), P(k), n, P(pr), P(al), stream)
-                return (pr, al) if a is None else R.mask_pass(pr, al, a)
-
-            for mlabel, a in (("unmasked", None), ("masked", act)):
-                want = D.build_alias_table(mu, a)
-                got = parent_build(a)
-                torch.cuda.synchronize()
-                rec = {}
-                for how, fn in (("parent composition", lambda: parent_build(a)),
-                                ("build_alias_table", lambda: D.build_alias_table(mu, a))):
-                    prof = CS.device_profile(torch, lambda: [fn() for _ in range(20)])
-                    rec[how] = dict(launches=prof["launches"] / 20,
-                                    host_ms=CS.host_median_ms(torch, fn, reps=50))
-                rec["equal"] = all(torch.equal(x, y) for x, y in zip(got, want))
-                row[f"table build {mlabel}"] = rec
+            row["ppot_dispatch_fused_alias"] = k1_against_parent(
+                torch, pl, cur, prob, alias, q, n, B, median_ms)
         for name, r in row.items():
             print(f"[ppot {label}] {name}: {json.dumps(r)}", flush=True)
     return out
@@ -411,10 +440,12 @@ def time_ppot(torch, libs, parent, median_ms) -> dict:
 # the one-program loop run whole by one checkout's package, for --parent:
 # per cell (n, batch, turns, comp_cap, pend_cap: the capacities chip_smoke.py
 # sizes for [scan a] and [scan e] from the host loop), the turns/s of the
-# replays (the best of five runs, capture left out: the host's noise is
-# larger than the difference), the graph's nodes and a hash of the
+# replays (the best of SCAN_REPEATS runs in the process, capture left out),
+# the graph's nodes and its kernel nodes by name and a hash of the
 # responses, printed as JSON
 SCAN_CELLS = {"a": (1024, 128, 2050, 256, 4096), "e": (2048, 2048, 300, 4096, 16384)}
+SCAN_REPEATS = 2
+SCAN_PAIRS = 10
 SCAN_RUN = """
 import hashlib, json, sys, time
 sys.path.insert(0, {src!r})
@@ -427,7 +458,7 @@ for mode, (n, B, turns, comp_cap, pend_cap) in {cells!r}.items():
     rate = 0.7 * float(sp.sum())
     times, costs, spd = tsl._precompute_workload(rate, turns * B / rate, 1.0, None, 0, B, sp)
     walls = []
-    for _ in range(5):
+    for _ in range({repeats}):
         r = tr.RosellaRouter(n, float(sp.sum()), seed=0, use_alias=True, async_mu=False,
                              device="cuda")
         torch.cuda.synchronize()
@@ -438,33 +469,120 @@ for mode, (n, B, turns, comp_cap, pend_cap) in {cells!r}.items():
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0 - (info["capture_s"] or 0.0))
     out[mode] = dict(turns=info["turns"], turns_per_s=info["turns"] / min(walls),
-                     graph_nodes=info["graph_nodes"],
+                     graph_nodes=info["graph_nodes"], graph_kernels=info["graph_kernels"],
                      resp_sha256=hashlib.sha256(resp.tobytes()).hexdigest()[:16])
 print(json.dumps(out))
 """
+# the turns whose node counts are pinned, captured by one checkout's package,
+# for --parent: tests/test_torch_cuda.py's NODES_WITHOUT_TELEMETRY cells (n =
+# 64, batches of 32) and chip_smoke.py's OBS_NODES_BEFORE cells (n = 1024,
+# batches of 128, the [scenario]/[faults] capacities), printed as JSON
+PINS_RUN = """
+import json, sys
+sys.path.insert(0, {src!r})
+import numpy as np
+import torch
+from repro_torch import env as tenv
+from repro_torch.configs.rosella_sim import tpch_speed_set
+from repro_torch.serving import recovery as trcv, router as tr, scanloop as tsl
+rc = trcv.RecoveryConfig(timeout_mult=8.0, retry_budget=2, retry_cap=4, spec_cap=2,
+                         spec_ratio=3.0)
+out = {{}}
+for name in ("null", "churn", "crash_storm"):
+    sp = tpch_speed_set(64, 0)
+    scn = tenv.make(name, speeds=tuple(sp), rate=0.7 * float(sp.sum()))
+    info = tenv.run_scenario(scn, use_scan=True, device="cuda", seed=0, arrival_batch=32,
+                             sequential_pool=True,
+                             recovery=rc if name == "crash_storm" else None)["info"]
+    out["n=64 " + name] = dict(graph_nodes=info["graph_nodes"],
+                               graph_kernels=info["graph_kernels"])
+sp = tpch_speed_set(1024, 0)
+for name, horizon, pend_cap, comp_cap in (("churn", 250.0, 4096, 256),
+                                          ("crash_storm", 180.0, 32768, 256)):
+    scn = tenv.make(name, speeds=tuple(sp), rate=0.7 * float(sp.sum()), horizon=horizon)
+    wl = scn.compile_serving(seed=0, arrival_batch=128)
+    cols = dict(active_np=wl.active, rejoin_np=wl.rejoin, burst_np=wl.burst,
+                fake_cost=scn.request_cost * 0.25, pend_cap=pend_cap, comp_cap=comp_cap)
+    if name == "crash_storm":
+        cols.update(kill_np=wl.kill_at, stall_np=wl.stall_at, stall_dur_np=wl.stall_dur,
+                    recovery=rc)
+    speeds0 = np.asarray(scn.speeds, float)
+    router = tr.RosellaRouter(1024, float(speeds0.sum()), seed=0, use_alias=True,
+                              async_mu=False, device="cuda")
+    info = tsl.run_workload_scan(router, tr.SequentialPool(speeds0), wl.times, wl.costs,
+                                 wl.speeds, **cols)[2]
+    out["n=1024 " + name] = dict(graph_nodes=info["graph_nodes"],
+                                 graph_kernels=info["graph_kernels"])
+print(json.dumps(out))
+"""
+# a kernel's mangled name without its build's anonymous-namespace tag (which
+# differs between two checkouts of the same source)
+_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
 
 
-def time_scan(parent_dir: Path) -> dict:
+def node_diff(parent: dict, current: dict) -> dict:
+    """Two captures of one turn compared: their nodes, their kernel nodes by
+    name (the namespace tag dropped) gone and come, and the other nodes
+    (copies, fills) gone."""
+    def by_name(kernels):
+        out = {}
+        for name, c in kernels.items():
+            key = _ANON.sub("<anon>", name)
+            out[key] = out.get(key, 0) + c
+        return out
+
+    pk, ck = by_name(parent["graph_kernels"]), by_name(current["graph_kernels"])
+    gone = {k: pk[k] - ck.get(k, 0) for k in pk if pk[k] > ck.get(k, 0)}
+    come = {k: ck[k] - pk.get(k, 0) for k in ck if ck[k] > pk.get(k, 0)}
+    other = lambda r: r["graph_nodes"] - sum(r["graph_kernels"].values())  # noqa: E731
+    return dict(parent_nodes=parent["graph_nodes"], current_nodes=current["graph_nodes"],
+                kernel_nodes_gone=sum(gone.values()), kernel_nodes_come=sum(come.values()),
+                other_nodes_gone=other(parent) - other(current), gone=gone, come=come)
+
+
+def _run_json(code: str, tree: Path) -> dict:
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+    if res.returncode:
+        raise SystemExit(f"the run of {tree} failed:\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def time_scan(parent_dir: Path, pairs: int = SCAN_PAIRS) -> dict:
     """[scan a] and [scan e] run whole by this checkout and by the parent,
-    each in a process of its own, in turns (parent, current, current,
-    parent)."""
-    runs = []
-    for tree in (parent_dir, ROOT, ROOT, parent_dir):
-        res = subprocess.run([sys.executable, "-c", SCAN_RUN.format(
-            src=str(tree / "src"), cells=SCAN_CELLS)], capture_output=True, text=True)
-        if res.returncode:
-            raise SystemExit(f"the scan run of {tree} failed:\n{res.stderr[-3000:]}")
-        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    each run in a process of its own, ``pairs`` pairs in turns (parent,
+    current, current, parent, ...); the turns/s of each pair's two runs
+    and their ratio; each cell's captured turn and the pinned turns
+    (``PINS_RUN``) compared node by node (``node_diff``)."""
+    order = [t for i in range(pairs) for t in
+             ((parent_dir, ROOT) if i % 2 == 0 else (ROOT, parent_dir))]
+    runs = {str(parent_dir): [], str(ROOT): []}
+    for tree in order:
+        runs[str(tree)].append(_run_json(SCAN_RUN.format(
+            src=str(tree / "src"), cells=SCAN_CELLS, repeats=SCAN_REPEATS), tree))
+    par, cur = runs[str(parent_dir)], runs[str(ROOT)]
     out = {}
     for mode in SCAN_CELLS:
-        r = [run[mode] for run in runs]
+        pt = [r[mode]["turns_per_s"] for r in par]
+        ct = [r[mode]["turns_per_s"] for r in cur]
+        ratios = [c / p for p, c in zip(pt, ct)]
         out[mode] = dict(
-            parent_turns_per_s=statistics.mean((r[0]["turns_per_s"], r[3]["turns_per_s"])),
-            current_turns_per_s=statistics.mean((r[1]["turns_per_s"], r[2]["turns_per_s"])),
-            parent_graph_nodes=r[0]["graph_nodes"], current_graph_nodes=r[1]["graph_nodes"],
-            turns=r[0]["turns"], runs=r,
-            same_responses=len({x["resp_sha256"] for x in r}) == 1)
-        print(f"[scan {mode}] {json.dumps(out[mode])}", flush=True)
+            turns=par[0][mode]["turns"], pairs=pairs,
+            parent_turns_per_s=statistics.median(pt), current_turns_per_s=statistics.median(ct),
+            ratio_median=statistics.median(ratios), ratio_min=min(ratios),
+            ratio_max=max(ratios), parent_runs=pt, current_runs=ct,
+            same_responses=len({r[mode]["resp_sha256"] for r in par + cur}) == 1,
+            nodes=node_diff(par[0][mode], cur[0][mode]))
+        r = out[mode]
+        print(f"[scan {mode}] {pairs} pairs in turns: parent {r['parent_turns_per_s']:.2f} "
+              f"turns/s, current {r['current_turns_per_s']:.2f} (median of the pairs' ratios "
+              f"{r['ratio_median']:.4f}, range {r['ratio_min']:.4f}-{r['ratio_max']:.4f}); "
+              f"same responses {r['same_responses']}; nodes {json.dumps(r['nodes'])}",
+              flush=True)
+    pins = [_run_json(PINS_RUN.format(src=str(tree / "src")), tree)
+            for tree in (parent_dir, ROOT)]
+    out["pins"] = {cell: node_diff(pins[0][cell], pins[1][cell]) for cell in pins[0]}
+    for cell, d in out["pins"].items():
+        print(f"[pins {cell}] {json.dumps(d)}", flush=True)
     return out
 
 
@@ -1191,8 +1309,8 @@ def main() -> int:
         readings["ppot"] = time_ppot(torch, libs["ppot"], parent.get("ppot"), median_ms)
     if "chain" in kinds:
         readings["pool_chain"] = time_chain(torch, libs["chain"], parent.get("chain"), median_ms)
-        if args.parent:
-            readings["scan"] = time_scan(args.parent)
+    if args.parent and kinds & {"ppot", "chain"}:
+        readings["scan"] = time_scan(args.parent)
     if "sim" in kinds:
         readings["sim_chain"] = time_sim(torch, libs["sim"], sim_clocked, parent.get("sim"),
                                          median_ms, obs_variants)

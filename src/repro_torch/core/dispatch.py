@@ -21,10 +21,12 @@ the engine after its draws, for callers that hold the draws already.
 Kernels: every C = 1 PPoT-SQ(2) batch goes through a kernel wrapper,
 which launches the kernel on CUDA tensors and runs its plain version only
 on CPU tensors.
-A batch with an alias table runs the fused alias kernel (a masked table
-gives inactive workers no mass, so the kernel serves masked batches too);
-a CDF batch runs the fused CDF kernel or, under a slot or membership mask,
-the select kernel. Inactive slots are folded out here. A table build is
+A batch with an alias table is one launch of the keyed alias kernel (K1):
+it draws the probe uniforms from the key itself, selects, and folds the
+active slots into the view (a masked table gives inactive workers no mass,
+so it serves masked batches too); only pinned slots are refolded here. A
+CDF batch runs the fused CDF kernel or, under a slot or membership mask,
+the select kernel, whose inactive slots are folded out here. A table build is
 the scaling as tensor ops, then one single-block kernel for the stack
 order, the pairing walk and the mask pass. C > 1 chunks select with tensor
 ops, as the reference's chunk scan does, and so do the other policies,
@@ -174,8 +176,10 @@ def _draws(policy: str, key, B: int, n: int, cfg: pol.PolicyConfig, mu_hat, mu_t
     A ``table`` is used only by ``ALIAS_POLICIES`` and ignored by the
     others; it must already carry ``mask``. Under ``mask`` uniform draws map
     through the active workers (``active_choice``) and proportional draws
-    sample a masked CDF. PPoT-SQ(2) keeps its uniforms (and the CDF) for
-    the kernels unless ``need_j``."""
+    sample a masked CDF. Without ``need_j``, PPoT-SQ(2) keeps the CDF and
+    its counter-hash pair (u1, u2) for the CDF kernels; an alias batch
+    draws nothing here, as K1 draws ``prng.uniform_quad(key, B)`` itself
+    (``_dispatch_batch``)."""
     dev = mu_hat.device
     d: dict[str, torch.Tensor] = {}
     if table is not None and policy not in ALIAS_POLICIES:
@@ -212,11 +216,8 @@ def _draws(policy: str, key, B: int, n: int, cfg: pol.PolicyConfig, mu_hat, mu_t
     elif policy == pol.HALO:
         d["j1"] = one_probe(key, mu_true)
     elif policy == pol.PPOT_SQ2 and not need_j:
-        if table is not None:
-            d.update(zip(("u1", "u2", "v1", "v2"), prng.uniform_quad(key, B, dev)))
-        else:
-            d["cdf"] = cdf_of(mu_hat)
-            d["u1"], d["u2"] = prng.uniform_pair(key, B, dev)
+        d["cdf"] = cdf_of(mu_hat)
+        d["u1"], d["u2"] = prng.uniform_pair(key, B, dev)
     elif policy in (pol.PPOT_SQ2, pol.PPOT_LL2):
         d["j1"], d["j2"] = two_probes(key)
     elif policy == pol.BANDIT:
@@ -405,23 +406,24 @@ def place(policy: str, d: dict, q: torch.Tensor, mu_hat: torch.Tensor, B: int, *
 def _dispatch_batch(key, B: int, q, mu_hat, active, forced, table, mask,
                     cfg) -> DispatchResult:
     """PPoT-SQ(2) at C = 1: one snapshot for the whole batch, through the
-    kernel wrappers. Pinned slots take their pins after the selection, so
-    the batch is folded here rather than in the fused kernel."""
-    d = _draws(pol.PPOT_SQ2, key, B, q.shape[0], cfg, mu_hat, mu_hat, need_j=False,
-               table=table, mask=mask)
+    kernel wrappers. With a table, K1 draws its uniforms from ``key`` and
+    folds the active slots. Pinned slots take their pins after the
+    selection, so a batch with pins, or a CDF kernel's batch under a slot
+    or membership mask, is folded here."""
     if table is not None:
-        workers, q_after = kernel.ppot_dispatch_fused_alias(
-            table.prob, table.alias, q, d["u1"], d["v1"], d["u2"], d["v2"])
-    elif active is None and mask is None and forced is None:
-        workers, q_after = kernel.ppot_dispatch_fused(d["cdf"], q, d["u1"], d["u2"])
-    else:
-        workers, q_after = kernel.ppot_dispatch(d["cdf"], q, d["u1"], d["u2"]), None
+        workers, q_after = kernel.ppot_dispatch_fused_alias_keyed(
+            table.prob, table.alias, q, key, B, active)
+        if forced is None:
+            return DispatchResult(workers=workers, q_after=q_after)
+        return _fold(q, torch.where(forced >= 0, forced, workers), active)
+    d = _draws(pol.PPOT_SQ2, key, B, q.shape[0], cfg, mu_hat, mu_hat, need_j=False,
+               mask=mask)
+    if active is None and mask is None and forced is None:
+        return DispatchResult(*kernel.ppot_dispatch_fused(d["cdf"], q, d["u1"], d["u2"]))
+    workers = kernel.ppot_dispatch(d["cdf"], q, d["u1"], d["u2"])
     if forced is not None:
         workers = torch.where(forced >= 0, forced, workers)
-    if q_after is None or forced is not None or active is not None:
-        # pins, or a kernel that folded every slot: fold the active ones here
-        return _fold(q, workers, active)
-    return DispatchResult(workers=workers, q_after=q_after)
+    return _fold(q, workers, active)
 
 
 def _fold(q, workers, act) -> DispatchResult:

@@ -1,32 +1,68 @@
 // PPoT-SQ(2) dispatch kernels and the alias-table build, for sm_90a.
 //
-// Three dispatch kernels share one templated body (the probe is an alias
-// table or an inverse CDF, the fold-back is on or off):
+// K1 is one kernel template, ppot_kernel_alias<KEYED>, behind two entries:
 //
-//   ppot_fused_alias  replaces ppot_dispatch_fused_alias
-//                     (src/repro/kernels/ppot_dispatch/kernel.py, _fused_alias_kernel)
-//   ppot_fused_cdf    replaces ppot_dispatch_fused
-//                     (same file, _fused_kernel)
+//   ppot_fused_alias_keyed  replaces ppot_dispatch_fused_alias
+//                           (src/repro/kernels/ppot_dispatch/kernel.py,
+//                           _fused_alias_kernel) together with the engine's
+//                           counter-hash draws in front of it
+//                           (src/repro/core/dispatch.py, _uniform_quad)
+//   ppot_fused_alias        the same kernel on given uniforms: the Pallas
+//                           kernel's own contract
+//
+// K2 and K3 share ppot_kernel_cdf<FOLD>:
+//
+//   ppot_fused_cdf    replaces ppot_dispatch_fused (same file, _fused_kernel)
 //   ppot_select_cdf   replaces ppot_dispatch (same file, _kernel)
 //
 // and alias_table replaces build_alias_table after its scaling: the stack
 // order, the n-step pairing fori_loop and the mask pass
 // (src/repro/core/dispatch.py).
 //
-// Bound on an H100: each dispatch kernel moves under 400 KB even at n=2048,
-// B=16384 (alias: 16n + 20B bytes, fused CDF: 12n + 12B), about 0.1 us at
-// 3.35 TB/s, so it is bound by launch latency, not bytes or operations.
-// Design answer: one launch per call, one thread per job, the [n] worker
-// arrays staged once per block in shared memory (n <= 2048 is at most
-// 32 KB) and read there directly. The TPU version's one-hot MXU dots were a
-// workaround for slow gathers; a shared-memory gather is one load here.
+// Bound on an H100: K1 reads prob, alias and q (12n bytes) and the key, and
+// writes workers and q_after: 16n + 4B bytes (+B with slots; its uniforms
+// never touch device memory), 0.005 us at n = 1024, B = 128 and 0.03 us at
+// n = 2048, B = 16384 at 3.35 TB/s. K2 moves 12n + 12B, K3 8n + 12B. Every
+// dispatch kernel is bound by launch latency, not bytes or operations, so
+// what it can save is the launches around it. Design answer: one launch per
+// dispatch call, one thread per job, the [n] worker arrays staged once per
+// block in shared memory and read there directly. The TPU version's one-hot
+// MXU dots were a workaround for slow gathers; a shared-memory gather is one
+// load here.
 //
-// The fold-back: the TPU kernel accumulated q_after in an output block that
-// the sequential grid revisited. CUDA blocks run in parallel and in no
-// order, so the caller seeds q_after with a copy of q, each block builds a
-// shared-memory histogram of its own (real, unpadded) jobs and adds each
-// nonzero bin with one global atomicAdd. Integer adds commute, so the
-// result is exact whatever the order.
+// K1 (ppot_kernel_alias): the launch is one thread-block cluster of c =
+// ceil(B / 1024) blocks, at most 8 (the portable cluster size): a larger
+// batch is taken in a loop by each thread, so B = 16384 runs as 8 blocks of
+// 1024 threads and two jobs a thread, and B <= 1024 as a cluster of one.
+//   1. Thread 0 of each block arms an mbarrier and stages prob, alias and q
+//      by three TMA bulk copies (cp.async.bulk), one an array; the at most
+//      three words before an array's first 16-byte boundary and the at most
+//      three after its last are copied by threads.
+//   2. While the copies are in flight every thread zeroes its part of the
+//      block's histogram and draws its first job's four uniforms. Keyed,
+//      that is the engine's counter hash (prng.uniform_quad), bit for bit
+//      in native u32: the Weyl counter x = b 0x9E3779B9 + k0, h1 =
+//      fmix32(x ^ k1 0x85EBCA6B), h2 = fmix32((x + 0x7F4A7C15) ^ k1
+//      0xC2B2AE35), their 16-bit halves times 2^-16. The key's words come
+//      from a device int64[2] (the scan turn's carry: a captured graph reads
+//      each replay's key) or by value (a host key).
+//   3. After the barrier, per job: two alias probes, SQ(2) with ties to j1,
+//      workers[b] (-1 at an inactive slot) and, at an active slot, a
+//      shared-memory atomicAdd into the block's histogram.
+//   4. The fold: a cluster barrier, then block r writes bins [r n / c,
+//      (r + 1) n / c) of q_after = q + the c histograms, read through
+//      distributed shared memory. Every bin is written once: no global
+//      atomics and no copy of q made by the caller, and integer sums are
+//      exact in any order. A second cluster barrier keeps each histogram
+//      alive until every block has read it.
+// Shared memory: 16 + 3 (4n + 16) + 4n bytes, rounded to 16-byte regions,
+// so n <= kAliasMaxN = 14524 fills the 227 KB a block may opt in to.
+//
+// K2's fold-back: the TPU kernel accumulated q_after in an output block
+// that the sequential grid revisited. Here the caller seeds q_after with a
+// copy of q, each block builds a shared-memory histogram of its own jobs
+// and adds each nonzero bin with one global atomicAdd. Integer adds
+// commute, so the result is exact whatever the order.
 //
 // The inverse-CDF probe is a branchless upper bound: power-of-two steps,
 // ceil(log2 n) + 1 loads, the two probes of a job searched in one loop so
@@ -67,11 +103,19 @@
 // Bytes: 12n (p in, prob and alias out) plus n for the mask. Shared memory:
 // 12n + 4 kPads + 8 kWalkUnroll bytes, so one block takes n <= kTableMaxN.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kAliasThreads = 1024;    // K1's largest block
+constexpr int kAliasMinThreads = 128;  // K1's smallest block
+constexpr int kMaxCluster = 8;         // the portable cluster size
+constexpr int kAliasMaxN = 14524;      // alias_smem(kAliasMaxN) = 227 KB
 constexpr int kTableThreads = 1024;
 constexpr int kTableWarps = kTableThreads / 32;
 constexpr int kTableMaxN = 16384;  // u16 bin indices; 12n + 400 bytes of shared memory
@@ -99,22 +143,19 @@ __device__ __forceinline__ int alias_probe(const float* prob, const int* alias,
   return v < prob[bin] ? bin : alias[bin];
 }
 
-template <bool ALIAS, bool FOLD>
-__global__ void __launch_bounds__(kThreads) ppot_kernel(
-    const float* __restrict__ tab, const int* __restrict__ alias,
-    const int* __restrict__ q, const float* __restrict__ u1,
-    const float* __restrict__ v1, const float* __restrict__ u2,
-    const float* __restrict__ v2, int n, int B, int* __restrict__ workers,
-    int* __restrict__ q_after) {
+// K2 (FOLD) and K3
+template <bool FOLD>
+__global__ void __launch_bounds__(kThreads) ppot_kernel_cdf(
+    const float* __restrict__ cdf, const int* __restrict__ q,
+    const float* __restrict__ u1, const float* __restrict__ u2, int n, int B,
+    int* __restrict__ workers, int* __restrict__ q_after) {
   extern __shared__ int smem[];
-  float* s_tab = reinterpret_cast<float*>(smem);
+  float* s_cdf = reinterpret_cast<float*>(smem);
   int* s_q = smem + n;
-  int* s_alias = s_q + n;                   // ALIAS only
-  int* s_hist = s_alias + (ALIAS ? n : 0);  // FOLD only
+  int* s_hist = s_q + n;  // FOLD only
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    s_tab[i] = tab[i];
+    s_cdf[i] = cdf[i];
     s_q[i] = q[i];
-    if (ALIAS) s_alias[i] = alias[i];
     if (FOLD) s_hist[i] = 0;
   }
   __syncthreads();
@@ -122,12 +163,7 @@ __global__ void __launch_bounds__(kThreads) ppot_kernel(
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b < B) {
     int j1, j2;
-    if (ALIAS) {
-      j1 = alias_probe(s_tab, s_alias, n, u1[b], v1[b]);
-      j2 = alias_probe(s_tab, s_alias, n, u2[b], v2[b]);
-    } else {
-      cdf_probe2(s_tab, n, u1[b], u2[b], j1, j2);
-    }
+    cdf_probe2(s_cdf, n, u1[b], u2[b], j1, j2);
     const int w = s_q[j1] <= s_q[j2] ? j1 : j2;
     workers[b] = w;
     if (FOLD) atomicAdd(&s_hist[w], 1);
@@ -139,6 +175,190 @@ __global__ void __launch_bounds__(kThreads) ppot_kernel(
       if (c) atomicAdd(&q_after[i], c);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K1: mbarrier and TMA bulk-copy primitives, the counter hash, the kernel
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `phase` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(phase)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// this block's shared memory; completion is counted (in bytes) on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// murmur3's finaliser, as prng.fmix32
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+struct AliasArgs {
+  const float* prob;
+  const int* alias;
+  const int* q;
+  const float *u1, *v1, *u2, *v2;  // unkeyed: the uniforms, f32[B]
+  const long long* key;            // keyed: the route key on the device, or null
+  uint32_t k0, k1;                 // keyed, key null: the key's words
+  const unsigned char* active;     // bool[B], or null: every slot active
+  int n, B;
+  int* workers;
+  int* q_after;
+};
+
+struct Quad {
+  float u1, v1, u2, v2;
+};
+
+// job b's uniforms: prng.uniform_quad's (u1, u2, v1, v2) of the key (k0, k1),
+// or read from the unkeyed entry's arrays (zeros past the batch)
+template <bool KEYED>
+__device__ __forceinline__ Quad draw(const AliasArgs& a, int b, uint32_t k0, uint32_t k1) {
+  if constexpr (KEYED) {
+    const uint32_t x = (uint32_t)b * 0x9E3779B9u + k0;
+    const uint32_t h1 = fmix32(x ^ (k1 * 0x85EBCA6Bu));
+    const uint32_t h2 = fmix32((x + 0x7F4A7C15u) ^ (k1 * 0xC2B2AE35u));
+    const float s = 1.0f / 65536.0f;  // the 16-bit halves are exact in f32
+    return Quad{(float)(h1 >> 16) * s, (float)(h2 >> 16) * s, (float)(h1 & 0xFFFFu) * s,
+                (float)(h2 & 0xFFFFu) * s};
+  }
+  else {
+    if (b >= a.B) return Quad{0.0f, 0.0f, 0.0f, 0.0f};
+    return Quad{a.u1[b], a.v1[b], a.u2[b], a.v2[b]};
+  }
+}
+
+// How an array of n 4-byte words is staged: the `head` words before its
+// first 16-byte boundary and the words after the last whole 16 bytes by
+// threads, the `body` words between by one bulk copy
+struct Stage {
+  int head, body;
+};
+
+__device__ __forceinline__ Stage stage_of(const void* src, int n) {
+  const int head =
+      min(n, (int)(((16u - ((uint32_t)reinterpret_cast<uintptr_t>(src) & 15u)) & 15u) >> 2));
+  return Stage{head, (n - head) & ~3};
+}
+
+// a staged array's region: 4n bytes, 16 of slack, rounded up to 16 bytes
+__host__ __device__ __forceinline__ int alias_region(int n) { return (4 * n + 31) & ~15; }
+
+__host__ __device__ __forceinline__ size_t alias_smem(int n) {
+  return 16 + 3 * (size_t)alias_region(n) + 4 * (size_t)n;
+}
+
+template <bool KEYED>
+__global__ void __launch_bounds__(kAliasThreads) ppot_kernel_alias(const AliasArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  // shared: the mbarrier (16 bytes), the three staged arrays' regions, the
+  // block's histogram. An array's word i sits at region + 16 + 4 (i - head),
+  // so its bulk-copied words start on a 16-byte boundary
+  extern __shared__ __align__(16) unsigned char smem_a[];
+  const int n = a.n, tid = threadIdx.x, region = alias_region(n);
+  unsigned char* r0 = smem_a + 16;
+  const Stage st[3] = {stage_of(a.prob, n), stage_of(a.alias, n), stage_of(a.q, n)};
+  const int* src[3] = {reinterpret_cast<const int*>(a.prob), a.alias, a.q};
+  int* dst[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    dst[k] = reinterpret_cast<int*>(r0 + k * region + 16) - st[k].head;
+  const float* s_prob = reinterpret_cast<const float*>(dst[0]);
+  const int* s_alias = dst[1];
+  const int* s_q = dst[2];
+  int* s_hist = reinterpret_cast<int*>(r0 + 3 * region);
+  const uint32_t bar = smem_u32(smem_a);
+  const uint32_t tx = 4u * (uint32_t)(st[0].body + st[1].body + st[2].body);
+
+  if (tid == 0 && tx) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && tx) {
+    mbar_expect_tx(bar, tx);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      if (st[k].body)
+        bulk_load(smem_u32(dst[k] + st[k].head), src[k] + st[k].head, 4u * st[k].body, bar);
+  }
+
+  // while the copies are in flight: the key, the first job's draws, the
+  // histogram's zeros and the words the bulk copies leave out
+  uint32_t k0 = a.k0, k1 = a.k1;
+  if (KEYED && a.key != nullptr) {
+    k0 = (uint32_t)a.key[0];
+    k1 = (uint32_t)a.key[1];
+  }
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int stride = c * (int)blockDim.x;
+  int b = rank * (int)blockDim.x + tid;
+  Quad d = draw<KEYED>(a, b, k0, k1);
+  for (int i = tid; i < n; i += blockDim.x) s_hist[i] = 0;
+  if (tid < 24) {  // eight threads an array: its head, then its tail
+    const int k = tid >> 3, t = tid & 7;
+    const Stage sk = k == 0 ? st[0] : k == 1 ? st[1] : st[2];
+    const int* from = k == 0 ? src[0] : k == 1 ? src[1] : src[2];
+    int* to = k == 0 ? dst[0] : k == 1 ? dst[1] : dst[2];
+    const int i = t < 4 ? t : sk.head + sk.body + t - 4;
+    if (t < 4 ? i < sk.head : i < n) to[i] = from[i];
+  }
+  __syncthreads();
+  if (tx) mbar_wait(bar, 0);
+
+  for (; b < a.B; b += stride) {
+    const int j1 = alias_probe(s_prob, s_alias, n, d.u1, d.v1);
+    const int j2 = alias_probe(s_prob, s_alias, n, d.u2, d.v2);
+    const int w = s_q[j2] < s_q[j1] ? j2 : j1;  // ties to j1
+    const bool on = a.active == nullptr || a.active[b];
+    a.workers[b] = on ? w : -1;
+    if (on) atomicAdd(&s_hist[w], 1);
+    d = draw<KEYED>(a, b + stride, k0, k1);
+  }
+
+  // the fold: this block's bins of q + every block's histogram
+  cluster.sync();
+  const int lo = (int)((long long)rank * n / c), hi = (int)((long long)(rank + 1) * n / c);
+  for (int i = lo + tid; i < hi; i += blockDim.x) {
+    int s = s_q[i];
+    for (int r = 0; r < c; ++r) s += cluster.map_shared_rank(s_hist, r)[i];
+    a.q_after[i] = s;
+  }
+  cluster.sync();  // no block leaves while another reads its histogram
 }
 
 // Exclusive scan over the block of one count per thread, after the running
@@ -330,44 +550,84 @@ cudaError_t allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <bool ALIAS, bool FOLD>
-int ppot_launch(const float* tab, const int* alias, const int* q,
-                const float* u1, const float* v1, const float* u2,
-                const float* v2, int n, int B, int* workers, int* q_after,
-                cudaStream_t stream) {
-  const size_t smem = (size_t)n * 4 * (2 + (ALIAS ? 1 : 0) + (FOLD ? 1 : 0));
+template <bool FOLD>
+int cdf_launch(const float* cdf, const int* q, const float* u1, const float* u2, int n,
+               int B, int* workers, int* q_after, cudaStream_t stream) {
+  const size_t smem = (size_t)n * 4 * (2 + (FOLD ? 1 : 0));
   const int blocks = (B + kThreads - 1) / kThreads;
-  cudaError_t e = allow_smem(ppot_kernel<ALIAS, FOLD>, smem);
+  cudaError_t e = allow_smem(ppot_kernel_cdf<FOLD>, smem);
   if (e != cudaSuccess) return (int)e;
-  ppot_kernel<ALIAS, FOLD><<<blocks, kThreads, smem, stream>>>(
-      tab, alias, q, u1, v1, u2, v2, n, B, workers, q_after);
+  ppot_kernel_cdf<FOLD><<<blocks, kThreads, smem, stream>>>(cdf, q, u1, u2, n, B, workers,
+                                                            q_after);
   return (int)cudaGetLastError();
+}
+
+// K1 as one cluster: c blocks of `threads`, c * threads >= B up to 8 blocks
+// of 1024, beyond which each thread loops
+template <bool KEYED>
+int alias_launch(const AliasArgs& a, cudaStream_t stream) {
+  if (a.n < 1 || a.n > kAliasMaxN || a.B < 0) return (int)cudaErrorInvalidValue;
+  const int need = (a.B + kAliasThreads - 1) / kAliasThreads;
+  const int c = need < 1 ? 1 : need > kMaxCluster ? kMaxCluster : need;
+  const int per = ((a.B + c - 1) / c + 31) & ~31;
+  const int threads = per < kAliasMinThreads ? kAliasMinThreads
+                      : per > kAliasThreads  ? kAliasThreads
+                                             : per;
+  const size_t smem = alias_smem(a.n);
+  cudaError_t e = allow_smem(ppot_kernel_alias<KEYED>, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ppot_kernel_alias<KEYED>, a);
+  const cudaError_t last = cudaGetLastError();  // read (and clear) either way
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 }  // namespace
 
 extern "C" {
 
+// K1 on given uniforms. q_after is written whole (no seed needed)
 int ppot_fused_alias(const float* prob, const int* alias, const int* q,
                      const float* u1, const float* v1, const float* u2,
                      const float* v2, int n, int B, int* workers,
                      int* q_after, cudaStream_t stream) {
-  return ppot_launch<true, true>(prob, alias, q, u1, v1, u2, v2, n, B,
-                                 workers, q_after, stream);
+  const AliasArgs a{prob, alias, q, u1, v1, u2, v2, nullptr, 0u, 0u, nullptr,
+                    n, B, workers, q_after};
+  return alias_launch<false>(a, stream);
+}
+
+// K1 drawing its own uniforms from the route key: the device key int64[2]
+// `key` if not null, else the words (k0, k1). active (bool[B]) may be null
+int ppot_fused_alias_keyed(const float* prob, const int* alias, const int* q,
+                           const long long* key, unsigned k0, unsigned k1,
+                           const unsigned char* active, int n, int B, int* workers,
+                           int* q_after, cudaStream_t stream) {
+  const AliasArgs a{prob, alias, q, nullptr, nullptr, nullptr, nullptr, key, k0, k1,
+                    active, n, B, workers, q_after};
+  return alias_launch<true>(a, stream);
 }
 
 int ppot_fused_cdf(const float* cdf, const int* q, const float* u1,
                    const float* u2, int n, int B, int* workers, int* q_after,
                    cudaStream_t stream) {
-  return ppot_launch<false, true>(cdf, nullptr, q, u1, nullptr, u2, nullptr,
-                                  n, B, workers, q_after, stream);
+  return cdf_launch<true>(cdf, q, u1, u2, n, B, workers, q_after, stream);
 }
 
 int ppot_select_cdf(const float* cdf, const int* q, const float* u1,
                     const float* u2, int n, int B, int* workers,
                     cudaStream_t stream) {
-  return ppot_launch<false, false>(cdf, nullptr, q, u1, nullptr, u2, nullptr,
-                                   n, B, workers, nullptr, stream);
+  return cdf_launch<false>(cdf, q, u1, u2, n, B, workers, nullptr, stream);
 }
 
 // active may be null (no mask)

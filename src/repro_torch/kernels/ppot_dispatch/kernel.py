@@ -5,21 +5,31 @@ it runs the kernel's plain version from ``ref.py``; given CUDA tensors it
 launches the kernel on the current stream or raises. There is no fallback
 from a failed build or launch to the plain version.
 
-Each wrapper counts its launches in ``launches[<wrapper name>]``, a plain
-int raised by one where the kernel is launched and nowhere else;
+Each wrapper counts its launches in ``launches[<name>]``, a plain int
+raised by one where the kernel is launched and nowhere else;
 ``reset_launches``/``launch_counts`` clear and read them. A launch made
 while the stream is captured into a CUDA graph is not counted: it runs
 on each replay of the graph, without Python, and the graph's owner counts
 those (``serving.scanloop``: kernel nodes times replays).
 
-  ppot_dispatch_fused_alias   alias probe -> SQ(2) -> fold-back    (K1)
+  ppot_dispatch_fused_alias_keyed  K1 as the engine runs it: the probe
+                              uniforms drawn in the kernel from the route
+                              key (``prng.uniform_quad``), alias probe ->
+                              SQ(2) -> fold of the active slots; counted as
+                              ``ppot_dispatch_fused_alias``
+  ppot_dispatch_fused_alias   the same kernel on given uniforms (the Pallas
+                              kernel's contract); counted as
+                              ``ppot_dispatch_fused_alias_unkeyed``
   ppot_dispatch_fused         inverse-CDF probe -> SQ(2) -> fold   (K2)
   ppot_dispatch               inverse-CDF probe -> SQ(2), no fold  (K3)
   alias_table                 the alias table from scaled weights: stack
                               order, pairing walk and mask pass
 
-K2 and K3 search the cdf by bisection: it must be non-decreasing (see
-``ppot_dispatch_fused``).
+K1 is one launch a call, a thread-block cluster of up to 8 blocks that
+stages the table and q by TMA bulk copies and writes the whole of
+``q_after`` (q plus the blocks' histograms, summed through distributed
+shared memory), so no copy of q is made around it. K2 and K3 search the
+cdf by bisection: it must be non-decreasing (see ``ppot_dispatch_fused``).
 """
 from __future__ import annotations
 
@@ -27,12 +37,16 @@ import torch
 
 from repro_torch.kernels.ppot_dispatch import build, ref
 
-launches = {"ppot_dispatch_fused_alias": 0, "ppot_dispatch_fused": 0,
-            "ppot_dispatch": 0, "alias_table": 0}
+launches = {"ppot_dispatch_fused_alias": 0, "ppot_dispatch_fused_alias_unkeyed": 0,
+            "ppot_dispatch_fused": 0, "ppot_dispatch": 0, "alias_table": 0}
 
 #: the largest n one alias_table launch takes: its block keeps 12n bytes of
 #: shared memory (kTableMaxN in the source)
 ALIAS_TABLE_MAX_N = 16384
+#: the largest n one K1 launch takes: each block keeps prob, alias, q and
+#: its histogram in shared memory, 16n bytes and 64 of alignment
+#: (kAliasMaxN in the source)
+K1_MAX_N = 14524
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -74,24 +88,80 @@ def _check_batch(n: int, **us: torch.Tensor) -> int:
     return B
 
 
-def ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2):
-    """prob f32[n], alias i32[n], q i32[n], u1,v1,u2,v2 f32[B] ->
-    (workers i32[B], q_after i32[n])."""
+def _check_k1(prob, alias, q) -> int:
     n = prob.shape[0]
     _check(prob, "prob", torch.float32, n)
     _check(alias, "alias", torch.int32, n)
     _check(q, "q", torch.int32, n)
+    if n < 1:
+        raise ValueError("need at least one worker")
+    return n
+
+
+def _k1_fits(n: int) -> None:
+    if n > K1_MAX_N:
+        raise ValueError(f"ppot_dispatch_fused_alias: n={n} exceeds the {K1_MAX_N} workers "
+                         f"one block's shared memory holds")
+
+
+def ppot_dispatch_fused_alias(prob, alias, q, u1, v1, u2, v2):
+    """prob f32[n], alias i32[n], q i32[n], u1,v1,u2,v2 f32[B] ->
+    (workers i32[B], q_after i32[n])."""
+    n = _check_k1(prob, alias, q)
     B = _check_batch(n, u1=u1, v1=v1, u2=u2, v2=v2)
     if not _on_cuda(prob, alias, q, u1, v1, u2, v2):
         return ref.ppot_dispatch_fused_alias_ref(prob, alias, q, u1, v1, u2, v2)
+    _k1_fits(n)
     workers = torch.empty(B, dtype=torch.int32, device=q.device)
-    q_after = q.clone()  # seeded here: the blocks only add their histograms
-    if B == 0:
-        return workers, q_after
+    q_after = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = build.load().ppot_fused_alias(
             *map(_ptr, (prob, alias, q, u1, v1, u2, v2)), n, B,
             _ptr(workers), _ptr(q_after), _stream(q))
+    build.LIBRARY.raise_on(err, "ppot_dispatch_fused_alias")
+    _count("ppot_dispatch_fused_alias_unkeyed")
+    return workers, q_after
+
+
+def ppot_dispatch_fused_alias_keyed(prob, alias, q, key, B: int, active=None):
+    """prob f32[n], alias i32[n], q i32[n], the route key, B, active
+    bool[B] or None -> (workers i32[B], -1 at an inactive slot; q_after
+    i32[n], q plus the active slots' placements).
+
+    The job uniforms are ``prng.uniform_quad(key, B)``'s, drawn in the
+    kernel. ``key`` is a host key (two ints, passed by value) or a device
+    key, an int64[2] tensor on the other inputs' device that the kernel
+    reads (so a captured graph draws each replay's key); it is never read
+    on the host."""
+    n = _check_k1(prob, alias, q)
+    B = int(B)
+    if B < 0:
+        raise ValueError(f"negative batch size {B}")
+    ts = [prob, alias, q]
+    if active is not None:
+        _check(active, "active", torch.bool, B)
+        ts.append(active)
+    on_device = isinstance(key, torch.Tensor)
+    if on_device:
+        if key.dtype != torch.int64 or key.shape != (2,) or not key.is_contiguous():
+            raise ValueError(f"key: expected a contiguous torch.int64[2], got "
+                             f"{key.dtype}{list(key.shape)}")
+        ts.append(key)
+        k0 = k1 = 0
+    else:
+        k0, k1 = (int(w) for w in key)
+        if not (0 <= k0 < 2**32 and 0 <= k1 < 2**32):
+            raise ValueError(f"key: words must be u32, got ({k0}, {k1})")
+    if not _on_cuda(*ts):
+        return ref.ppot_dispatch_fused_alias_keyed_ref(prob, alias, q, key, B, active)
+    _k1_fits(n)
+    workers = torch.empty(B, dtype=torch.int32, device=q.device)
+    q_after = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = build.load().ppot_fused_alias_keyed(
+            _ptr(prob), _ptr(alias), _ptr(q), _ptr(key) if on_device else None, k0, k1,
+            None if active is None else _ptr(active), n, B, _ptr(workers), _ptr(q_after),
+            _stream(q))
     build.LIBRARY.raise_on(err, "ppot_dispatch_fused_alias")
     _count("ppot_dispatch_fused_alias")
     return workers, q_after

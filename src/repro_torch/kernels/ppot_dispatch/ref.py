@@ -8,7 +8,9 @@ Semantics (paper Fig. 5, batched): for each job b
 
 or, with a Walker alias table, ``j = v < prob[bin] ? bin : alias[bin]`` for
 ``bin = min(int(u * n), n - 1)``. The fused forms also return
-``q_after = q + histogram(workers)``. ``alias_table_ref`` is the
+``q_after = q + histogram(workers)``; the keyed alias form draws its own
+uniforms (``prng.uniform_quad`` of the route key) and folds only the
+active slots. ``alias_table_ref`` is the
 alias-table build after the scaling: the stack order, the plain
 small/large pairing loop (``alias_pairing_ref``) and the mask pass.
 
@@ -22,6 +24,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.utils import prng
 
 
 def make_cdf(mu_hat: torch.Tensor) -> torch.Tensor:
@@ -75,6 +79,21 @@ def ppot_dispatch_fused_alias_ref(prob, alias, q, u1, v1, u2, v2):
     """-> (workers i32[B], q_after i32[n])."""
     w = ppot_dispatch_alias_ref(prob, alias, q, u1, v1, u2, v2)
     return w, fold_back(q, w)
+
+
+def ppot_dispatch_fused_alias_keyed_ref(prob, alias, q, key, B: int, active=None):
+    """``ppot_dispatch_fused_alias_ref`` on ``prng.uniform_quad(key, B)``'s
+    uniforms, folding only the active slots (bool[B] or None) -> (workers
+    i32[B], -1 at an inactive slot; q_after i32[n])."""
+    u1, u2, v1, v2 = prng.uniform_quad(key, B, q.device)
+    w = ppot_dispatch_alias_ref(prob, alias, q, u1, v1, u2, v2)
+    if active is None:
+        return w, fold_back(q, w)
+    n = q.shape[0]
+    idx = torch.where(active, w.long(), n)  # inactive slots land in bin n, cut off
+    counts = torch.zeros(n + 1, dtype=q.dtype, device=q.device).index_add_(
+        0, idx, torch.ones_like(idx, dtype=q.dtype))[:n]
+    return torch.where(active, w, -1), q + counts
 
 
 def alias_pairing_ref(p: torch.Tensor, stack: torch.Tensor, ns0: torch.Tensor):

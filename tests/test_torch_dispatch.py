@@ -324,7 +324,8 @@ def test_every_single_chunk_batch_goes_through_a_kernel_wrapper(monkeypatch, ali
     from repro_torch.kernels.ppot_dispatch import kernel as K
 
     calls = []
-    for name in ("ppot_dispatch_fused_alias", "ppot_dispatch_fused", "ppot_dispatch"):
+    for name in ("ppot_dispatch_fused_alias_keyed", "ppot_dispatch_fused_alias",
+                 "ppot_dispatch_fused", "ppot_dispatch"):
         fn = getattr(K, name)
         monkeypatch.setattr(K, name, lambda *a, _f=fn, _n=name: calls.append(_n) or _f(*a))
     mu, q, mask = _case(64, 11)
@@ -332,7 +333,7 @@ def test_every_single_chunk_batch_goes_through_a_kernel_wrapper(monkeypatch, ali
     act = _t(np.random.RandomState(12).rand(40) < 0.8) if slots else None
     res = tdsp.dispatch(tpol.PPOT_SQ2, prng.PRNGKey(11), _t(q), _t(mu), _t(mu), TCFG, 40,
                         active=act, table=tab, mask=_t(mask) if masked else None)
-    want = ("ppot_dispatch_fused_alias" if alias else
+    want = ("ppot_dispatch_fused_alias_keyed" if alias else
             "ppot_dispatch" if masked or slots else "ppot_dispatch_fused")
     assert calls == [want]
     w = res.workers.numpy()

@@ -1,7 +1,10 @@
 """The PPoT dispatch kernels' plain versions against the reference Pallas
 kernels (interpret mode), the alias-table build (the stack walk, the
 kernel's restructured walk, and the whole build against the reference's)
-and the wrappers' checks.
+and the wrappers' checks. K1 here is its unkeyed entry, on given uniforms;
+the keyed entry the engine launches (``ppot_dispatch_fused_alias_keyed``,
+its uniforms drawn from the route key) has its tests in
+tests/test_torch_ppot_keyed.py.
 The CUDA kernels themselves are held to these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 

@@ -64,6 +64,15 @@ on the card. Then it drives the port's two paths:
     one-slot engine); the expert routers at benchmarks/moe_balance.py's
     settings; phi3.5-moe, pixtral-12b and whisper-medium prefilled and
     decoded at their published widths; one decode with the int8 cache;
+  * training: K4 with its log-sum-exp and the flash-attention backward
+    (K4b) held to their plain versions at the training shapes
+    (``[train kernels]``); smollm-360m trained through
+    ``launch.train.main`` at published widths and full depth (B=8,
+    S=2048, two microbatches, remat full) for 6 steps with a checkpoint
+    at step 3, a second ``main`` resumed from it (steps 4-6 equal bit for
+    bit), two steps with int8 gradient sync against auto, one step
+    profiled and split by source, and 2 layers held to the plain paths
+    (``[train smollm-360m]``);
 
 and times each kernel. Every phase is a hard failure: the script exits
 non-zero and prints no result line. The last line of standard output is
@@ -72,12 +81,18 @@ lists the kernels.
 
 It imports torch, numpy and the port, nothing of JAX or the JAX package,
 and refuses to run without a CUDA card.
+
+  python3 chip_smoke.py                  every phase, as above
+  python3 chip_smoke.py --phase train    the kernels' build and
+                                         [train smollm-360m] alone, in a
+                                         fresh process (no result lines)
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -87,6 +102,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS's workspace as deterministic algorithms need it ([train smollm-360m]
+# turns them on); read when cuBLAS starts, so set before any CUDA work
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -180,6 +198,10 @@ SCAN_MODES = {"a": (True, False), "b": (False, False), "c": (False, True),
 # the whole script near 400 s)
 SCAN_TURNS, SCAN_MIN_TURNS, SCAN_TOL = 1550, 1500, 0.15
 SCAN_PROFILE_TURNS = 50
+# replays a [scenario], [faults] or [obs] cell profiles for its busy time
+# and idle share a turn (50, SCAN_PROFILE_TURNS, until the training phases
+# came)
+CELL_PROFILE_TURNS = 20
 # [scan a]'s captured turn before K1 drew its own uniforms (its nodes on the
 # H100): the keyed K1 takes out exactly the chain it replaced, bar K1
 # itself (the counter hash's kernels and the copy of q; [times] captures and
@@ -254,10 +276,11 @@ BARE_PEND_CAP, BARE_COMP_CAP = 65536, 1024
 # scheduler cell per policy: the null scenario at N_REPLICAS, LOAD and
 # BATCH with async_mu=False, run_scenario's host loop and one-program loop
 # on a SequentialPool, equal bit for bit; cut to POLICY_HORIZON seconds
-# (~309 turns) so the phase stays near 45 s
+# (~206 turns; 180 s until the training phases came) so the phase stays
+# near 40 s
 POLICY_SHAPES = ((64, 4096), (1024, 128), (2048, 2048))
 POLICY_OFFLINE = 0.25
-POLICY_HORIZON = 180.0
+POLICY_HORIZON = 120.0
 # [obs]: the windowed telemetry fold and the CUSUM regime detector
 # (repro_torch.obs) inside both serving loops at the scheduler cell: churn
 # through the plain turn, crash_storm (recovery as [faults]) through the
@@ -294,7 +317,8 @@ OBS_PIN_BATCH = 8
 # on cotenant_shock; churn_heavy, no placement on an inactive replica;
 # crash_storm without recovery, the ledger conserved); (d) churn with windows
 # of FLEET_WINDOW turns, telemetry on = off. FLEET_TURNS cuts depth only
-FLEET_S, FLEET_TURNS, FLEET_WINDOW = 4, 300, 16
+# (300 until the training phases came)
+FLEET_S, FLEET_TURNS, FLEET_WINDOW = 4, 200, 16
 # replays a fleet cell profiles: a 50-replay session of a ~3,000-node fleet
 # graph is ~150,000 kernel records and 13-20 s of the profiler's own time,
 # so the fleet profiles fewer replays than the single turn's cells
@@ -1364,7 +1388,7 @@ def scenario_cell(torch, tr, tsl, tenv, K, CK, chk, met, scn, dev) -> dict:
     if scn.name in SCENARIO_MIN_RHO:
         need(min(rho, rho_h) >= SCENARIO_MIN_RHO[scn.name], f"[scenario {scn.name}] μ̂ "
              f"ranks the replicas poorly (Spearman {rho:.4f}, host loop {rho_h:.4f})")
-    # the first SCAN_PROFILE_TURNS replays again, from a fresh router's
+    # the first CELL_PROFILE_TURNS replays again, from a fresh router's
     # state, under the profiler: device busy time and idle share a turn
     churn = wl.active is not None
     cfg = tsl.scan_config(router, BATCH, churn=churn,
@@ -1374,7 +1398,7 @@ def scenario_cell(torch, tr, tsl, tenv, K, CK, chk, met, scn, dev) -> dict:
     run = tsl.runner(cfg, str(dev), T)
     run.load(tr.RosellaRouter(scn.n, float(speeds0.sum()), seed=SEED, use_alias=True,
                               async_mu=False, device=dev), tr.SimulatedPool(speeds0))
-    W = SCAN_PROFILE_TURNS
+    W = CELL_PROFILE_TURNS
     cols = dict(times=wl.times[:W], costs=wl.costs[:W], speeds=wl.speeds[:W])
     if churn:
         cols.update(active=wl.active[:W], rejoin=wl.rejoin[:W], burst=wl.burst[:W])
@@ -1481,7 +1505,7 @@ def fault_cell(torch, tr, tsl, tenv, K, CK, chk, met, scn, dev, use_alias: bool,
     """One fault scenario with recovery armed: the host recovery loop, then
     the faulty one-program loop with capacities from the host loop's peak
     pending set and largest clean flush (x1.25 to a power of two); equal bit
-    for bit, conserved, overflows 0; 50 replays profiled. Then the scan
+    for bit, conserved, overflows 0; CELL_PROFILE_TURNS replays profiled. Then the scan
     under the ``inert`` config (the faults alone, nothing recovered) for
     the same fault report without recovery."""
     stream = "alias" if use_alias else "icdf"
@@ -1537,7 +1561,7 @@ def fault_cell(torch, tr, tsl, tenv, K, CK, chk, met, scn, dev, use_alias: bool,
     run = tsl.runner(cfg, str(dev), T)
     need(run.replays > 0, f"{tag} the profiled runner is not the run's")
     run.load(router(), tr.SequentialPool(np.asarray(scn.speeds, float)))
-    W = SCAN_PROFILE_TURNS
+    W = CELL_PROFILE_TURNS
     cols = dict(times=wl.times[:W], costs=wl.costs[:W], speeds=wl.speeds[:W],
                 kill=wl.kill_at[:W] if wl.kill_at is not None else np.full((W, scn.n), np.inf),
                 stall=(wl.stall_at[:W] if wl.stall_at is not None
@@ -1700,8 +1724,8 @@ def obs_records_equal(tag, wa, wb) -> None:
 
 def obs_mode_run(torch, tr, tsl, tenv, K, CK, scn, wl, dev, rc, caps, ocfg, mode) -> dict:
     """One telemetry mode of one [obs] cell: the host loop (unchecked: its
-    turns/s) and the one-program loop on the same workload, then 50 replays
-    of the mode's graph under the profiler."""
+    turns/s) and the one-program loop on the same workload, then
+    CELL_PROFILE_TURNS replays of the mode's graph under the profiler."""
     from repro_torch import obs
 
     speeds0 = np.asarray(scn.speeds, float)
@@ -1748,7 +1772,7 @@ def obs_mode_run(torch, tr, tsl, tenv, K, CK, scn, wl, dev, rc, caps, ocfg, mode
     run = tsl.runner(cfg, str(dev), T)
     need(run.replays > 0, f"[obs {scn.name} {mode}] the profiled runner is not the run's")
     run.load(router(), tr.SequentialPool(speeds0))
-    W = SCAN_PROFILE_TURNS
+    W = CELL_PROFILE_TURNS
     xs = dict(times=wl.times[:W], costs=wl.costs[:W], speeds=wl.speeds[:W])
     if wl.active is not None:
         xs.update(active=wl.active[:W], rejoin=wl.rejoin[:W], burst=wl.burst[:W])
@@ -1841,7 +1865,8 @@ def obs_cell(torch, tr, tsl, tenv, K, CK, scn, dev, rc, caps) -> dict:
     for m, r in recs.items():
         print(f"{tag} {m}: graph nodes {r['graph_nodes']}, kernels a replay "
               f"{r['launches_per_replay']}; scan {r['turns_per_s']:.2f} turns/s (host clock, "
-              f"capture {r['capture_s']:.3f} s apart), 50 replays profiled: busy "
+              f"capture {r['capture_s']:.3f} s apart), {CELL_PROFILE_TURNS} replays "
+              f"profiled: busy "
               f"{r['busy_ms_per_turn']:.4f} ms a replay, idle {r['idle']:.4f}; host loop "
               f"{r['host_turns_per_s']:.2f} turns/s; {r['windows']} windows, "
               f"{r['detections']} detections")
@@ -5329,6 +5354,347 @@ def phase_kv_quant(torch, dev):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the training side: K4 with its lse, K4b, and smollm-360m trained
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_REPLACES = "src/repro/models/layers.py:232-298"
+# [train kernels]: (label, B, Sq, Sk, Hq, Hkv, D, causal, window, q_offset,
+# dtypes): smollm-360m's training shape, moonshot's heads of 128, hymba's
+# window, whisper-medium's cross attention (448 decoder positions over 1500
+# frames), and rows with no valid key (q_offset < 0)
+TRAIN_KERNEL_CASES = (
+    ("smollm-360m train", 4, 2048, 2048, 15, 5, 64, True, 0, 0, ("bfloat16", "float32")),
+    ("moonshot D=128", 2, 2048, 2048, 16, 16, 128, True, 0, 0, ("bfloat16",)),
+    ("hymba window", 1, 2048, 2048, 25, 5, 64, True, 1024, 0, ("bfloat16",)),
+    ("whisper cross 448x1500", 4, 448, 1500, 16, 16, 64, False, 0, 0, ("bfloat16",)),
+    ("empty rows", 2, 300, 300, 4, 2, 64, True, 0, -100, ("bfloat16", "float32")))
+# bars: the lse within 1e-4 (bf16: ex2 and log2 in the kernel's log2
+# domain, measured 1.9e-6) or 1e-5 (f32) of the plain version's; dq, dk, dv
+# within this share of each output's largest |value| of the plain version
+# on the same inputs (bf16: P and dS are rounded to bf16 before their
+# products as in the plain version, the sums taken in another order)
+TRAIN_LSE_TOL = {"bfloat16": 1e-4, "float32": 1e-5}
+TRAIN_BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# [train smollm-360m]: launch.train.main at published widths and full depth
+# (32 layers, d 960, vocab 49152, bf16, remat full), a checkpoint at step 3
+# and a second main resumed from it
+TRAIN_FLAGS = ["--arch", "smollm-360m", "--steps", "6", "--seq-len", "2048",
+               "--global-batch", "8", "--microbatches", "2", "--ckpt-every", "3",
+               "--log-every", "1", "--seed", str(SEED)]
+TRAIN_B, TRAIN_S, TRAIN_MB = 8, 2048, 2
+# one step at 2 layers of full width on the kernels against the same step
+# inside api.plain_paths() (bf16 model): the loss within 1e-4 relative (at
+# random init it sits near ln V whatever attention gives, so the gradients
+# carry the check), each parameter's gradient within 5e-2 of its leaf's
+# largest |gradient|
+TRAIN_PLAIN_LOSS_TOL, TRAIN_PLAIN_GRAD_TOL = 1e-4, 5e-2
+# int8 sync against auto: step 1's loss comes before any compression and
+# is bit-equal; its grad norm within the reference's bar
+# (tests/test_dist.py); step 2's loss, after one int8 update, within
+# INT8_STEP2_FRAC of auto's fall from step 1 to step 2
+INT8_GNORM_TOL, INT8_STEP2_FRAC = 0.05, 0.5
+
+
+def phase_train_kernels(torch, FK, FR, dev) -> float:
+    """K4 with its lse and K4b against their plain versions at the training
+    shapes; ``o`` with the lse bit-equal to ``o`` without. Returns the
+    backward's largest abs error."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = 0.0
+    for label, B, Sq, Sk, H, Hkv, D, causal, window, off, dts in TRAIN_KERNEL_CASES:
+        for dn in dts:
+            dt = getattr(torch, dn)
+            r = lambda *s: (torch.randn(s, generator=gen, device=dev)).to(dt)  # noqa: E731
+            q, k, v, do = r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D), r(B, Sq, H, D)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            o0 = FK.flash_attention_heads(q, k, v, **kw)
+            o, lse = FK.flash_attention_heads(q, k, v, return_lse=True, **kw)
+            dq, dk, dv = FK.flash_attention_bwd_heads(q, k, v, o, do, lse, **kw)
+            torch.cuda.synchronize()
+            need(torch.equal(o0, o), f"[train kernels] {label} {dn}: o with the lse is not "
+                 f"bit-equal to o without it")
+            _, lse_ref = FR.attention_heads_ref(q, k, v, return_lse=True, **kw)
+            lse_err = (lse - lse_ref).abs().max().item()
+            need(bool(torch.isfinite(lse).all()) and lse_err <= TRAIN_LSE_TOL[dn],
+                 f"[train kernels] {label} {dn}: lse error {lse_err} above "
+                 f"{TRAIN_LSE_TOL[dn]}")
+            want = FR.attention_bwd_heads_ref(q, k, v, o, do, lse, **kw)
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                need(g.shape == w.shape and g.dtype == w.dtype and bool(torch.isfinite(g).all()),
+                     f"[train kernels] {label} {dn}: {name} {g.dtype}{list(g.shape)}")
+                err = (g.float() - w.float()).abs().max().item()
+                scale = w.float().abs().max().item()
+                need(err <= TRAIN_BWD_TOL[dn] * max(scale, 1e-30),
+                     f"[train kernels] {label} {dn}: {name} max abs err {err} above "
+                     f"{TRAIN_BWD_TOL[dn]} of its largest |value| {scale}")
+                errs.append((err, err / max(scale, 1e-30)))
+                worst = max(worst, err)
+            if off < 0:
+                need(bool((dq[:, :-off] == 0).all()),
+                     f"[train kernels] {label} {dn}: rows with no valid key have dq != 0")
+            print(f"[train kernels] {label} (B={B} Sq={Sq} Sk={Sk} H={H}/{Hkv} D={D} "
+                  f"causal={causal} window={window} q_offset={off}) {dn}: o bit-equal with "
+                  f"and without the lse; lse max abs err {lse_err:.3e} (bar "
+                  f"{TRAIN_LSE_TOL[dn]}); dq/dk/dv max abs err "
+                  + "/".join(f"{e:.3e}" for e, _ in errs) + ", of the largest |value| "
+                  + "/".join(f"{s:.3e}" for _, s in errs) + f" (bar {TRAIN_BWD_TOL[dn]})")
+            del q, k, v, do, o0, o, lse, dq, dk, dv, want, lse_ref
+    torch.cuda.empty_cache()
+    print(f"[train kernels] all cases: the backward's largest abs error {worst:.3e}")
+    return worst
+
+
+def train_two_layers(torch, dev) -> dict:
+    """One step's loss and gradients at 2 layers of smollm-360m's full width
+    on the kernels, against the same inside api.plain_paths()."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import api
+
+    cfg = configs.get_config("smollm-360m", n_layers=2)
+    model = api.trainable(api.init_params(cfg, SEED, dev))
+    batch = SyntheticLM(cfg.vocab, TRAIN_S, TRAIN_B // TRAIN_MB, seed=SEED).batch_at(0)
+    params = dict(model.named_parameters())
+    out = {}
+    for plain in (False, True):
+        FK.reset_launches()
+        with api.plain_paths() if plain else contextlib.nullcontext():
+            loss, _ = api.loss_fn(cfg, model, batch)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        out[plain] = (loss.item(), grads, FK.launch_counts())
+    (lk, gk, ck), (lp, gp, cp) = out[False], out[True]
+    need(ck == {"flash_attention_fwd": 4, "flash_attention_bwd": 2}
+         and cp == {"flash_attention_fwd": 0, "flash_attention_bwd": 0},
+         f"[train 2 layers] launches {ck} on the kernels, {cp} on the plain paths")
+    loss_err = abs(lk - lp) / abs(lp)
+    need(math.isfinite(lk) and loss_err <= TRAIN_PLAIN_LOSS_TOL,
+         f"[train 2 layers] loss {lk} against the plain paths' {lp}")
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(params, gk, gp):
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item() / max(scale, 1e-30)
+        need(math.isfinite(err) and err <= TRAIN_PLAIN_GRAD_TOL,
+             f"[train 2 layers] {name}: gradient error {err} of its largest |value| above "
+             f"{TRAIN_PLAIN_GRAD_TOL}")
+        if err > worst:
+            worst, worst_name = err, name
+    print(f"[train 2 layers] smollm-360m at 2 layers of full width, B={TRAIN_B // TRAIN_MB} "
+          f"S={TRAIN_S} bf16, one step's loss and gradients on the kernels (K4 {ck['flash_attention_fwd']}, "
+          f"K4b {ck['flash_attention_bwd']} launches) against api.plain_paths(): loss {lk:.6f} "
+          f"vs {lp:.6f} (rel {loss_err:.3e}, bar {TRAIN_PLAIN_LOSS_TOL}); worst gradient "
+          f"error {worst:.3e} of its leaf's largest |value| ({worst_name}; bar "
+          f"{TRAIN_PLAIN_GRAD_TOL})")
+    del model, gk, gp
+    return dict(loss=lk, plain_loss=lp, loss_rel_err=loss_err, grad_rel_err=worst,
+                grad_worst=worst_name)
+
+
+def phase_train(torch, FK, dev, card) -> dict:
+    """[train smollm-360m]: ``launch.train.main`` at published widths and
+    full depth for 6 steps with a checkpoint at step 3, a second ``main``
+    resumed from it (steps 4-6 bit for bit), one step with int8 sync
+    against auto, one step profiled, and 2 layers held to the plain
+    paths. Deterministic algorithms for the phase."""
+    import shutil
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist import steps as ST
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.utils import prng
+
+    t_start = time.perf_counter()
+    two = train_two_layers(torch, dev)
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        FK.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train.main(TRAIN_FLAGS + ["--ckpt-dir", str(root / "a")])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = FK.launch_counts()
+        steps = len(run["losses"])
+        need(counts == {"flash_attention_fwd": 128 * steps, "flash_attention_bwd": 64 * steps},
+             f"[train smollm-360m] launches {counts} over {steps} steps, not 128 K4 (forward "
+             f"and its remat) and 64 K4b a step")
+        losses = run["losses"]
+        need(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+             f"[train smollm-360m] losses {losses} not finite and falling")
+        (root / "b").mkdir(parents=True)
+        shutil.copytree(root / "a" / "step_00000003", root / "b" / "step_00000003")
+        (root / "b" / "latest").write_text("step_00000003")
+        resumed = train.main(TRAIN_FLAGS + ["--ckpt-dir", str(root / "b")])
+        need(resumed["losses"] == losses[3:],
+             f"[train smollm-360m] the resumed steps 4-6 {resumed['losses']} are not the "
+             f"uninterrupted run's {losses[3:]} bit for bit")
+        del resumed
+        torch.cuda.empty_cache()
+        # two steps: step 1's lr is the 6-step run's (warm-up ends at step 1)
+        int8 = train.main(TRAIN_FLAGS[:2] + ["--steps", "2"] + TRAIN_FLAGS[4:]
+                          + ["--grad-sync", "int8"])
+        d_gn = abs(int8["grad_norms"][0] - run["grad_norms"][0]) / run["grad_norms"][0]
+        fall = losses[0] - losses[1]
+        d_loss2 = abs(int8["losses"][1] - losses[1])
+        need(int8["losses"][0] == losses[0] and d_gn < INT8_GNORM_TOL
+             and d_loss2 <= INT8_STEP2_FRAC * fall,
+             f"[train smollm-360m] int8 sync: losses {int8['losses']} vs {losses[:2]} (step "
+             f"1 bit-equal, step 2 within {INT8_STEP2_FRAC} of the fall {fall}), grad norm "
+             f"{int8['grad_norms'][0]} vs {run['grad_norms'][0]}")
+        del int8
+        counts = FK.launch_counts()
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(det)
+        shutil.rmtree(root, ignore_errors=True)
+    ms = float(np.median(run["step_s"][1:])) * 1e3
+    tokens_s = TRAIN_B * TRAIN_S / (ms / 1e3)
+    # one more step of the trained model under the profiler
+    from repro_torch import configs
+
+    cfg = configs.get_config("smollm-360m")
+    step = ST.make_train_step(cfg, SH.make_ctx(), adamw.AdamWConfig(
+        lr=3e-4, total_steps=6, warmup_steps=1), microbatches=TRAIN_MB)
+    batch = SyntheticLM(cfg.vocab, TRAIN_S, TRAIN_B, seed=SEED).batch_at(6)
+    state = {"opt": run["opt_state"]}
+
+    def one_step():
+        state["opt"], m = step(run["model"], state["opt"], batch,
+                               prng.fold_in(prng.PRNGKey(SEED + 1), 6))
+        m["loss"].item()
+    prof = device_profile(torch, one_step)
+    bwd_us = sum(us for nm, us in prof["us"].items() if "flash_bwd" in nm)
+    fwd_us = sum(us for nm, us in prof["us"].items() if "flash_fwd" in nm)
+    top = sorted(prof["us"].items(), key=lambda kv: -kv[1])[:6]
+    by_source = step_sources(torch, cfg, run["model"], state["opt"], batch, prof)
+    del run["model"], run["opt_state"], state
+    torch.cuda.empty_cache()
+    rec = dict(steps=steps, losses=losses, grad_norms=run["grad_norms"], step_ms=ms,
+               step_s=run["step_s"], tokens_per_s=tokens_s, peak_gib=peak,
+               k4_per_step=128, k4b_per_step=64, launches=counts, int8_step2_loss_diff=d_loss2,
+               int8_step2_fall=fall, int8_gnorm_rel=d_gn, wall_s=wall, profile_ms=prof["wall"] * 1e3,
+               busy_ms=prof["busy_us"] / 1e3, idle=prof["idle"],
+               k4b_share=bwd_us / prof["busy_us"], k4_share=fwd_us / prof["busy_us"],
+               kernel_launches=prof["launches"], by_source=by_source, two_layers=two,
+               seconds=time.perf_counter() - t_start)
+    print(f"[train smollm-360m] {card}; published widths, 32 layers, bf16, remat full, "
+          f"B={TRAIN_B} S={TRAIN_S} in {TRAIN_MB} microbatches, {steps} steps: losses "
+          f"{[round(x, 6) for x in losses]} (finite, falling); {ms:.3f} ms a step (median of "
+          f"steps 2-{steps}, host clock to the loss's sync), {tokens_s:.1f} tokens/s, peak "
+          f"{peak:.3f} GiB; K4 128 and K4b 64 launches a step; resumed from step 3: steps "
+          f"4-6 equal bit for bit; int8 sync: step 1's loss bit-equal, grad norm rel diff "
+          f"{d_gn:.3e} (bar {INT8_GNORM_TOL}), step 2's loss {d_loss2:.6e} apart, "
+          f"{d_loss2 / fall:.4e} of auto's fall {fall:.6f} (bar {INT8_STEP2_FRAC})")
+    print(f"[train smollm-360m] one step profiled: {prof['wall'] * 1e3:.3f} ms wall, device "
+          f"busy {prof['busy_us'] / 1e3:.3f} ms (idle share {prof['idle']:.4f}), "
+          f"{prof['launches']} kernel launches; K4b {bwd_us / 1e3:.3f} ms "
+          f"({rec['k4b_share']:.4f} of device time), K4 {fwd_us / 1e3:.3f} ms "
+          f"({rec['k4_share']:.4f}); top by device time: "
+          f"{[(nm[:60], round(us / 1e3, 3)) for nm, us in top]}; phase {rec['seconds']:.1f} s")
+    print("[train smollm-360m] the profiled step by source: "
+          + "; ".join(f"{src} {r['launches']} launches, {r['busy_ms']:.3f} ms device"
+                      + (f", {r['host_ms']:.3f} ms host clock alone" if "host_ms" in r else "")
+                      for src, r in by_source.items()))
+    return rec
+
+
+def step_sources(torch, cfg, model, opt_state, batch, prof) -> dict:
+    """Split the profiled train step's launches and device time by source:
+    ``optim/adamw.update`` alone (on gradients of the step's shapes, f32)
+    and one microbatch's loss forward alone (no autograd), each run once
+    under the profiler and once more on the host clock to a sync; the rest
+    of the step (the backward with its remat recompute, the gradients'
+    accumulation, the parameters' copy) is the profiled step less the
+    optimizer and TRAIN_MB forwards."""
+    from repro_torch import convert
+    from repro_torch.models import api
+    from repro_torch.models.layers import DTYPES
+    from repro_torch.optim import adamw
+
+    params = dict(model.named_parameters())
+    leaves = [names for _, names in convert.reference_leaves(cfg, model)]
+    gen = torch.Generator(device=model.embed.device).manual_seed(SEED)
+    grads = {k: torch.randn(p.shape, generator=gen, device=p.device) * 1e-3
+             for k, p in params.items()}
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=6, warmup_steps=1)
+    dev = model.embed.device
+    per = TRAIN_B // TRAIN_MB
+    mb = {k: torch.as_tensor(v[:per], device=dev) for k, v in batch.items()}
+
+    def opt():
+        out = adamw.update(opt_cfg, opt_state, grads, DTYPES[cfg.param_dtype], leaves)
+        out[2]["grad_norm"].item()
+
+    def fwd():
+        with torch.no_grad():
+            api.loss_fn(cfg, model, mb)[0].item()
+
+    out = {}
+    for src, fn in (("adamw.update", opt), ("forward (one microbatch)", fwd)):
+        p = device_profile(torch, fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out[src] = dict(launches=p["launches"], busy_ms=p["busy_us"] / 1e3,
+                        host_ms=(time.perf_counter() - t0) * 1e3)
+    a, f = out["adamw.update"], out["forward (one microbatch)"]
+    out["the rest (backward with remat, accumulation, copy)"] = dict(
+        launches=prof["launches"] - a["launches"] - TRAIN_MB * f["launches"],
+        busy_ms=prof["busy_us"] / 1e3 - a["busy_ms"] - TRAIN_MB * f["busy_ms"])
+    del grads
+    return out
+
+
+def phase_train_times(torch, FK, FR, dev) -> dict:
+    """K4b alone at smollm's training shape (bf16, causal), its plain
+    version, its bound (five products of 2 B H Sq Sk D on the valid pairs at
+    the bf16 peak, or the bytes of q, k, v, o, dO, lse read and dq, dk, dv
+    written) and the library's: the backward of scaled_dot_product_attention
+    (causal, GQA) on the same tensors."""
+    B, S, H, Hkv, D = 4, TRAIN_S, 15, 5, 64
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    q, k, v, do = r(B, S, H, D), r(B, S, Hkv, D), r(B, S, Hkv, D), r(B, S, H, D)
+    o, lse = FK.flash_attention_heads(q, k, v, return_lse=True)
+    ms = event_median_ms(torch, lambda: FK.flash_attention_bwd_heads(q, k, v, o, do, lse),
+                         reps=50)
+    lse_ms = event_median_ms(torch, lambda: FK.flash_attention_heads(q, k, v, return_lse=True),
+                             reps=50)
+    fwd_ms = event_median_ms(torch, lambda: FK.flash_attention_heads(q, k, v), reps=50)
+    plain_ms = event_median_ms(torch, lambda: FR.attention_bwd_heads_ref(q, k, v, o, do, lse),
+                               reps=5)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                           enable_gqa=True)
+    g = do.transpose(1, 2)
+    lib_ms = event_median_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), g,
+                                                                retain_graph=True), reps=50)
+    pairs = B * H * S * (S + 1) // 2
+    flops = 5 * 2 * D * pairs
+    # q, o, dO and dq; k and dk; v and dv in bf16, the lse in f32
+    nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
+    ops_ms, bytes_ms = flops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes", flops=flops,
+               bytes=nbytes, fwd_lse_ms=lse_ms, fwd_ms=fwd_ms)
+    print(f"[times] flash_attention_bwd (K4b; B={B} S={S} H={H}/{Hkv} D={D} bf16 causal): "
+          f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {rec['bound_ms']:.6f} ms "
+          f"({rec['bound_by']}: {flops} FLOPs at 989 TFLOP/s = {ops_ms:.6f} ms, {nbytes} B "
+          f"at 3.35 TB/s = {bytes_ms:.6f} ms), library (scaled_dot_product_attention's "
+          f"backward) {lib_ms:.6f} ms, {rec['bound_ms'] / ms:.4f} of the bound; K4 at this "
+          f"shape {fwd_ms:.6f} ms, with its lse {lse_ms:.6f} ms")
+    return rec
+
+
 def event_median_ms(torch, launch, reps: int = 200) -> float:
     """Median device time of one call, from an event pair around each call.
     A long spin queued first lets the host enqueue every call before the
@@ -5768,9 +6134,32 @@ def phase_ssd_times(torch, SK, SO, SR, dev):
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def _timed(name: str, fn):
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"[phase] {name[len('phase_'):]} {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+    return run
+
+
+def time_phases() -> None:
+    """Print each phase's wall time as it ends (``[phase] <name> <s>``)."""
+    g = globals()
+    for name, fn in list(g.items()):
+        if name.startswith("phase_") and callable(fn):
+            g[name] = _timed(name, fn)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="smoke run of the port on one CUDA card")
+    ap.add_argument("--phase", choices=["train"], default=None,
+                    help="run the build and this phase alone (no result lines)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device")
     try:
@@ -5813,6 +6202,7 @@ def main() -> int:
     card = smi[0] if smi else "nvidia-smi gave nothing"
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
+    time_phases()
     t0 = t_start = time.perf_counter()
     libs = (build.LIBRARY, flash_build.LIBRARY, ssd_build.LIBRARY, pool_build.LIBRARY,
             sim_build.LIBRARY, sim_build.CLOCKED)
@@ -5824,9 +6214,15 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"[build] {line.strip()}")
 
+    if args.phase == "train":
+        phase_train(torch, FK, dev, card)
+        print(f"[total] {time.perf_counter() - t_start:.1f} s from the build, [train "
+              f"smollm-360m] alone")
+        return 0
     chk = KernelChecks(torch, K, R)
     phase_kernels(torch, chk, D, dev)
     flash_err = phase_flash(torch, FK, FO, FR, dev)
+    train_err = phase_train_kernels(torch, FK, FR, dev)
     ssd_err = phase_ssd(torch, SK, SO, SR, dev)
     speeds = tpch_speed_set(N_REPLICAS, SEED)
     main_runs = phase_main_path(torch, tr, K, met, chk, speeds, dev)
@@ -5877,6 +6273,8 @@ def main() -> int:
     kvq = phase_kv_quant(torch, dev)
     print(f"[zoo] the MoE, VLM and encoder-decoder phases in "
           f"{time.perf_counter() - t_zoo:.1f} s")
+    torch.cuda.empty_cache()
+    train = phase_train(torch, FK, dev, card)
     per_turn, copies, idle = phase_turn_cost(torch, tr, speeds)
     times, floor_ms, mhz = phase_times(torch, K, R, D, build, dev)
     k1_times = phase_k1_times(torch, K, R, D, build, tsl, prng, dev, floor_ms)
@@ -5920,6 +6318,7 @@ def main() -> int:
                   f"{typical['longest_chain']}) {typical['ms']:.6f} ms")
     table_build = phase_table_build(torch, K, R, D, dev)
     flash_times = phase_flash_times(torch, FK, FR, dev)
+    train_times = phase_train_times(torch, FK, FR, dev)
     ssd_times = phase_ssd_times(torch, SK, SO, SR, dev)
 
     total = {name: sum(r["launches"][name] for r in main_runs.values())
@@ -5990,7 +6389,8 @@ def main() -> int:
     flash_launches = {"smollm-360m": prefill["launches"],
                       "hymba-1.5b": hymba_prefill["flash_launches"],
                       MOE_ARCH: moe_prefill["flash_launches"],
-                      **{arch: r["flash_launches"] for arch, r in zoo.items()}}
+                      **{arch: r["flash_launches"] for arch, r in zoo.items()},
+                      "train smollm-360m": train["launches"]["flash_attention_fwd"]}
     kernels.append(dict(
         name="flash_attention_fwd", route="cuda", source=FLASH_SOURCE,
         replaces=FLASH_REPLACES, launches=sum(flash_launches.values()),
@@ -5999,6 +6399,15 @@ def main() -> int:
         d128_launches=moe_prefill["flash_launches"], d128_ms=t128["ms"],
         d128_plain_ms=t128["plain_ms"], d128_bound_ms=t128["bound_ms"],
         d128_bound_by=t128["bound_by"], d128_library_ms=t128["library_ms"]))
+    # K4b: [train smollm-360m]'s launches (the 6-step run, the run resumed
+    # from step 3 and the two int8 steps); its times at smollm's training shape
+    t = train_times
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda", source=FLASH_SOURCE,
+        replaces=FLASH_BWD_REPLACES, launches=train["launches"]["flash_attention_bwd"],
+        max_abs_err=train_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        launches_per_step=train["k4b_per_step"], step_share=train["k4b_share"]))
     t = ssd_times["main"]
     kernels.append(dict(
         name="ssd_scan", route="cuda", source=SSD_SOURCE, replaces=SSD_REPLACES,
@@ -6038,6 +6447,7 @@ def main() -> int:
     print(f"[summary] moe balance {json.dumps(moe_balance)}")
     print(f"[summary] prefill zoo {json.dumps(zoo)}")
     print(f"[summary] kv_quant {json.dumps(kvq)}")
+    print(f"[summary] train smollm-360m {json.dumps(train)}")
     print(f"[summary] launches/turn {per_turn:.1f}, copies/turn {copies:.1f}, "
           f"idle share {idle:.4f}, launch floor {floor_ms:.6f} ms")
     print(f"[summary] build_alias_table per call "

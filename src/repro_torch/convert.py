@@ -1,5 +1,7 @@
-"""Carry a router's learned state, a model's parameters and decode cache,
-and the chain simulator's params across from the JAX package.
+"""Carry a router's learned state, a model's parameters, optimizer state
+and decode cache, and the chain simulator's params across from the JAX
+package; name the reference parameter tree's leaves in its flatten order
+(``reference_leaves``).
 
 For a scheduler the learned state plays the part of weights: the queue
 view, the arrival estimator, the learner's rings and μ̂, the routing
@@ -100,13 +102,13 @@ def _layer_keys(tree: dict, n_layers: int, stack: str = "layers") -> set:
     return keys
 
 
-def _params_from_numpy(model, tree: dict, stacks: dict):
-    """Copy ``tree``'s leaves into ``model``'s parameters. ``stacks``: the
-    layer stacks (name -> number of layers) whose leaves may come stacked;
-    every other leaf, ``prefix_layers.<i>.<name>`` too, sits under the
-    parameter's own name. Raises on a missing, unknown or misshapen
-    leaf."""
-    used = set()
+def _arrays_for(model, tree: dict, stacks: dict) -> dict:
+    """``tree``'s leaf for each of ``model``'s parameters (name -> array).
+    ``stacks``: the layer stacks (name -> number of layers) whose leaves may
+    come stacked; every other leaf, ``prefix_layers.<i>.<name>`` too, sits
+    under the parameter's own name. Raises on a missing, unknown or
+    misshapen leaf."""
+    used, out = set(), {}
     for name, p in model.named_parameters():
         stack, _, rest = name.partition(".")
         if stack in stacks:
@@ -118,13 +120,70 @@ def _params_from_numpy(model, tree: dict, stacks: dict):
             used.add(name)
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {a.shape}, expected {tuple(p.shape)}")
-        p.data.copy_(torch.from_numpy(np.array(a, np.float32)).to(p.dtype))
+        out[name] = a
     have = {k for k in tree if k.partition(".")[0] not in stacks}
     for stack, n in stacks.items():
         have |= {f"{stack}.{k}" for k in _layer_keys(tree, n, stack)}
     if have - used:
         raise ValueError(f"leaves the port has no place for: {sorted(have - used)}")
+    return out
+
+
+def _params_from_numpy(model, tree: dict, stacks: dict):
+    """Copy ``tree``'s leaves into ``model``'s parameters (``_arrays_for``)."""
+    params = dict(model.named_parameters())
+    for name, a in _arrays_for(model, tree, stacks).items():
+        params[name].data.copy_(torch.from_numpy(np.array(a, np.float32)).to(params[name].dtype))
     return model
+
+
+def _stacks(cfg, model) -> dict:
+    """The layer stacks whose leaves the reference may stack ([L, ...])."""
+    if cfg.family == "encdec":
+        return {"enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers}
+    return {"layers": len(model.layers)}
+
+
+def reference_leaves(cfg, model) -> list:
+    """The leaves of the reference's parameter tree in its flatten order
+    (``jax.tree.leaves``: dict keys sorted at every level, list items in
+    order), each as (its dotted key, the port's parameter names that it
+    holds). A leaf of a stacked layer stack (``layers`` with
+    ``scan_layers``, the encoder-decoder's ``enc_layers`` / ``dec_layers``,
+    always stacked there) holds that parameter of every layer, in layer
+    order; any other leaf holds one parameter. The optimizer's global norm
+    and the int8 gradient sync (one key a leaf) walk this order."""
+    stacked = set(_stacks(cfg, model))
+    if cfg.family != "encdec" and not cfg.scan_layers:
+        stacked = set()
+    groups: dict = {}
+    for name, _ in model.named_parameters():
+        stack, _, rest = name.partition(".")
+        key = f"{stack}.{rest.partition('.')[2]}" if stack in stacked else name
+        groups.setdefault(key, []).append(name)
+
+    def order(key):
+        return tuple(int(part) if part.isdigit() else part for part in key.split("."))
+
+    return [(key, groups[key]) for key in sorted(groups, key=order)]
+
+
+def adamw_state_from_numpy(cfg, tree: dict, device=None):
+    """The port's ``optim.adamw.AdamWState`` from the reference's, given as
+    numpy: {"master", "m", "v": each a dotted-path tree as
+    ``lm_params_from_numpy`` / ``encdec_params_from_numpy`` take it,
+    "count": int}. Each leaf lands under the port's parameter names, f32,
+    on ``device`` (None: the card)."""
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    model = model_api.init_params(cfg, 0, "cpu")
+    stacks = _stacks(cfg, model)
+    part = {k: {name: torch.from_numpy(np.array(a, np.float32)).to(dev)
+                for name, a in _arrays_for(model, tree[k], stacks).items()}
+            for k in ("master", "m", "v")}
+    return AdamWState(**part, count=torch.tensor(int(tree["count"]), dtype=torch.int32,
+                                                 device=dev))
 
 
 def lm_params_from_numpy(cfg, tree: dict, device=None):
@@ -136,7 +195,7 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
     stacked or per layer. Raises on a missing, unknown or misshapen
     leaf."""
     model = model_api.init_params(cfg, 0, device)
-    return _params_from_numpy(model, tree, {"layers": len(model.layers)})
+    return _params_from_numpy(model, tree, _stacks(cfg, model))
 
 
 def encdec_params_from_numpy(cfg, tree: dict, device=None):
@@ -145,8 +204,7 @@ def encdec_params_from_numpy(cfg, tree: dict, device=None):
     ``enc_layers.attn.wq``, ``dec_layers.cross_attn.wk``, ...), the layers
     stacked or per layer."""
     model = model_api.init_params(cfg, 0, device)
-    return _params_from_numpy(model, tree, {"enc_layers": cfg.n_enc_layers,
-                                            "dec_layers": cfg.n_layers})
+    return _params_from_numpy(model, tree, _stacks(cfg, model))
 
 
 _CACHE_LEAVES = {"attn": ("k", "v", "len"), "ssm": ("conv_x", "conv_bc", "h")}

@@ -47,16 +47,35 @@
 // float32 inputs take a plain FMA kernel (one thread per query row): the
 // tensor cores' TF32 would not hold the f32 tolerance. It exists for the
 // tests; the model path runs bf16.
+//
+// The log-sum-exp. Given an lse pointer (training), both forward kernels
+// also write each row's natural log-sum-exp of its scaled scores, f32
+// [B, Hq, Sq]: m + log(l) with m the row's largest scaled score, as
+// _flash_fwd_impl computes it (src/repro/models/layers.py:203, :218); a
+// row with no valid key gets -1e30 (the reference's -1e30 + log(1e-30),
+// which rounds to it in f32), finite, so the backward's exp(s - lse) is 0
+// there and never NaN. Without the pointer (serving) nothing else changes:
+// o is computed by the same instructions.
+//
+// K4b, the backward (flash_bwd_*, below), is the counterpart of the JAX
+// package's _flash_bwd (src/repro/models/layers.py:232-298), the custom
+// VJP that keeps training at O(S) memory; it is XLA there, not Pallas.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
+namespace wmma = nvcuda::wmma;
+
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf32 = -1e30f;  // the f32 kernel's masked score
 
 struct Strides {  // element strides of a [B, S, H, D] view (D contiguous)
@@ -299,8 +318,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreadsTma, 3 - kConsumers) flash_fwd_wgmma(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, Strides so,
-    int Hq, int group, int Sq, int Sk, float scale_log2, int causal, int window,
-    int q_offset) {
+    float* __restrict__ lse, int Hq, int group, int Sq, int Sk, float scale_log2,
+    int causal, int window, int q_offset) {
   using T = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grain
@@ -467,6 +486,11 @@ __global__ void __launch_bounds__(kThreadsTma, 3 - kConsumers) flash_fwd_wgmma(
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float d0 = l0 > 0.f ? 1.f / l0 : 0.f, d1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    if (lse != nullptr && t == 0) {  // natural log: (m c + log2 l) ln 2, c = scale log2(e)
+      float* lb = lse + (long long)(b * Hq + h) * Sq;
+      if (r0 < Sq) lb[r0] = l0 > 0.f ? (m0 * scale_log2 + log2f(l0)) * kLn2 : kNegInf32;
+      if (r1 < Sq) lb[r1] = l1 > 0.f ? (m1 * scale_log2 + log2f(l1)) * kLn2 : kNegInf32;
+    }
     __nv_bfloat16* ob = o + b * so.b + h * so.h;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -490,9 +514,9 @@ constexpr int kBQ32 = 32, kBK32 = 16;
 template <int D>
 __global__ void __launch_bounds__(kBQ32) flash_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
-    Strides sv, Strides so, int Hq, int group, int Sq, int Sk, float scale, int causal,
-    int window, int q_offset) {
+    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+    Strides sq, Strides sk, Strides sv, Strides so, int Hq, int group, int Sq, int Sk,
+    float scale, int causal, int window, int q_offset) {
   __shared__ float Qs[kBQ32][D + 1];  // +1: each thread's row on its own bank
   __shared__ __align__(16) float Ks[kBK32][D];
   __shared__ __align__(16) float Vs[kBK32][D];
@@ -560,7 +584,385 @@ __global__ void __launch_bounds__(kBQ32) flash_fwd_f32(
     float* orow = o + b * so.b + h * so.h + row * so.s;
 #pragma unroll
     for (int d = 0; d < D; ++d) orow[d] = acc[d] / dn;
+    if (lse != nullptr) lse[(long long)(b * Hq + h) * Sq + row] = l > 0.f ? m + logf(l) : kNegInf32;
   }
+}
+
+// ---------------------------------------------------------------------------
+// K4b: the backward. dq, dk, dv from q, k, v, o, dO and the forward's lse
+// ---------------------------------------------------------------------------
+//
+// Bound on an H100 at smollm-360m's training shape (B=4, S=2048, 15 heads,
+// 5 kv heads, D=64, bf16, causal): five products of 2 B H Sq Sk D FLOPs,
+// halved by the causal mask, 8.05e10 FLOPs, 0.081 ms at 989 TFLOP/s; q,
+// k, v, o, dO, dq, dk, dv are 25 MB read or written once, 0.008 ms at
+// 3.35 TB/s. The tensor cores bound it.
+//
+// Design (simple first; wgmma and TMA are later work). Three grids on the
+// stream, no global atomics, so every run gives the same bits:
+//   * flash_bwd_delta: delta = rowsum(dO * o) in f32, one warp a row;
+//   * flash_bwd_dkdv: one block per (batch, kv head, 64-key tile) holds K
+//     and V in shared memory and walks every q head of the kv head's GQA
+//     group and every 64-row q tile that can see a key of the tile. For
+//     each it recomputes S = Q K^T and P = exp(S scale - lse) (0 where the
+//     mask or the window excludes the pair, or past Sq / Sk), dP = dO V^T
+//     and dS = P (dP - delta) scale, and adds P^T dO to dV and dS^T Q to
+//     dK, which stay in registers: the group's q heads are summed in the
+//     block, and dk, dv are written once per kv head;
+//   * flash_bwd_dq: one block per (batch, q head, 64-row q tile) walks the
+//     kv tiles the forward visits (kv_tiles), recomputes S, P, dP, dS and
+//     adds dS K to dQ.
+// bf16: the products on the tensor cores through the warp-level mma.sync
+// API (nvcuda::wmma, 16x16x16 bf16 tiles, f32 accumulators); S and dP go
+// through shared memory in f32 for the elementwise step, P and dS are
+// rounded to bf16 for their products. f32: 32 x 32 tiles and plain FMA
+// loops, as flash_fwd_f32. Each block recomputes S and dP, so the card
+// does seven products where the bound counts five.
+
+constexpr int kThreadsBwd = 256;  // 8 warps
+
+template <typename T>
+struct BwdTile;
+template <>
+struct BwdTile<__nv_bfloat16> {
+  static constexpr int BQ = 64, BK = 64;
+};
+template <>
+struct BwdTile<float> {
+  static constexpr int BQ = 32, BK = 32;
+};
+
+template <typename T>
+__device__ __forceinline__ T to_t(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_t<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ float to_t<float>(float x) {
+  return x;
+}
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
+
+// Shared-memory layout of a backward block: four [rows][LD] tiles of T (Q,
+// dO, K, V; rows padded by 16 bytes), S and dP in f32, P and dS in T, and
+// lse, delta of the q tile. Every part starts on a 32-byte grain (wmma).
+template <typename T, int D>
+struct BwdSmem {
+  static constexpr int BQ = BwdTile<T>::BQ, BK = BwdTile<T>::BK;
+  static constexpr int LD = D + 16 / (int)sizeof(T);    // Q, dO, K, V rows
+  static constexpr int LDS = BK + 4;                     // S, dP rows (f32)
+  static constexpr int LDP = BK + 16 / (int)sizeof(T);  // P, dS rows
+  static constexpr int LDO = D + 4;                      // dq / dk / dv staging (f32)
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + BQ * LD * (int)sizeof(T);
+  static constexpr int K = DO + BQ * LD * (int)sizeof(T);
+  static constexpr int V = K + BK * LD * (int)sizeof(T);
+  static constexpr int S = V + BK * LD * (int)sizeof(T);
+  static constexpr int DP = S + BQ * LDS * 4;
+  static constexpr int P = DP + BQ * LDS * 4;
+  static constexpr int DS = P + BQ * LDP * (int)sizeof(T);
+  static constexpr int LSE = DS + BQ * LDP * (int)sizeof(T);
+  static constexpr int DEL = LSE + BQ * 4;
+  static constexpr int BYTES = DEL + BQ * 4;
+  // the f32 staging of a finished [64][D] accumulator reuses S and dP
+  static_assert(BQ * LDO <= 2 * BQ * LDS || sizeof(T) == 4, "staging does not fit");
+};
+
+// rows [row0, row0 + ROWS) of a [S, D] slice (rows `s_stride` apart, D
+// contiguous) into dst[ROWS][ld], 16 bytes a copy; rows past S as zeros.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, long long s_stride,
+                                          int row0, int S) {
+  constexpr int V = 16 / (int)sizeof(T), CPR = D / V;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += kThreadsBwd) {
+    const int r = i / CPR, c = (i % CPR) * V;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * s_stride + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsBwd) flash_bwd_delta(
+    const void* __restrict__ o, const void* __restrict__ dout, float* __restrict__ delta,
+    Strides so, Strides sdo, int Hq, int Sq, int D, int bf16, long long rows) {
+  const long long r = (long long)blockIdx.x * (kThreadsBwd / 32) + threadIdx.x / 32;
+  if (r >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int i = (int)(r % Sq), bh = (int)(r / Sq), b = bh / Hq, h = bh % Hq;
+  const long long oo = b * so.b + i * so.s + h * so.h, od = b * sdo.b + i * sdo.s + h * sdo.h;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    if (bf16)
+      acc = fmaf(to_f(static_cast<const __nv_bfloat16*>(dout)[od + d]),
+                 to_f(static_cast<const __nv_bfloat16*>(o)[oo + d]), acc);
+    else
+      acc = fmaf(static_cast<const float*>(dout)[od + d], static_cast<const float*>(o)[oo + d],
+                 acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[r] = acc;
+}
+
+// S = Q K^T into Sf and dP = dO V^T into dPf, [BQ][BK] f32, from the tiles
+// in shared memory.
+template <typename T, int D>
+__device__ __forceinline__ void bwd_scores(uint8_t* sm) {
+  using L = BwdSmem<T, D>;
+  const T* Qs = reinterpret_cast<const T*>(sm + L::Q);
+  const T* dOs = reinterpret_cast<const T*>(sm + L::DO);
+  const T* Ks = reinterpret_cast<const T*>(sm + L::K);
+  const T* Vs = reinterpret_cast<const T*>(sm + L::V);
+  float* Sf = reinterpret_cast<float*>(sm + L::S);
+  float* dPf = reinterpret_cast<float*>(sm + L::DP);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int w = threadIdx.x / 32;
+    constexpr int NT = L::BK / 16;  // column tiles
+#pragma unroll
+    for (int f = w; f < (L::BQ / 16) * NT; f += kThreadsBwd / 32) {
+      const int rt = f / NT, ct = f % NT;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s, dp;
+      wmma::fill_fragment(s, 0.f);
+      wmma::fill_fragment(dp, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bm;
+        wmma::load_matrix_sync(a, Qs + rt * 16 * L::LD + kk * 16, L::LD);
+        wmma::load_matrix_sync(bm, Ks + ct * 16 * L::LD + kk * 16, L::LD);
+        wmma::mma_sync(s, a, bm, s);
+        wmma::load_matrix_sync(a, dOs + rt * 16 * L::LD + kk * 16, L::LD);
+        wmma::load_matrix_sync(bm, Vs + ct * 16 * L::LD + kk * 16, L::LD);
+        wmma::mma_sync(dp, a, bm, dp);
+      }
+      wmma::store_matrix_sync(Sf + rt * 16 * L::LDS + ct * 16, s, L::LDS, wmma::mem_row_major);
+      wmma::store_matrix_sync(dPf + rt * 16 * L::LDS + ct * 16, dp, L::LDS,
+                              wmma::mem_row_major);
+    }
+  } else {
+    for (int e = threadIdx.x; e < L::BQ * L::BK; e += kThreadsBwd) {
+      const int i = e / L::BK, j = e % L::BK;
+      float s = 0.f, dp = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(Qs[i * L::LD + d], Ks[j * L::LD + d], s);
+        dp = fmaf(dOs[i * L::LD + d], Vs[j * L::LD + d], dp);
+      }
+      Sf[i * L::LDS + j] = s;
+      dPf[i * L::LDS + j] = dp;
+    }
+  }
+}
+
+// P = exp(S scale - lse) where (q0 + i, k0 + j) is a valid pair, else 0,
+// and dS = P (dP - delta) scale, into P and dS (type T).
+template <typename T, int D>
+__device__ __forceinline__ void bwd_probs(uint8_t* sm, int q0, int k0, int Sq, int Sk,
+                                          float scale, int causal, int window, int q_offset) {
+  using L = BwdSmem<T, D>;
+  const float* Sf = reinterpret_cast<const float*>(sm + L::S);
+  const float* dPf = reinterpret_cast<const float*>(sm + L::DP);
+  const float* lse_s = reinterpret_cast<const float*>(sm + L::LSE);
+  const float* del_s = reinterpret_cast<const float*>(sm + L::DEL);
+  T* Ps = reinterpret_cast<T*>(sm + L::P);
+  T* dSs = reinterpret_cast<T*>(sm + L::DS);
+  for (int e = threadIdx.x; e < L::BQ * L::BK; e += kThreadsBwd) {
+    const int i = e / L::BK, j = e % L::BK;
+    const bool ok = q0 + i < Sq && valid(q_offset + q0 + i, k0 + j, Sk, causal, window);
+    const float p = ok ? expf(Sf[i * L::LDS + j] * scale - lse_s[i]) : 0.f;
+    const float ds = p * (dPf[i * L::LDS + j] - del_s[i]) * scale;
+    Ps[i * L::LDP + j] = to_t<T>(p);
+    dSs[i * L::LDP + j] = to_t<T>(ds);
+  }
+}
+
+// The q tile's rows of head h: Q, dO, lse and delta into shared memory.
+template <typename T, int D>
+__device__ __forceinline__ void bwd_load_q(uint8_t* sm, const T* q, const T* dout,
+                                           const float* lse, const float* delta, Strides sq,
+                                           Strides sdo, int b, int h, int Hq, int q0, int Sq) {
+  using L = BwdSmem<T, D>;
+  load_rows<T, D, L::BQ>(reinterpret_cast<T*>(sm + L::Q), L::LD, q + b * sq.b + h * sq.h, sq.s,
+                         q0, Sq);
+  load_rows<T, D, L::BQ>(reinterpret_cast<T*>(sm + L::DO), L::LD,
+                         dout + b * sdo.b + h * sdo.h, sdo.s, q0, Sq);
+  float* lse_s = reinterpret_cast<float*>(sm + L::LSE);
+  float* del_s = reinterpret_cast<float*>(sm + L::DEL);
+  const long long base = (long long)(b * Hq + h) * Sq;
+  for (int i = threadIdx.x; i < L::BQ; i += kThreadsBwd) {
+    lse_s[i] = q0 + i < Sq ? lse[base + q0 + i] : 0.f;
+    del_s[i] = q0 + i < Sq ? delta[base + q0 + i] : 0.f;
+  }
+}
+
+// acc[NF] (bf16: wmma fragments of a [64][D] result, f32: this thread's
+// elements of a [32][D] result) written as rows [r0, min(r0 + ROWS, S)) of
+// a [S, D] slice of `out`.
+template <typename T, int D, typename Acc, int NF>
+__device__ __forceinline__ void bwd_store(uint8_t* sm, Acc (&acc)[NF], T* out,
+                                          long long s_stride, int r0, int S) {
+  using L = BwdSmem<T, D>;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    float* st = reinterpret_cast<float*>(sm + L::S);
+    const int w = threadIdx.x / 32;
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const int f = w + n * (kThreadsBwd / 32), rt = f / (D / 16), ct = f % (D / 16);
+      wmma::store_matrix_sync(st + rt * 16 * L::LDO + ct * 16, acc[n], L::LDO,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < 64 * D; e += kThreadsBwd) {
+      const int r = e / D, d = e % D;
+      if (r0 + r < S) out[(r0 + r) * s_stride + d] = to_t<T>(st[r * L::LDO + d]);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const int e = threadIdx.x + n * kThreadsBwd, r = e / D, d = e % D;
+      if (r0 + r < S) out[(r0 + r) * s_stride + d] = acc[n];
+    }
+  }
+}
+
+template <typename T, int D>
+struct BwdAcc {  // the accumulator of a [rows][D] result held by the block
+  static constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int ROWS = BF ? 64 : 32;
+  static constexpr int NF = BF ? ROWS * D / 256 / 8 : ROWS * D / kThreadsBwd;
+  using Type = typename std::conditional<
+      BF, wmma::fragment<wmma::accumulator, 16, 16, 16, float>, float>::type;
+};
+
+template <typename Acc, int NF>
+__device__ __forceinline__ void acc_zero(Acc (&acc)[NF]) {
+#pragma unroll
+  for (int n = 0; n < NF; ++n) {
+    if constexpr (std::is_same<Acc, float>::value) acc[n] = 0.f;
+    else wmma::fill_fragment(acc[n], 0.f);
+  }
+}
+
+// acc += A^T B (TRANS) or A B, A [ROWS_A][LDA] of T in shared memory with
+// the inner dimension of KDIM, B [KDIM][LDB]; the result has D columns.
+template <typename T, int D, bool TRANS, int KDIM, typename Acc, int NF>
+__device__ __forceinline__ void bwd_mma(Acc (&acc)[NF], const T* A, int lda, const T* Bm,
+                                        int ldb) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int w = threadIdx.x / 32;
+    using ALayout = typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type;
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const int f = w + n * (kThreadsBwd / 32), rt = f / (D / 16), ct = f % (D / 16);
+#pragma unroll
+      for (int kk = 0; kk < KDIM / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm;
+        if constexpr (TRANS) wmma::load_matrix_sync(a, A + kk * 16 * lda + rt * 16, lda);
+        else wmma::load_matrix_sync(a, A + rt * 16 * lda + kk * 16, lda);
+        wmma::load_matrix_sync(bm, Bm + kk * 16 * ldb + ct * 16, ldb);
+        wmma::mma_sync(acc[n], a, bm, acc[n]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const int e = threadIdx.x + n * kThreadsBwd, r = e / D, d = e % D;
+      float s = acc[n];
+#pragma unroll 8
+      for (int kk = 0; kk < KDIM; ++kk)
+        s = fmaf(TRANS ? A[kk * lda + r] : A[r * lda + kk], Bm[kk * ldb + d], s);
+      acc[n] = s;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreadsBwd) flash_bwd_dkdv(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, Strides sq,
+    Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, int Hq, int Hkv, int Sq,
+    int Sk, float scale, int causal, int window, int q_offset) {
+  using L = BwdSmem<T, D>;
+  using A = BwdAcc<T, D>;
+  extern __shared__ __align__(128) uint8_t smem_bwd[];
+  uint8_t* sm = smem_bwd;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, group = Hq / Hkv;
+  const int k0 = blockIdx.y * L::BK;
+  load_rows<T, D, L::BK>(reinterpret_cast<T*>(sm + L::K), L::LD, k + b * sk.b + hk * sk.h,
+                         sk.s, k0, Sk);
+  load_rows<T, D, L::BK>(reinterpret_cast<T*>(sm + L::V), L::LD, v + b * sv.b + hk * sv.h,
+                         sv.s, k0, Sk);
+  // the q rows that can see a key of [k0, khi]
+  const int khi = min(k0 + L::BK, Sk) - 1;
+  const int ilo = causal ? max(0, k0 - q_offset) : 0;
+  const int ihi = window > 0 ? min(Sq - 1, khi + window - 1 - q_offset) : Sq - 1;
+  typename A::Type dka[A::NF], dva[A::NF];
+  acc_zero(dka);
+  acc_zero(dva);
+  if (ilo <= ihi) {
+    for (int h = hk * group; h < (hk + 1) * group; ++h) {
+      for (int qt = ilo / L::BQ; qt <= ihi / L::BQ; ++qt) {
+        const int q0 = qt * L::BQ;
+        __syncthreads();  // the previous tile's products are done with Q, dO, P, dS
+        bwd_load_q<T, D>(sm, q, dout, lse, delta, sq, sdo, b, h, Hq, q0, Sq);
+        __syncthreads();
+        bwd_scores<T, D>(sm);
+        __syncthreads();
+        bwd_probs<T, D>(sm, q0, k0, Sq, Sk, scale, causal, window, q_offset);
+        __syncthreads();
+        // dV += P^T dO, dK += dS^T Q (the key tile's rows)
+        bwd_mma<T, D, true, L::BQ>(dva, reinterpret_cast<const T*>(sm + L::P), L::LDP,
+                                   reinterpret_cast<const T*>(sm + L::DO), L::LD);
+        bwd_mma<T, D, true, L::BQ>(dka, reinterpret_cast<const T*>(sm + L::DS), L::LDP,
+                                   reinterpret_cast<const T*>(sm + L::Q), L::LD);
+      }
+    }
+  }
+  bwd_store<T, D>(sm, dka, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, Sk);
+  bwd_store<T, D>(sm, dva, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, Sk);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreadsBwd) flash_bwd_dq(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+    Strides sdo, Strides sdq, int Hq, int group, int Sq, int Sk, float scale, int causal,
+    int window, int q_offset) {
+  using L = BwdSmem<T, D>;
+  using A = BwdAcc<T, D>;
+  extern __shared__ __align__(128) uint8_t smem_bwd[];
+  uint8_t* sm = smem_bwd;
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, hk = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::BQ;  // longest tiles first
+  bwd_load_q<T, D>(sm, q, dout, lse, delta, sq, sdo, b, h, Hq, q0, Sq);
+  int t0, t1;
+  kv_tiles(q_offset + q0, q_offset + min(q0 + L::BQ, Sq) - 1, Sk, L::BK, causal, window, &t0,
+           &t1);
+  typename A::Type dqa[A::NF];
+  acc_zero(dqa);
+  for (int kt = t0; kt < t1; ++kt) {
+    const int k0 = kt * L::BK;
+    __syncthreads();  // the previous tile's products are done with K, dS
+    load_rows<T, D, L::BK>(reinterpret_cast<T*>(sm + L::K), L::LD, k + b * sk.b + hk * sk.h,
+                           sk.s, k0, Sk);
+    load_rows<T, D, L::BK>(reinterpret_cast<T*>(sm + L::V), L::LD, v + b * sv.b + hk * sv.h,
+                           sv.s, k0, Sk);
+    __syncthreads();
+    bwd_scores<T, D>(sm);
+    __syncthreads();
+    bwd_probs<T, D>(sm, q0, k0, Sq, Sk, scale, causal, window, q_offset);
+    __syncthreads();
+    // dQ += dS K
+    bwd_mma<T, D, false, L::BK>(dqa, reinterpret_cast<const T*>(sm + L::DS), L::LDP,
+                                reinterpret_cast<const T*>(sm + L::K), L::LD);
+  }
+  bwd_store<T, D>(sm, dqa, dq + b * sdq.b + h * sdq.h, sdq.s, q0, Sq);
 }
 
 // ---------------------------------------------------------------------------
@@ -606,8 +1008,8 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int S, int H, Strides st, 
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-           int Sq, int Sk, int bf16, const Strides* st, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+           int Hkv, int Sq, int Sk, int bf16, const Strides* st, float scale, int causal,
            int window, int q_offset, cudaStream_t stream) {
   const int group = Hq / Hkv;
   if (bf16) {
@@ -626,16 +1028,67 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
       return (int)cudaErrorInvalidValue;
     const dim3 grid(B * Hq, (Sq + T::BQ - 1) / T::BQ);
     flash_fwd_wgmma<D><<<grid, kThreadsTma, T::SMEM, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], Hq, group, Sq, Sk,
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], lse, Hq, group, Sq, Sk,
         scale * kLog2e, causal, window, q_offset);
   } else {
     const dim3 grid(B * Hq, (Sq + kBQ32 - 1) / kBQ32);
     flash_fwd_f32<D><<<grid, kBQ32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2], st[3],
-        Hq, group, Sq, Sk, scale, causal, window, q_offset);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, st[0], st[1], st[2],
+        st[3], Hq, group, Sq, Sk, scale, causal, window, q_offset);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Hq,
+               int Hkv, int Sq, int Sk, const Strides* st, float scale, int causal,
+               int window, int q_offset, cudaStream_t stream) {
+  using L = BwdSmem<T, D>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const long long rows = (long long)B * Hq * Sq;
+  const int warps = kThreadsBwd / 32;
+  flash_bwd_delta<<<(unsigned)((rows + warps - 1) / warps), kThreadsBwd, 0, stream>>>(
+      o, dout, delta, st[3], st[4], Hq, Sq, D, std::is_same<T, __nv_bfloat16>::value, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  flash_bwd_dkdv<T, D><<<dim3(B * Hkv, (Sk + L::BK - 1) / L::BK), kThreadsBwd, L::BYTES,
+                         stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+                                   static_cast<T*>(dv), st[0], st[1], st[2], st[4], st[6],
+                                   st[7], Hq, Hkv, Sq, Sk, scale, causal, window, q_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq<T, D><<<dim3(B * Hq, (Sq + L::BQ - 1) / L::BQ), kThreadsBwd, L::BYTES,
+                       stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), st[0],
+                                 st[1], st[2], st[4], st[5], Hq, Hq / Hkv, Sq, Sk, scale,
+                                 causal, window, q_offset);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_d(int bf16, const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                 void* dv, int B, int Hq, int Hkv, int Sq, int Sk, const Strides* st,
+                 float scale, int causal, int window, int q_offset, cudaStream_t stream) {
+  if (bf16)
+    return launch_bwd<__nv_bfloat16, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
+                                        Sq, Sk, st, scale, causal, window, q_offset, stream);
+  return launch_bwd<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, st,
+                              scale, causal, window, q_offset, stream);
 }
 
 }  // namespace
@@ -647,9 +1100,10 @@ extern "C" {
 // k, v, o in that order), all of one dtype (bf16 != 0: bfloat16, else
 // float32); D in {32, 64, 128}; Hkv divides Hq (q head h reads kv head
 // h / (Hq / Hkv)). bfloat16 strides are multiples of 8 elements and the
-// pointers 16-byte aligned (TMA).
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                        int Hq, int Hkv, int Sq, int Sk, int D, int bf16,
+// pointers 16-byte aligned (TMA). lse: null, or f32 [B, Hq, Sq] for each
+// row's log-sum-exp.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int Hq, int Hkv, int Sq, int Sk, int D, int bf16,
                         const long long* strides, float scale, int causal, int window,
                         int q_offset, cudaStream_t stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Sk < 1)
@@ -658,14 +1112,44 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   for (int i = 0; i < 4; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, bf16, st, scale, causal, window,
+      return launch<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, bf16, st, scale, causal, window,
                         q_offset, stream);
     case 64:
-      return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, bf16, st, scale, causal, window,
+      return launch<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, bf16, st, scale, causal, window,
                         q_offset, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, bf16, st, scale, causal, window,
+      return launch<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, bf16, st, scale, causal, window,
                          q_offset, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4b. q, o, dout, dq [B, Sq, Hq, D]; k, v, dk, dv [B, Sk, Hkv, D]; any
+// element strides with D contiguous (strides: 24 values, (batch, seq,
+// head) of q, k, v, o, dout, dq, dk, dv in that order), one dtype as the
+// forward's; lse: the forward's f32 [B, Hq, Sq]; delta: f32 [B, Hq, Sq]
+// scratch. Strides are multiples of 8 elements and the pointers 16-byte
+// aligned (16-byte loads). Three launches on `stream`; no atomics.
+int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                        void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int D, int bf16,
+                        const long long* strides, float scale, int causal, int window,
+                        int q_offset, cudaStream_t stream) {
+  if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Sk < 1)
+    return (int)cudaErrorInvalidValue;
+  Strides st[8];
+  for (int i = 0; i < 8; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  switch (D) {
+    case 32:
+      return launch_bwd_d<32>(bf16, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq,
+                              Sk, st, scale, causal, window, q_offset, stream);
+    case 64:
+      return launch_bwd_d<64>(bf16, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq,
+                              Sk, st, scale, causal, window, q_offset, stream);
+    case 128:
+      return launch_bwd_d<128>(bf16, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq,
+                               Sk, st, scale, causal, window, q_offset, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

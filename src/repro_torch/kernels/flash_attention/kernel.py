@@ -1,6 +1,10 @@
-"""Wrapper of the hand-written flash-attention forward kernel
-(``csrc/flash_attention.cu``), which replaces ``flash_attention_fwd`` of
-``src/repro/kernels/flash_attention/kernel.py``.
+"""Wrappers of the hand-written flash-attention kernels
+(``csrc/flash_attention.cu``): the forward (K4), which replaces
+``flash_attention_fwd`` of ``src/repro/kernels/flash_attention/kernel.py``
+and, asked through ``flash_attention_heads(return_lse=True)``, also gives
+each row's log-sum-exp; and
+the backward (K4b, ``flash_attention_bwd_heads``), the counterpart of the
+JAX package's ``_flash_bwd`` (``src/repro/models/layers.py:232-298``).
 
 Two layouts reach the one kernel:
 
@@ -15,8 +19,10 @@ The wrapper checks device, dtype, shape, contiguity or strides, and raises
 on anything the kernel does not take. Given CPU tensors it runs the
 kernel's plain version (``ref.attention_ref``, ``ref.attention_heads_ref``);
 given CUDA tensors it launches the kernel on the current stream or raises.
-``launches["flash_attention_fwd"]`` rises by one where the kernel is
-launched, from either entry, and nowhere else.
+``launches["flash_attention_fwd"]`` rises by one where the forward is
+launched, from either entry, and nowhere else; ``launches
+["flash_attention_bwd"]`` by one a backward call (its three grids: delta,
+dk/dv, dq).
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_Q = 64
 BLOCK_K = {32: 128, 64: 128, 128: 64}
 
-launches = {"flash_attention_fwd": 0}
+launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 
 def _check(q, k, v, q_offset, window, *, heads: bool) -> None:
@@ -82,12 +88,13 @@ def _check(q, k, v, q_offset, window, *, heads: bool) -> None:
         raise ValueError("q_offset must be an int and window an int >= 0")
 
 
-def _launch(q, k, v, o, *, B, Hq, Hkv, Sq, Sk, strides, causal, window, q_offset):
+def _launch(q, k, v, o, lse, *, B, Hq, Hkv, Sq, Sk, strides, causal, window, q_offset):
     D = q.shape[-1]
     st = (ctypes.c_longlong * 12)(*strides)
     with torch.cuda.device(q.device):
         err = build.load().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
             int(q.dtype == torch.bfloat16), st, 1.0 / math.sqrt(D), int(bool(causal)),
             window, q_offset, torch.cuda.current_stream(q.device).cuda_stream)
     build.LIBRARY.raise_on(err, "flash_attention_fwd")
@@ -106,39 +113,81 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     128} -> [BH, Sq, D] in q's dtype."""
     _check(q, k, v, q_offset, window, heads=False)
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+        return ref.attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     BH, Sq, D = q.shape
     BHk, Sk = k.shape[:2]
     o = torch.empty_like(q)
     # [BH, S, D] as a [1, S, BH, D] view: heads Sq*D apart, rows D apart
     qs = (8, D, Sq * D)
     ks = (8, D, Sk * D)
-    _launch(q, k, v, o, B=1, Hq=BH, Hkv=BHk, Sq=Sq, Sk=Sk,
+    _launch(q, k, v, o, None, B=1, Hq=BH, Hkv=BHk, Sq=Sq, Sk=Sk,
             strides=qs + ks + ks + qs, causal=causal, window=window, q_offset=q_offset)
     return o
 
 
 def flash_attention_heads(q, k, v, *, causal: bool = True, window: int = 0,
-                          q_offset: int = 0):
+                          q_offset: int = 0, return_lse: bool = False):
     """q [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D] with Hkv dividing Hq, read in
     place (D contiguous, strides multiples of 8 elements), f32 or bf16, D in
-    {32, 64, 128} -> o [B, Sq, Hq, D] (contiguous) in q's dtype."""
+    {32, 64, 128} -> o [B, Sq, Hq, D] (contiguous) in q's dtype, and with
+    ``return_lse`` (o, lse f32 [B, Hq, Sq])."""
     _check(q, k, v, q_offset, window, heads=True)
     if q.device.type == "cpu":
         return ref.attention_heads_ref(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset)
+                                       q_offset=q_offset, return_lse=return_lse)
     B, Sq, Hq, _ = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, o, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk,
+    lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device) if return_lse
+           else None)
+    _launch(q, k, v, o, lse, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Sk=Sk,
             strides=_bsh(q) + _bsh(k) + _bsh(v) + _bsh(o), causal=causal, window=window,
             q_offset=q_offset)
-    return o
+    return o if lse is None else (o, lse)
+
+
+def flash_attention_bwd_heads(q, k, v, o, dout, lse, *, causal: bool = True,
+                              window: int = 0, q_offset: int = 0):
+    """K4b: the gradients of ``flash_attention_heads`` at output cotangent
+    ``dout``. q, o, dout [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D], read in place
+    as the forward reads them, one dtype; lse f32 [B, Hq, Sq], the forward's.
+    Returns (dq [B, Sq, Hq, D], dk, dv [B, Sk, Hkv, D]), contiguous, in the
+    inputs' dtype; dk and dv summed over each kv head's q heads."""
+    _check(q, k, v, q_offset, window, heads=True)
+    _check(o, dout, dout, q_offset, window, heads=True)
+    if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"o {list(o.shape)} and dout {list(dout.shape)} must be q's "
+                         f"{list(q.shape)}, in q's dtype")
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, Sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous f32 [B, Hq, Sq] = {[B, Hq, Sq]} tensor "
+                         f"on q's device")
+    if q.device.type == "cpu":
+        return ref.attention_bwd_heads_ref(q, k, v, o, dout, lse, causal=causal,
+                                           window=window, q_offset=q_offset)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    delta = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+    strides = sum((_bsh(t) for t in (q, k, v, o, dout, dq, dk, dv)), ())
+    st = (ctypes.c_longlong * 24)(*strides)
+    with torch.cuda.device(q.device):
+        err = build.load().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Hq, Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16), st, 1.0 / math.sqrt(D),
+            int(bool(causal)), window, q_offset,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.LIBRARY.raise_on(err, "flash_attention_bwd")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 def reset_launches() -> None:
-    launches["flash_attention_fwd"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def launch_counts() -> dict[str, int]:

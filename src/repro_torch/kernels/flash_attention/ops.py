@@ -9,12 +9,21 @@ in this layout in place (``kernel.flash_attention_heads``): no transposes.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_heads
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_heads,
+                                                       flash_attention_heads)
 
 
 def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True,
-                    window: int = 0):
+                    window: int = 0, return_lse: bool = False):
     """q [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D] with Hkv dividing Hq ->
-    [B, Sq, Hq, D]."""
+    [B, Sq, Hq, D] (and the lse f32 [B, Hq, Sq] with ``return_lse``)."""
     return flash_attention_heads(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, return_lse=return_lse)
+
+
+def flash_attention_bwd(q, k, v, o, dout, lse, *, q_offset: int = 0, causal: bool = True,
+                        window: int = 0):
+    """The backward (K4b) in the same layout: (dq, dk, dv), dk and dv summed
+    over each kv head's group."""
+    return flash_attention_bwd_heads(q, k, v, o, dout, lse, causal=causal, window=window,
+                                     q_offset=q_offset)

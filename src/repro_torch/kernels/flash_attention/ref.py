@@ -30,9 +30,11 @@ def valid_mask(Sq: int, Sk: int, *, causal: bool, window: int, q_offset: int,
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  q_offset: int = 0):
+                  q_offset: int = 0, return_lse: bool = False):
     """q [BH, Sq, D]; k, v [BH / g, Sk, D] (q row bh reads kv row bh // g).
-    Returns [BH, Sq, D] in q's dtype."""
+    Returns [BH, Sq, D] in q's dtype, and with ``return_lse`` each row's
+    log-sum-exp of its scaled scores, f32 [BH, Sq] (-1e30 for a row with no
+    valid key, as the JAX package's ``_flash_fwd_impl`` gives it)."""
     g = q.shape[0] // k.shape[0]
     k = k.repeat_interleave(g, dim=0)
     v = v.repeat_interleave(g, dim=0)
@@ -45,21 +47,77 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.where(ok, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
-    return (acc / torch.where(l > 0, l, 1.0)).to(q.dtype)
+    o = (acc / torch.where(l > 0, l, 1.0)).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = m[..., 0].clamp_min(-1e30) + torch.log(l[..., 0].clamp_min(1e-30))
+    return o, lse
+
+
+def attention_bwd_ref(q, k, v, o, dout, lse, *, causal: bool = True, window: int = 0,
+                      q_offset: int = 0):
+    """The plain version of the backward kernel (K4b), the scores
+    materialised: q, o, dout [BH, Sq, D]; k, v [BH / g, Sk, D]; lse f32
+    [BH, Sq] -> (dq, dk, dv) in the inputs' dtype. The kernel's arithmetic:
+    S in f32, P = exp(S scale - lse) where the pair is valid, else 0, delta
+    = rowsum(dout o) in f32, dS = P (dP - delta) scale; P and dS rounded to
+    the inputs' dtype before their products; dk and dv summed over the q
+    rows of each kv row's group."""
+    BH, Sq, D = q.shape
+    BHk, Sk = k.shape[:2]
+    g = BH // BHk
+    kr = k.repeat_interleave(g, dim=0).float()
+    vr = v.repeat_interleave(g, dim=0).float()
+    scale = 1.0 / math.sqrt(D)
+    ok = valid_mask(Sq, Sk, causal=causal, window=window, q_offset=q_offset, device=q.device)
+    qf, dof = q.float(), dout.float()
+    s = torch.matmul(qf, kr.transpose(1, 2)) * scale
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    delta = (dof * o.float()).sum(-1)
+    dp = torch.matmul(dof, vr.transpose(1, 2))
+    ds = p * (dp - delta[..., None]) * scale
+    pd, dsd = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.matmul(pd.transpose(1, 2), dof).view(BHk, g, Sk, D).sum(1)
+    dk = torch.matmul(dsd.transpose(1, 2), qf).view(BHk, g, Sk, D).sum(1)
+    dq = torch.matmul(dsd, kr)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bh(t):
+    """[B, S, H, D] -> [B * H, S, D]."""
+    B, S, H, D = t.shape
+    return t.transpose(1, 2).reshape(B * H, S, D)
+
+
+def _bshd(t, B: int):
+    """[B * H, S, D] -> [B, S, H, D]."""
+    BH, S, D = t.shape
+    return t.reshape(B, BH // B, S, D).transpose(1, 2)
 
 
 def attention_heads_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0):
+                        q_offset: int = 0, return_lse: bool = False):
     """``attention_ref`` in the model's layout: q [B, Sq, Hq, D]; k, v [B,
     Sk, Hkv, D] (q head h reads kv head h // (Hq / Hkv)) -> [B, Sq, Hq, D]
-    in q's dtype."""
-    B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    o = attention_ref(q.transpose(1, 2).reshape(B * H, Sq, D),
-                      k.transpose(1, 2).reshape(B * Hkv, Sk, D),
-                      v.transpose(1, 2).reshape(B * Hkv, Sk, D),
-                      causal=causal, window=window, q_offset=q_offset)
-    return o.reshape(B, H, Sq, D).transpose(1, 2)
+    in q's dtype, and with ``return_lse`` the lse f32 [B, Hq, Sq]."""
+    B, Sq, H, _ = q.shape
+    out = attention_ref(_bh(q), _bh(k), _bh(v), causal=causal, window=window,
+                        q_offset=q_offset, return_lse=return_lse)
+    if not return_lse:
+        return _bshd(out, B)
+    return _bshd(out[0], B), out[1].reshape(B, H, Sq)
+
+
+def attention_bwd_heads_ref(q, k, v, o, dout, lse, *, causal: bool = True, window: int = 0,
+                            q_offset: int = 0):
+    """``attention_bwd_ref`` in the model's layout: q, o, dout [B, Sq, Hq,
+    D]; k, v [B, Sk, Hkv, D]; lse [B, Hq, Sq] -> (dq, dk, dv) as [B, S, H,
+    D] (contiguous)."""
+    B, Sq, H, _ = q.shape
+    dq, dk, dv = attention_bwd_ref(_bh(q), _bh(k), _bh(v), _bh(o), _bh(dout),
+                                   lse.reshape(B * H, Sq), causal=causal, window=window,
+                                   q_offset=q_offset)
+    return tuple(_bshd(t, B).contiguous() for t in (dq, dk, dv))
 
 
 def tile_plan(Sq: int, Sk: int, BQ: int, BK: int, *, causal: bool, window: int,

@@ -3,14 +3,15 @@ decoder-only dense, moe, vlm, ssm and hybrid families in ``lm``, the
 encoder-decoder family in ``encdec``).
 
     init_params(cfg, seed, device)       -> model (nn.Module)
+    trainable(model)                     parameters that take gradients
+    loss_fn(cfg, model, batch, rng)      -> (loss, {"ce", "aux"})
     init_cache(cfg, batch, max_len, device) -> cache
     prefill(cfg, model, batch)           -> logits at the last position
     decode_fn(cfg, model, batch, cache)  -> (logits, cache)
     plain_paths()                        context: no kernels on the card
 
 ``device=None`` is the CUDA card and raises without one; pass
-``device="cpu"`` to run on the CPU. ``loss_fn`` / ``chunked_xent`` wait
-for the training slice (ROADMAP A9).
+``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import contextlib
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
@@ -50,6 +52,75 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> nn.Module:
     _check_family(cfg)
     mod = ED if cfg.family == "encdec" else LM
     return mod.init_params(cfg, seed, resolve_device(device))
+
+
+def trainable(model: nn.Module) -> nn.Module:
+    """Switch every parameter of ``model`` to take gradients, in place;
+    ``init_params`` makes them without (serving). Returns the model."""
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return model
+
+
+def _chunk_loss(cfg, model, logits_fn, hc, yc, mc):
+    logits = logits_fn(cfg, model, hc).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+    return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def xent_sums(cfg: ModelConfig, model: nn.Module, hidden, labels, mask, logits_fn):
+    """The masked cross-entropy's (sum, count), f32, without materialising
+    [B, S, V]: the sequence in chunks of ``C = min(loss_chunk, S)`` (``C =
+    S`` where that does not divide S), each chunk's logits recomputed in
+    the backward (the reference's ``jax.checkpoint`` on its chunk), the
+    chunks' sums added in order."""
+    S = hidden.shape[1]
+    C = min(cfg.loss_chunk, S)
+    if S % C:
+        C = S
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, C):
+        args = (cfg, model, logits_fn, hidden[:, c0:c0 + C], labels[:, c0:c0 + C],
+                mask[:, c0:c0 + C].float())
+        if torch.is_grad_enabled():
+            s, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            s, n = _chunk_loss(*args)
+        tot, cnt = tot + s, cnt + n
+    return tot, cnt
+
+
+def chunked_xent(cfg: ModelConfig, model: nn.Module, hidden, labels, mask, logits_fn):
+    """Cross-entropy averaged over the mask (``src/repro/models/api.py:27-55``)."""
+    tot, cnt = xent_sums(cfg, model, hidden, labels, mask, logits_fn)
+    return tot / cnt.clamp_min(1.0)
+
+
+def loss_fn(cfg: ModelConfig, model: nn.Module, batch, rng=None, *, denom=None):
+    """batch: tokens [B, S], labels [B, S], mask [B, S] (+ ``patch_embeds``
+    (vlm) or ``frame_embeds`` (encdec)). rng: a host key for the ppot
+    router. Returns (loss, {"ce", "aux"}): ce the masked mean token
+    cross-entropy, loss = ce + 0.01 aux with aux the MoE layers' summed
+    load-balance loss (0 for the other families). denom: divide the
+    cross-entropy's sum by this count instead of the batch's own (a rank's
+    share of a batch split over ranks, ``dist/steps.py``)."""
+    tokens, labels, mask = (_on(model, batch[k]) for k in ("tokens", "labels", "mask"))
+    if cfg.family == "encdec":
+        enc_out = ED.encode(cfg, model, _on(model, batch["frame_embeds"]))
+        hidden, _ = ED.decode(cfg, model, tokens, enc_out)
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        head = ED.logits_head
+    else:
+        patches = batch.get("patch_embeds")
+        hidden, aux = LM.forward(cfg, model, tokens, rng=rng, with_aux=True,
+                                 patch_embeds=None if patches is None else _on(model, patches))
+        head = LM.logits_head
+    tot, cnt = xent_sums(cfg, model, hidden, labels, mask, head)
+    ce = tot / (cnt.clamp_min(1.0) if denom is None else denom)
+    loss = ce if cfg.family == "encdec" else ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):

@@ -7,7 +7,9 @@ pre-norm LayerNorm. Decoder: causal self-attention, cross attention to the
 encoder output, a GELU MLP and learned positions. Logits tie to the token
 embedding. The decode cache is a list with one ``{k, v, len}`` a decoder
 layer (the self-attention's); cross attention projects ``enc_out`` anew
-at every step, as the reference does.
+at every step, as the reference does. Where a gradient is taken, every
+encoder and decoder layer runs under ``layers.remat`` (``cfg.remat``), as
+the reference checkpoints both scans.
 
   init_params(cfg, seed, device)                  -> model (nn.Module)
   encode(cfg, model, frame_embeds)                -> enc_out [B, enc_len, d]
@@ -67,11 +69,26 @@ def encode(cfg: ModelConfig, model: nn.Module, frame_embeds):
     x = frame_embeds.to(L._dtype(cfg))
     x = x + L.sincos_positions(d, S, x.device)[None].to(x.dtype)
     for p in model.enc_layers:
-        a, _ = L.attention_apply(cfg, p.attn, L.norm_apply(cfg, p.norm1, x), positions=0,
-                                 causal=False)
-        x = x + a
-        x = x + L.mlp_apply(cfg, p.mlp, L.norm_apply(cfg, p.norm2, x))
+        x = L.remat(cfg, _enc_layer, cfg, p, x)
     return L.norm_apply(cfg, model.enc_norm, x)
+
+
+def _enc_layer(cfg: ModelConfig, p: nn.Module, x):
+    a, _ = L.attention_apply(cfg, p.attn, L.norm_apply(cfg, p.norm1, x), positions=0,
+                             causal=False)
+    x = x + a
+    return x + L.mlp_apply(cfg, p.mlp, L.norm_apply(cfg, p.norm2, x))
+
+
+def _dec_layer(cfg: ModelConfig, p: nn.Module, x, enc_out, positions, cache):
+    a, c = L.attention_apply(cfg, p.self_attn, L.norm_apply(cfg, p.norm1, x),
+                             positions=positions, causal=True, cache=cache)
+    x = x + a
+    # non-causal with no window: the cross block's mask reads no position
+    ca, _ = L.attention_apply(cfg, p.cross_attn, L.norm_apply(cfg, p.norm2, x),
+                              positions=0, causal=False, kv_x=enc_out, kv_positions=0)
+    x = x + ca
+    return x + L.mlp_apply(cfg, p.mlp, L.norm_apply(cfg, p.norm3, x)), c
 
 
 def decode(cfg: ModelConfig, model: nn.Module, tokens, enc_out, *, cache=None, pos0=None):
@@ -91,16 +108,10 @@ def decode(cfg: ModelConfig, model: nn.Module, tokens, enc_out, *, cache=None, p
     x = x + model.dec_pos[pos_idx].to(dt)
     new_cache = None if cache is None else []
     for i, p in enumerate(model.dec_layers):
-        a, c = L.attention_apply(cfg, p.self_attn, L.norm_apply(cfg, p.norm1, x),
-                                 positions=positions, causal=True,
-                                 cache=None if cache is None else cache[i])
-        x = x + a
-        # non-causal with no window: the cross block's mask reads no position
-        ca, _ = L.attention_apply(cfg, p.cross_attn, L.norm_apply(cfg, p.norm2, x),
-                                  positions=0, causal=False, kv_x=enc_out, kv_positions=0)
-        x = x + ca
-        x = x + L.mlp_apply(cfg, p.mlp, L.norm_apply(cfg, p.norm3, x))
-        if cache is not None:
+        if cache is None:
+            x, _ = L.remat(cfg, _dec_layer, cfg, p, x, enc_out, positions, None)
+        else:
+            x, c = _dec_layer(cfg, p, x, enc_out, positions, cache[i])
             new_cache.append(c)
     return L.norm_apply(cfg, model.dec_norm, x), new_cache
 

@@ -7,16 +7,23 @@ parameters (random, from an explicit ``torch.Generator``) and an
 package's layout (``x @ w`` with ``w`` [d_in, d_out]), so a JAX parameter
 tree carries across leaf for leaf (``convert.lm_params_from_numpy``).
 
-Left for the training slice: the custom-VJP backward of the chunked
-attention.
+Parameters are made with ``requires_grad=False`` (serving);
+``api.trainable`` turns them on for training. The chunked attention's
+gradient is the reference's custom VJP (``flash_attention_xla``): the
+forward keeps only its output and each row's log-sum-exp, and the backward
+recomputes the probabilities block by block (``FlashAttention``: the
+kernels K4 and K4b on the card, the plain pair on the CPU).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
@@ -34,6 +41,33 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat "dots": keep the outputs of matrix products with no batch
+    dimension (``x @ w``, ``aten.mm``), recompute everything else
+    (``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``)."""
+    del ctx, args, kwargs
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under the layer remat policy ``cfg.remat`` where a
+    gradient is being taken: "none" keeps every activation, "full" keeps
+    only the inputs and recomputes the layer in the backward, "dots" keeps
+    the matrix products' outputs too (``torch.utils.checkpoint``, not
+    reentrant). The gradients are the same under all three."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_dots))
+    if cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r} not in (none, full, dots)")
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
@@ -174,13 +208,14 @@ def _pick_chunk(S1, S2, pref):
 
 
 def flash_attention_plain(q, k, v, *, q_offset: int = 0, causal: bool = True,
-                          window: int = 0, chunk: int = 512):
+                          window: int = 0, chunk: int = 512, return_lse: bool = False):
     """The chunked plain path: the forward of the JAX package's
     ``flash_attention_xla`` (``_flash_fwd_impl``: online softmax over [C, C]
     blocks, f32 accumulators) at query positions ``q_offset + arange(Sq)``
     and key positions ``arange(Sk)``. q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv,
     D], kv heads repeated to q's. The q blocks are independent, so they run
-    together and the kv blocks in order."""
+    together and the kv blocks in order. With ``return_lse`` also each row's
+    log-sum-exp ``m + log(max(l, 1e-30))``, f32 [B, Hq, Sq]."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     k = _repeat_kv(k, H // k.shape[2])
@@ -209,12 +244,99 @@ def flash_attention_plain(q, k, v, *, q_offset: int = 0, causal: bool = True,
             "nbhqk,bhkd->nbhqd", p.to(v.dtype).float(), vc[j].float())
         m = m_new
     o = (acc / l[..., None].clamp_min(1e-30)).to(q.dtype)
-    return o.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, D)
+    o = o.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, D)
+    if not return_lse:
+        return o
+    lse = m + torch.log(l.clamp_min(1e-30))  # [nq, B, H, C]
+    return o, lse.permute(1, 2, 0, 3).reshape(B, H, Sq)
+
+
+def flash_attention_plain_bwd(q, k, v, o, dout, lse, *, q_offset: int = 0,
+                              causal: bool = True, window: int = 0, chunk: int = 512):
+    """The chunked plain backward: the JAX package's ``_flash_bwd`` on [C, C]
+    blocks, f32 throughout (p = exp(s - lse) recomputed, delta = rowsum(dout
+    o), ds = p (dp - delta) / sqrt(D)). q, o, dout: [B, Sq, Hq, D]; k, v:
+    [B, Sk, Hkv, D]; lse f32 [B, Hq, Sq]. Returns (dq, dk, dv) in the
+    inputs' dtypes, dk and dv summed over each kv head's group of q heads
+    (the reference repeats kv heads outside its VJP, so its broadcast sums
+    them). The q blocks run together, the kv blocks in order."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    kr, vr = _repeat_kv(k, g), _repeat_kv(v, g)
+    scale = 1.0 / math.sqrt(D)
+    C = _pick_chunk(Sq, Sk, chunk)
+    nq, nk = Sq // C, Sk // C
+
+    def blocks(t, n):  # [B, S, H, D] -> [n, B, H, C, D], f32
+        return t.reshape(B, n, C, H, D).permute(1, 0, 3, 2, 4).float()
+
+    qc, doc, kc, vc = blocks(q, nq), blocks(dout, nq), blocks(kr, nk), blocks(vr, nk)
+    lsec = lse.reshape(B, H, nq, C).permute(2, 0, 1, 3)  # [nq, B, H, C]
+    delta = (dout.float() * o.float()).sum(-1)  # [B, Sq, H]
+    deltac = delta.reshape(B, nq, C, H).permute(1, 0, 3, 2)
+    qp = (q_offset + torch.arange(Sq, device=q.device)).reshape(nq, C)
+    kp = torch.arange(Sk, device=q.device).reshape(nk, C)
+
+    dq = torch.zeros(nq, B, H, C, D, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for j in range(nk):
+        s = torch.einsum("nbhqd,bhkd->nbhqk", qc, kc[j]) * scale
+        s = s + _attn_scores_mask(qp, kp[j], causal, window)[:, None, None]
+        p = torch.exp(s - lsec[..., None])
+        dvs.append(torch.einsum("nbhqk,nbhqd->bhkd", p, doc))
+        dp = torch.einsum("nbhqd,bhkd->nbhqk", doc, vc[j])
+        ds = p * (dp - deltac[..., None]) * scale
+        dks.append(torch.einsum("nbhqk,nbhqd->bhkd", ds, qc))
+        dq += torch.einsum("nbhqk,bhkd->nbhqd", ds, kc[j])
+
+    def heads(t):  # [B, H, S, D] -> [B, S, Hkv, D], the group summed
+        return t.permute(0, 2, 1, 3).reshape(B, -1, Hkv, g, D).sum(3)
+
+    dq = dq.permute(1, 0, 3, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    dk = heads(torch.cat(dks, dim=2)).to(k.dtype)
+    dv = heads(torch.cat(dvs, dim=2)).to(v.dtype)
+    return dq, dk, dv
 
 
 # True inside ``api.plain_paths()``: CUDA tensors take the plain chunked
 # paths (attention and the SSD scan) instead of the kernels
 PLAIN_PATHS = False
+
+
+class FlashAttention(torch.autograd.Function):
+    """The chunked attention with the reference's flash-style VJP
+    (``flash_attention_xla``): the forward saves (q, k, v, o, lse), the
+    backward recomputes the probabilities. On the card (outside
+    ``api.plain_paths()``) the forward is K4 with its lse and the backward
+    K4b, and a kernel that fails raises; otherwise the plain pair
+    (``flash_attention_plain`` with its lse, ``flash_attention_plain_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset: int, causal: bool, window: int, chunk: int):
+        kernels = q.is_cuda and not PLAIN_PATHS
+        if kernels:
+            o, lse = fa_ops.flash_attention(q, k, v, q_offset=q_offset, causal=causal,
+                                            window=window, return_lse=True)
+        else:
+            o, lse = flash_attention_plain(q, k, v, q_offset=q_offset, causal=causal,
+                                           window=window, chunk=chunk, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = (kernels, q_offset, causal, window, chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        kernels, q_offset, causal, window, chunk = ctx.opts
+        if kernels:
+            dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, o, dout.contiguous(), lse,
+                                                    q_offset=q_offset, causal=causal,
+                                                    window=window)
+        else:
+            dq, dk, dv = flash_attention_plain_bwd(q, k, v, o, dout, lse, q_offset=q_offset,
+                                                   causal=causal, window=window, chunk=chunk)
+        return dq, dk, dv, None, None, None, None
 
 
 def chunked_attention(cfg: ModelConfig, q, k, v, *, q_offset: int = 0,
@@ -223,7 +345,11 @@ def chunked_attention(cfg: ModelConfig, q, k, v, *, q_offset: int = 0,
     CUDA tensors go through the flash-attention kernel (the counterpart of
     the JAX package's ``use_pallas=True``), CPU tensors, and CUDA ones
     inside ``api.plain_paths()``, through the chunked plain path (its
-    ``use_pallas=False``)."""
+    ``use_pallas=False``). Where a gradient is wanted (grad mode on and an
+    input requiring one) it goes through ``FlashAttention``; under
+    ``torch.no_grad`` (prefill, decode, the engine) the forward alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_offset, causal, window, cfg.attn_chunk)
     if q.is_cuda and not PLAIN_PATHS:
         return fa_ops.flash_attention(q, k, v, q_offset=q_offset, causal=causal,
                                       window=window)

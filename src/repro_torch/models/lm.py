@@ -19,6 +19,11 @@ RNG: the ppot router's key of main layer i is ``split(rng, n)[i]`` with
 ``scan_layers`` and ``fold_in(rng, i)`` without, as the reference derives
 it; with ``rng=None`` every layer gets the zero key, ``PRNGKey(0)``.
 
+Remat: where a gradient is taken, each main layer runs under
+``layers.remat`` (``cfg.remat``) when ``scan_layers`` is set, as the
+reference checkpoints its scan body; the prefix layers and an unscanned
+stack keep their activations, as there.
+
   init_params(cfg, seed, device)              -> model (nn.Module)
   forward(cfg, model, tokens)                 -> hidden
   logits_head(cfg, model, hidden)             -> [B, S, V]
@@ -114,6 +119,14 @@ def _layer_apply(cfg: ModelConfig, p: nn.Module, x, *, kind, positions, cache, r
     return x, aux, (None if cache is None else new_cache)
 
 
+def _layer_train(cfg, layer, x, kind, positions, rng, per_row):
+    """``_layer_apply`` with no cache and positional arguments (the remat
+    wrapper's form)."""
+    x, aux, _ = _layer_apply(cfg, layer, x, kind=kind, positions=positions, cache=None,
+                             rng=rng, per_row=per_row)
+    return x, aux, None
+
+
 def embed_tokens(cfg: ModelConfig, model: nn.Module, tokens, patch_embeds=None):
     """Token embeddings; for the vlm family the first n_patches positions
     carry the projected stub patch embeddings [B, n_patches, d]."""
@@ -148,9 +161,12 @@ def backbone(cfg: ModelConfig, model: nn.Module, x, *, positions, rng=None, cach
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None if cache is None else []
     for i, (kind, layer, key) in enumerate(layers):
-        x, aux, c = _layer_apply(cfg, layer, x, kind=kind, positions=positions,
-                                 cache=None if cache is None else cache[i], rng=key,
-                                 per_row=per_row)
+        if cache is None and cfg.scan_layers and i >= n_prefix:
+            x, aux, c = L.remat(cfg, _layer_train, cfg, layer, x, kind, positions, key, per_row)
+        else:
+            x, aux, c = _layer_apply(cfg, layer, x, kind=kind, positions=positions,
+                                     cache=None if cache is None else cache[i], rng=key,
+                                     per_row=per_row)
         if aux is not None:
             aux_total = aux_total + aux
         if cache is not None:
@@ -165,11 +181,14 @@ def logits_head(cfg: ModelConfig, model: nn.Module, hidden):
     return hidden @ model.lm_head.to(dt)
 
 
-def forward(cfg: ModelConfig, model: nn.Module, tokens, *, patch_embeds=None, rng=None):
-    """Prefill forward over [B, S] tokens -> hidden [B, S, d] (the MoE
-    layers' aux loss: ``backbone``)."""
+def forward(cfg: ModelConfig, model: nn.Module, tokens, *, patch_embeds=None, rng=None,
+            with_aux: bool = False):
+    """Training / prefill forward over [B, S] tokens -> hidden [B, S, d], or
+    (hidden, aux) with ``with_aux`` (the MoE layers' load-balance loss
+    summed over the layers, f32)."""
     x = embed_tokens(cfg, model, tokens, patch_embeds)
-    return backbone(cfg, model, x, positions=0, rng=rng)[0]  # p0: positions 0..S-1
+    hidden, aux, _ = backbone(cfg, model, x, positions=0, rng=rng)  # p0: positions 0..S-1
+    return (hidden, aux) if with_aux else hidden
 
 
 def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, device):

@@ -223,8 +223,9 @@ def moe_apply(cfg: ModelConfig, p, x, *, rng=None, shard_ctx=None, per_row: bool
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     if shard_ctx is not None and shard_ctx.ep_size > 1:
-        raise NotImplementedError("the expert-parallel branch of moe_apply waits for the "
-                                  "training slice's sharding (ROADMAP A9)")
+        raise NotImplementedError("the expert-parallel branch of moe_apply is not ported: "
+                                  "no entry point of the reference reaches it (ROADMAP, "
+                                  "Departures, unreached)")
     G = B if per_row else 1
     gates = torch.softmax((x.float() @ p.router).reshape(B * S, E), dim=-1)
     if cfg.router == "ppot":

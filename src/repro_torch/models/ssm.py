@@ -86,9 +86,20 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
 def ssd_prefill(cfg: ModelConfig, x, dt, A, Bm, Cm):
     """The prefill scan, (y [B, S, H, P], h [B, H, N, P]) in f32: ``ops.ssd``,
     whose wrapper launches the kernel on CUDA tensors and runs its plain
-    version on CPU ones; ``ssd_chunked`` inside ``api.plain_paths()``."""
+    version on CPU ones; ``ssd_chunked`` inside ``api.plain_paths()``.
+
+    Gradients: the plain chunked scan is differentiable (the reference
+    trains through ``ssd_chunked``'s autodiff); the kernel (K5) has no
+    backward, so a gradient wanted through it on the card raises (ROADMAP
+    A9b)."""
     if L.PLAIN_PATHS:
         return ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk)
+    if x.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        raise NotImplementedError(
+            "no gradient through the SSD scan kernel (K5) on the card: SSM and hybrid "
+            "training on the card wait for its backward (ROADMAP A9b); inside "
+            "api.plain_paths() the plain ssd_chunked is differentiable")
     return ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
 
 

@@ -6,6 +6,8 @@ nor the reference package, so it also runs where only the port is
 installed: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Comparisons are exact: the kernels compare, gather and count integers on
 the same device tensors as their plain versions."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1941,3 +1943,95 @@ def test_cuda_new_families_equal_the_cpu(dev, arch):
                 b["enc_out"] = enc.to(d)
             outs[d], caches[d] = api.decode_fn(cfg_q, model.to(d), b, caches[d], per_row=True)
         torch.testing.assert_close(outs[dev].cpu(), outs["cpu"], atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: K4's log-sum-exp, K4b, the attention VJP, the K5 gradient
+# ---------------------------------------------------------------------------
+
+#: the backward's bars: f32 against the plain version 2e-5 of each output's
+#: largest value; bf16 2e-2 (P and dS rounded to bf16 before their
+#: products, in another summation order than the plain version's)
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _bwd_inputs(dev, dtype, B, Sq, Sk, H, Hkv, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa: E731
+    return r(B, Sq, H, D), r(B, Sk, Hkv, D), r(B, Sk, Hkv, D), r(B, Sq, H, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,q_offset", [
+    (2, 130, 130, 4, 2, 64, True, 0, 0),     # GQA, a ragged tail tile
+    (1, 100, 77, 2, 2, 128, False, 0, 0),    # D = 128, Sq != Sk
+    (1, 200, 200, 3, 1, 32, True, 50, 0),    # a window (hymba)
+    (1, 96, 96, 2, 2, 64, True, 0, -40),     # empty rows
+    (1, 64, 300, 2, 2, 64, False, 0, 0),     # cross attention
+])
+def test_flash_lse_and_backward_match_plain_versions(dev, dtype, B, Sq, Sk, H, Hkv, D,
+                                                     causal, window, q_offset):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    q, k, v, do = _bwd_inputs(dev, dtype, B, Sq, Sk, H, Hkv, D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    FK.reset_launches()
+    o0 = FK.flash_attention_heads(q, k, v, **kw)
+    o, lse = FK.flash_attention_heads(q, k, v, return_lse=True, **kw)
+    grads = FK.flash_attention_bwd_heads(q, k, v, o, do, lse, **kw)
+    again = FK.flash_attention_bwd_heads(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert FK.launch_counts() == {"flash_attention_fwd": 2, "flash_attention_bwd": 2}
+    assert torch.equal(o0, o)
+    _, lse_ref = FR.attention_heads_ref(q, k, v, return_lse=True, **kw)
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5)
+    want = FR.attention_bwd_heads_ref(q, k, v, o, do, lse, **kw)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), grads, want, again):
+        assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, g2), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * max(w.float().abs().max().item(), 1e-30), name
+    if q_offset < 0:
+        assert (grads[0][:, :-q_offset] == 0).all()
+
+
+def test_flash_vjp_on_the_card_matches_the_plain_pair(dev):
+    """The model's attention VJP (``layers.FlashAttention``) on the card
+    (K4 with its lse, K4b) against the same on the card inside
+    ``api.plain_paths()`` (the chunked plain pair), f32."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+
+    q, k, v, do = _bwd_inputs(dev, torch.float32, 2, 256, 256, 4, 2, 64, seed=1)
+    out = {}
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        FK.reset_launches()
+        with api.plain_paths() if plain else contextlib.nullcontext():
+            o = L.FlashAttention.apply(*leaves, 0, True, 0, 128)
+            o.backward(do)
+        out[plain] = [o.detach()] + [t.grad for t in leaves]
+        launched = FK.launch_counts()
+        assert launched == ({"flash_attention_fwd": 0, "flash_attention_bwd": 0} if plain
+                            else {"flash_attention_fwd": 1, "flash_attention_bwd": 1})
+    for g, w in zip(out[False], out[True]):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5)
+
+
+def test_gradient_through_the_ssd_kernel_raises_on_the_card(dev):
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    cfg = configs.reduced(configs.get_config("mamba2-370m"))
+    model = api.trainable(api.init_params(cfg, 0, dev))
+    batch = {"tokens": torch.zeros(1, 64, dtype=torch.long, device=dev),
+             "labels": torch.zeros(1, 64, dtype=torch.long, device=dev),
+             "mask": torch.ones(1, 64, device=dev)}
+    with pytest.raises(NotImplementedError, match="A9b"):
+        api.loss_fn(cfg, model, batch)
+    with api.plain_paths():
+        loss, _ = api.loss_fn(cfg, model, batch)
+    loss.backward()
+    assert torch.isfinite(model.layers[0].ssm.x_proj.grad).all()

@@ -303,7 +303,12 @@ def test_port_imports_neither_jax_nor_the_reference():
                   "repro_torch.load.stream", "repro_torch.core.simulator",
                   "repro_torch.core.theory", "repro_torch.configs.rosella_sim",
                   "repro_torch.kernels.sim_chain", "repro_torch.kernels.sim_chain.kernel",
-                  "repro_torch.kernels.sim_chain.ref", "repro_torch.kernels.sim_chain.build"):
+                  "repro_torch.kernels.sim_chain.ref", "repro_torch.kernels.sim_chain.build",
+                  "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.optim",
+                  "repro_torch.optim.adamw", "repro_torch.dist.compression",
+                  "repro_torch.dist.sharding", "repro_torch.dist.steps",
+                  "repro_torch.dist.pipeline", "repro_torch.ckpt",
+                  "repro_torch.ckpt.checkpoint", "repro_torch.launch.train"):
             assert m in sys.modules, m
         print("clean")
     """)

@@ -117,9 +117,10 @@ LAST_PORTED = {"moonshot-v1-16b-a3b": "moe", "phi3.5-moe-42b-a6.6b": "moe",
 @pytest.mark.parametrize("arch", sorted(LAST_PORTED))
 def test_families_not_ported_raise(ref, arch):
     """The registry now holds every family; what of these archs stays
-    unported raises: the MoE layer's expert-parallel branch names ROADMAP
-    A9, and the engine refuses the encoder-decoder family, as the
-    reference's does."""
+    unported raises: the MoE layer's expert-parallel branch, which no entry
+    point of the reference reaches (ROADMAP, "Departures, unreached"), and
+    the engine refuses the encoder-decoder family, as the reference's
+    does."""
     j, t = ref.configs.get_config(arch), tconfigs.get_config(arch)
     assert j.family == t.family == LAST_PORTED[arch]
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -131,7 +132,7 @@ def test_families_not_ported_raise(ref, arch):
 
         ctx = types.SimpleNamespace(ep_size=2)
         x = torch.zeros(1, 2, small.d_model)
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="Departures, unreached"):
             TM.moe_apply(small, model.layers[0].moe, x, shard_ctx=ctx)
     if t.family == "encdec":
         from repro_torch.serving.engine import ContinuousBatchingEngine
